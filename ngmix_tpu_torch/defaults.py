@@ -1,0 +1,16 @@
+"""Default values and numerical constants.
+
+The port's own copy of the constants of ``ngmix_tpu/defaults.py`` that
+it uses: these numbers define the objective, so they match the JAX
+package exactly.
+"""
+# Gaussian evaluations are smoothly apodized to zero over
+# chi^2 in [APOD_CHI2, MAX_CHI2] so rendered models are C2 in the
+# parameters.
+FASTEXP_MAX_CHI2 = 25.0
+FASTEXP_APOD_CHI2 = 20.0
+
+# determinant floor for a 2-d gaussian covariance. In float32 this
+# underflows to 0, which still behaves correctly as a floor (det <= 0
+# is invalid).
+GMIX_LOW_DETVAL = 1.0e-200
