@@ -11,16 +11,20 @@ in order, each printing one timed line as soon as it ends:
 2. build:  nvcc builds K2 into build/ngmix_tpu_torch/ (first use);
 3. kernel: K2 against its plain version on the same CUDA inputs over
            n in {1, 3, 18}, both modes, float32 and float64, ragged
-           B in {1, 3, 10240} and P in {361, 625, 2401, 1000}, with a
-           degenerate gaussian; rtol 1e-12 in float64, and in float32
-           rtol 1e-5 with an atol of 1e-6 times the lane's max |model|;
+           B in {1, 3, 10240} and P in {361, 625, 2401, 1000}, area a
+           scalar and a [B, P] tensor, with a degenerate gaussian;
+           rtol 1e-12 in float64, and in float32 rtol 1e-5 with an atol
+           of 1e-6 times the lane's max |model|;
 4. main:   the gaussmom metacal pipeline in float32 on the port's
            homogeneous and heterogeneous sims at B = 10240, gated like
            bench.py: |m| < 1e-3, |hetero m| < 1e-3, flagged lanes
            <= max(8, 0.5% B), and K2 launched;
 5. cpu:    the first 256 stamps in float64 on the card and on the CPU:
            flags equal, pars and s2n to rtol 1e-8 and atol 1e-10;
-6. times:  K2 at the main path's two shapes beside its bound.
+6. times:  K2 at the main path's two shapes (n = 1 over [5 B, 361]
+           with a [B, P] area, n = 18 over [B, 2401] with a scalar
+           area), held against its plain version there at phase 3's
+           tolerances, and timed beside its bound.
 
 Needs one CUDA card and exits nonzero, printing the reason, on any
 failure or without a card. The last line is the JSON result.
@@ -39,11 +43,8 @@ from ngmix_tpu_torch.ops import _build, gmix_eval
 
 B_MAIN = 10240
 NTYPES = 5
-CONF = nt.MetacalConfig(
-    dims=(49, 49), psf_dims=(25, 25), jac=(0.263, 0.0, 0.0, 0.263),
-    fixnoise=True, pad_factor=2, fit_dims=(19, 19),
-)
-SHEAR_TRUE = 0.02
+CONF = nt.sims.METACAL_GAUSSMOM_CONFIG
+SHEAR_TRUE = nt.sims.SHEAR_TRUE
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -106,9 +107,26 @@ def _plain_chunked(gm, v, u, area, fast, chunk=2048):
     return torch.cat(outs)
 
 
+def compare(out, ref, what):
+    """hold K2's output against its plain version's: rtol 1e-12 in
+    float64; in float32 rtol 1e-5 with an atol of 1e-6 times the lane's
+    max |model|. Returns the largest absolute and relative errors."""
+    err = (out - ref).abs()
+    if out.dtype == torch.float64:
+        bad = err > 1e-12 * ref.abs()
+    else:
+        lane_max = ref.abs().amax(dim=-1, keepdim=True)
+        bad = err > 1e-5 * ref.abs() + 1e-6 * lane_max
+    if bool(bad.any()) or not bool(torch.isfinite(out).all()):
+        raise SmokeFailure("K2 disagrees with its plain version: %s, max err %.3e"
+                           % (what, float(err.max())))
+    return float(err.max()), float((err / ref.abs().clamp_min(1e-300)).max())
+
+
 def check_kernel(device):
     """K2 against its plain version over every listed case; returns the
-    largest absolute error and the number of cases"""
+    largest absolute error, the number of cases and the largest
+    relative error per dtype"""
     gen = torch.Generator(device=device).manual_seed(2024)
     max_abs = 0.0
     worst = {torch.float32: 0.0, torch.float64: 0.0}
@@ -119,27 +137,15 @@ def check_kernel(device):
                 for B in (1, 3, NTYPES * 2048):
                     for P in (361, 625, 2401, 1000):
                         gm, v, u, area = _random_case(gen, B, n, P, dtype, B >= 3)
-                        # alternate the two area modes over the cases
-                        if ncase % 2:
-                            area = 0.069
-                        out = gmix_eval.eval_gmix(gm, v, u, area, fast=fast)
-                        ref = _plain_chunked(gm, v, u, area, fast)
-                        err = (out - ref).abs()
-                        if dtype == torch.float64:
-                            bad = err > 1e-12 * ref.abs()
-                        else:
-                            lane_max = ref.abs().amax(dim=-1, keepdim=True)
-                            bad = err > 1e-5 * ref.abs() + 1e-6 * lane_max
-                        if bool(bad.any()) or not bool(torch.isfinite(out).all()):
-                            raise SmokeFailure(
-                                "K2 disagrees with its plain version: dtype=%s n=%d "
-                                "fast=%s B=%d P=%d max err %.3e"
-                                % (dtype, n, fast, B, P, float(err.max()))
-                            )
-                        rel = float((err / ref.abs().clamp_min(1e-300)).max())
-                        worst[dtype] = max(worst[dtype], rel)
-                        max_abs = max(max_abs, float(err.max()))
-                        ncase += 1
+                        for a in (area, 0.069):
+                            out = gmix_eval.eval_gmix(gm, v, u, a, fast=fast)
+                            ref = _plain_chunked(gm, v, u, a, fast)
+                            err, rel = compare(
+                                out, ref, "dtype=%s n=%d fast=%s B=%d P=%d area=%s"
+                                % (dtype, n, fast, B, P, type(a).__name__))
+                            worst[dtype] = max(worst[dtype], rel)
+                            max_abs = max(max_abs, err)
+                            ncase += 1
     return max_abs, ncase, worst
 
 
@@ -152,7 +158,7 @@ def run_main(device, B):
     and heterogeneous, float32"""
     fn = nt.make_metacal_pipeline_fn(CONF, measure="gaussmom", device=device)
     gen = torch.Generator(device=device).manual_seed(314)
-    hom = nt.make_sim_batch(gen, B, torch.float32)
+    hom = nt.make_sim_batch(gen, B, torch.float32, device=device)
     res = fn(*hom)
     sr = nt.shear_response(res)
     # timed calls after the first, which pays for FFT plans and library
@@ -166,7 +172,7 @@ def run_main(device, B):
         times.append(time.perf_counter() - t0)
     dt = sorted(times)[1]
     het = nt.make_sim_batch_hetero(torch.Generator(device=device).manual_seed(271),
-                                   B, torch.float32)
+                                   B, torch.float32, device=device)
     het_res = fn(*het)
     het_sr = nt.shear_response(het_res)
     _sync(device)
@@ -272,15 +278,19 @@ def bound(gm, v, area):
 
 
 def time_kernel(shapes):
+    """K2 at each main-path shape: held against its plain version on
+    the same inputs, then timed beside it and its bound"""
     rows = []
     for name, (gm, v, u, area) in shapes.items():
+        err, rel = compare(gmix_eval.eval_gmix(gm, v, u, area, fast=False),
+                           _plain_chunked(gm, v, u, area, False), name)
         ms = time_ms(lambda: gmix_eval.eval_gmix(gm, v, u, area, fast=False), 20)
         plain_ms = time_ms(
             lambda: gmix_eval.eval_gmix_plain(gm, v, u, area, fast=False), 3, warmup=1
         )
         b_ms, by = bound(gm, v, area)
         rows.append(dict(shape=name, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=by))
+                         bound_by=by, max_abs_err=err, max_rel_err=rel))
     return rows
 
 
@@ -341,9 +351,10 @@ def main():
     t0 = time.perf_counter()
     rows = time_kernel(main_path_shapes(device, B_MAIN))
     for r in rows:
-        print("    K2 %s: %.4f ms, plain %.4f ms, bound %.4f ms (%s)"
-              % (r["shape"], r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"]),
-              flush=True)
+        print("    K2 %s: agrees (max abs err %.3e, rel %.3e); %.4f ms, plain "
+              "%.4f ms, bound %.4f ms (%s)"
+              % (r["shape"], r["max_abs_err"], r["max_rel_err"], r["ms"],
+                 r["plain_ms"], r["bound_ms"], r["bound_by"]), flush=True)
     phase_line("6 times", t0, "total %.1f s" % (time.perf_counter() - t_all))
 
     top = rows[0]
@@ -353,7 +364,7 @@ def main():
         "source": "ngmix_tpu_torch/csrc/gmix_eval.cu",
         "replaces": "ngmix_tpu/ops/pallas_gmix.py:88",
         "launches": launches,
-        "max_abs_err": max_abs,
+        "max_abs_err": max(max_abs, *(r["max_abs_err"] for r in rows)),
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"],

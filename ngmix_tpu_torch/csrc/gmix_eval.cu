@@ -125,11 +125,9 @@ gmix_eval_kernel(const T* __restrict__ gmix, const T* __restrict__ v,
 template <typename T>
 int launch(const void* gmix, const void* v, const void* u, const void* area,
            double area_scalar, void* out, int64_t B, int64_t n, int64_t P,
-           int fast, int device, void* stream) {
+           int fast, void* stream) {
   if (B <= 0 || P <= 0) return 0;
   if (n < 1 || n > kMaxGauss) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t set = cudaSetDevice(device);
-  if (set != cudaSuccess) return static_cast<int>(set);
   const int64_t ntiles = (P + kTileP - 1) / kTileP;
   const int64_t nblocks = B * ntiles;
   if (nblocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
@@ -154,23 +152,25 @@ int launch(const void* gmix, const void* v, const void* u, const void* area,
 
 }  // namespace
 
-// Plain C interface for ctypes. Each launches on `stream` of CUDA device
-// `device` and returns cudaGetLastError() after the launch (0 on
-// success); the launch is asynchronous.
+// Plain C interface for ctypes. Each launches on `stream`, which must
+// belong to the calling thread's current CUDA device (the wrapper makes
+// the tensors' device current around the call), and returns
+// cudaGetLastError() after the launch (0 on success); the launch is
+// asynchronous.
 extern "C" int ngmix_gmix_eval_f32(const void* gmix, const void* v,
                                    const void* u, const void* area,
                                    double area_scalar, void* out, int64_t B,
                                    int64_t n, int64_t P, int fast,
-                                   int device, void* stream) {
+                                   void* stream) {
   return launch<float>(gmix, v, u, area, area_scalar, out, B, n, P, fast,
-                       device, stream);
+                       stream);
 }
 
 extern "C" int ngmix_gmix_eval_f64(const void* gmix, const void* v,
                                    const void* u, const void* area,
                                    double area_scalar, void* out, int64_t B,
                                    int64_t n, int64_t P, int fast,
-                                   int device, void* stream) {
+                                   void* stream) {
   return launch<double>(gmix, v, u, area, area_scalar, out, B, n, P, fast,
-                        device, stream);
+                        stream);
 }

@@ -97,11 +97,10 @@ def load():
         p, i64 = ctypes.c_void_p, ctypes.c_int64
         for name in ("ngmix_gmix_eval_f32", "ngmix_gmix_eval_f64"):
             fn = getattr(lib, name)
-            # gmix, v, u, area, area_scalar, out, B, n, P, fast, device,
-            # stream
+            # gmix, v, u, area, area_scalar, out, B, n, P, fast, stream
             fn.argtypes = [
                 p, p, p, p, ctypes.c_double, p, i64, i64, i64,
-                ctypes.c_int, ctypes.c_int, p,
+                ctypes.c_int, p,
             ]
             fn.restype = ctypes.c_int
         _lib = lib

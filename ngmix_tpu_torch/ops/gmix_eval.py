@@ -126,13 +126,15 @@ def eval_gmix(gmix, v, u, area=1.0, fast=True):
     if out.numel() == 0:
         return out
     area_scalar = 0.0 if area_t is not None else float(area)
-    index = gmix.device.index if gmix.device.index is not None else 0
-    stream = torch.cuda.current_stream(gmix.device).cuda_stream
-    err = fn(
-        gmix.data_ptr(), v.data_ptr(), u.data_ptr(),
-        area_t.data_ptr() if area_t is not None else None,
-        area_scalar, out.data_ptr(), B, n, P, int(bool(fast)), index, stream,
-    )
+    # the tensors' device is current only for the launch, so the caller's
+    # current device is left as it was
+    with torch.cuda.device(gmix.device):
+        err = fn(
+            gmix.data_ptr(), v.data_ptr(), u.data_ptr(),
+            area_t.data_ptr() if area_t is not None else None,
+            area_scalar, out.data_ptr(), B, n, P, int(bool(fast)),
+            torch.cuda.current_stream().cuda_stream,
+        )
     if err != 0:
         raise RuntimeError("K2 gmix_eval launch failed: CUDA error %d" % err)
     launches += 1

@@ -16,12 +16,8 @@ from collections import defaultdict
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import MetacalConfig, make_metacal_pipeline_fn, make_sim_batch
-
-CONF = MetacalConfig(
-    dims=(49, 49), psf_dims=(25, 25), jac=(0.263, 0.0, 0.0, 0.263),
-    fixnoise=True, pad_factor=2, fit_dims=(19, 19),
-)
+from . import make_metacal_pipeline_fn, make_sim_batch
+from .sims import METACAL_GAUSSMOM_CONFIG as CONF
 
 # kernel-name fragments -> class, first match wins
 _CLASSES = (
@@ -62,7 +58,8 @@ def main(B=10240):
         print("profile_main_path: no CUDA device", file=sys.stderr)
         return 2
     fn = make_metacal_pipeline_fn(CONF, measure="gaussmom")
-    args = make_sim_batch(torch.Generator(device="cuda").manual_seed(314), B)
+    args = make_sim_batch(torch.Generator(device="cuda").manual_seed(314), B,
+                          device="cuda")
     fn(*args)
     torch.cuda.synchronize()
 

@@ -1,8 +1,10 @@
 """Simulated stamp batches for the metacal pipeline.
 
 Ports of ``bench.py: make_sim_batch`` and ``make_sim_batch_hetero``
-(the flat case: one epoch, one band) on an explicit torch.Generator,
-which also fixes the device. The psf and galaxy stamps are rendered
+(the flat case: one epoch, one band) on an explicit torch.Generator.
+Like every entry point they run on the CUDA card unless the caller
+passes device="cpu", and the generator must live on that device. The
+psf and galaxy stamps are rendered
 through K2 with the untruncated exponential (fast=False). The random
 streams differ from JAX's, so the draws differ; the populations are
 the same.
@@ -10,8 +12,10 @@ the same.
 import numpy as np
 import torch
 
+from .batch import MetacalConfig
 from .gmix import core as gcore
 from .ops import gmix_eval
+from .util import resolve_device
 
 SCALE = 0.263
 DIMS = (49, 49)
@@ -19,6 +23,28 @@ PSF_DIMS = (25, 25)
 SHEAR_TRUE = 0.02
 NOISE = 1.0e-4
 JAC = (SCALE, 0.0, 0.0, SCALE)
+
+# bench.py's metacal_gaussmom configuration, the main path on the card
+METACAL_GAUSSMOM_CONFIG = MetacalConfig(
+    dims=DIMS, psf_dims=PSF_DIMS, jac=JAC, fixnoise=True, pad_factor=2,
+    fit_dims=(19, 19),
+)
+
+
+def _sim_device(gen, device):
+    """the device the sims run on; raises if gen lives elsewhere"""
+    dev = resolve_device(device)
+    gdev = gen.device
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if gdev.type == "cuda" and gdev.index is None:
+        gdev = torch.device("cuda", torch.cuda.current_device())
+    if gdev != dev:
+        raise ValueError(
+            "the generator lives on %s but the sims run on %s; make it with "
+            "torch.Generator(device=...)" % (gen.device, dev)
+        )
+    return dev
 
 
 def _uniform(gen, shape, dtype, lo, hi):
@@ -60,11 +86,11 @@ def _stamp_centers(B, dims, dtype, device):
     return c.expand(B, 2)
 
 
-def make_sim_batch(gen, B, dtype=torch.float32):
+def make_sim_batch(gen, B, dtype=torch.float32, device=None):
     """B exp-galaxy stamps with one turb psf, sheared by SHEAR_TRUE,
     with random subpixel offsets. Returns (images, weights, cens,
-    psf_images, psf_cens, noise) on gen.device."""
-    dev = gen.device
+    psf_images, psf_cens, noise) on device (the card by default)."""
+    dev = _sim_device(gen, device)
     gal_pars = torch.tensor(
         [0.0, 0.0, 0.0, 0.0, 0.5, 100.0], dtype=dtype, device=dev
     ).expand(B, 6)
@@ -90,14 +116,14 @@ def make_sim_batch(gen, B, dtype=torch.float32):
     return imgs, weights, cens, pimgs, pcens, noise_field
 
 
-def make_sim_batch_hetero(gen, B, dtype=torch.float32):
+def make_sim_batch_hetero(gen, B, dtype=torch.float32, device=None):
     """heterogeneous batch: per-stamp size, flux and intrinsic shape,
     and per-stamp turb psf shape and size, in +-g_int pairs that share
     T, flux and psf (ring cancellation), sheared by (SHEAR_TRUE, 0).
     B must be even. Same return layout as make_sim_batch."""
     if B % 2:
         raise ValueError("pairing needs an even batch, got B=%d" % B)
-    dev = gen.device
+    dev = _sim_device(gen, device)
     H = B // 2
 
     def pair(x):

@@ -10,6 +10,7 @@ of chi2 feeds exp; the far wings sit many decades below the peak).
 The CUDA kernel itself runs only on the card (chip_smoke.py); here the
 wrapper's dispatch is checked with a mocked CUDA tensor and library.
 """
+import contextlib
 import types
 
 import jax
@@ -157,6 +158,14 @@ def _mock_card(monkeypatch, ret):
         torch.cuda, "current_stream",
         lambda d=None: types.SimpleNamespace(cuda_stream=1234),
     )
+
+    @contextlib.contextmanager
+    def current_device(dev):
+        # the launch must run with the tensors' device current
+        calls.append(("device", dev))
+        yield
+
+    monkeypatch.setattr(torch.cuda, "device", current_device)
     return calls
 
 
@@ -169,14 +178,15 @@ def test_cuda_tensor_launches_kernel_never_plain(monkeypatch, area_mode):
     monkeypatch.setattr(gmix_eval, "launches", 0)
     gmix_eval.eval_gmix(gm, v, u, area, fast=False)
     assert gmix_eval.launches == 1
-    (args,) = calls
-    gp, vp, up, ap, ascalar, op, B, n, P, fast, index, stream = args
+    (_, dev), args = calls
+    assert dev == gm.device
+    gp, vp, up, ap, ascalar, op, B, n, P, fast, stream = args
     assert (gp, vp, up) == (gm.data_ptr(), v.data_ptr(), u.data_ptr())
     if area_mode == "scalar":
         assert ap is None and ascalar == 0.069
     else:
         assert ap == area.data_ptr()
-    assert (B, n, P, fast, index, stream) == (3, 18, 40, 0, 0, 1234)
+    assert (B, n, P, fast, stream) == (3, 18, 40, 0, 1234)
 
 
 def test_cuda_launch_error_raises(monkeypatch):

@@ -4,8 +4,14 @@ with numpy from a seed.
 
 Tolerance: flags equal; pars, s2n and shear_response's R and shear to
 rtol 1e-8 and atol 1e-10, as tests/test_batch_pipeline.py holds two
-implementations of one objective against each other.
+implementations of one objective against each other. The port's sims
+are held against bench.py's on the same draws to rtol 1e-12 in float64,
+the tolerance tests/test_misc_components.py holds the Pallas mixture
+kernel to.
 """
+import importlib.util
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -162,12 +168,28 @@ def test_no_device_without_card_raises(monkeypatch, inputs):
         nt.make_metacal_pipeline_fn(conf)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         nt.metacal_pipeline(*inputs, conf)
+    for maker in (nt.make_sim_batch, nt.make_sim_batch_hetero):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            maker(torch.Generator().manual_seed(1), 4)
+
+
+@pytest.mark.parametrize("maker", [sims.make_sim_batch, sims.make_sim_batch_hetero])
+def test_sims_generator_must_live_on_the_device(maker):
+    gen = torch.Generator().manual_seed(1)
+    with pytest.raises(ValueError, match="generator lives on cpu"):
+        maker(gen, 4, device="meta")
+
+
+def test_bench_config_is_the_main_path_config():
+    bench_conf = nt.MetacalConfig(dims=DIMS, psf_dims=PSF_DIMS, **CONFS["bench"])
+    assert sims.METACAL_GAUSSMOM_CONFIG == bench_conf
 
 
 @pytest.mark.parametrize("maker", [sims.make_sim_batch, sims.make_sim_batch_hetero])
 def test_sims_shapes_and_flux(maker):
     gen = torch.Generator().manual_seed(5)
-    imgs, weights, cens, pimgs, pcens, noise = maker(gen, 6, torch.float64)
+    imgs, weights, cens, pimgs, pcens, noise = maker(gen, 6, torch.float64,
+                                                     device="cpu")
     assert imgs.shape == weights.shape == noise.shape == (6,) + DIMS
     assert pimgs.shape == (6,) + PSF_DIMS and cens.shape == pcens.shape == (6, 2)
     assert all(torch.isfinite(x).all() for x in (imgs, pimgs, noise))
@@ -181,7 +203,57 @@ def test_sims_shapes_and_flux(maker):
 
 def test_hetero_sims_pair_and_need_even_batch():
     gen = torch.Generator().manual_seed(6)
-    imgs, _, _, pimgs, _, _ = sims.make_sim_batch_hetero(gen, 4, torch.float64)
+    imgs, _, _, pimgs, _, _ = sims.make_sim_batch_hetero(gen, 4, torch.float64,
+                                                         device="cpu")
     torch.testing.assert_close(pimgs[:2], pimgs[2:])
     with pytest.raises(ValueError):
-        sims.make_sim_batch_hetero(gen, 5)
+        sims.make_sim_batch_hetero(gen, 5, device="cpu")
+
+
+def _load_bench():
+    path = Path(__file__).resolve().parents[1] / "bench.py"
+    spec = importlib.util.spec_from_file_location("_bench_for_torch_tests", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("name", ["make_sim_batch", "make_sim_batch_hetero"])
+def test_sims_match_bench_on_the_same_draws(monkeypatch, name):
+    """the port's sims against bench.py's, every random draw fed from
+    one numpy stream on each side in the same order, so a wrong centre,
+    area, pixel grid, mixture or noise layout shows"""
+    bench = _load_bench()
+    Bs = 6
+
+    def draws(seed=23):
+        rng = np.random.RandomState(seed)
+        uniform = lambda shape, lo, hi: rng.uniform(lo, hi, shape)  # noqa: E731
+        normal = lambda shape: rng.normal(0.0, 1.0, shape)  # noqa: E731
+        return uniform, normal
+
+    ju, jn = draws()
+    monkeypatch.setattr(
+        jax.random, "uniform",
+        lambda key, shape, dtype, minval=0.0, maxval=1.0:
+            jnp.asarray(ju(shape, minval, maxval), dtype),
+    )
+    monkeypatch.setattr(
+        jax.random, "normal",
+        lambda key, shape, dtype: jnp.asarray(jn(shape), dtype),
+    )
+    ref = getattr(bench, name)(jax.random.PRNGKey(0), Bs, jnp.float64)
+
+    tu, tn = draws()
+    monkeypatch.setattr(
+        sims, "_uniform",
+        lambda gen, shape, dtype, lo, hi: torch.as_tensor(tu(shape, lo, hi), dtype=dtype),
+    )
+    monkeypatch.setattr(
+        sims, "_normal",
+        lambda gen, shape, dtype: torch.as_tensor(tn(tuple(shape)), dtype=dtype),
+    )
+    out = getattr(sims, name)(torch.Generator(), Bs, torch.float64, device="cpu")
+
+    for got, want in zip(out, ref):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12, atol=0)
