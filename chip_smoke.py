@@ -2,10 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path once on the card, bench.py's
-metacal_gaussmom workload at the production chunk size, and holds the
-hand-written CUDA kernel K2 against its plain PyTorch version. Phases,
-in order, each printing one timed line as soon as it ends:
+Drives the port's two main paths on the card, bench.py's
+metacal_gaussmom workload and its exp-LM headline at the production
+chunk size, and holds the hand-written CUDA kernels K2 (mixture
+evaluation) and K1 (LM normal equations) against their plain PyTorch
+versions. Phases, in order, each printing one timed line as soon as it
+ends:
 
 1. card:   the card's name and power limit (nvidia-smi);
 2. build:  nvcc builds K2 into build/ngmix_tpu_torch/ (first use);
@@ -24,7 +26,39 @@ in order, each printing one timed line as soon as it ends:
 6. times:  K2 at the main path's two shapes (n = 1 over [5 B, 361]
            with a [B, P] area, n = 18 over [B, 2401] with a scalar
            area), held against its plain version there at phase 3's
-           tolerances, and timed beside its bound.
+           tolerances, and timed beside its bound;
+7. k1:     K1 against its plain version on the same CUDA inputs over
+           n in {1, 6, 10}, float32 and float64, B in {1, 3, 51200}
+           and P in {361, 1000, 1089}, with an invalid gaussian in one
+           lane: in float64 cost to rtol 1e-10, Jtr and JtJ to rtol
+           1e-8 with an atol of 1e-8 times the largest |value|
+           (tests/test_pallas_lm.py:65-73); in float32 cost to rtol
+           1e-5, Jtr and JtJ to rtol 1e-5 with an atol of 1e-5 times
+           their Cauchy-Schwarz scale, sqrt(JtJ_kk cost) for Jtr_k and
+           sqrt(JtJ_kk JtJ_mm) for JtJ_km, which bounds the sum of the
+           absolute terms float32 rounds (the signed sums cancel);
+8. exp-lm: the exp-LM metacal pipeline in float32 on the homogeneous
+           and heterogeneous sims at B = 10240 (5 B = 51200 lanes),
+           gated like bench.py: |m| < 1e-3, |hetero m| < 1e-3, flagged
+           lanes <= max(8, 0.5% B), e1 equal to pars[:, 2] bit for
+           bit, and K1 and K2 launched; prints nfev, the LM iterations
+           per compaction level and the fraction of lanes frozen at
+           their guess (flags 0, nfev <= 2, pars equal to the guess);
+9. lm-cpu: the first 256 stamps in float64 on the card and on the CPU:
+           flags equal, e1/e2/T/flux to rtol 1e-5 and atol 1e-7, nfev
+           within 2 (tests/test_pallas_lm.py:107-123);
+10. compact: the exp-LM measure at B = 2048 (10240 lanes) with the
+           automatic compaction cascade and without: pars, flags, nfev,
+           ier and cost bitwise equal;
+11. k-times: K1 at its main-path shape (n = 6 over [5 B, 361], float32,
+           the inputs of the pipeline's first normal-equation call) and
+           K2 at the exp-LM path's new shape (n = 6, fast, over
+           [5 B, 361], the inputs of get_loglike's call), each held
+           against its plain version (K1 in float32: cost to rtol 1e-3,
+           Jtr and JtJ to rtol 1e-3 with an atol of 1e-4 times their
+           Cauchy-Schwarz scale, since the residual f ia - ve cancels to
+           the noise level at a peak signal-to-noise of ~1e3; K2 at
+           phase 3's tolerances) and timed beside its bound.
 
 Needs one CUDA card and exits nonzero, printing the reason, on any
 failure or without a card. The last line is the JSON result.
@@ -33,17 +67,21 @@ import json
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import torch
 
 import ngmix_tpu_torch as nt
+from ngmix_tpu_torch.fitting import lm as tlm
 from ngmix_tpu_torch.gmix import core as gcore
 from ngmix_tpu_torch.gaussmom import make_weight_gmix
-from ngmix_tpu_torch.ops import _build, gmix_eval
+from ngmix_tpu_torch.ops import _build, gmix_eval, normal_eqs
 
 B_MAIN = 10240
+B_COMPACT = 2048
 NTYPES = 5
 CONF = nt.sims.METACAL_GAUSSMOM_CONFIG
+LM_CONF = nt.sims.METACAL_EXP_LM_CONFIG
 SHEAR_TRUE = nt.sims.SHEAR_TRUE
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
@@ -53,6 +91,14 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 # scale 1, exp 1, pnorm product 1, accumulate 1; plus the area product
 # per pixel
 OPS_PER_PIXEL_GAUSS = 15
+# K1's arithmetic, counted from csrc/normal_eqs.cu with a fused
+# multiply-add as 2 operations and an exp as 1: per (pixel, gaussian)
+# the offsets and chi2 (11); per pair inside the window [0, 25) the
+# exponential and its argument, the value, f, c, the six derivatives and
+# the 36-term chain product (92); per pair in the apodized band
+# (20, 25] the window and its derivative (14); per pixel the residual,
+# the weighted J and the 28 running sums (64)
+K1_OPS_PAIR, K1_OPS_INWIN, K1_OPS_HOT, K1_OPS_PIXEL = 11, 92, 14, 64
 
 
 class SmokeFailure(Exception):
@@ -120,7 +166,7 @@ def compare(out, ref, what):
     if bool(bad.any()) or not bool(torch.isfinite(out).all()):
         raise SmokeFailure("K2 disagrees with its plain version: %s, max err %.3e"
                            % (what, float(err.max())))
-    return float(err.max()), float((err / ref.abs().clamp_min(1e-300)).max())
+    return float(err.max()), float((err / ref.abs().clamp_min(torch.finfo(ref.dtype).tiny)).max())
 
 
 def check_kernel(device):
@@ -294,6 +340,258 @@ def time_kernel(shapes):
     return rows
 
 
+# ----------------------------------------------------------------------
+# K1 and the exp-LM path
+
+def _k1_case(gen, B, n, P, dtype):
+    """K1's inputs: the reparametrized random mixtures of _random_case
+    (with an invalid gaussian in the last lane), a random chain and
+    random weighted planes"""
+    gm, v, u, _ = _random_case(gen, B, n, P, dtype, True)
+    dev = gen.device
+    rp = normal_eqs.gmix_reparam(gm).contiguous()
+    chain = torch.randn((B, n, 6, 6), generator=gen, device=dev, dtype=dtype)
+    ia = torch.rand((B, P), generator=gen, device=dev, dtype=dtype) * 100.0 + 50.0
+    ve = torch.randn((B, P), generator=gen, device=dev, dtype=dtype) * 20.0
+    return rp, chain, v, u, ia, ve
+
+
+def _k1_plain_chunked(rp, chain, v, u, ia, ve, chunk=2048):
+    """K1's plain version in lane chunks, bounding its [B, n, P] memory"""
+    outs = [
+        normal_eqs.gmix_normal_eqs_plain(*(x[i:i + chunk] for x in (rp, chain, v, u, ia, ve)))
+        for i in range(0, rp.shape[0], chunk)
+    ]
+    return [torch.cat(parts) for parts in zip(*outs)]
+
+
+def k1_scale(cost, JtJ):
+    """the natural error scale of K1's signed sums, by Cauchy-Schwarz:
+    sum_p |J_k ia fd| <= sqrt(JtJ_kk cost) for Jtr_k and sum_p
+    |J_k J_m| ia^2 <= sqrt(JtJ_kk JtJ_mm) for JtJ_km"""
+    d = torch.diagonal(JtJ, dim1=-2, dim2=-1).clamp_min(0)
+    return torch.sqrt(d * cost[:, None]), torch.sqrt(d[:, :, None] * d[:, None, :])
+
+
+def compare_k1(out, ref, what, tol32=(1e-5, 1e-5)):
+    """hold K1's (cost, Jtr, JtJ) against its plain version's. float64:
+    cost to rtol 1e-10, Jtr and JtJ to rtol 1e-8 with an atol of 1e-8
+    times the largest |value|. float32: cost to rtol tol32[0]; Jtr and
+    JtJ to rtol tol32[0] with an atol of tol32[1] times their
+    Cauchy-Schwarz scale (k1_scale), which bounds the sum of the
+    absolute terms that float32 rounds. Returns the largest absolute
+    error and the largest error relative to |value| plus its scale."""
+    max_abs, max_rel = 0.0, 0.0
+    scales = (torch.zeros_like(ref[0]),) + k1_scale(ref[0], ref[2])
+    for i, (a, b) in enumerate(zip(out, ref)):
+        err = (a - b).abs()
+        if a.dtype == torch.float64:
+            bad = err > (1e-10 * b.abs() if i == 0 else 1e-8 * b.abs() + 1e-8 * b.abs().max())
+        elif i == 0:
+            bad = err > tol32[0] * b.abs()
+        else:
+            bad = err > tol32[0] * b.abs() + tol32[1] * scales[i]
+        if bool(bad.any()) or not bool(torch.isfinite(a).all()):
+            lane = int(bad.reshape(bad.shape[0], -1).any(-1).nonzero()[0, 0]) \
+                if bool(bad.any()) else -1
+            raise SmokeFailure(
+                "K1 disagrees with its plain version: %s, output %d, max err %.3e; "
+                "first bad lane %d: kernel %s plain %s" % (
+                    what, i, float(err.max()), lane, a[lane].tolist(), b[lane].tolist()))
+        max_abs = max(max_abs, float(err.max()))
+        denom = (b.abs() + scales[i]).clamp_min(torch.finfo(b.dtype).tiny)
+        max_rel = max(max_rel, float((err / denom).max()))
+    return max_abs, max_rel
+
+
+def check_k1(device):
+    """K1 against its plain version over every listed case"""
+    gen = torch.Generator(device=device).manual_seed(2025)
+    max_abs, ncase = 0.0, 0
+    worst = {torch.float32: 0.0, torch.float64: 0.0}
+    for dtype in (torch.float32, torch.float64):
+        for n in (1, 6, 10):
+            for B in (1, 3, NTYPES * B_MAIN):
+                for P in (361, 1000, 1089):
+                    args = _k1_case(gen, B, n, P, dtype)
+                    err, rel = compare_k1(
+                        normal_eqs.gmix_normal_eqs(*args), _k1_plain_chunked(*args),
+                        "dtype=%s n=%d B=%d P=%d" % (dtype, n, B, P))
+                    max_abs = max(max_abs, err)
+                    worst[dtype] = max(worst[dtype], rel)
+                    ncase += 1
+    return max_abs, ncase, worst
+
+
+def run_exp_lm(device, B):
+    """the exp-LM main path: sims -> pipeline -> shear_response,
+    homogeneous and heterogeneous, float32; and the guess of every lane
+    (a run with maxfev = 1, which takes no step) for the frozen
+    fraction"""
+    fn = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device=device)
+    hom = nt.make_sim_batch(torch.Generator(device=device).manual_seed(314), B,
+                            torch.float32, device=device)
+    res = fn(*hom)
+    levels = list(tlm.last_levels)
+    sr = nt.shear_response(res)
+    times = []
+    for _ in range(3):
+        _sync(device)
+        t0 = time.perf_counter()
+        fn(*hom)
+        _sync(device)
+        times.append(time.perf_counter() - t0)
+    dt = sorted(times)[1]
+    het = nt.make_sim_batch_hetero(torch.Generator(device=device).manual_seed(271),
+                                   B, torch.float32, device=device)
+    het_res = fn(*het)
+    het_sr = nt.shear_response(het_res)
+    guess = nt.make_metacal_pipeline_fn(
+        LM_CONF, measure="exp-lm", lm_conf=nt.LMConf(maxfev=1), device=device
+    )(*hom)
+    _sync(device)
+
+    types = nt.batch.GALSHEAR_TYPES
+    for r in (res, het_res):
+        for t in types:
+            if not torch.equal(r[t]["e1"], r[t]["pars"][:, 2]):
+                raise SmokeFailure("e1 is not pars[:, 2] for type %s" % t)
+            if tuple(r[t]["pars"].shape) != (B, 6):
+                raise SmokeFailure("bad pars shape %s" % (tuple(r[t]["pars"].shape),))
+            ok = r[t]["flags"] == 0
+            if not bool(torch.isfinite(r[t]["pars"][ok]).all()):
+                raise SmokeFailure("non-finite pars for type %s" % t)
+    flags = torch.cat([res[t]["flags"] for t in types])
+    nfev = torch.cat([res[t]["nfev"] for t in types])
+    frozen = (
+        (flags == 0) & (nfev <= 2)
+        & torch.all(torch.cat([res[t]["pars"] == guess[t]["pars"] for t in types]), dim=-1)
+    )
+    return dict(
+        m=m_of(sr), het_m=m_of(het_sr), R11=float(sr["R"][0, 0]),
+        flagged=int((res["noshear"]["flags"] != 0).sum()),
+        het_flagged=int((het_res["noshear"]["flags"] != 0).sum()),
+        nfev_p50=float(torch.quantile(nfev.double(), 0.5)), nfev_max=int(nfev.max()),
+        levels=levels, frozen=float(frozen.double().mean()),
+        stamps_per_s=B / dt, sec=dt, sec_range=(min(times), max(times)),
+    ), hom
+
+
+def compare_lm_card_cpu(hom, n=256):
+    """per-lane float64 exp-LM run of the first n stamps on the card and
+    the CPU"""
+    args = [a[:n].double() for a in hom]
+    card = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device="cuda")(*args)
+    cpu = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device="cpu")(
+        *(a.cpu() for a in args))
+    worst, dnfev = 0.0, 0
+    for t in nt.batch.GALSHEAR_TYPES:
+        if not torch.equal(card[t]["flags"].cpu(), cpu[t]["flags"]):
+            raise SmokeFailure("LM flags differ between card and CPU for %s" % t)
+        d = int((card[t]["nfev"].cpu() - cpu[t]["nfev"]).abs().max())
+        if d > 2:
+            raise SmokeFailure("nfev differs by %d between card and CPU for %s" % (d, t))
+        dnfev = max(dnfev, d)
+        for k in ("e1", "e2", "T", "flux"):
+            a, b = card[t][k].cpu(), cpu[t][k]
+            err = (a - b).abs()
+            if bool((err > 1e-7 + 1e-5 * b.abs()).any()):
+                raise SmokeFailure("%s/%s differ between card and CPU: max %.3e"
+                                   % (t, k, float(err.max())))
+            worst = max(worst, float((err / b.abs().clamp_min(1e-300)).max()))
+    return worst, dnfev
+
+
+def check_compaction(hom, device):
+    """the exp-LM pipeline at B_COMPACT stamps with the automatic
+    compaction cascade and with none (the cascade patched to no
+    levels): the per-lane results must be bitwise equal"""
+    args = [a[:B_COMPACT] for a in hom]
+    fn = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device=device)
+    cascade = fn(*args)
+    levels = list(tlm.last_levels)
+    with mock.patch.object(nt.batch, "_auto_cascade", lambda B: ()):
+        flat = fn(*args)
+    for t in nt.batch.GALSHEAR_TYPES:
+        for k in ("pars", "flags", "nfev", "ier", "cost"):
+            if not torch.equal(cascade[t][k], flat[t][k]):
+                raise SmokeFailure("compaction changed %s/%s" % (t, k))
+    return levels, list(tlm.last_levels)
+
+
+def capture_k_inputs(hom, device):
+    """the inputs of the exp-LM path's first K1 call and of its K2 call
+    with fast=True (get_loglike's s/n sums), from one pipeline call"""
+    seen = {}
+    k1, k2 = normal_eqs.gmix_normal_eqs, gmix_eval.eval_gmix
+
+    def k1_spy(*a):
+        seen.setdefault("k1", a)
+        return k1(*a)
+
+    def k2_spy(gm, v, u, area=1.0, fast=True):
+        if fast:
+            seen.setdefault("k2", (gm, v, u, area))
+        return k2(gm, v, u, area, fast=fast)
+
+    with mock.patch.object(normal_eqs, "gmix_normal_eqs", k1_spy), \
+            mock.patch.object(gmix_eval, "eval_gmix", k2_spy):
+        nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device=device)(*hom)
+    return seen["k1"], seen["k2"]
+
+
+def k1_bound(rp, chain, v, u, ia, ve):
+    """least time (ms) for K1's work on these inputs: each input read
+    once and the outputs written once at the memory rate, or the
+    operations this data needs (pairs inside the window and in its
+    apodized band counted from chi2) at the float peak, whichever is
+    larger"""
+    Bn, n, _ = rp.shape
+    P = v.shape[1]
+    esize = v.element_size()
+    nbytes = esize * (rp.numel() + chain.numel() + 4 * Bn * P + Bn * (1 + 6 + 36))
+    inwin = hot = 0
+    for i in range(0, Bn, 4096):
+        q = rp[i:i + 4096, :, :, None]
+        dv = v[i:i + 4096, None, :] - q[:, :, 1]
+        du = u[i:i + 4096, None, :] - q[:, :, 2]
+        chi2 = (q[:, :, 3] * dv + q[:, :, 4] * du) * dv + (q[:, :, 4] * dv + q[:, :, 5] * du) * du
+        win = (chi2 >= 0) & (chi2 < 25.0)
+        inwin += int(win.sum())
+        hot += int((win & (chi2 > 20.0)).sum())
+    ops = (K1_OPS_PAIR * Bn * n * P + K1_OPS_INWIN * inwin + K1_OPS_HOT * hot
+           + K1_OPS_PIXEL * Bn * P)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[v.dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def time_lm_kernels(hom, device):
+    """K1 and K2 at the exp-LM path's shapes: held against their plain
+    versions on the pipeline's own inputs, then timed beside their
+    bounds"""
+    k1_args, (gm, v, u, area) = capture_k_inputs(hom, device)
+    rows = []
+    err, rel = compare_k1(normal_eqs.gmix_normal_eqs(*k1_args), _k1_plain_chunked(*k1_args),
+                          "main-path shape", tol32=(1e-3, 1e-4))
+    ms = time_ms(lambda: normal_eqs.gmix_normal_eqs(*k1_args), 20)
+    plain_ms = time_ms(lambda: normal_eqs.gmix_normal_eqs_plain(*k1_args), 3, warmup=1)
+    b_ms, by = k1_bound(*k1_args)
+    rows.append(dict(kernel="K1", shape="n=%d [%dx%d]" % (k1_args[0].shape[1], *k1_args[2].shape),
+                     ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                     max_abs_err=err, max_rel_err=rel))
+    err, rel = compare(gmix_eval.eval_gmix(gm, v, u, area, fast=True),
+                       _plain_chunked(gm, v, u, area, True), "get_loglike shape")
+    ms = time_ms(lambda: gmix_eval.eval_gmix(gm, v, u, area, fast=True), 20)
+    plain_ms = time_ms(lambda: gmix_eval.eval_gmix_plain(gm, v, u, area, fast=True), 3,
+                       warmup=1)
+    b_ms, by = bound(gm, v, area)
+    rows.append(dict(kernel="K2", shape="exp-lm get_loglike n=%d fast [%dx%d]"
+                     % (gm.shape[1], *v.shape), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                     bound_by=by, max_abs_err=err, max_rel_err=rel))
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -357,20 +655,87 @@ def main():
                  r["plain_ms"], r["bound_ms"], r["bound_by"]), flush=True)
     phase_line("6 times", t0, "total %.1f s" % (time.perf_counter() - t_all))
 
+    t0 = time.perf_counter()
+    k1_abs, k1_ncase, k1_worst = check_k1(device)
+    phase_line("7 k1", t0, "%d cases agree; max abs err %.3e; max err relative to "
+               "|value| + scale f32 %.3e f64 %.3e"
+               % (k1_ncase, k1_abs, k1_worst[torch.float32], k1_worst[torch.float64]))
+
+    t0 = time.perf_counter()
+    gmix_eval.launches = 0
+    normal_eqs.launches = 0
+    lp, hom = run_exp_lm(device, B_MAIN)
+    k1_launches, k2_lm_launches = normal_eqs.launches, gmix_eval.launches
+    phase_line(
+        "8 exp-lm", t0,
+        "B=%d m=%.3e hetero_m=%.3e R11=%.4f flagged=%d hetero_flagged=%d "
+        "nfev p50=%g max=%d frozen=%.4f k1_launches=%d k2_launches=%d "
+        "stamps/s=%.1f (median %.4f s/call of 3, range %.4f-%.4f)"
+        % (B_MAIN, lp["m"], lp["het_m"], lp["R11"], lp["flagged"], lp["het_flagged"],
+           lp["nfev_p50"], lp["nfev_max"], lp["frozen"], k1_launches, k2_lm_launches,
+           lp["stamps_per_s"], lp["sec"], *lp["sec_range"]),
+    )
+    print("    LM iterations per level (lanes, iterations): %s" % lp["levels"], flush=True)
+    if k1_launches <= 0 or k2_lm_launches <= 0:
+        raise SmokeFailure("the exp-LM path did not launch K1 and K2: %d, %d"
+                           % (k1_launches, k2_lm_launches))
+    if not (abs(lp["m"]) < 1e-3 and abs(lp["het_m"]) < 1e-3):
+        raise SmokeFailure("exp-LM m gate failed: m=%.3e hetero m=%.3e"
+                           % (lp["m"], lp["het_m"]))
+    if lp["flagged"] > limit or lp["het_flagged"] > limit:
+        raise SmokeFailure("too many flagged exp-LM lanes: %d, %d > %d"
+                           % (lp["flagged"], lp["het_flagged"], limit))
+
+    t0 = time.perf_counter()
+    lm_worst, dnfev = compare_lm_card_cpu(hom)
+    phase_line("9 lm-cpu", t0, "256 stamps float64: flags equal, e1/e2/T/flux max "
+               "rel diff %.3e, max nfev diff %d" % (lm_worst, dnfev))
+
+    t0 = time.perf_counter()
+    lv_cascade, lv_flat = check_compaction(hom, device)
+    phase_line("10 compact", t0, "B=%d: cascade %s and no compaction %s bitwise equal"
+               % (B_COMPACT, lv_cascade, lv_flat))
+
+    t0 = time.perf_counter()
+    lm_rows = time_lm_kernels(hom, device)
+    del hom
+    for r in lm_rows:
+        print("    %s %s: agrees (max abs err %.3e, rel %.3e); %.4f ms, plain "
+              "%.4f ms, bound %.4f ms (%s)"
+              % (r["kernel"], r["shape"], r["max_abs_err"], r["max_rel_err"], r["ms"],
+                 r["plain_ms"], r["bound_ms"], r["bound_by"]), flush=True)
+    phase_line("11 k-times", t0, "total %.1f s" % (time.perf_counter() - t_all))
+
     top = rows[0]
+    k1_row = lm_rows[0]
     print(json.dumps({"kernels": [{
         "name": "gmix_eval",
         "route": "cuda",
         "source": "ngmix_tpu_torch/csrc/gmix_eval.cu",
         "replaces": "ngmix_tpu/ops/pallas_gmix.py:88",
-        "launches": launches,
-        "max_abs_err": max(max_abs, *(r["max_abs_err"] for r in rows)),
+        "launches": launches + k2_lm_launches,
+        "launches_by_path": {"gaussmom": launches, "exp-lm": k2_lm_launches},
+        "max_abs_err": max(max_abs, *(r["max_abs_err"] for r in rows),
+                           lm_rows[1]["max_abs_err"]),
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"],
         "library_ms": None,
-        "shapes": rows,
+        "shapes": rows + [lm_rows[1]],
+    }, {
+        "name": "normal_eqs",
+        "route": "cuda",
+        "source": "ngmix_tpu_torch/csrc/normal_eqs.cu",
+        "replaces": "ngmix_tpu/ops/pallas_lm.py:149",
+        "launches": k1_launches,
+        "max_abs_err": max(k1_abs, k1_row["max_abs_err"]),
+        "ms": k1_row["ms"],
+        "plain_ms": k1_row["plain_ms"],
+        "bound_ms": k1_row["bound_ms"],
+        "bound_by": k1_row["bound_by"],
+        "library_ms": None,
+        "shapes": [k1_row],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -1,9 +1,14 @@
-"""Batched metacal pipeline over [B] stamps, with the gaussmom measure.
+"""Batched metacal pipeline over [B] stamps, with the gaussmom and
+exp-LM measures.
 
-The gaussmom subset of ``ngmix_tpu/batch.py``: target-psf derivation,
-the 5-type k-space metacal image set with optional fixnoise, stacking
-of the types into 5 B lanes, gaussian weighted moments of every lane
-(whose weight goes through K2) and the shear response.
+The gaussmom and exp-LM subset of ``ngmix_tpu/batch.py``: target-psf
+derivation, the 5-type k-space metacal image set with optional
+fixnoise, stacking of the types into 5 B lanes, the measure of every
+lane and the shear response. gaussmom takes gaussian weighted moments
+(the weight goes through K2). exp-LM fits an exponential model
+convolved with the round target psf by the batched normal-equation LM
+(fitting/lm.py), whose normal equations go through K1; its moments
+guess and its s/n sums evaluate the model through K2.
 
 Entry points (``metacal_pipeline``, ``make_metacal_pipeline_fn``) take
 numpy arrays or tensors and run on the CUDA card unless the caller
@@ -15,10 +20,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .fitting import lm
 from .gaussmom import gaussmom_measure
+from .gmix import core as gcore
 from .jacobian import Jacobian
 from .metacal import kops
 from .metacal.defaults import DEFAULT_STEP
+from .moments import fwhm_to_T
+from .ops import normal_eqs
 from .pixels import Pixels
 from .util import full_precision_matmuls, resolve_device
 
@@ -37,7 +46,8 @@ class MetacalConfig(NamedTuple):
     pad_factor: float = 4
     # optional central window for the measurement stage
     fit_dims: tuple = None
-    # LM measures only (not in this port yet); 0 = off
+    # LM measures only: Gauss-Newton refinement of the sheared types
+    # from the noshear fit; 0 = off (the only value ported so far)
     sheared_refine: int = 0
 
 
@@ -45,13 +55,17 @@ GALSHEAR_TYPES = ("noshear", "1p", "1m", "2p", "2m")
 PSFSHEAR_TYPES = ("1p_psf", "1m_psf", "2p_psf", "2m_psf")
 
 # measures of the JAX pipeline that this port has not taken over yet,
-# and the slice of the port each waits for
+# and the ROADMAP queue item each waits for
 _LATER_MEASURES = {
-    "exp-lm": "slice 2 (the exp-LM measure with kernel K1)",
-    "admom": "the admom slice",
-    "pgauss": "the pre-PSF moments slice",
-    "ksigma": "the pre-PSF moments slice",
+    "gauss-lm": "ROADMAP queue item 5 (other flat LM models)",
+    "dev-lm": "ROADMAP queue item 5 (other flat LM models)",
+    "bdf-lm": "ROADMAP queue item 5 (other flat LM models)",
+    "bd-lm": "ROADMAP queue item 5 (other flat LM models)",
+    "admom": "ROADMAP queue item 6 (the admom measure)",
+    "pgauss": "ROADMAP queue item 8 (pre-PSF moments)",
+    "ksigma": "ROADMAP queue item 8 (pre-PSF moments)",
 }
+_MEASURES = ("gaussmom", "exp-lm")
 
 
 def _host_jacobian(conf):
@@ -227,25 +241,50 @@ def _as_inputs(args, device):
     return [a.to(dtype) for a in out]
 
 
+def _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds):
+    """raise for a measure or LM option this port has not taken over"""
+    if measure not in _MEASURES:
+        if measure in _LATER_MEASURES:
+            raise NotImplementedError(
+                "measure=%r is not ported yet: it waits for %s"
+                % (measure, _LATER_MEASURES[measure])
+            )
+        raise ValueError("bad measure: %s" % measure)
+    if measure != "exp-lm":
+        return
+    if lm_prior is not None:
+        raise NotImplementedError(
+            "lm_prior is not ported yet: ROADMAP queue item 5"
+        )
+    if lm_bounds is not None:
+        raise NotImplementedError(
+            "lm_bounds is not ported yet: ROADMAP queue item 5"
+        )
+    if conf.sheared_refine:
+        raise NotImplementedError(
+            "sheared_refine > 0 is not ported yet: ROADMAP queue item 10"
+        )
+    if lm_conf is not None:
+        lm.check_supported(lm_conf)
+
+
 def metacal_pipeline(images, weights, cens, psf_images, psf_cens, noise,
                      conf: MetacalConfig, measure="gaussmom",
-                     measure_fwhm=1.2, device=None):
+                     measure_fwhm=1.2, lm_conf=None, lm_prior=None,
+                     lm_bounds=None, device=None):
     """the whole batched pipeline: metacal image set (+ fixnoise) and
     the measurement of every type.
 
     images/weights/noise [B, H, W], cens [B, 2], psf_images [B, Hp, Wp],
     psf_cens [B, 2], as numpy arrays or tensors; noise is the fixnoise
-    field (zeros with fixnoise=False). Only measure="gaussmom" is
-    ported so far. Returns dict type -> result dict of [B, ...] tensors,
-    plus "psf_sigma" [B].
+    field (zeros with fixnoise=False). measure: "gaussmom" (fixed
+    gaussian weighted moments) or "exp-lm" (exponential-model LM fits,
+    configured by lm_conf, an LMConf). lm_prior, lm_bounds, a nonzero
+    conf.sheared_refine and the other measures are not ported yet and
+    raise NotImplementedError. Returns dict type -> result dict of
+    [B, ...] tensors, plus "psf_sigma" [B].
     """
-    if measure != "gaussmom":
-        if measure in _LATER_MEASURES or measure.endswith("-lm"):
-            raise NotImplementedError(
-                "measure=%r is not ported yet: it waits for %s"
-                % (measure, _LATER_MEASURES.get(measure, "slice 2 (LM measures)"))
-            )
-        raise ValueError("bad measure: %s" % measure)
+    _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds)
     full_precision_matmuls()
     images, weights, cens, psf_images, psf_cens, noise = _as_inputs(
         (images, weights, cens, psf_images, psf_cens, noise), device
@@ -298,7 +337,17 @@ def metacal_pipeline(images, weights, cens, psf_images, psf_cens, noise,
         conf_fit = conf
     pixels = make_pixels_batch(ims_all, wt_all, cens_all, conf_fit)
 
-    res_all = gaussmom_measure(pixels, measure_fwhm, area)
+    if measure == "gaussmom":
+        res_all = gaussmom_measure(pixels, measure_fwhm, area)
+    else:
+        # the round target psf of every lane as (irr, irc, icc)
+        sig_d = sigma * (1.0 + 2.0 * conf.step)
+        psf_moms = torch.stack(
+            [sig_d**2, torch.zeros_like(sig_d), sig_d**2], dim=-1
+        )
+        res_all = _exp_lm_measure(
+            pixels, psf_moms.repeat(len(types), 1), lm_conf or lm.LMConf(),
+        )
 
     nall = len(types) * B
     results = {}
@@ -324,35 +373,216 @@ def _concat_results(parts):
 
 
 def make_metacal_pipeline_fn(conf: MetacalConfig, measure="gaussmom",
-                             measure_fwhm=1.2, max_chunk=10240,
-                             device=None):
+                             measure_fwhm=1.2, lm_conf=None, lm_prior=None,
+                             lm_bounds=None, max_chunk=10240, device=None):
     """pipeline closure over a fixed configuration and device.
 
+    lm_conf, lm_prior and lm_bounds pass through to the LM measure (see
+    metacal_pipeline); unported options raise here, before any work.
     Batches larger than max_chunk run as successive chunks of at most
     max_chunk stamps, and the per-lane results are concatenated; the
-    pipeline is lane-independent, so they equal a single-batch run.
-    None disables chunking.
+    pipeline is lane-independent, so they equal a single-batch run
+    (the LM's compaction levels scale with the chunk, which never
+    changes per-lane results). None disables chunking.
     """
+    _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds)
     dev = resolve_device(device)
+    kw = dict(measure=measure, measure_fwhm=measure_fwhm, lm_conf=lm_conf,
+              device=dev)
 
     def fn(images, weights, cens, psf_images, psf_cens, noise):
         args = (images, weights, cens, psf_images, psf_cens, noise)
         B = len(images)
         if max_chunk is None or B <= max_chunk:
-            return metacal_pipeline(
-                *args, conf, measure=measure, measure_fwhm=measure_fwhm,
-                device=dev,
-            )
+            return metacal_pipeline(*args, conf, **kw)
         parts = [
-            metacal_pipeline(
-                *(a[i:i + max_chunk] for a in args), conf, measure=measure,
-                measure_fwhm=measure_fwhm, device=dev,
-            )
+            metacal_pipeline(*(a[i:i + max_chunk] for a in args), conf, **kw)
             for i in range(0, B, max_chunk)
         ]
         return _concat_results(parts)
 
     return fn
+
+
+# ----------------------------------------------------------------------
+# the exp-LM measure
+
+# parameters before the flux column
+_NSHAPE = 5
+
+
+def _moments_lm_guess(pixels, Tpsf, guess_fwhm=1.2):
+    """LM starting guesses from one gaussian weighted-moments pass (its
+    weight through K2): the measured centroid and halved shape, the
+    deweighted size less the psf's Tpsf [B], and the masked pixel sum
+    as the flux scale. Returns (guess5 [B, 5], wsum [B])."""
+    B = pixels.val.shape[0]
+    dtype, dev = pixels.val.dtype, pixels.val.device
+    Tw = float(fwhm_to_T(guess_fwhm))
+    wt = torch.zeros((B, 1, 6), dtype=dtype, device=dev)
+    wt[:, 0, 0] = 2 * np.pi * Tw / 2
+    wt[:, 0, 3] = Tw / 2
+    wt[:, 0, 5] = Tw / 2
+    s = gcore.get_weighted_sums(wt, pixels, maxrad=1.0e9, with_cov=False)["sums"]
+    mf = s[..., 5]
+    mf_safe = torch.where(mf > 0, mf, 1.0)
+    cen_v = s[..., 0] / mf_safe
+    cen_u = s[..., 1] / mf_safe
+    mt = s[..., 4] / mf_safe
+    s4_safe = torch.where(s[..., 4] > 0, s[..., 4], 1.0)
+    e1 = torch.clamp(s[..., 2] / s4_safe, -0.5, 0.5)
+    e2 = torch.clamp(s[..., 3] / s4_safe, -0.5, 0.5)
+    # deweight the measured size and remove the psf
+    Tmeas = torch.clamp(mt, min=0.05)
+    Tdew = 1.0 / torch.clamp(1.0 / Tmeas - 1.0 / Tw, min=0.05)
+    Tguess = torch.clamp(Tdew - Tpsf, min=0.05)
+
+    wsum = torch.sum(pixels.val * (pixels.ierr > 0), dim=-1)
+    guess5 = torch.stack([cen_v, cen_u, 0.5 * e1, 0.5 * e2, Tguess], dim=-1)
+    return guess5, wsum
+
+
+def _lm_planes(pixels):
+    """the loop-invariant pixel planes of K1: v, u, ia = ierr * area
+    and ve = val * ierr, [B, P] and contiguous (no padding)"""
+    return tuple(
+        x.contiguous() for x in (
+            pixels.v, pixels.u, pixels.ierr * pixels.area,
+            pixels.val * pixels.ierr,
+        )
+    )
+
+
+def _reparam_of(p, pg):
+    """pars [6], psf [1, 6] -> (rp [n, 6], (rp, gm, fill flags)): the
+    small map whose forward-mode jacobian is K1's chain"""
+    g0, gflags = gcore.fill_exp(p)
+    gm = gcore.gmix_convolve(g0, pg)
+    rp = normal_eqs.gmix_reparam(gm)
+    return rp, (rp, gm, gflags)
+
+
+def _exp_normal_fn(pars, planes, psf_gmix):
+    """normal-equation reductions (cost, Jtr, JtJ) of a batched
+    exp-model fit through K1.
+
+    The chain [B, n, 6, npars] is the forward-mode jacobian of the
+    small fill, convolve and reparam map (torch.func.vmap of jacfwd, the
+    counterpart of the reference's jax.vmap(jax.jacfwd)), so J is
+    AD-exact. A bad parameter point (fill flags or gmix_flags) gets
+    cost 1e30, Jtr 0 and JtJ = I, so the LM rejects the step.
+    """
+    v, u, ia, ve = planes
+    chain, (rp, gm, gflags) = torch.func.vmap(
+        torch.func.jacfwd(_reparam_of, has_aux=True)
+    )(pars, psf_gmix)
+    bad = (gflags != 0) | (gcore.gmix_flags(gm) != 0)
+    # forward-mode AD promotes the tangent of a python scalar divided by
+    # a 0-d float32 tensor to float64 (the fill's 2 / (1 + |g|^2)), so
+    # the chain comes back in float64 from float32 pars
+    cost, Jtr, JtJ = normal_eqs.gmix_normal_eqs(
+        rp.contiguous(), chain.to(rp.dtype).contiguous(), v, u, ia, ve
+    )
+    eye = torch.eye(pars.shape[-1], dtype=cost.dtype, device=cost.device)
+    cost = torch.where(bad, 1.0e30, cost)
+    Jtr = torch.where(bad[:, None], 0.0, Jtr)
+    JtJ = torch.where(bad[:, None, None], eye, JtJ)
+    return cost, Jtr, JtJ
+
+
+def _normal_fn(pars, data):
+    planes, psf_gmix = data
+    return _exp_normal_fn(pars, planes, psf_gmix)
+
+
+def _auto_cascade(B):
+    """default straggler-compaction capacities for B lanes: geometric
+    halving B/2, B/4, ... down to no fewer than 32 lanes"""
+    return tuple(B // (2 ** i) for i in range(1, 8) if B // (2 ** i) >= 32)
+
+
+def _safe_best_pars(pars, flags):
+    """best-fit pars with failed lanes replaced by a benign round
+    unit-T point, so the fill never sees sentinel pars; flagged lanes
+    are masked downstream"""
+    benign = torch.zeros(pars.shape[-1], dtype=pars.dtype, device=pars.device)
+    benign[4] = 1.0
+    return torch.where((flags == 0)[:, None], pars, benign)
+
+
+def _model_s2n_sums(pars, flags, psf_gmix, pixels):
+    """model-weighted s/n sums at the best-fit exp parameters:
+    s2n_numer = sum(val model ivar), s2n_denom = sum(model^2 ivar),
+    with the model through K2 (gmix.core.get_loglike)"""
+    gm0, _ = gcore.fill_exp(_safe_best_pars(pars, flags))
+    gm = gcore.gmix_convolve(gm0, psf_gmix)
+    _, num, den, _ = gcore.get_loglike(gm, pixels)
+    return num, den
+
+
+def _lm_result_columns(out, s2n_sums):
+    """add the derived catalog columns (e1, e2, T, flux, s2n_flux, s2n)
+    of a single-band exp fit to a batched LM result dict, in place.
+    s2n = numer / sqrt(denom) of the model-weighted sums, 0 for failed
+    or zero-signal lanes; s2n_flux = |flux| / flux_err"""
+    out["e1"] = out["pars"][:, 2]
+    out["e2"] = out["pars"][:, 3]
+    out["T"] = out["pars"][:, 4]
+    out["flux"] = out["pars"][:, _NSHAPE]
+    ferr = out["pars_err"][:, _NSHAPE]
+    out["s2n_flux"] = torch.where(ferr > 0, torch.abs(out["flux"]) / ferr, 0.0)
+    num, den = s2n_sums
+    ok = (out["flags"] == 0) & (den > 0)
+    out["s2n"] = torch.where(
+        ok, num / torch.sqrt(torch.where(den > 0, den, 1.0)), 0.0
+    )
+
+
+def _exp_lm_measure(pixels, psf_sigma, lm_conf, compact_capacity="auto"):
+    """batched exponential-model LM fit of every lane; the psf is the
+    analytic round target gaussian, psf_sigma a scalar or [B] (round
+    sigma) or [B, 3] (irr, irc, icc).
+
+    Starting guesses come from a gaussian weighted-moments pass with
+    FWHM 1.2. The solve runs through run_lm_normal_batched with the
+    normal equations of K1 and, by default ("auto"), the geometric
+    compaction cascade; compact_capacity takes run_lm_normal_batched's values too.
+    The reference's other models, priors, bounds, caller guesses and
+    refinement are not ported yet (ROADMAP queue items 5 and 10).
+    """
+    lm.check_supported(lm_conf)
+    B = pixels.val.shape[0]
+    dtype, dev = pixels.val.dtype, pixels.val.device
+    psf_sigma = torch.as_tensor(psf_sigma, dtype=dtype, device=dev)
+    if psf_sigma.dim() == 0:
+        psf_sigma = psf_sigma.expand(B)
+    if psf_sigma.dim() == 2:
+        p_irr, p_irc, p_icc = psf_sigma.unbind(-1)
+    else:
+        p_irr = p_icc = psf_sigma**2
+        p_irc = torch.zeros_like(p_irr)
+    psf_gmix = torch.stack(
+        [torch.ones_like(p_irr), torch.zeros_like(p_irr),
+         torch.zeros_like(p_irr), p_irr, p_irc, p_icc], dim=-1,
+    )[:, None, :]
+
+    guess5, wsum = _moments_lm_guess(pixels, p_irr + p_icc)
+    guess = torch.cat([guess5, wsum[:, None]], dim=-1)
+    npars = _NSHAPE + 1
+    lo = torch.full((npars,), -torch.inf, dtype=dtype, device=dev)
+    hi = torch.full((npars,), torch.inf, dtype=dtype, device=dev)
+    if compact_capacity == "auto":
+        compact_capacity = _auto_cascade(B)
+    # per-stamp unmasked row count for the chi2/dof covariance scale
+    nres = torch.sum(pixels.ierr > 0, dim=-1)
+    out = lm.run_lm_normal_batched(
+        _normal_fn, (_lm_planes(pixels), psf_gmix), guess, lo, hi, lm_conf,
+        nres=nres, compact_capacity=compact_capacity,
+    )
+    _lm_result_columns(
+        out, _model_s2n_sums(out["pars"], out["flags"], psf_gmix, pixels)
+    )
+    return out
 
 
 # ----------------------------------------------------------------------

@@ -4,6 +4,10 @@ The port's own copy of the constants of ``ngmix_tpu/defaults.py`` that
 it uses: these numbers define the objective, so they match the JAX
 package exactly.
 """
+# parameter / covariance values reported when a fit fails
+PDEF = -9.999e9
+CDEF = 9.999e9
+
 # Gaussian evaluations are smoothly apodized to zero over
 # chi^2 in [APOD_CHI2, MAX_CHI2] so rendered models are C2 in the
 # parameters.

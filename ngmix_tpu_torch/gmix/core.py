@@ -3,7 +3,9 @@
 The main-path subset of ``ngmix_tpu/gmix/core.py``: columns are
 (p, row, col, irr, irc, icc), every function broadcasts over leading
 batch dims, and invalid gaussians evaluate to zero instead of raising.
-The weight of the moment sums goes through K2 (ops/gmix_eval.py).
+The batched [B, P] evaluations of the moment sums and of the s/n sums
+(``get_weighted_sums``, ``get_loglike``) go through K2
+(ops/gmix_eval.py).
 """
 import numpy as np
 import torch
@@ -27,11 +29,30 @@ def apod_window(chi2):
     return u * u * u * (10.0 + u * (-15.0 + 6.0 * u))
 
 
+def apod_window_deriv(chi2):
+    """d(apod_window)/d(chi2)"""
+    u = (FASTEXP_MAX_CHI2 - chi2) * _APOD_IWIDTH
+    umu = u * (1.0 - u)
+    return -30.0 * umu * umu * _APOD_IWIDTH
+
+
 def gmix_det(gmix):
     """determinants [..., n] of the per-gaussian covariances"""
     return (
         gmix[..., G_IRR] * gmix[..., G_ICC] - gmix[..., G_IRC] * gmix[..., G_IRC]
     )
+
+
+def gmix_flags(gmix):
+    """int32 flags [...]: LOW_DET where any component has det or T
+    below the floor. This is the rule of the fills' callers; the
+    evaluation (gmix_norms) and the reparametrization of the normal
+    equations (ops.normal_eqs.gmix_reparam) each have their own."""
+    det = gmix_det(gmix)
+    T = gmix[..., G_IRR] + gmix[..., G_ICC]
+    bad = (det < GMIX_LOW_DETVAL) | (T <= GMIX_LOW_DETVAL)
+    zero = torch.zeros(bad.shape[:-1], dtype=torch.int32, device=gmix.device)
+    return torch.where(torch.any(bad, dim=-1), _flags.LOW_DET, zero)
 
 
 def gmix_norms(gmix):
@@ -79,6 +100,52 @@ def eval_gmix(gmix, v, u, area=1.0, fast=True):
     else:
         vals = torch.exp(-0.5 * chi2)
     return torch.sum(pnorm[..., None] * vals, dim=-2) * area
+
+
+def _eval_batched(gmix, pixels, fast):
+    """K2 over every lane of a pixel struct: gmix [..., n, 6] (leading
+    dims broadcast to the pixels'), pixels fields [..., P] with area a
+    scalar or [..., P]; returns the model [..., P] times the area"""
+    lead, P = pixels.v.shape[:-1], pixels.v.shape[-1]
+    nb = int(np.prod(lead, dtype=np.int64))
+    area = pixels.area
+    if isinstance(area, torch.Tensor) and area.dim() > 0:
+        area = torch.broadcast_to(area, pixels.v.shape).reshape(nb, P).contiguous()
+    return gmix_eval.eval_gmix(
+        torch.broadcast_to(gmix, lead + gmix.shape[-2:]).reshape(nb, -1, 6).contiguous(),
+        pixels.v.reshape(nb, P).contiguous(),
+        pixels.u.reshape(nb, P).contiguous(),
+        area,
+        fast=fast,
+    ).reshape(pixels.v.shape)
+
+
+def get_loglike(gmix, pixels):
+    """log likelihood and s/n sums over a pixel struct: (loglike,
+    s2n_numer, s2n_denom, npix), each [...]. Masked pixels carry
+    ierr = 0 and contribute zero.
+
+    The model is the apodized objective (fast=True) through K2. The
+    JAX function evaluates it with the plain broadcasting eval_gmix;
+    routing the batched [B, P] evaluation through the kernel is this
+    port's choice.
+    """
+    model = _eval_batched(gmix, pixels, fast=True)
+    ivar = pixels.ierr * pixels.ierr
+    diff = model - pixels.val
+    loglike = -0.5 * torch.sum(diff * diff * ivar, dim=-1)
+    s2n_numer = torch.sum(pixels.val * model * ivar, dim=-1)
+    s2n_denom = torch.sum(model * model * ivar, dim=-1)
+    npix = torch.sum((pixels.ierr > 0).to(torch.int32), dim=-1, dtype=torch.int32)
+    return loglike, s2n_numer, s2n_denom, npix
+
+
+def fill_fdiff(gmix, pixels):
+    """scaled residuals (model - data) * ierr, [..., P]; masked pixels
+    give 0 rows. Broadcasting tensor code (differentiable with
+    torch.func); the LM's normal equations go through K1 instead."""
+    model = eval_gmix(gmix, pixels.v, pixels.u, pixels.area, fast=True)
+    return (model - pixels.val) * pixels.ierr
 
 
 # ----------------------------------------------------------------------
@@ -229,18 +296,7 @@ def get_weighted_sums(wt, pixels, maxrad, with_cov=True):
     mask = (rad2 < maxrad**2) & (pixels.ierr > 0.0)
     fmask = mask.to(pixels.v.dtype)
 
-    lead, P = pixels.v.shape[:-1], pixels.v.shape[-1]
-    nb = int(np.prod(lead, dtype=np.int64))
-    area = pixels.area
-    if isinstance(area, torch.Tensor) and area.dim() > 0:
-        area = torch.broadcast_to(area, pixels.v.shape).reshape(nb, P).contiguous()
-    weight = gmix_eval.eval_gmix(
-        torch.broadcast_to(wt, lead + wt.shape[-2:]).reshape(nb, -1, 6).contiguous(),
-        pixels.v.reshape(nb, P).contiguous(),
-        pixels.u.reshape(nb, P).contiguous(),
-        area,
-        fast=False,
-    ).reshape(pixels.v.shape) * fmask
+    weight = _eval_batched(wt, pixels, fast=False) * fmask
 
     ierr_safe = torch.where(mask, pixels.ierr, 1.0)
     var = 1.0 / (ierr_safe * ierr_safe)

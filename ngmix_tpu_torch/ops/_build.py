@@ -103,5 +103,10 @@ def load():
                 ctypes.c_int, p,
             ]
             fn.restype = ctypes.c_int
+        for name in ("ngmix_normal_eqs_f32", "ngmix_normal_eqs_f64"):
+            fn = getattr(lib, name)
+            # rp, chain, v, u, ia, ve, cost, jtr, jtj, B, n, P, stream
+            fn.argtypes = [p] * 9 + [i64, i64, i64, p]
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -1,14 +1,17 @@
-"""Where the main path's time goes on the card.
+"""Where a main path's time goes on the card.
 
-    python -m ngmix_tpu_torch.profile_main_path [B]
+    python -m ngmix_tpu_torch.profile_main_path [--measure {gaussmom,exp-lm}] [B]
 
-Runs the gaussmom metacal pipeline (bench.py's metacal_gaussmom
-configuration, float32) on the port's homogeneous sims at B stamps
-(default 10240): one warm-up call, then one call under torch.profiler.
-Prints the call's wall time, the device's busy share (the union of
-kernel intervals over the wall time), and the device time by kernel
-class and by kernel name. Needs a CUDA card.
+Runs the metacal pipeline with the given measure (default gaussmom) at
+its main-path configuration (bench.py's metacal_gaussmom configuration
+for gaussmom, its headline configuration for exp-lm; float32) on the
+port's homogeneous sims at B stamps (default 10240): one warm-up call,
+then one call under torch.profiler. Prints the call's wall time, the
+device's busy share (the union of kernel intervals over the wall time),
+and the device time by kernel class and by kernel name. Needs a CUDA
+card.
 """
+import argparse
 import sys
 import time
 from collections import defaultdict
@@ -17,11 +20,15 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import make_metacal_pipeline_fn, make_sim_batch
-from .sims import METACAL_GAUSSMOM_CONFIG as CONF
+from .fitting import lm
+from .sims import METACAL_EXP_LM_CONFIG, METACAL_GAUSSMOM_CONFIG
+
+CONFS = {"gaussmom": METACAL_GAUSSMOM_CONFIG, "exp-lm": METACAL_EXP_LM_CONFIG}
 
 # kernel-name fragments -> class, first match wins
 _CLASSES = (
     ("gmix_eval", "K2 gmix_eval"),
+    ("normal_eqs", "K1 normal_eqs"),
     ("fft", "FFT (cuFFT)"),
     ("gemm", "matrix products (cuBLAS)"),
     ("reduce", "reductions"),
@@ -53,11 +60,11 @@ def _busy_us(events):
     return busy
 
 
-def main(B=10240):
+def main(measure="gaussmom", B=10240):
     if not torch.cuda.is_available():
         print("profile_main_path: no CUDA device", file=sys.stderr)
         return 2
-    fn = make_metacal_pipeline_fn(CONF, measure="gaussmom")
+    fn = make_metacal_pipeline_fn(CONFS[measure], measure=measure)
     args = make_sim_batch(torch.Generator(device="cuda").manual_seed(314), B,
                           device="cuda")
     fn(*args)
@@ -83,12 +90,15 @@ def main(B=10240):
         by_name[e.name][1] += 1
 
     print(torch.cuda.get_device_name(0))
-    print("B=%d wall %.3f ms, kernel time %.3f ms, device busy %.1f%% "
+    print("measure=%s B=%d wall %.3f ms, kernel time %.3f ms, device busy %.1f%% "
           "(idle %.1f%%), %d kernels"
-          % (B, wall_us / 1e3, total / 1e3, 100 * _busy_us(kernels) / wall_us,
+          % (measure, B, wall_us / 1e3, total / 1e3, 100 * _busy_us(kernels) / wall_us,
              100 - 100 * _busy_us(kernels) / wall_us, len(kernels)))
     for cls, t in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print("  %-26s %9.3f ms %5.1f%%" % (cls, t / 1e3, 100 * t / total))
+    if measure == "exp-lm":
+        print("LM iterations per compaction level (lanes, iterations): %s"
+              % (lm.last_levels,))
     print("top kernels:")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print("  %9.3f ms %4d x  %s" % (t / 1e3, n, name[:90]))
@@ -96,4 +106,8 @@ def main(B=10240):
 
 
 if __name__ == "__main__":
-    sys.exit(main(*(int(a) for a in sys.argv[1:])))
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--measure", choices=sorted(CONFS), default="gaussmom")
+    ap.add_argument("B", type=int, nargs="?", default=10240)
+    args = ap.parse_args()
+    sys.exit(main(args.measure, args.B))

@@ -25,8 +25,15 @@ NOISE = 1.0e-4
 JAC = (SCALE, 0.0, 0.0, SCALE)
 
 # bench.py's metacal_gaussmom configuration, the main path on the card
+# of measure="gaussmom"
 METACAL_GAUSSMOM_CONFIG = MetacalConfig(
     dims=DIMS, psf_dims=PSF_DIMS, jac=JAC, fixnoise=True, pad_factor=2,
+    fit_dims=(19, 19),
+)
+# bench.py's headline configuration (the FFT grid is N = 64), the main
+# path on the card of measure="exp-lm"
+METACAL_EXP_LM_CONFIG = MetacalConfig(
+    dims=DIMS, psf_dims=PSF_DIMS, jac=JAC, fixnoise=True, pad_factor=1.3,
     fit_dims=(19, 19),
 )
 

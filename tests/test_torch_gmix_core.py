@@ -104,3 +104,37 @@ def test_shape_and_moment_algebra_match():
     ):
         _close(a, b)
     assert tmoments.fwhm_to_T(1.2) == float(jmoments.fwhm_to_T(1.2))
+
+
+def test_lm_objective_pieces_match():
+    """gmix_flags, apod_window_deriv, fill_fdiff and get_loglike (whose
+    model goes through K2's plain version here) against the JAX
+    package, with invalid components and masked pixels"""
+    from ngmix_tpu.pixels import Pixels as JPixels
+    from ngmix_tpu_torch.pixels import Pixels
+
+    rng = np.random.RandomState(9)
+    gm, _ = jcore.fill_exp(jnp.asarray(_pars(rng, 4)))
+    gm = np.array(gm)
+    gm[1, 2, 3:] = (0.2, 0.3, 0.2)  # det < 0
+    gm[2, 0, 3:] = 0.0  # det = 0, T = 0
+    np.testing.assert_array_equal(
+        tcore.gmix_flags(torch.as_tensor(gm)).numpy(), np.asarray(jcore.gmix_flags(gm))
+    )
+    chi2 = rng.uniform(0.0, 30.0, 200)
+    _close(tcore.apod_window_deriv(torch.as_tensor(chi2)), jcore.apod_window_deriv(chi2))
+
+    P = 300
+    fields = [rng.uniform(-3, 3, (4, P)), rng.uniform(-3, 3, (4, P)),
+              rng.uniform(0.05, 0.08, (4, P)), rng.normal(0.0, 1.0, (4, P)),
+              rng.uniform(0.5, 2.0, (4, P))]
+    fields[4][0, :50] = 0.0  # masked pixels
+    jpix = JPixels(*map(jnp.asarray, fields))
+    tpix = Pixels(*map(torch.as_tensor, fields))
+    tgm = torch.as_tensor(gm)
+    _close(tcore.fill_fdiff(tgm, tpix), jcore.fill_fdiff(jnp.asarray(gm), jpix))
+    out = tcore.get_loglike(tgm, tpix)
+    ref = jcore.get_loglike(jnp.asarray(gm), jpix)
+    for a, b in zip(out[:3], ref[:3]):
+        _close(a, b)
+    np.testing.assert_array_equal(out[3].numpy(), np.asarray(ref[3]))

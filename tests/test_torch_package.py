@@ -1,5 +1,6 @@
 """Rules of the PyTorch port's package: no JAX inside it or in
-chip_smoke.py, the kernel build command, the ignored build directory,
+chip_smoke.py (every module of the package is scanned), the kernel
+build command, the ignored build directory,
 and constants and tables equal to the JAX package's."""
 import ast
 from pathlib import Path
@@ -47,7 +48,8 @@ def test_nvcc_command_targets_hopper_and_csrc_only():
     assert "-shared" in cmd and "-O3" in cmd
     assert not any("fast_math" in c or "fast-math" in c for c in cmd)
     srcs = [Path(c) for c in cmd if c.endswith((".cu", ".cuh", ".cpp"))]
-    assert srcs, cmd
+    # both kernels, K1 and K2, in the one call
+    assert {s.name for s in srcs} >= {"gmix_eval.cu", "normal_eqs.cu"}, cmd
     for s in srcs:
         assert s.resolve().parent == PKG / "csrc", s
     # no PyTorch headers in the kernel sources
@@ -62,7 +64,7 @@ def test_library_lands_in_ignored_build_dir():
 
 
 def test_constants_match_jax_package():
-    for name in ("FASTEXP_MAX_CHI2", "FASTEXP_APOD_CHI2", "GMIX_LOW_DETVAL"):
+    for name in ("FASTEXP_MAX_CHI2", "FASTEXP_APOD_CHI2", "GMIX_LOW_DETVAL", "PDEF", "CDEF"):
         assert getattr(defaults, name) == getattr(jdefaults, name), name
     for name, val in vars(jflags).items():
         if name.isupper() and isinstance(val, int):

@@ -1,14 +1,19 @@
-"""The gaussmom metacal pipeline of the PyTorch port against the JAX
-package, per lane and per type, in float64 at B = 8 on inputs made once
-with numpy from a seed.
+"""The gaussmom and exp-LM metacal pipelines of the PyTorch port against
+the JAX package, per lane and per type, in float64 at B = 8 on inputs
+made once with numpy from a seed.
 
-Tolerance: flags equal; pars, s2n and shear_response's R and shear to
-rtol 1e-8 and atol 1e-10, as tests/test_batch_pipeline.py holds two
-implementations of one objective against each other. The port's sims
+Tolerance: flags equal (and nfev for exp-LM); pars, s2n and
+shear_response's R and shear to rtol 1e-8 and atol 1e-10, as
+tests/test_batch_pipeline.py holds two implementations of one objective
+against each other. The exp-LM reference is the JAX package's K1 route:
+the test patches ngmix_tpu.batch._exp_lm_measure, for the duration of
+the fixture only, to use_pallas=True with the TPU kernel in interpret
+mode (its default computes the same normal equations by AD). The port's sims
 are held against bench.py's on the same draws to rtol 1e-12 in float64,
 the tolerance tests/test_misc_components.py holds the Pallas mixture
 kernel to.
 """
+import functools
 import importlib.util
 from pathlib import Path
 
@@ -93,6 +98,64 @@ def runs(request, inputs):
     return jconf, jax.tree.map(np.asarray, jres), convert.to_numpy(tres)
 
 
+EXP_LM_CONF = dict(jac=(SCALE, 0.0, 0.0, SCALE), fixnoise=True, pad_factor=1.3,
+                   fit_dims=(19, 19))
+
+
+@pytest.fixture(scope="module")
+def exp_lm_runs(inputs):
+    """(JAX results through its K1 route, port results) of bench.py's
+    headline exp-LM configuration, computed once per module"""
+    jconf = jbatch.MetacalConfig(dims=DIMS, psf_dims=PSF_DIMS, **EXP_LM_CONF)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jbatch, "_exp_lm_measure", functools.partial(
+            jbatch._exp_lm_measure, use_pallas=True, interpret=True))
+        jres = jbatch.make_metacal_pipeline_fn(jconf, measure="exp-lm")(
+            *map(jnp.asarray, inputs)
+        )
+    conf = convert.config_from_fields(jconf)
+    tres = nt.make_metacal_pipeline_fn(conf, measure="exp-lm", device="cpu")(*inputs)
+    return jax.tree.map(np.asarray, jres), convert.to_numpy(tres)
+
+
+def test_exp_lm_pipeline_matches_jax_per_lane(exp_lm_runs):
+    jres, tres = exp_lm_runs
+    assert set(tres) == set(jres)
+    for t in jbatch.GALSHEAR_TYPES:
+        assert set(tres[t]) == set(jres[t])
+        for k in ("flags", "nfev"):
+            np.testing.assert_array_equal(tres[t][k], jres[t][k], err_msg=(t, k))
+        for k in ("pars", "s2n"):
+            np.testing.assert_allclose(
+                tres[t][k], jres[t][k], rtol=1e-8, atol=1e-10, err_msg=(t, k)
+            )
+        np.testing.assert_array_equal(tres[t]["e1"], tres[t]["pars"][:, 2])
+        assert np.all(tres[t]["flags"] == 0)
+    jsr = jbatch.shear_response(jax.tree.map(jnp.asarray, jres))
+    tsr = convert.to_numpy(tbatch.shear_response(
+        {t: {k: torch.as_tensor(v) for k, v in r.items()}
+         for t, r in tres.items() if isinstance(r, dict)}
+    ))
+    for k in ("R", "shear"):
+        np.testing.assert_allclose(tsr[k], np.asarray(jsr[k]), rtol=1e-8, atol=1e-10)
+
+
+def test_exp_lm_config_is_the_main_path_config():
+    conf = nt.MetacalConfig(dims=DIMS, psf_dims=PSF_DIMS, **EXP_LM_CONF)
+    assert sims.METACAL_EXP_LM_CONFIG == conf
+
+
+def test_lm_conf_from_jax_fields():
+    from ngmix_tpu.fitting.lm import LMConf as JLMConf
+
+    jconf = JLMConf(maxfev=77, ftol=1e-6)
+    conf = convert.lm_conf_from_fields(jconf)
+    assert tuple(conf) == tuple(jconf) and conf._fields == jconf._fields
+    assert convert.lm_conf_from_fields(jconf._asdict()) == conf
+    with pytest.raises(ValueError):
+        convert.lm_conf_from_fields({**jconf._asdict(), "bogus": 1})
+
+
 def test_config_from_jax_fields():
     jconf = jbatch.MetacalConfig(dims=DIMS, psf_dims=PSF_DIMS, **CONFS["bench"])
     conf = convert.config_from_fields(jconf._asdict())
@@ -150,8 +213,17 @@ def test_chunked_matches_single_batch(inputs):
 
 def test_unported_options_raise(inputs):
     conf = nt.MetacalConfig(dims=DIMS, psf_dims=PSF_DIMS, **CONFS["bench"])
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        nt.metacal_pipeline(*inputs, conf, measure="exp-lm", device="cpu")
+    for measure, item in (("admom", 6), ("pgauss", 8), ("gauss-lm", 5), ("bdf-lm", 5)):
+        with pytest.raises(NotImplementedError, match="queue item %d" % item):
+            nt.metacal_pipeline(*inputs, conf, measure=measure, device="cpu")
+    for kw, item in ((dict(lm_prior=object()), 5), (dict(lm_bounds=([0] * 6, [1] * 6)), 5),
+                     (dict(lm_conf=nt.LMConf(varpro=True)), 10),
+                     (dict(lm_conf=nt.LMConf(flux_col=True)), 10)):
+        with pytest.raises(NotImplementedError, match="queue item %d" % item):
+            nt.make_metacal_pipeline_fn(conf, measure="exp-lm", device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="queue item 10"):
+        nt.metacal_pipeline(*inputs, conf._replace(sheared_refine=2),
+                            measure="exp-lm", device="cpu")
     with pytest.raises(NotImplementedError):
         nt.metacal_pipeline(*inputs, conf._replace(psf_mode="dilate"), device="cpu")
     with pytest.raises(NotImplementedError):
