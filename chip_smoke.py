@@ -157,16 +157,18 @@ def compare(out, ref, what):
     """hold K2's output against its plain version's: rtol 1e-12 in
     float64; in float32 rtol 1e-5 with an atol of 1e-6 times the lane's
     max |model|. Returns the largest absolute and relative errors."""
-    err = (out - ref).abs()
+    err = (out.double() - ref.double()).abs()
     if out.dtype == torch.float64:
-        bad = err > 1e-12 * ref.abs()
+        thr = 1e-12 * ref.abs()
     else:
         lane_max = ref.abs().amax(dim=-1, keepdim=True)
-        bad = err > 1e-5 * ref.abs() + 1e-6 * lane_max
-    if bool(bad.any()) or not bool(torch.isfinite(out).all()):
-        raise SmokeFailure("K2 disagrees with its plain version: %s, max err %.3e"
-                           % (what, float(err.max())))
-    return float(err.max()), float((err / ref.abs().clamp_min(torch.finfo(ref.dtype).tiny)).max())
+        thr = 1e-5 * ref.abs().double() + 1e-6 * lane_max.double()
+    # a NaN error or threshold fails too
+    if not bool(torch.isfinite(ref).all()) or not bool((err <= thr).all()):
+        raise SmokeFailure("K2 disagrees with its plain version or is not finite: "
+                           "%s, max err %.3e" % (what, float(err.max())))
+    tiny = torch.finfo(ref.dtype).tiny
+    return float(err.max()), float((err / ref.abs().double().clamp_min(tiny)).max())
 
 
 def check_kernel(device):
@@ -369,7 +371,8 @@ def k1_scale(cost, JtJ):
     """the natural error scale of K1's signed sums, by Cauchy-Schwarz:
     sum_p |J_k ia fd| <= sqrt(JtJ_kk cost) for Jtr_k and sum_p
     |J_k J_m| ia^2 <= sqrt(JtJ_kk JtJ_mm) for JtJ_km"""
-    d = torch.diagonal(JtJ, dim1=-2, dim2=-1).clamp_min(0)
+    d = torch.diagonal(JtJ, dim1=-2, dim2=-1).clamp_min(0).double()
+    cost = cost.double()
     return torch.sqrt(d * cost[:, None]), torch.sqrt(d[:, :, None] * d[:, None, :])
 
 
@@ -379,27 +382,30 @@ def compare_k1(out, ref, what, tol32=(1e-5, 1e-5)):
     times the largest |value|. float32: cost to rtol tol32[0]; Jtr and
     JtJ to rtol tol32[0] with an atol of tol32[1] times their
     Cauchy-Schwarz scale (k1_scale), which bounds the sum of the
-    absolute terms that float32 rounds. Returns the largest absolute
-    error and the largest error relative to |value| plus its scale."""
+    absolute terms that float32 rounds. Errors, thresholds and scales
+    are taken in float64; a value, threshold or error that is not
+    finite fails. Returns the largest absolute error and the largest
+    error relative to |value| plus its scale."""
     max_abs, max_rel = 0.0, 0.0
-    scales = (torch.zeros_like(ref[0]),) + k1_scale(ref[0], ref[2])
+    scales = (torch.zeros_like(ref[0], dtype=torch.float64),) + k1_scale(ref[0], ref[2])
     for i, (a, b) in enumerate(zip(out, ref)):
-        err = (a - b).abs()
+        a64, b64 = a.double(), b.double()
+        err = (a64 - b64).abs()
         if a.dtype == torch.float64:
-            bad = err > (1e-10 * b.abs() if i == 0 else 1e-8 * b.abs() + 1e-8 * b.abs().max())
+            thr = 1e-10 * b64.abs() if i == 0 else 1e-8 * b64.abs() + 1e-8 * b64.abs().max()
         elif i == 0:
-            bad = err > tol32[0] * b.abs()
+            thr = tol32[0] * b64.abs()
         else:
-            bad = err > tol32[0] * b.abs() + tol32[1] * scales[i]
-        if bool(bad.any()) or not bool(torch.isfinite(a).all()):
-            lane = int(bad.reshape(bad.shape[0], -1).any(-1).nonzero()[0, 0]) \
-                if bool(bad.any()) else -1
+            thr = tol32[0] * b64.abs() + tol32[1] * scales[i]
+        bad = ~(torch.isfinite(thr) & (err <= thr))
+        if bool(bad.any()):
+            lane = int(bad.reshape(bad.shape[0], -1).any(-1).nonzero()[0, 0])
             raise SmokeFailure(
-                "K1 disagrees with its plain version: %s, output %d, max err %.3e; "
-                "first bad lane %d: kernel %s plain %s" % (
+                "K1 disagrees with its plain version or is not finite: %s, output %d, "
+                "max err %.3e; first bad lane %d: kernel %s plain %s" % (
                     what, i, float(err.max()), lane, a[lane].tolist(), b[lane].tolist()))
         max_abs = max(max_abs, float(err.max()))
-        denom = (b.abs() + scales[i]).clamp_min(torch.finfo(b.dtype).tiny)
+        denom = (b64.abs() + scales[i]).clamp_min(torch.finfo(b.dtype).tiny)
         max_rel = max(max_rel, float((err / denom).max()))
     return max_abs, max_rel
 
@@ -425,15 +431,23 @@ def check_k1(device):
 
 def run_exp_lm(device, B):
     """the exp-LM main path: sims -> pipeline -> shear_response,
-    homogeneous and heterogeneous, float32; and the guess of every lane
-    (a run with maxfev = 1, which takes no step) for the frozen
-    fraction"""
+    homogeneous and heterogeneous, float32, with the kernels' launch
+    counts of those two calls; then three timed calls and the guess of
+    every lane (a run with maxfev = 1, which takes no step) for the
+    frozen fraction"""
     fn = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device=device)
     hom = nt.make_sim_batch(torch.Generator(device=device).manual_seed(314), B,
                             torch.float32, device=device)
+    het = nt.make_sim_batch_hetero(torch.Generator(device=device).manual_seed(271),
+                                   B, torch.float32, device=device)
+    _sync(device)
+    normal_eqs.launches = gmix_eval.launches = 0
     res = fn(*hom)
-    levels = list(tlm.last_levels)
+    het_res = fn(*het)
+    _sync(device)
+    launches = dict(k1=normal_eqs.launches, k2=gmix_eval.launches)
     sr = nt.shear_response(res)
+    het_sr = nt.shear_response(het_res)
     times = []
     for _ in range(3):
         _sync(device)
@@ -442,10 +456,6 @@ def run_exp_lm(device, B):
         _sync(device)
         times.append(time.perf_counter() - t0)
     dt = sorted(times)[1]
-    het = nt.make_sim_batch_hetero(torch.Generator(device=device).manual_seed(271),
-                                   B, torch.float32, device=device)
-    het_res = fn(*het)
-    het_sr = nt.shear_response(het_res)
     guess = nt.make_metacal_pipeline_fn(
         LM_CONF, measure="exp-lm", lm_conf=nt.LMConf(maxfev=1), device=device
     )(*hom)
@@ -463,6 +473,8 @@ def run_exp_lm(device, B):
                 raise SmokeFailure("non-finite pars for type %s" % t)
     flags = torch.cat([res[t]["flags"] for t in types])
     nfev = torch.cat([res[t]["nfev"] for t in types])
+    het_nfev = torch.cat([het_res[t]["nfev"] for t in types])
+    cascade = nt.batch._auto_cascade(nfev.numel())
     frozen = (
         (flags == 0) & (nfev <= 2)
         & torch.all(torch.cat([res[t]["pars"] == guess[t]["pars"] for t in types]), dim=-1)
@@ -472,7 +484,9 @@ def run_exp_lm(device, B):
         flagged=int((res["noshear"]["flags"] != 0).sum()),
         het_flagged=int((het_res["noshear"]["flags"] != 0).sum()),
         nfev_p50=float(torch.quantile(nfev.double(), 0.5)), nfev_max=int(nfev.max()),
-        levels=levels, frozen=float(frozen.double().mean()),
+        levels=tlm.compaction_levels(nfev, cascade),
+        het_levels=tlm.compaction_levels(het_nfev, cascade), launches=launches,
+        frozen=float(frozen.double().mean()),
         stamps_per_s=B / dt, sec=dt, sec_range=(min(times), max(times)),
     ), hom
 
@@ -509,14 +523,15 @@ def check_compaction(hom, device):
     args = [a[:B_COMPACT] for a in hom]
     fn = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device=device)
     cascade = fn(*args)
-    levels = list(tlm.last_levels)
     with mock.patch.object(nt.batch, "_auto_cascade", lambda B: ()):
         flat = fn(*args)
     for t in nt.batch.GALSHEAR_TYPES:
         for k in ("pars", "flags", "nfev", "ier", "cost"):
             if not torch.equal(cascade[t][k], flat[t][k]):
                 raise SmokeFailure("compaction changed %s/%s" % (t, k))
-    return levels, list(tlm.last_levels)
+    nfev = torch.cat([cascade[t]["nfev"] for t in nt.batch.GALSHEAR_TYPES])
+    return (tlm.compaction_levels(nfev, nt.batch._auto_cascade(nfev.numel())),
+            tlm.compaction_levels(nfev, None))
 
 
 def capture_k_inputs(hom, device):
@@ -662,20 +677,19 @@ def main():
                % (k1_ncase, k1_abs, k1_worst[torch.float32], k1_worst[torch.float64]))
 
     t0 = time.perf_counter()
-    gmix_eval.launches = 0
-    normal_eqs.launches = 0
     lp, hom = run_exp_lm(device, B_MAIN)
-    k1_launches, k2_lm_launches = normal_eqs.launches, gmix_eval.launches
+    k1_launches, k2_lm_launches = lp["launches"]["k1"], lp["launches"]["k2"]
     phase_line(
         "8 exp-lm", t0,
         "B=%d m=%.3e hetero_m=%.3e R11=%.4f flagged=%d hetero_flagged=%d "
-        "nfev p50=%g max=%d frozen=%.4f k1_launches=%d k2_launches=%d "
+        "nfev p50=%g max=%d frozen=%.4f launches of the hom and het calls: k1=%d k2=%d "
         "stamps/s=%.1f (median %.4f s/call of 3, range %.4f-%.4f)"
         % (B_MAIN, lp["m"], lp["het_m"], lp["R11"], lp["flagged"], lp["het_flagged"],
            lp["nfev_p50"], lp["nfev_max"], lp["frozen"], k1_launches, k2_lm_launches,
            lp["stamps_per_s"], lp["sec"], *lp["sec_range"]),
     )
-    print("    LM iterations per level (lanes, iterations): %s" % lp["levels"], flush=True)
+    print("    LM iterations per level (lanes, iterations): hom %s het %s"
+          % (lp["levels"], lp["het_levels"]), flush=True)
     if k1_launches <= 0 or k2_lm_launches <= 0:
         raise SmokeFailure("the exp-LM path did not launch K1 and K2: %d, %d"
                            % (k1_launches, k2_lm_launches))
@@ -736,7 +750,7 @@ def main():
         "bound_by": k1_row["bound_by"],
         "library_ms": None,
         "shapes": [k1_row],
-    }]}), flush=True)
+    }]}, allow_nan=False), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)

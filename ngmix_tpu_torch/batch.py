@@ -477,11 +477,8 @@ def _exp_normal_fn(pars, planes, psf_gmix):
         torch.func.jacfwd(_reparam_of, has_aux=True)
     )(pars, psf_gmix)
     bad = (gflags != 0) | (gcore.gmix_flags(gm) != 0)
-    # forward-mode AD promotes the tangent of a python scalar divided by
-    # a 0-d float32 tensor to float64 (the fill's 2 / (1 + |g|^2)), so
-    # the chain comes back in float64 from float32 pars
     cost, Jtr, JtJ = normal_eqs.gmix_normal_eqs(
-        rp.contiguous(), chain.to(rp.dtype).contiguous(), v, u, ia, ve
+        rp.contiguous(), chain.contiguous(), v, u, ia, ve
     )
     eye = torch.eye(pars.shape[-1], dtype=cost.dtype, device=cost.device)
     cost = torch.where(bad, 1.0e30, cost)

@@ -34,12 +34,6 @@ from ..flags import (
 )
 from ..ops.small_linalg import chol_inverse, chol_is_spd, chol_solve
 
-# (lanes, iterations) of each compaction level of the last call of
-# run_lm_normal_batched, widest first: a diagnostic, like the kernels'
-# launch counters
-last_levels = []
-
-
 class LMConf(NamedTuple):
     """static LM configuration"""
 
@@ -298,6 +292,34 @@ def _capacities(compact_capacity, B):
     return sorted({int(k) for k in caps if 0 < int(k) < B}, reverse=True)
 
 
+def compaction_levels(nfev, compact_capacity):
+    """(lanes, iterations) of each compaction level that
+    run_lm_normal_batched ran, widest first, worked out from the nfev
+    [B] it returned and the compact_capacity it was given: an active
+    lane gains one nfev per iteration, so after t iterations the lanes
+    with nfev > t + 1 are the active ones"""
+    steps = torch.sort((nfev.reshape(-1) - 1).cpu()).values
+    B = steps.numel()
+
+    def n_act(t):
+        return B - int(torch.searchsorted(steps, t, right=True))
+
+    levels, width, t = [], B, 0
+    for K in _capacities(compact_capacity, B):
+        if n_act(t) == 0:
+            break
+        t0 = t
+        while n_act(t) > K:
+            t += 1
+        levels.append((width, t - t0))
+        width = K
+    t0 = t
+    while n_act(t) > 0:
+        t += 1
+    levels.append((width, t - t0))
+    return levels
+
+
 def run_lm_normal_batched(normal_fn, data, guess, lo, hi, conf: LMConf,
                           nres, compact_capacity=None):
     """Batched LM driven by normal-equation reductions.
@@ -319,7 +341,6 @@ def run_lm_normal_batched(normal_fn, data, guess, lo, hi, conf: LMConf,
     and k-space residuals (k_space) are not ported yet (ROADMAP queue
     items 5, 9 and 13).
     """
-    global last_levels
     B, npars = guess.shape
     dtype, dev = guess.dtype, guess.device
     lo = torch.as_tensor(lo, dtype=dtype, device=dev)
@@ -347,19 +368,15 @@ def run_lm_normal_batched(normal_fn, data, guess, lo, hi, conf: LMConf,
         "pinned": torch.zeros((B, npars), dtype=torch.bool, device=dev),
     }
 
-    levels = []
     outer = []  # (state before the gather, gathered lane index) per level
     cur_state, cur_data = state, data
     n_act = _count_active(cur_state, conf)
     for K in _capacities(compact_capacity, B):
         if n_act == 0:
             break
-        width, iters = cur_state["y"].shape[0], 0
         while n_act > K:
             cur_state = _lm_step(cur_state, cur_data, eval_normal, lo, hi, conf)
             n_act = _count_active(cur_state, conf)
-            iters += 1
-        levels.append((width, iters))
         # stable partition, active lanes first in their original order;
         # the inactive rows that fill the level are frozen by the
         # active mask
@@ -369,19 +386,15 @@ def run_lm_normal_batched(normal_fn, data, guess, lo, hi, conf: LMConf,
         cur_data = _take(cur_data, idx)
         cur_state = _take(cur_state, idx)
 
-    width, iters = cur_state["y"].shape[0], 0
     while n_act > 0:
         cur_state = _lm_step(cur_state, cur_data, eval_normal, lo, hi, conf)
         n_act = _count_active(cur_state, conf)
-        iters += 1
-    levels.append((width, iters))
     # scatter each level's results back; lanes left behind at a gather
     # were inactive there, so their frozen values are final
     for prev_state, idx in reversed(outer):
         cur_state = {
             k: prev_state[k].index_copy(0, idx, v) for k, v in cur_state.items()
         }
-    last_levels = levels
     return _normal_epilogue(cur_state, lo, hi, conf, nres)
 
 

@@ -198,14 +198,15 @@ def gmix_get_sheared(gmix, s1, s2):
 # model fills: pars [..., 6] -> (gmix [..., ngauss, 6], flags [...])
 
 def _fill_from_pf(row, col, e1, e2, T, flux, pvals, fvals):
-    """assemble a co-centered, co-elliptical expansion [..., n, 6]"""
-    T_i_2 = 0.5 * T[..., None] * fvals
-    p = flux[..., None] * pvals
-    row = torch.broadcast_to(row[..., None], p.shape)
-    col = torch.broadcast_to(col[..., None], p.shape)
-    irr = T_i_2 * (1 - e1[..., None])
-    irc = T_i_2 * e2[..., None]
-    icc = T_i_2 * (1 + e1[..., None])
+    """assemble a co-centered, co-elliptical expansion [..., n, 6] from
+    per-model values [..., 1]"""
+    T_i_2 = 0.5 * T * fvals
+    p = flux * pvals
+    row = torch.broadcast_to(row, p.shape)
+    col = torch.broadcast_to(col, p.shape)
+    irr = T_i_2 * (1 - e1)
+    irc = T_i_2 * e2
+    icc = T_i_2 * (1 + e1)
     return torch.stack([p, row, col, irr, irc, icc], dim=-1)
 
 
@@ -219,10 +220,13 @@ def _g_flags(g1, g2):
 
 def fill_simple(pars, pvals, fvals):
     """6-parameter [cen1, cen2, g1, g2, T, flux] fill over fixed tables"""
-    row, col, g1, g2, T, flux = pars.unbind(-1)
+    # the per-model values keep a trailing axis of 1: under torch.func a
+    # python scalar met by a 0-d tensor (as g1g2_to_e1e2's constants
+    # meet each lane's g under vmap) promotes the tangent to float64
+    row, col, g1, g2, T, flux = pars.split(1, dim=-1)
     e1, e2 = g1g2_to_e1e2(g1, g2)
     gm = _fill_from_pf(row, col, e1, e2, T, flux, pvals, fvals)
-    return gm, _g_flags(g1, g2)
+    return gm, _g_flags(g1[..., 0], g2[..., 0])
 
 
 def _table(vals, like):

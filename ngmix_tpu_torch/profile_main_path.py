@@ -20,6 +20,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import make_metacal_pipeline_fn, make_sim_batch
+from .batch import GALSHEAR_TYPES, _auto_cascade
 from .fitting import lm
 from .sims import METACAL_EXP_LM_CONFIG, METACAL_GAUSSMOM_CONFIG
 
@@ -67,7 +68,7 @@ def main(measure="gaussmom", B=10240):
     fn = make_metacal_pipeline_fn(CONFS[measure], measure=measure)
     args = make_sim_batch(torch.Generator(device="cuda").manual_seed(314), B,
                           device="cuda")
-    fn(*args)
+    warm = fn(*args)
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -97,8 +98,9 @@ def main(measure="gaussmom", B=10240):
     for cls, t in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print("  %-26s %9.3f ms %5.1f%%" % (cls, t / 1e3, 100 * t / total))
     if measure == "exp-lm":
+        nfev = torch.cat([warm[t]["nfev"] for t in GALSHEAR_TYPES])
         print("LM iterations per compaction level (lanes, iterations): %s"
-              % (lm.last_levels,))
+              % (lm.compaction_levels(nfev, _auto_cascade(nfev.numel())),))
     print("top kernels:")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print("  %9.3f ms %4d x  %s" % (t / 1e3, n, name[:90]))

@@ -20,6 +20,8 @@ Tolerances:
 - compaction: bitwise equal to the uncompacted run
   (tests/test_pallas_lm.py:126-144).
 """
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -178,6 +180,30 @@ def test_solver_matches_jax(case):
         assert np.sum(ref["flags"] == flags.MAXITER) >= NB // 2
     else:
         assert np.sum(ref["flags"] == 0) >= NB - 1
+
+
+@pytest.mark.parametrize("caps", [None, 3, (6, 3), (6, 5, 4, 3, 2)])
+def test_compaction_levels_match_solver_iterations(caps):
+    """compaction_levels, worked out from nfev alone, gives the
+    (lanes, iterations) of each level that the solver ran"""
+    M, d, guess = _toy_problem()
+    steps = []
+    step = tlm._lm_step
+
+    def counted(s, *a):
+        steps.append(s["y"].shape[0])
+        return step(s, *a)
+
+    with mock.patch.object(tlm, "_lm_step", counted):
+        out = tlm.run_lm_normal_batched(
+            _torch_normal, (torch.as_tensor(M), torch.as_tensor(d)),
+            torch.as_tensor(guess), torch.as_tensor(LO), torch.as_tensor(HI),
+            tlm.LMConf(), nres=NR, compact_capacity=caps,
+        )
+    levels = tlm.compaction_levels(out["nfev"], caps)
+    ran = [(w, steps.count(w)) for w in dict.fromkeys(steps)]
+    assert [lv for lv in levels if lv[1] > 0] == ran
+    assert levels[0][0] == NB and sum(n for _, n in levels) == int(out["nfev"].max()) - 1
 
 
 # ----------------------------------------------------------------------

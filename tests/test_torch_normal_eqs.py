@@ -224,6 +224,23 @@ def test_exp_normal_fn_bad_pars_sentinel():
     assert torch.isfinite(cost[1]) and float(cost[1]) < 1e29
 
 
+def test_exp_chain_keeps_float32():
+    """float32 pars give K1 a float32 chain (no float64 promotion in
+    the forward-mode jacobian), equal to the float64 chain to float32
+    rounding, and float32 reductions"""
+    _, tpix, sig, pars = _pixel_batch(nb=2)
+    psf = torch.as_tensor(_psf_gmix(2, sig))
+    jac = torch.func.vmap(torch.func.jacfwd(tbatch._reparam_of, has_aux=True))
+    chain64, _ = jac(torch.as_tensor(pars), psf)
+    chain32, (rp32, _, _) = jac(torch.as_tensor(pars).float(), psf.float())
+    assert chain32.dtype == rp32.dtype == torch.float32
+    torch.testing.assert_close(chain32.double(), chain64, rtol=1e-5,
+                               atol=1e-5 * float(chain64.abs().max()))
+    planes = tuple(x.float() for x in tbatch._lm_planes(tpix))
+    out = tbatch._exp_normal_fn(torch.as_tensor(pars).float(), planes, psf.float())
+    assert all(x.dtype == torch.float32 and bool(torch.isfinite(x).all()) for x in out)
+
+
 # ----------------------------------------------------------------------
 # the wrapper on a mocked card
 
