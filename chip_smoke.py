@@ -5,9 +5,12 @@
 Drives the port's two main paths on the card, bench.py's
 metacal_gaussmom workload and its exp-LM headline at the production
 chunk size, and holds the hand-written CUDA kernels K2 (mixture
-evaluation) and K1 (LM normal equations) against their plain PyTorch
-versions. Phases, in order, each printing one timed line as soon as it
-ends:
+evaluation), K1 (LM normal equations) and K3 (every lane's whole
+exp-LM solve) against their plain PyTorch versions. The exp-LM path
+runs through K3; its host-loop route (run_lm_normal_batched with K1,
+reached through _exp_lm_measure's host_loop argument) is driven for the
+phases that hold K1 and for the comparison. Phases, in order, each
+printing one timed line as soon as it ends:
 
 1. card:   the card's name and power limit (nvidia-smi);
 2. build:  nvcc builds K2 into build/ngmix_tpu_torch/ (first use);
@@ -37,32 +40,63 @@ ends:
            their Cauchy-Schwarz scale, sqrt(JtJ_kk cost) for Jtr_k and
            sqrt(JtJ_kk JtJ_mm) for JtJ_km, which bounds the sum of the
            absolute terms float32 rounds (the signed sums cancel);
-8. exp-lm: the exp-LM metacal pipeline in float32 on the homogeneous
-           and heterogeneous sims at B = 10240 (5 B = 51200 lanes),
-           gated like bench.py: |m| < 1e-3, |hetero m| < 1e-3, flagged
-           lanes <= max(8, 0.5% B), e1 equal to pars[:, 2] bit for
-           bit, and K1 and K2 launched; prints nfev, the LM iterations
-           per compaction level and the fraction of lanes frozen at
-           their guess (flags 0, nfev <= 2, pars equal to the guess);
-9. lm-cpu: the first 256 stamps in float64 on the card and on the CPU:
-           flags equal, e1/e2/T/flux to rtol 1e-5 and atol 1e-7, nfev
-           within 2 (tests/test_pallas_lm.py:107-123);
-10. compact: the exp-LM measure at B = 2048 (10240 lanes) with the
+8. exp-lm: the exp-LM metacal pipeline (through K3) in float32 on the
+           homogeneous and heterogeneous sims at B = 10240 (5 B = 51200
+           lanes), gated like bench.py: |m| < 1e-3, |hetero m| < 1e-3,
+           flagged lanes <= max(8, 0.5% B), e1 equal to pars[:, 2] bit
+           for bit, and K3 and K2 launched; prints the launches of K3,
+           K1 and K2 over those two calls, nfev and the fraction of
+           lanes frozen at their guess (flags 0, nfev <= 2, pars equal
+           to the guess);
+9. lm-cpu: the host-loop route on the first 256 stamps in float64 on
+           the card and on the CPU: flags equal, e1/e2/T/flux to rtol
+           1e-5 and atol 1e-7, nfev within 2
+           (tests/test_pallas_lm.py:107-123);
+10. compact: the host-loop route at B = 2048 (10240 lanes) with the
            automatic compaction cascade and without: pars, flags, nfev,
            ier and cost bitwise equal;
 11. k-times: K1 at its main-path shape (n = 6 over [5 B, 361], float32,
-           the inputs of the pipeline's first normal-equation call) and
-           K2 at the exp-LM path's new shape (n = 6, fast, over
+           the inputs of the host-loop route's first normal-equation
+           call) and K2 at the exp-LM path's shape (n = 6, fast, over
            [5 B, 361], the inputs of get_loglike's call), each held
            against its plain version (K1 in float32: cost to rtol 1e-3,
            Jtr and JtJ to rtol 1e-3 with an atol of 1e-4 times their
            Cauchy-Schwarz scale, since the residual f ia - ve cancels to
            the noise level at a peak signal-to-noise of ~1e3; K2 at
-           phase 3's tolerances) and timed beside its bound.
+           phase 3's tolerances) and timed beside its bound;
+12. k3:    K3 in float64 at B = 2048 (10240 lanes), per lane flags
+           equal, e1/e2/T/flux to rtol 1e-5 and atol 1e-7 and nfev
+           within 2: the pipeline's K3 and host-loop routes, K3 against
+           its plain version on the solve's own inputs, and a bounded
+           case (finite lo and hi, pinned dims) at 256 synthetic stamps
+           against run_lm_normal_batched with the same bounds;
+13. k3-times: K3 at its main-path shape (float32, the pipeline's own
+           solve inputs) against its plain version: flags equal on
+           every lane, and on every lane that both leave unflagged
+           e1/e2/T/flux within half the lane's statistical error
+           (pars_err): float32 LM runs stop within their ftol
+           tolerance of the optimum, and two of them agree to a
+           fraction of the error, not to a fixed rtol (e2 is ~0 on
+           these sims); phase 12 holds float64 to the reference
+           tolerances. The share of lanes outside rtol 1e-4 is printed.
+           Then K3 bitwise equal on a permuted and truncated batch,
+           timed beside its bound and its plain version; then the
+           exp-LM call by the K3 and the host-loop routes, 5 calls each
+           interleaved (median and range), with each route's device
+           operations a call and busy time from one profiled call, and
+           the device idle share of the unprofiled calls (1 - busy /
+           the span between CUDA events recorded at the call's start
+           and end). The host-loop route's first timed call and one
+           call on the het sims are gated like phase 8 (and K1's
+           launches over them printed), and the share of its float32
+           lanes whose e1/e2/T/flux differ from the K3 route's by more
+           than rtol 1e-4, with the largest difference in units of
+           pars_err, is printed.
 
 Needs one CUDA card and exits nonzero, printing the reason, on any
 failure or without a card. The last line is the JSON result.
 """
+import functools
 import json
 import subprocess
 import sys
@@ -75,10 +109,13 @@ import ngmix_tpu_torch as nt
 from ngmix_tpu_torch.fitting import lm as tlm
 from ngmix_tpu_torch.gmix import core as gcore
 from ngmix_tpu_torch.gaussmom import make_weight_gmix
-from ngmix_tpu_torch.ops import _build, gmix_eval, normal_eqs
+from ngmix_tpu_torch.ops import _build, gmix_eval, lm_solve, normal_eqs
+from ngmix_tpu_torch.profile_main_path import _busy_us
 
 B_MAIN = 10240
 B_COMPACT = 2048
+B_BOUNDED = 256
+N_TIMED = 5
 NTYPES = 5
 CONF = nt.sims.METACAL_GAUSSMOM_CONFIG
 LM_CONF = nt.sims.METACAL_EXP_LM_CONFIG
@@ -98,7 +135,15 @@ OPS_PER_PIXEL_GAUSS = 15
 # the 36-term chain product (92); per pair in the apodized band
 # (20, 25] the window and its derivative (14); per pixel the residual,
 # the weighted J and the 28 running sums (64)
-K1_OPS_PAIR, K1_OPS_INWIN, K1_OPS_HOT, K1_OPS_PIXEL = 11, 92, 14, 64
+K1_OPS = (11, 92, 14, 64)
+# K3's arithmetic per evaluation, counted from csrc/lm_solve.cu the same
+# way: per (pixel, gaussian) the offsets and chi2 (11); per pair inside
+# the window the exponential and its argument, the windowed value and f
+# (5), c (4), the five d value / d q (11) and the closed-form chain into
+# J (28); per pair in the apodized band the window and its derivative
+# (14); per pixel as K1 (64). The per-gaussian set-up, the shuffle tree
+# and the 6x6 step algebra, under 1% of an evaluation, are left out
+K3_OPS = (11, 48, 14, 64)
 
 
 class SmokeFailure(Exception):
@@ -429,41 +474,30 @@ def check_k1(device):
     return max_abs, ncase, worst
 
 
-def run_exp_lm(device, B):
-    """the exp-LM main path: sims -> pipeline -> shear_response,
-    homogeneous and heterogeneous, float32, with the kernels' launch
-    counts of those two calls; then three timed calls and the guess of
-    every lane (a run with maxfev = 1, which takes no step) for the
-    frozen fraction"""
-    fn = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device=device)
-    hom = nt.make_sim_batch(torch.Generator(device=device).manual_seed(314), B,
-                            torch.float32, device=device)
-    het = nt.make_sim_batch_hetero(torch.Generator(device=device).manual_seed(271),
-                                   B, torch.float32, device=device)
-    _sync(device)
-    normal_eqs.launches = gmix_eval.launches = 0
-    res = fn(*hom)
-    het_res = fn(*het)
-    _sync(device)
-    launches = dict(k1=normal_eqs.launches, k2=gmix_eval.launches)
-    sr = nt.shear_response(res)
-    het_sr = nt.shear_response(het_res)
-    times = []
-    for _ in range(3):
-        _sync(device)
-        t0 = time.perf_counter()
-        fn(*hom)
-        _sync(device)
-        times.append(time.perf_counter() - t0)
-    dt = sorted(times)[1]
-    guess = nt.make_metacal_pipeline_fn(
-        LM_CONF, measure="exp-lm", lm_conf=nt.LMConf(maxfev=1), device=device
-    )(*hom)
-    _sync(device)
+_EXP_LM_MEASURE = nt.batch._exp_lm_measure
 
-    types = nt.batch.GALSHEAR_TYPES
+
+def host_loop_route(**kw):
+    """the exp-LM pipeline's host-loop route (run_lm_normal_batched with
+    K1) in place of K3, for the phases that hold K1 and for the
+    comparison with K3"""
+    return mock.patch.object(nt.batch, "_exp_lm_measure", functools.partial(
+        _EXP_LM_MEASURE, host_loop=True, **kw))
+
+
+def reset_launches():
+    gmix_eval.launches = normal_eqs.launches = lm_solve.launches = 0
+
+
+def read_launches():
+    return dict(k3=lm_solve.launches, k1=normal_eqs.launches, k2=gmix_eval.launches)
+
+
+def exp_lm_gate(res, het_res, B):
+    """bench.py's gate values of a hom and a het exp-LM result, after
+    the shape, finiteness and e1 == pars[:, 2] checks"""
     for r in (res, het_res):
-        for t in types:
+        for t in nt.batch.GALSHEAR_TYPES:
             if not torch.equal(r[t]["e1"], r[t]["pars"][:, 2]):
                 raise SmokeFailure("e1 is not pars[:, 2] for type %s" % t)
             if tuple(r[t]["pars"].shape) != (B, 6):
@@ -471,33 +505,67 @@ def run_exp_lm(device, B):
             ok = r[t]["flags"] == 0
             if not bool(torch.isfinite(r[t]["pars"][ok]).all()):
                 raise SmokeFailure("non-finite pars for type %s" % t)
+    sr, het_sr = nt.shear_response(res), nt.shear_response(het_res)
+    return dict(m=m_of(sr), het_m=m_of(het_sr), R11=float(sr["R"][0, 0]),
+                flagged=int((res["noshear"]["flags"] != 0).sum()),
+                het_flagged=int((het_res["noshear"]["flags"] != 0).sum()))
+
+
+def check_gate(g, B, what):
+    limit = max(8, int(0.005 * B))
+    if not (abs(g["m"]) < 1e-3 and abs(g["het_m"]) < 1e-3):
+        raise SmokeFailure("%s m gate failed: m=%.3e hetero m=%.3e" % (what, g["m"], g["het_m"]))
+    if g["flagged"] > limit or g["het_flagged"] > limit:
+        raise SmokeFailure("too many flagged %s lanes: %d, %d > %d"
+                           % (what, g["flagged"], g["het_flagged"], limit))
+
+
+def run_exp_lm(device, B):
+    """the exp-LM main path (through K3): sims -> pipeline ->
+    shear_response, homogeneous and heterogeneous, float32, with the
+    kernels' launch counts of those two calls; then the guess of every
+    lane (a run with maxfev = 1, which takes no step) for the frozen
+    fraction"""
+    fn = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device=device)
+    hom = nt.make_sim_batch(torch.Generator(device=device).manual_seed(314), B,
+                            torch.float32, device=device)
+    het = nt.make_sim_batch_hetero(torch.Generator(device=device).manual_seed(271),
+                                   B, torch.float32, device=device)
+    _sync(device)
+    reset_launches()
+    res = fn(*hom)
+    het_res = fn(*het)
+    _sync(device)
+    launches = read_launches()
+    guess = nt.make_metacal_pipeline_fn(
+        LM_CONF, measure="exp-lm", lm_conf=nt.LMConf(maxfev=1), device=device
+    )(*hom)
+    _sync(device)
+
+    types = nt.batch.GALSHEAR_TYPES
+    gate = exp_lm_gate(res, het_res, B)
     flags = torch.cat([res[t]["flags"] for t in types])
-    nfev = torch.cat([res[t]["nfev"] for t in types])
-    het_nfev = torch.cat([het_res[t]["nfev"] for t in types])
-    cascade = nt.batch._auto_cascade(nfev.numel())
+    nfev = torch.cat([res[t]["nfev"] for t in types]).double()
+    het_nfev = torch.cat([het_res[t]["nfev"] for t in types]).double()
     frozen = (
         (flags == 0) & (nfev <= 2)
         & torch.all(torch.cat([res[t]["pars"] == guess[t]["pars"] for t in types]), dim=-1)
     )
     return dict(
-        m=m_of(sr), het_m=m_of(het_sr), R11=float(sr["R"][0, 0]),
-        flagged=int((res["noshear"]["flags"] != 0).sum()),
-        het_flagged=int((het_res["noshear"]["flags"] != 0).sum()),
-        nfev_p50=float(torch.quantile(nfev.double(), 0.5)), nfev_max=int(nfev.max()),
-        levels=tlm.compaction_levels(nfev, cascade),
-        het_levels=tlm.compaction_levels(het_nfev, cascade), launches=launches,
-        frozen=float(frozen.double().mean()),
-        stamps_per_s=B / dt, sec=dt, sec_range=(min(times), max(times)),
-    ), hom
+        gate, launches=launches, frozen=float(frozen.double().mean()),
+        nfev=[(float(x.mean()), float(torch.quantile(x, 0.5)), float(torch.quantile(x, 0.99)),
+               int(x.max())) for x in (nfev, het_nfev)],
+    ), hom, het, res
 
 
 def compare_lm_card_cpu(hom, n=256):
-    """per-lane float64 exp-LM run of the first n stamps on the card and
-    the CPU"""
+    """per-lane float64 exp-LM run of the first n stamps by the
+    host-loop route on the card and the CPU"""
     args = [a[:n].double() for a in hom]
-    card = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device="cuda")(*args)
-    cpu = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device="cpu")(
-        *(a.cpu() for a in args))
+    with host_loop_route():
+        card = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device="cuda")(*args)
+        cpu = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device="cpu")(
+            *(a.cpu() for a in args))
     worst, dnfev = 0.0, 0
     for t in nt.batch.GALSHEAR_TYPES:
         if not torch.equal(card[t]["flags"].cpu(), cpu[t]["flags"]):
@@ -517,13 +585,14 @@ def compare_lm_card_cpu(hom, n=256):
 
 
 def check_compaction(hom, device):
-    """the exp-LM pipeline at B_COMPACT stamps with the automatic
-    compaction cascade and with none (the cascade patched to no
-    levels): the per-lane results must be bitwise equal"""
+    """the exp-LM pipeline's host-loop route at B_COMPACT stamps with the
+    automatic compaction cascade and with none: the per-lane results
+    must be bitwise equal"""
     args = [a[:B_COMPACT] for a in hom]
     fn = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device=device)
-    cascade = fn(*args)
-    with mock.patch.object(nt.batch, "_auto_cascade", lambda B: ()):
+    with host_loop_route():
+        cascade = fn(*args)
+    with host_loop_route(compact_capacity=None):
         flat = fn(*args)
     for t in nt.batch.GALSHEAR_TYPES:
         for k in ("pars", "flags", "nfev", "ier", "cost"):
@@ -535,8 +604,9 @@ def check_compaction(hom, device):
 
 
 def capture_k_inputs(hom, device):
-    """the inputs of the exp-LM path's first K1 call and of its K2 call
-    with fast=True (get_loglike's s/n sums), from one pipeline call"""
+    """the inputs of the exp-LM host-loop route's first K1 call and of
+    its K2 call with fast=True (get_loglike's s/n sums), from one
+    pipeline call"""
     seen = {}
     k1, k2 = normal_eqs.gmix_normal_eqs, gmix_eval.eval_gmix
 
@@ -550,35 +620,49 @@ def capture_k_inputs(hom, device):
         return k2(gm, v, u, area, fast=fast)
 
     with mock.patch.object(normal_eqs, "gmix_normal_eqs", k1_spy), \
-            mock.patch.object(gmix_eval, "eval_gmix", k2_spy):
+            mock.patch.object(gmix_eval, "eval_gmix", k2_spy), host_loop_route():
         nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device=device)(*hom)
     return seen["k1"], seen["k2"]
 
 
-def k1_bound(rp, chain, v, u, ia, ve):
-    """least time (ms) for K1's work on these inputs: each input read
-    once and the outputs written once at the memory rate, or the
-    operations this data needs (pairs inside the window and in its
-    apodized band counted from chi2) at the float peak, whichever is
-    larger"""
+def pixel_ops(rp, v, u, counts):
+    """operations of one pixel pass on these inputs, per lane [B], with
+    counts = (per pair, per pair inside the window, per pair in its
+    apodized band, per pixel): the pairs inside the window and in the
+    band counted from chi2"""
+    ops_pair, ops_inwin, ops_hot, ops_pixel = counts
     Bn, n, _ = rp.shape
     P = v.shape[1]
-    esize = v.element_size()
-    nbytes = esize * (rp.numel() + chain.numel() + 4 * Bn * P + Bn * (1 + 6 + 36))
-    inwin = hot = 0
+    inwin, hot = [], []
     for i in range(0, Bn, 4096):
         q = rp[i:i + 4096, :, :, None]
         dv = v[i:i + 4096, None, :] - q[:, :, 1]
         du = u[i:i + 4096, None, :] - q[:, :, 2]
         chi2 = (q[:, :, 3] * dv + q[:, :, 4] * du) * dv + (q[:, :, 4] * dv + q[:, :, 5] * du) * du
         win = (chi2 >= 0) & (chi2 < 25.0)
-        inwin += int(win.sum())
-        hot += int((win & (chi2 > 20.0)).sum())
-    ops = (K1_OPS_PAIR * Bn * n * P + K1_OPS_INWIN * inwin + K1_OPS_HOT * hot
-           + K1_OPS_PIXEL * Bn * P)
+        inwin.append(win.sum(dim=(1, 2)))
+        hot.append((win & (chi2 > 20.0)).sum(dim=(1, 2)))
+    return (ops_pair * n * P + ops_inwin * torch.cat(inwin)
+            + ops_hot * torch.cat(hot) + ops_pixel * P)
+
+
+def least_ms(nbytes, ops, dtype):
+    """the larger of nbytes at the memory rate and ops at the float
+    peak, in ms, and which of the two it is"""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_FLOPS[v.dtype] * 1e3
+    t_ops = ops / PEAK_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def k1_bound(rp, chain, v, u, ia, ve):
+    """least time (ms) for K1's work on these inputs: each input read
+    once and the outputs written once at the memory rate, or the
+    operations this data needs (K1_OPS) at the float peak, whichever is
+    larger"""
+    Bn, n, _ = rp.shape
+    P = v.shape[1]
+    nbytes = v.element_size() * (rp.numel() + chain.numel() + 4 * Bn * P + Bn * (1 + 6 + 36))
+    return least_ms(nbytes, int(pixel_ops(rp, v, u, K1_OPS).sum()), v.dtype)
 
 
 def time_lm_kernels(hom, device):
@@ -605,6 +689,258 @@ def time_lm_kernels(hom, device):
                      % (gm.shape[1], *v.shape), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                      bound_by=by, max_abs_err=err, max_rel_err=rel))
     return rows
+
+
+# ----------------------------------------------------------------------
+# K3
+
+def capture_k3_inputs(args, device):
+    """the inputs of the exp-LM path's K3 call but the LMConf, from one
+    pipeline call on args, and the pipeline's results"""
+    seen = {}
+    k3 = lm_solve.lm_solve
+
+    def spy(*a):
+        seen["k3"] = a[:8]  # guess, lo, hi, psf, v, u, ia, ve
+        return k3(*a)
+
+    with mock.patch.object(lm_solve, "lm_solve", spy):
+        res = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device=device)(*args)
+    return seen["k3"], res
+
+
+def per_lane_diff(a, b, what, rtol=1e-5, atol=1e-7, dnfev=2):
+    """hold two exp-LM results (dicts of [N] columns) per lane: flags
+    equal, e1/e2/T/flux to rtol and atol, nfev within dnfev. Returns the
+    largest absolute and relative differences and the nfev difference"""
+    if not torch.equal(a["flags"], b["flags"]):
+        raise SmokeFailure("%s: flags differ on %d lanes"
+                           % (what, int((a["flags"] != b["flags"]).sum())))
+    d = int((a["nfev"] - b["nfev"]).abs().max())
+    if d > dnfev:
+        raise SmokeFailure("%s: nfev differs by %d" % (what, d))
+    max_abs = max_rel = 0.0
+    for k in ("e1", "e2", "T", "flux"):
+        x, y = a[k].double(), b[k].double()
+        err = (x - y).abs()
+        if not bool(torch.isfinite(x).all()) or bool((err > atol + rtol * y.abs()).any()):
+            raise SmokeFailure("%s: %s differs, max %.3e" % (what, k, float(err.max())))
+        max_abs = max(max_abs, float(err.max()))
+        max_rel = max(max_rel, float((err / y.abs().clamp_min(1e-300)).max()))
+    return max_abs, max_rel, d
+
+
+def solve_cols(out):
+    """e1, e2, T, flux, their pars_err, flags and nfev of an LM result"""
+    cols = dict(zip(("e1", "e2", "T", "flux"), out["pars"][:, 2:].unbind(-1)))
+    return dict(cols, err=out["pars_err"][:, 2:], flags=out["flags"], nfev=out["nfev"])
+
+
+def solve_columns(state, args, conf):
+    """solve_cols of the epilogue of a K3 state on K3's inputs args =
+    (guess, lo, hi, psf, v, u, ia, ve)"""
+    nres = torch.sum(args[6] > 0, dim=-1)
+    return solve_cols(tlm._normal_epilogue(state, args[1], args[2], conf, nres))
+
+
+def f32_split(a, b):
+    """the share of lanes whose e1/e2/T/flux differ by more than rtol
+    1e-4, and the largest difference over lanes unflagged in both in
+    units of b's pars_err"""
+    keys = ("e1", "e2", "T", "flux")
+    split = torch.stack([(a[k] - b[k]).abs() > 1e-4 * b[k].abs() for k in keys]).any(0)
+    ok = (a["flags"] == 0) & (b["flags"] == 0)
+    d = torch.stack([(a[k].double() - b[k].double()).abs() for k in keys], -1)
+    sig = b["err"].double()
+    return float(split.double().mean()), float((d / sig)[ok].max())
+
+
+def check_batch_independence(args, conf):
+    """K3 on a permuted third of the lanes gives the bits of the same
+    lanes in the full batch"""
+    full = lm_solve.lm_solve(*args, conf)
+    n = args[0].shape[0]
+    perm = torch.randperm(n, generator=torch.Generator().manual_seed(5))[: n // 3]
+    perm = perm.to(args[0].device)
+    sub = lm_solve.lm_solve(*(a if a.dim() == 1 else a[perm].contiguous() for a in args), conf)
+    for k, x in sub.items():
+        if not torch.equal(x, full[k][perm]):
+            raise SmokeFailure("K3 is not batch independent: %s differs" % k)
+    return n // 3
+
+
+def bounded_case(device, n=B_BOUNDED, dims=(19, 19), scale=0.263):
+    """K3's inputs for n synthetic exp stamps in float64 with bounds that
+    pin dims: g1 in [-0.05, 0.05] with |g1| up to 0.3 in the truths,
+    the centre in [-1, 1], T >= 0"""
+    dtype = torch.float64
+    gen = torch.Generator(device=device).manual_seed(99)
+
+    def U(shape, lo, hi):
+        return torch.rand(shape, generator=gen, device=device, dtype=dtype) * (hi - lo) + lo
+
+    truth = torch.stack([U(n, -0.1, 0.1), U(n, -0.1, 0.1), U(n, -0.3, 0.3),
+                         U(n, -0.3, 0.3), U(n, 0.1, 0.8), U(n, 20.0, 150.0)], -1)
+    psf = torch.stack([U(n, 0.05, 0.06), U(n, -0.003, 0.003), U(n, 0.05, 0.06)], -1)
+    g = torch.arange(dims[0], dtype=dtype, device=device)
+    rr, cc = torch.meshgrid(g, g, indexing="ij")
+    cen = (dims[0] - 1) / 2.0
+    v = ((rr.reshape(-1) - cen) * scale).expand(n, -1).contiguous()
+    u = ((cc.reshape(-1) - cen) * scale).expand(n, -1).contiguous()
+    gal, _ = gcore.fill_exp(truth)
+    model = gcore.eval_gmix(gcore.gmix_convolve(gal, nt.batch._psf_gmix(psf)), v, u,
+                            scale**2, fast=False)
+    noise = 1e-3
+    val = model + noise * torch.randn(model.shape, generator=gen, device=device, dtype=dtype)
+    ierr = torch.full_like(val, 1.0 / noise)
+    guess = truth + torch.randn(truth.shape, generator=gen, device=device, dtype=dtype) * \
+        torch.tensor([0.05, 0.05, 0.05, 0.05, 0.05, 5.0], dtype=dtype, device=device)
+    inf = float("inf")
+    lo = torch.tensor([-1.0, -1.0, -0.05, -inf, 0.0, -inf], dtype=dtype, device=device)
+    hi = torch.tensor([1.0, 1.0, 0.05, inf, inf, inf], dtype=dtype, device=device)
+    area = torch.full_like(val, scale**2)
+    return (guess.contiguous(), lo, hi, psf.contiguous(), v, u,
+            (ierr * area).contiguous(), (val * ierr).contiguous())
+
+
+def check_k3(device, hom):
+    """phase 12: K3 in float64 against the host-loop route, its plain
+    version and, with bounds, run_lm_normal_batched"""
+    out = {}
+    fn = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device=device)
+    args = [a[:B_COMPACT].double() for a in hom]
+    k3_args, k3 = capture_k3_inputs(args, device)
+    with host_loop_route():
+        host = fn(*args)
+    worst = [per_lane_diff(k3[t], host[t], "K3 and host-loop routes, %s" % t)
+             for t in nt.batch.GALSHEAR_TYPES]
+    out["routes64"] = (max(w[1] for w in worst), max(w[2] for w in worst))
+    conf = nt.LMConf()
+    plain = lm_solve.lm_solve_plain(*k3_args, conf)
+    state = lm_solve.lm_solve(*k3_args, conf)
+    out["plain64"] = per_lane_diff(solve_columns(state, k3_args, conf),
+                                   solve_columns(plain, k3_args, conf), "K3 and its plain version")
+
+    bargs = bounded_case(device)
+    state = lm_solve.lm_solve(*bargs, conf)
+    if not bool(state["pinned"].any()):
+        raise SmokeFailure("the bounded case pinned no dim")
+    planes, psf_gmix = bargs[4:], nt.batch._psf_gmix(bargs[3])
+    ref = tlm.run_lm_normal_batched(nt.batch._normal_fn, (planes, psf_gmix), bargs[0],
+                                    bargs[1], bargs[2], conf,
+                                    nres=torch.sum(bargs[6] > 0, dim=-1))
+    ref_cols = dict(zip(("e1", "e2", "T", "flux"), ref["pars"][:, 2:].unbind(-1)),
+                    flags=ref["flags"], nfev=ref["nfev"])
+    out["bounded"] = per_lane_diff(solve_columns(state, bargs, conf), ref_cols,
+                                   "K3 and run_lm_normal_batched with bounds")
+    out["pinned"] = int(state["pinned"].any(-1).sum())
+    return out
+
+
+def timed_call(fn, *args):
+    """one call's result, its wall time (s) and the span (ms) between
+    CUDA events recorded on the current stream at its start and end"""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, start.elapsed_time(end)
+
+
+def device_profile(fn, *args):
+    """device operations and busy time (ms, the union of their
+    intervals) of one call, from torch.profiler's device trace"""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
+           and e.time_range.end > e.time_range.start]
+    return len(ops), _busy_us(ops) / 1e3
+
+
+def k3_bound(args, state):
+    """least time (ms) for K3's work on these inputs: the planes, guess,
+    bounds and psf read once and the state written once at the memory
+    rate, or K3's operations per evaluation (K3_OPS, the window counted
+    at the lane's guess) times each lane's nfev at the float peak,
+    whichever is larger"""
+    guess, lo, hi, psf, v, u, ia, ve = args
+    rp = nt.batch._exp_reparam(guess, nt.batch._psf_gmix(psf))[0]
+    ops = int((pixel_ops(rp, v, u, K3_OPS) * state["nfev"].long()).sum())
+    N, P = v.shape
+    esize = v.element_size()
+    nbytes = (esize * (4 * N * P + guess.numel() + 12 + psf.numel())
+              + sum(x.numel() * x.element_size() for x in state.values()))
+    return least_ms(nbytes, ops, v.dtype)
+
+
+def time_k3(device, hom, het, res_k3):
+    """phase 13: K3 at its main-path shape against its plain version and
+    timed; the exp-LM call by both routes, interleaved, the host-loop
+    route's gate from its first timed call and a het call"""
+    args, _ = capture_k3_inputs(hom, device)
+    conf = nt.LMConf()
+    state = lm_solve.lm_solve(*args, conf)
+    plain, _, plain_ms = timed_call(lm_solve.lm_solve_plain, *args, conf)
+    a, b = solve_columns(state, args, conf), solve_columns(plain, args, conf)
+    n = a["flags"].numel()
+    flags_diff = int((a["flags"] != b["flags"]).sum())
+    split, in_err = f32_split(a, b)
+    finite = all(bool(torch.isfinite(a[k]).all()) for k in ("e1", "e2", "T", "flux"))
+    if not finite or flags_diff or not in_err <= 0.5:
+        raise SmokeFailure("K3 disagrees with its plain version at the main-path shape: "
+                           "flags differ on %d lanes, largest difference %.3e pars_err, "
+                           "finite %s" % (flags_diff, in_err, finite))
+    max_abs = max(float((a[k].double() - b[k].double()).abs().max())
+                  for k in ("e1", "e2", "T", "flux"))
+    indep = check_batch_independence(args, conf)
+    ms = time_ms(lambda: lm_solve.lm_solve(*args, conf), 10)
+    b_ms, by = k3_bound(args, state)
+    row = dict(shape="[%dx%d]" % tuple(args[4].shape), ms=ms, plain_ms=plain_ms,
+               bound_ms=b_ms, bound_by=by, max_abs_err=max_abs, split=split,
+               max_in_err=in_err, indep=indep, lanes=n, nfev_sum=int(state["nfev"].sum()))
+
+    fn = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device=device)
+
+    def host_fn(*a):
+        with host_loop_route():
+            return fn(*a)
+
+    routes = {"k3": fn, "host": host_fn}
+    walls = {r: [] for r in routes}
+    spans = {r: [] for r in routes}
+    res_h = None
+    for i in range(N_TIMED):
+        for r in (("k3", "host") if i % 2 == 0 else ("host", "k3")):
+            reset_launches()
+            res, wall, span = timed_call(routes[r], *hom)
+            if r == "host" and res_h is None:
+                res_h, hl = res, read_launches()
+            walls[r].append(wall)
+            spans[r].append(span)
+    reset_launches()
+    het_h = host_fn(*het)
+    _sync(device)
+    host = dict(gate=exp_lm_gate(res_h, het_h, B_MAIN),
+                launches={k: x + hl[k] for k, x in read_launches().items()})
+    splits = [f32_split(solve_cols(res_k3[t]), solve_cols(res_h[t]))
+              for t in nt.batch.GALSHEAR_TYPES]
+    host["split32"] = (sum(x[0] for x in splits) / NTYPES, max(x[1] for x in splits))
+    calls = {}
+    for r, f in routes.items():
+        nops, busy_ms = device_profile(f, *hom)
+        w = sorted(walls[r])
+        span = sorted(spans[r])[N_TIMED // 2]
+        calls[r] = dict(stamps_per_s=B_MAIN / w[N_TIMED // 2], sec=w[N_TIMED // 2],
+                        sec_range=(w[0], w[-1]), ops=nops, busy_ms=busy_ms,
+                        span_ms=span, idle=1.0 - busy_ms / span)
+    return row, calls, host
 
 
 def main():
@@ -677,28 +1013,22 @@ def main():
                % (k1_ncase, k1_abs, k1_worst[torch.float32], k1_worst[torch.float64]))
 
     t0 = time.perf_counter()
-    lp, hom = run_exp_lm(device, B_MAIN)
-    k1_launches, k2_lm_launches = lp["launches"]["k1"], lp["launches"]["k2"]
+    lp, hom, het, res_k3 = run_exp_lm(device, B_MAIN)
+    k3_launches = lp["launches"]["k3"]
+    k2_lm_launches = lp["launches"]["k2"]
     phase_line(
         "8 exp-lm", t0,
-        "B=%d m=%.3e hetero_m=%.3e R11=%.4f flagged=%d hetero_flagged=%d "
-        "nfev p50=%g max=%d frozen=%.4f launches of the hom and het calls: k1=%d k2=%d "
-        "stamps/s=%.1f (median %.4f s/call of 3, range %.4f-%.4f)"
+        "B=%d m=%.3e hetero_m=%.3e R11=%.4f flagged=%d hetero_flagged=%d frozen=%.4f "
+        "launches of the hom and het calls: k3=%d k1=%d k2=%d"
         % (B_MAIN, lp["m"], lp["het_m"], lp["R11"], lp["flagged"], lp["het_flagged"],
-           lp["nfev_p50"], lp["nfev_max"], lp["frozen"], k1_launches, k2_lm_launches,
-           lp["stamps_per_s"], lp["sec"], *lp["sec_range"]),
+           lp["frozen"], k3_launches, lp["launches"]["k1"], k2_lm_launches),
     )
-    print("    LM iterations per level (lanes, iterations): hom %s het %s"
-          % (lp["levels"], lp["het_levels"]), flush=True)
-    if k1_launches <= 0 or k2_lm_launches <= 0:
-        raise SmokeFailure("the exp-LM path did not launch K1 and K2: %d, %d"
-                           % (k1_launches, k2_lm_launches))
-    if not (abs(lp["m"]) < 1e-3 and abs(lp["het_m"]) < 1e-3):
-        raise SmokeFailure("exp-LM m gate failed: m=%.3e hetero m=%.3e"
-                           % (lp["m"], lp["het_m"]))
-    if lp["flagged"] > limit or lp["het_flagged"] > limit:
-        raise SmokeFailure("too many flagged exp-LM lanes: %d, %d > %d"
-                           % (lp["flagged"], lp["het_flagged"], limit))
+    print("    nfev (mean, p50, p99, max): hom %s het %s" % tuple(
+        "(%.3f, %g, %g, %d)" % x for x in lp["nfev"]), flush=True)
+    if k3_launches <= 0 or k2_lm_launches <= 0:
+        raise SmokeFailure("the exp-LM path did not launch K3 and K2: %d, %d"
+                           % (k3_launches, k2_lm_launches))
+    check_gate(lp, B_MAIN, "exp-LM")
 
     t0 = time.perf_counter()
     lm_worst, dnfev = compare_lm_card_cpu(hom)
@@ -712,13 +1042,47 @@ def main():
 
     t0 = time.perf_counter()
     lm_rows = time_lm_kernels(hom, device)
-    del hom
     for r in lm_rows:
         print("    %s %s: agrees (max abs err %.3e, rel %.3e); %.4f ms, plain "
               "%.4f ms, bound %.4f ms (%s)"
               % (r["kernel"], r["shape"], r["max_abs_err"], r["max_rel_err"], r["ms"],
                  r["plain_ms"], r["bound_ms"], r["bound_by"]), flush=True)
     phase_line("11 k-times", t0, "total %.1f s" % (time.perf_counter() - t_all))
+
+    t0 = time.perf_counter()
+    k3c = check_k3(device, hom)
+    phase_line(
+        "12 k3", t0,
+        "float64 B=%d: routes agree (max rel %.3e, max nfev diff %d); K3 and its plain "
+        "version agree (max abs %.3e, rel %.3e, nfev diff %d); bounded B=%d (%d lanes "
+        "pinned) agrees with run_lm_normal_batched (max rel %.3e, nfev diff %d)"
+        % (B_COMPACT, *k3c["routes64"], *k3c["plain64"], B_BOUNDED, k3c["pinned"],
+           k3c["bounded"][1], k3c["bounded"][2]))
+
+    t0 = time.perf_counter()
+    k3_row, calls, host = time_k3(device, hom, het, res_k3)
+    del hom, het, res_k3
+    hg, hl = host["gate"], host["launches"]
+    print("    host-loop route B=%d: m=%.3e hetero_m=%.3e flagged=%d hetero_flagged=%d, "
+          "launches of its hom and het calls: k3=%d k1=%d k2=%d; float32 lanes outside "
+          "rtol 1e-4 of the K3 route: %.4f, largest difference %.3e pars_err"
+          % (B_MAIN, hg["m"], hg["het_m"], hg["flagged"], hg["het_flagged"], hl["k3"],
+             hl["k1"], hl["k2"], *host["split32"]), flush=True)
+    check_gate(hg, B_MAIN, "host-loop exp-LM")
+    if hl["k1"] <= 0:
+        raise SmokeFailure("the host-loop route did not launch K1")
+    print("    K3 %s: %.4f ms, plain %.4f ms, bound %.4f ms (%s), sum nfev %d; against its "
+          "plain version flags equal on every lane, %.4f outside rtol 1e-4, largest "
+          "difference %.3e pars_err (max abs %.3e); bitwise on %d permuted lanes"
+          % (k3_row["shape"], k3_row["ms"], k3_row["plain_ms"], k3_row["bound_ms"],
+             k3_row["bound_by"], k3_row["nfev_sum"], k3_row["split"],
+             k3_row["max_in_err"], k3_row["max_abs_err"], k3_row["indep"]), flush=True)
+    for r, c in calls.items():
+        print("    exp-LM call, %s route: %.1f stamps/s (median %.4f s of %d, range %.4f-%.4f); "
+              "%d device operations, busy %.3f ms, event span %.3f ms, idle %.1f%%"
+              % (r, c["stamps_per_s"], c["sec"], N_TIMED, *c["sec_range"], c["ops"],
+                 c["busy_ms"], c["span_ms"], 100 * c["idle"]), flush=True)
+    phase_line("13 k3-times", t0, "total %.1f s" % (time.perf_counter() - t_all))
 
     top = rows[0]
     k1_row = lm_rows[0]
@@ -742,7 +1106,9 @@ def main():
         "route": "cuda",
         "source": "ngmix_tpu_torch/csrc/normal_eqs.cu",
         "replaces": "ngmix_tpu/ops/pallas_lm.py:149",
-        "launches": k1_launches,
+        # the exp-LM path runs through K3; K1 runs on its host-loop route
+        "launches": hl["k1"],
+        "launches_by_path": {"exp-lm": lp["launches"]["k1"], "exp-lm host loop": hl["k1"]},
         "max_abs_err": max(k1_abs, k1_row["max_abs_err"]),
         "ms": k1_row["ms"],
         "plain_ms": k1_row["plain_ms"],
@@ -750,6 +1116,22 @@ def main():
         "bound_by": k1_row["bound_by"],
         "library_ms": None,
         "shapes": [k1_row],
+    }, {
+        "name": "lm_solve",
+        "route": "cuda",
+        "source": "ngmix_tpu_torch/csrc/lm_solve.cu",
+        "replaces": "ngmix_tpu/ops/pallas_lm.py:149",
+        "replaces_loop": "ngmix_tpu/fitting/lm.py:539-790",
+        "launches": k3_launches,
+        "launches_by_path": {"exp-lm": k3_launches, "exp-lm host loop": hl["k3"]},
+        "max_abs_err": max(k3c["plain64"][0], k3_row["max_abs_err"]),
+        "ms": k3_row["ms"],
+        "plain_ms": k3_row["plain_ms"],
+        "bound_ms": k3_row["bound_ms"],
+        "bound_by": k3_row["bound_by"],
+        "library_ms": None,
+        "shapes": [k3_row],
+        "exp_lm_calls": calls,
     }]}, allow_nan=False), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

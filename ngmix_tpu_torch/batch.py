@@ -6,9 +6,11 @@ derivation, the 5-type k-space metacal image set with optional
 fixnoise, stacking of the types into 5 B lanes, the measure of every
 lane and the shear response. gaussmom takes gaussian weighted moments
 (the weight goes through K2). exp-LM fits an exponential model
-convolved with the round target psf by the batched normal-equation LM
-(fitting/lm.py), whose normal equations go through K1; its moments
-guess and its s/n sums evaluate the model through K2.
+convolved with the round target psf by the normal-equation LM: on the
+card every lane's whole solve runs in K3 (ops/lm_solve.py), and the
+host loop of fitting/lm.py with K1 for the normal equations is its
+plain version; its moments guess and its s/n sums evaluate the model
+through K2.
 
 Entry points (``metacal_pipeline``, ``make_metacal_pipeline_fn``) take
 numpy arrays or tensors and run on the CUDA card unless the caller
@@ -20,15 +22,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .defaults import GMIX_LOW_DETVAL
 from .fitting import lm
 from .gaussmom import gaussmom_measure
-from .gmix import core as gcore
+from .gmix import core as gcore, tables
 from .jacobian import Jacobian
 from .metacal import kops
 from .metacal.defaults import DEFAULT_STEP
 from .moments import fwhm_to_T
-from .ops import normal_eqs
+from .ops import lm_solve, normal_eqs
 from .pixels import Pixels
+from .shape import ONE_MINUS_EPS
 from .util import full_precision_matmuls, resolve_device
 
 
@@ -453,32 +457,98 @@ def _lm_planes(pixels):
     )
 
 
-def _reparam_of(p, pg):
-    """pars [6], psf [1, 6] -> (rp [n, 6], (rp, gm, fill flags)): the
-    small map whose forward-mode jacobian is K1's chain"""
-    g0, gflags = gcore.fill_exp(p)
-    gm = gcore.gmix_convolve(g0, pg)
-    rp = normal_eqs.gmix_reparam(gm)
-    return rp, (rp, gm, gflags)
+def _exp_reparam(pars, psf_gmix):
+    """pars [..., 6], psf [..., 1, 6] -> (rp [..., n, 6], gm, fill
+    flags): the exp fill, the convolution and gmix_reparam, whose
+    derivative in pars is exp_chain"""
+    g0, gflags = gcore.fill_exp(pars)
+    gm = gcore.gmix_convolve(g0, psf_gmix)
+    return normal_eqs.gmix_reparam(gm), gm, gflags
 
 
-def _exp_normal_fn(pars, planes, psf_gmix):
+def exp_chain(pars, psf_gmix):
+    """K1's chain d rp[g, j] / d pars[k], [B, n, 6, 6], in closed form.
+
+    pars [B, 6] = (row, col, g1, g2, T, flux); psf_gmix [B, 1, 6], one
+    gaussian. rp = (N, row, col, Fvv, Fvu, Fuu) of each gaussian of the
+    convolved exp model: row and col pass straight through; flux only
+    scales N; g1, g2 and T reach N and F through e(g) (with its clip at
+    |g| = 1), the convolved moments (irr, irc, icc) = h (1 - e1, e2,
+    1 + e1) + psf, h = T f_g / 2, and the inverse covariance. An
+    invalid gaussian (gmix_reparam's rule) has constant N and F. The
+    counterpart of the reference's jax.vmap(jax.jacfwd(reparam_of));
+    K3 (ops/lm_solve.py) computes the same terms per gaussian.
+    """
+    row, col, g1, g2, T, flux = pars.unbind(-1)
+    pv = torch.as_tensor(tables.PVALS_EXP, dtype=pars.dtype, device=pars.device)
+    fv = torch.as_tensor(tables.FVALS_EXP, dtype=pars.dtype, device=pars.device)
+    # e(g) and de/dg through the clip gc = g min(1, c / |g|)
+    sq = g1 * g1 + g2 * g2
+    big = sq >= 1.0
+    scale = torch.where(big, ONE_MINUS_EPS / torch.sqrt(torch.where(big, sq, 1.0)), 1.0)
+    g1c, g2c = g1 * scale, g2 * scale
+    fac = 2.0 / (1.0 + g1c * g1c + g2c * g2c)
+    e1, e2 = fac * g1c, fac * g2c
+    f2 = fac * fac
+    de_dgc = ((fac - f2 * g1c * g1c, -f2 * g1c * g2c),
+              (-f2 * g1c * g2c, fac - f2 * g2c * g2c))
+    # d gc / d g: the identity, or scale (I - g g^T / |g|^2) on the clip
+    isq = torch.where(big, 1.0 / torch.where(big, sq, 1.0), 0.0)
+    dgc_dg = ((scale * (1.0 - g1 * g1 * isq), -scale * g1 * g2 * isq),
+              (-scale * g1 * g2 * isq, scale * (1.0 - g2 * g2 * isq)))
+    de = [[de_dgc[i][0] * dgc_dg[0][k] + de_dgc[i][1] * dgc_dg[1][k]
+           for k in range(2)] for i in range(2)]
+
+    # the convolved moments [B, n] and their derivatives in (g1, g2, T)
+    psf = psf_gmix[:, 0]
+    # gmix_convolve's unit-flux normalization of the psf
+    p_norm = psf[:, 0] * (1.0 / torch.where(psf[:, 0] == 0, 1.0, psf[:, 0]))
+    h = (0.5 * T)[:, None] * fv
+    irr = h * (1 - e1[:, None]) + psf[:, None, 3]
+    irc = h * e2[:, None] + psf[:, None, 4]
+    icc = h * (1 + e1[:, None]) + psf[:, None, 5]
+    p = (flux[:, None] * pv) * p_norm[:, None]
+    d_mom = [  # (d irr, d irc, d icc) per shape parameter
+        (-h * de[0][k][:, None], h * de[1][k][:, None], h * de[0][k][:, None])
+        for k in range(2)
+    ] + [(0.5 * fv * (1 - e1[:, None]), 0.5 * fv * e2[:, None],
+          0.5 * fv * (1 + e1[:, None]))]
+
+    det = irr * icc - irc * irc
+    valid = (det > GMIX_LOW_DETVAL) & ((irr + icc) > 0)
+    det_s = torch.where(valid, det, 1.0)
+    sqrt_det = torch.sqrt(det_s)
+    N = p / (2.0 * np.pi * sqrt_det)
+    Fvv, Fvu, Fuu = icc / det_s, -irc / det_s, irr / det_s
+
+    zero = torch.zeros_like(h)
+    one = torch.ones_like(h)
+    cols = [[zero] * 6 for _ in range(6)]  # cols[j][k]
+    cols[1][0] = one
+    cols[2][1] = one
+    cols[0][5] = torch.where(valid, (pv * p_norm[:, None]) / (2.0 * np.pi * sqrt_det), 0.0)
+    for k, (d_rr, d_rc, d_cc) in zip((2, 3, 4), d_mom):
+        ddet = icc * d_rr + irr * d_cc - 2.0 * irc * d_rc
+        cols[0][k] = torch.where(valid, -0.5 * N * ddet / det_s, 0.0)
+        cols[3][k] = torch.where(valid, (d_cc - Fvv * ddet) / det_s, 0.0)
+        cols[4][k] = torch.where(valid, (-d_rc - Fvu * ddet) / det_s, 0.0)
+        cols[5][k] = torch.where(valid, (d_rr - Fuu * ddet) / det_s, 0.0)
+    return torch.stack([torch.stack(c, dim=-1) for c in cols], dim=-2)
+
+
+def _exp_normal_fn(pars, planes, psf_gmix, plain=False):
     """normal-equation reductions (cost, Jtr, JtJ) of a batched
-    exp-model fit through K1.
-
-    The chain [B, n, 6, npars] is the forward-mode jacobian of the
-    small fill, convolve and reparam map (torch.func.vmap of jacfwd, the
-    counterpart of the reference's jax.vmap(jax.jacfwd)), so J is
-    AD-exact. A bad parameter point (fill flags or gmix_flags) gets
-    cost 1e30, Jtr 0 and JtJ = I, so the LM rejects the step.
+    exp-model fit through K1 (plain=True: K1's plain version), with the
+    chain from exp_chain. A bad parameter point (fill flags or
+    gmix_flags) gets cost 1e30, Jtr 0 and JtJ = I, so the LM rejects
+    the step.
     """
     v, u, ia, ve = planes
-    chain, (rp, gm, gflags) = torch.func.vmap(
-        torch.func.jacfwd(_reparam_of, has_aux=True)
-    )(pars, psf_gmix)
+    rp, gm, gflags = _exp_reparam(pars, psf_gmix)
     bad = (gflags != 0) | (gcore.gmix_flags(gm) != 0)
-    cost, Jtr, JtJ = normal_eqs.gmix_normal_eqs(
-        rp.contiguous(), chain.contiguous(), v, u, ia, ve
+    k1 = normal_eqs.gmix_normal_eqs_plain if plain else normal_eqs.gmix_normal_eqs
+    cost, Jtr, JtJ = k1(
+        rp.contiguous(), exp_chain(pars, psf_gmix).contiguous(), v, u, ia, ve
     )
     eye = torch.eye(pars.shape[-1], dtype=cost.dtype, device=cost.device)
     cost = torch.where(bad, 1.0e30, cost)
@@ -490,6 +560,16 @@ def _exp_normal_fn(pars, planes, psf_gmix):
 def _normal_fn(pars, data):
     planes, psf_gmix = data
     return _exp_normal_fn(pars, planes, psf_gmix)
+
+
+def _psf_gmix(psf_moms):
+    """[B, 3] (irr, irc, icc) -> the one-gaussian psf mixture [B, 1, 6]
+    of unit flux at the origin"""
+    p_irr, p_irc, p_icc = psf_moms.unbind(-1)
+    zero = torch.zeros_like(p_irr)
+    return torch.stack(
+        [torch.ones_like(p_irr), zero, zero, p_irr, p_irc, p_icc], dim=-1
+    )[:, None, :]
 
 
 def _auto_cascade(B):
@@ -535,17 +615,21 @@ def _lm_result_columns(out, s2n_sums):
     )
 
 
-def _exp_lm_measure(pixels, psf_sigma, lm_conf, compact_capacity="auto"):
+def _exp_lm_measure(pixels, psf_sigma, lm_conf, host_loop=False,
+                    compact_capacity="auto"):
     """batched exponential-model LM fit of every lane; the psf is the
     analytic round target gaussian, psf_sigma a scalar or [B] (round
     sigma) or [B, 3] (irr, irc, icc).
 
     Starting guesses come from a gaussian weighted-moments pass with
-    FWHM 1.2. The solve runs through run_lm_normal_batched with the
-    normal equations of K1 and, by default ("auto"), the geometric
-    compaction cascade; compact_capacity takes run_lm_normal_batched's values too.
-    The reference's other models, priors, bounds, caller guesses and
-    refinement are not ported yet (ROADMAP queue items 5 and 10).
+    FWHM 1.2. The solve runs in K3 (ops/lm_solve.py), one kernel launch
+    for every lane's whole solve; CPU tensors take its plain version.
+    host_loop=True runs run_lm_normal_batched instead, the host loop
+    with K1 and, by default ("auto"), the geometric compaction cascade
+    (compact_capacity takes its values too); the card checks and
+    timings compare the two routes. The reference's other models,
+    priors, bounds, caller guesses and refinement are not ported yet
+    (ROADMAP queue items 5 and 10).
     """
     lm.check_supported(lm_conf)
     B = pixels.val.shape[0]
@@ -554,28 +638,32 @@ def _exp_lm_measure(pixels, psf_sigma, lm_conf, compact_capacity="auto"):
     if psf_sigma.dim() == 0:
         psf_sigma = psf_sigma.expand(B)
     if psf_sigma.dim() == 2:
-        p_irr, p_irc, p_icc = psf_sigma.unbind(-1)
+        psf_moms = psf_sigma
     else:
-        p_irr = p_icc = psf_sigma**2
-        p_irc = torch.zeros_like(p_irr)
-    psf_gmix = torch.stack(
-        [torch.ones_like(p_irr), torch.zeros_like(p_irr),
-         torch.zeros_like(p_irr), p_irr, p_irc, p_icc], dim=-1,
-    )[:, None, :]
+        psf_moms = torch.stack(
+            [psf_sigma**2, torch.zeros_like(psf_sigma), psf_sigma**2], dim=-1
+        )
+    psf_moms = psf_moms.contiguous()
+    psf_gmix = _psf_gmix(psf_moms)
 
-    guess5, wsum = _moments_lm_guess(pixels, p_irr + p_icc)
+    guess5, wsum = _moments_lm_guess(pixels, psf_moms[:, 0] + psf_moms[:, 2])
     guess = torch.cat([guess5, wsum[:, None]], dim=-1)
     npars = _NSHAPE + 1
     lo = torch.full((npars,), -torch.inf, dtype=dtype, device=dev)
     hi = torch.full((npars,), torch.inf, dtype=dtype, device=dev)
-    if compact_capacity == "auto":
-        compact_capacity = _auto_cascade(B)
     # per-stamp unmasked row count for the chi2/dof covariance scale
     nres = torch.sum(pixels.ierr > 0, dim=-1)
-    out = lm.run_lm_normal_batched(
-        _normal_fn, (_lm_planes(pixels), psf_gmix), guess, lo, hi, lm_conf,
-        nres=nres, compact_capacity=compact_capacity,
-    )
+    planes = _lm_planes(pixels)
+    if host_loop:
+        if compact_capacity == "auto":
+            compact_capacity = _auto_cascade(B)
+        out = lm.run_lm_normal_batched(
+            _normal_fn, (planes, psf_gmix), guess, lo, hi, lm_conf,
+            nres=nres, compact_capacity=compact_capacity,
+        )
+    else:
+        state = lm_solve.lm_solve(guess, lo, hi, psf_moms, *planes, lm_conf)
+        out = lm._normal_epilogue(state, lo, hi, lm_conf, nres)
     _lm_result_columns(
         out, _model_s2n_sums(out["pars"], out["flags"], psf_gmix, pixels)
     )

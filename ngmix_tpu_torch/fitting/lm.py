@@ -322,7 +322,8 @@ def compaction_levels(nfev, compact_capacity):
 
 def run_lm_normal_batched(normal_fn, data, guess, lo, hi, conf: LMConf,
                           nres, compact_capacity=None):
-    """Batched LM driven by normal-equation reductions.
+    """Batched LM driven by normal-equation reductions: the finished
+    solver state of run_lm_normal_state through _normal_epilogue.
 
     ``normal_fn(x_ext [B, npars], data) -> (cost [B], Jtr [B, npars],
     JtJ [B, npars, npars])`` in external coordinates; ``data`` is a
@@ -341,6 +342,19 @@ def run_lm_normal_batched(normal_fn, data, guess, lo, hi, conf: LMConf,
     and k-space residuals (k_space) are not ported yet (ROADMAP queue
     items 5, 9 and 13).
     """
+    lo = torch.as_tensor(lo, dtype=guess.dtype, device=guess.device)
+    hi = torch.as_tensor(hi, dtype=guess.dtype, device=guess.device)
+    state = run_lm_normal_state(normal_fn, data, guess, lo, hi, conf,
+                                compact_capacity=compact_capacity)
+    return _normal_epilogue(state, lo, hi, conf, nres)
+
+
+def run_lm_normal_state(normal_fn, data, guess, lo, hi, conf: LMConf,
+                        compact_capacity=None):
+    """the solver loop of run_lm_normal_batched (same arguments but
+    nres): the finished per-lane state y, cost, Jtr, JtJ (internal
+    coordinates), lam, nfev, done, ier_small_step, ier_small_cost and
+    pinned, which _normal_epilogue turns into the result"""
     B, npars = guess.shape
     dtype, dev = guess.dtype, guess.device
     lo = torch.as_tensor(lo, dtype=dtype, device=dev)
@@ -395,7 +409,7 @@ def run_lm_normal_batched(normal_fn, data, guess, lo, hi, conf: LMConf,
         cur_state = {
             k: prev_state[k].index_copy(0, idx, v) for k, v in cur_state.items()
         }
-    return _normal_epilogue(cur_state, lo, hi, conf, nres)
+    return cur_state
 
 
 def _normal_epilogue(out, lo, hi, conf, nres):

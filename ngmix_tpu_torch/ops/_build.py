@@ -108,5 +108,13 @@ def load():
             # rp, chain, v, u, ia, ve, cost, jtr, jtj, B, n, P, stream
             fn.argtypes = [p] * 9 + [i64, i64, i64, p]
             fn.restype = ctypes.c_int
+        for name in ("ngmix_lm_solve_f32", "ngmix_lm_solve_f64"):
+            fn = getattr(lib, name)
+            # guess, lo, hi, psf, v, u, ia, ve, y, cost, jtr, jtj, lam,
+            # nfev, done, ier_small_step, ier_small_cost, pinned, counter,
+            # B, P, maxfev, ftol, xtol, lambda0, lambda_up, lambda_down,
+            # lambda_min, lambda_max, stream
+            fn.argtypes = [p] * 19 + [i64] * 3 + [ctypes.c_double] * 7 + [p]
+            fn.restype = ctypes.c_int
         _lib = lib
     return _lib

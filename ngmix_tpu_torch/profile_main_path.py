@@ -6,12 +6,13 @@ Runs the metacal pipeline with the given measure (default gaussmom) at
 its main-path configuration (bench.py's metacal_gaussmom configuration
 for gaussmom, its headline configuration for exp-lm; float32) on the
 port's homogeneous sims at B stamps (default 10240): one warm-up call,
-then one call under torch.profiler. Prints the call's wall time, the
-device's busy share (the union of kernel intervals over the wall time),
-and the device time by kernel class and by kernel name. Needs a CUDA
-card.
+then one call under torch.profiler. Prints the card's name and power
+limit (nvidia-smi), the call's wall time, the device's busy share (the
+union of kernel intervals over the wall time), and the device time by
+kernel class and by kernel name. Needs a CUDA card.
 """
 import argparse
+import subprocess
 import sys
 import time
 from collections import defaultdict
@@ -20,14 +21,14 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import make_metacal_pipeline_fn, make_sim_batch
-from .batch import GALSHEAR_TYPES, _auto_cascade
-from .fitting import lm
+from .batch import GALSHEAR_TYPES
 from .sims import METACAL_EXP_LM_CONFIG, METACAL_GAUSSMOM_CONFIG
 
 CONFS = {"gaussmom": METACAL_GAUSSMOM_CONFIG, "exp-lm": METACAL_EXP_LM_CONFIG}
 
 # kernel-name fragments -> class, first match wins
 _CLASSES = (
+    ("lm_solve", "K3 lm_solve"),
     ("gmix_eval", "K2 gmix_eval"),
     ("normal_eqs", "K1 normal_eqs"),
     ("fft", "FFT (cuFFT)"),
@@ -90,7 +91,11 @@ def main(measure="gaussmom", B=10240):
         by_name[e.name][0] += dt
         by_name[e.name][1] += 1
 
-    print(torch.cuda.get_device_name(0))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip()
+    print(card or torch.cuda.get_device_name(0))
     print("measure=%s B=%d wall %.3f ms, kernel time %.3f ms, device busy %.1f%% "
           "(idle %.1f%%), %d kernels"
           % (measure, B, wall_us / 1e3, total / 1e3, 100 * _busy_us(kernels) / wall_us,
@@ -98,9 +103,9 @@ def main(measure="gaussmom", B=10240):
     for cls, t in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print("  %-26s %9.3f ms %5.1f%%" % (cls, t / 1e3, 100 * t / total))
     if measure == "exp-lm":
-        nfev = torch.cat([warm[t]["nfev"] for t in GALSHEAR_TYPES])
-        print("LM iterations per compaction level (lanes, iterations): %s"
-              % (lm.compaction_levels(nfev, _auto_cascade(nfev.numel())),))
+        nfev = torch.cat([warm[t]["nfev"] for t in GALSHEAR_TYPES]).double()
+        print("LM evaluations a lane (nfev): mean %.3f, p50 %g, max %d, sum %d"
+              % (nfev.mean(), nfev.median(), nfev.max(), nfev.sum()))
     print("top kernels:")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print("  %9.3f ms %4d x  %s" % (t / 1e3, n, name[:90]))

@@ -18,6 +18,10 @@ from ngmix_tpu.pixels import Pixels as JPixels
 from ngmix_tpu_torch import convert, gaussmom as tgm
 from ngmix_tpu_torch.gmix import core as tcore
 
+# one intra-op thread: the suite's workers share the cores, and
+# torch's default pool per worker oversubscribes them
+torch.set_num_threads(1)
+
 FWHM = 1.2
 SCALE = 0.263
 

@@ -17,6 +17,10 @@ from ngmix_tpu.gmix import core as jcore
 from ngmix_tpu_torch import moments as tmoments, shape as tshape
 from ngmix_tpu_torch.gmix import core as tcore
 
+# one intra-op thread: the suite's workers share the cores, and
+# torch's default pool per worker oversubscribes them
+torch.set_num_threads(1)
+
 
 def _close(out, ref, rtol=1e-12):
     np.testing.assert_allclose(

@@ -24,6 +24,10 @@ from ngmix_tpu.ops.pallas_gmix import eval_gmix_pallas
 
 from ngmix_tpu_torch.ops import _build, gmix_eval
 
+# one intra-op thread: the suite's workers share the cores, and
+# torch's default pool per worker oversubscribes them
+torch.set_num_threads(1)
+
 _jnp_eval_gmix = jax.jit(jcore.eval_gmix, static_argnames=("fast",))
 
 

@@ -18,6 +18,10 @@ from ngmix_tpu.metacal import kops as jk
 from ngmix_tpu_torch.jacobian import Jacobian
 from ngmix_tpu_torch.metacal import kops as tk
 
+# one intra-op thread: the suite's workers share the cores, and
+# torch's default pool per worker oversubscribes them
+torch.set_num_threads(1)
+
 # a sheared, rotated WCS so every jacobian term enters
 _JAC = (0.26, 0.013, -0.009, 0.27)
 

@@ -36,6 +36,10 @@ from ngmix_tpu_torch.fitting import lm as tlm
 
 from test_torch_normal_eqs import _pixel_batch
 
+# one intra-op thread: the suite's workers share the cores, and
+# torch's default pool per worker oversubscribes them
+torch.set_num_threads(1)
+
 INF = np.inf
 # one two-sided, two one-sided and three unbounded dims
 LO = np.array([-1.0, 0.0, -INF, -INF, -INF, -INF])
@@ -251,9 +255,13 @@ def test_measure_matches_jax_ad_route(measure_inputs, port_measure):
 
 
 def test_measure_compaction_is_bitwise_exact(measure_inputs, port_measure):
+    """the host-loop route with and without compaction, and the K3
+    route (its plain version on the CPU), give the same bits"""
     _, tpix, sig = measure_inputs
-    cmp = tbatch._exp_lm_measure(tpix, sig, tlm.LMConf(), compact_capacity=3)
-    full = tbatch._exp_lm_measure(tpix, sig, tlm.LMConf(), compact_capacity=None)
+    cmp = tbatch._exp_lm_measure(tpix, sig, tlm.LMConf(), host_loop=True,
+                                 compact_capacity=3)
+    full = tbatch._exp_lm_measure(tpix, sig, tlm.LMConf(), host_loop=True,
+                                  compact_capacity=None)
     for k in ("pars", "flags", "nfev", "ier", "cost", "pars_err", "s2n"):
         np.testing.assert_array_equal(cmp[k].numpy(), full[k].numpy(), err_msg=k)
         np.testing.assert_array_equal(port_measure[k], full[k].numpy(), err_msg=k)

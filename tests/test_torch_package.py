@@ -7,6 +7,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from ngmix_tpu import defaults as jdefaults, flags as jflags
 from ngmix_tpu.gmix import tables as jtables
@@ -16,6 +17,10 @@ from ngmix_tpu_torch import defaults, flags
 from ngmix_tpu_torch.gmix import tables
 from ngmix_tpu_torch.metacal import defaults as mdefaults
 from ngmix_tpu_torch.ops import _build
+
+# one intra-op thread: the suite's workers share the cores, and
+# torch's default pool per worker oversubscribes them
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "ngmix_tpu_torch"

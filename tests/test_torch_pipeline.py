@@ -29,6 +29,10 @@ from ngmix_tpu.gmix import core as jcore
 import ngmix_tpu_torch as nt
 from ngmix_tpu_torch import batch as tbatch, convert, sims
 
+# one intra-op thread: the suite's workers share the cores, and
+# torch's default pool per worker oversubscribes them
+torch.set_num_threads(1)
+
 B = 8
 DIMS = (49, 49)
 PSF_DIMS = (25, 25)

@@ -15,6 +15,10 @@ from ngmix_tpu.ops import small_linalg as jlinalg
 
 from ngmix_tpu_torch.ops import small_linalg as tlinalg
 
+# one intra-op thread: the suite's workers share the cores, and
+# torch's default pool per worker oversubscribes them
+torch.set_num_threads(1)
+
 
 def _batch(kind, B=24, n=6, seed=11):
     rng = np.random.RandomState(seed + len(kind))
