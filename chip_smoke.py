@@ -15,11 +15,16 @@ printing one timed line as soon as it ends:
 1. card:   the card's name and power limit (nvidia-smi);
 2. build:  nvcc builds K2 into build/ngmix_tpu_torch/ (first use);
 3. kernel: K2 against its plain version on the same CUDA inputs over
-           n in {1, 3, 18}, both modes, float32 and float64, ragged
-           B in {1, 3, 10240} and P in {361, 625, 2401, 1000}, area a
-           scalar and a [B, P] tensor, with a degenerate gaussian;
-           rtol 1e-12 in float64, and in float32 rtol 1e-5 with an atol
-           of 1e-6 times the lane's max |model|;
+           n in {1, 6} (compile-time) and {3, 18} (any n), both modes,
+           float32 and float64, B in {1, 3, 10243} (10243 leaves a
+           ragged last tile at every P) and P in {1, 361, 625, 1000,
+           2401}, with a degenerate gaussian, in four layouts: area a
+           [B, P] tensor, area a scalar, v, u and area contiguous views
+           at a one-element offset (the plain-load head), and only v at
+           that offset (every tile by plain loads); rtol 1e-12 in
+           float64, and in float32 rtol 1e-5 with an atol of 1e-6 times
+           the lane's max |model|. Then K2 bitwise equal on a permuted
+           and truncated batch, also at a one-element offset;
 4. main:   the gaussmom metacal pipeline in float32 on the port's
            homogeneous and heterogeneous sims at B = 10240, gated like
            bench.py: |m| < 1e-3, |hetero m| < 1e-3, flagged lanes
@@ -29,7 +34,8 @@ printing one timed line as soon as it ends:
 6. times:  K2 at the main path's two shapes (n = 1 over [5 B, 361]
            with a [B, P] area, n = 18 over [B, 2401] with a scalar
            area), held against its plain version there at phase 3's
-           tolerances, and timed beside its bound;
+           tolerances, and timed beside its bound, with the kernel's
+           registers a thread, shared memory, blocks an SM and grid;
 7. k1:     K1 against its plain version on the same CUDA inputs over
            n in {1, 6, 10}, float32 and float64, B in {1, 3, 51200}
            and P in {361, 1000, 1089}, with an invalid gaussian in one
@@ -63,7 +69,9 @@ printing one timed line as soon as it ends:
            Jtr and JtJ to rtol 1e-3 with an atol of 1e-4 times their
            Cauchy-Schwarz scale, since the residual f ia - ve cancels to
            the noise level at a peak signal-to-noise of ~1e3; K2 at
-           phase 3's tolerances) and timed beside its bound;
+           phase 3's tolerances) and timed beside its bound, with
+           K2's and K3's registers a thread, shared memory and blocks an
+           SM;
 12. k3:    K3 in float64 at B = 2048 (10240 lanes), per lane flags
            equal, e1/e2/T/flux to rtol 1e-5 and atol 1e-7 and nfev
            within 2: the pipeline's K3 and host-loop routes, K3 against
@@ -216,6 +224,24 @@ def compare(out, ref, what):
     return float(err.max()), float((err / ref.abs().double().clamp_min(tiny)).max())
 
 
+def _at_offset(x, k=1):
+    """a contiguous copy of x whose base lies k elements into its buffer"""
+    buf = torch.empty(x.numel() + k, dtype=x.dtype, device=x.device)
+    y = buf[k:].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+def _layouts(v, u, area):
+    """K2's inputs as given, with a scalar area, as views at a
+    one-element offset (a plain-load head before the first 16-byte
+    boundary), and with only v at that offset (the inputs disagree on
+    their alignment, so every tile takes plain loads)"""
+    return (("tensor", v, u, area), ("scalar", v, u, 0.069),
+            ("offset", _at_offset(v), _at_offset(u), _at_offset(area)),
+            ("mixed", _at_offset(v), u, area))
+
+
 def check_kernel(device):
     """K2 against its plain version over every listed case; returns the
     largest absolute error, the number of cases and the largest
@@ -225,21 +251,45 @@ def check_kernel(device):
     worst = {torch.float32: 0.0, torch.float64: 0.0}
     ncase = 0
     for dtype in (torch.float32, torch.float64):
-        for n in (1, 3, 18):
+        for n in (1, 3, 6, 18):
             for fast in (True, False):
-                for B in (1, 3, NTYPES * 2048):
-                    for P in (361, 625, 2401, 1000):
+                for B in (1, 3, NTYPES * 2048 + 3):
+                    for P in (1, 361, 625, 1000, 2401):
                         gm, v, u, area = _random_case(gen, B, n, P, dtype, B >= 3)
-                        for a in (area, 0.069):
-                            out = gmix_eval.eval_gmix(gm, v, u, a, fast=fast)
-                            ref = _plain_chunked(gm, v, u, a, fast)
+                        for name, vl, ul, a in _layouts(v, u, area):
+                            out = gmix_eval.eval_gmix(gm, vl, ul, a, fast=fast)
+                            ref = _plain_chunked(gm, v, u, a if name == "scalar" else area,
+                                                 fast)
                             err, rel = compare(
-                                out, ref, "dtype=%s n=%d fast=%s B=%d P=%d area=%s"
-                                % (dtype, n, fast, B, P, type(a).__name__))
+                                out, ref, "dtype=%s n=%d fast=%s B=%d P=%d layout=%s"
+                                % (dtype, n, fast, B, P, name))
                             worst[dtype] = max(worst[dtype], rel)
                             max_abs = max(max_abs, err)
                             ncase += 1
     return max_abs, ncase, worst
+
+
+def check_k2_batch_independence(device, B=3001, P=361):
+    """K2 on a permuted third of the lanes, as given and at a one-element
+    offset, gives the bits of the same lanes in the full batch: every
+    path of the kernel (ring or plain loads, one lane a vector or
+    several) runs the same arithmetic. Returns the lanes checked."""
+    gen = torch.Generator(device=device).manual_seed(11)
+    perm = torch.randperm(B, generator=torch.Generator().manual_seed(5))[: B // 3]
+    perm = perm.to(device)
+    for dtype in (torch.float32, torch.float64):
+        for n in (1, 6, 18):
+            for fast in (True, False):
+                gm, v, u, area = _random_case(gen, B, n, P, dtype, True)
+                full = gmix_eval.eval_gmix(gm, v, u, area, fast=fast)[perm]
+                sub = [x[perm].contiguous() for x in (gm, v, u, area)]
+                for what, args in (("permuted", sub),
+                                   ("permuted at an offset", [sub[0]] + [
+                                       _at_offset(x) for x in sub[1:]])):
+                    if not torch.equal(gmix_eval.eval_gmix(*args, fast=fast), full):
+                        raise SmokeFailure("K2 is not batch independent: %s, dtype=%s n=%d "
+                                           "fast=%s" % (what, dtype, n, fast))
+    return perm.numel()
 
 
 def m_of(sr):
@@ -383,8 +433,23 @@ def time_kernel(shapes):
         )
         b_ms, by = bound(gm, v, area)
         rows.append(dict(shape=name, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=by, max_abs_err=err, max_rel_err=rel))
+                         bound_by=by, max_abs_err=err, max_rel_err=rel,
+                         **k2_launch_attrs(gm, v, u, area, False)))
     return rows
+
+
+def k2_launch_attrs(gm, v, u, area, fast):
+    """K2's tile, grid, registers a thread, shared memory and blocks an
+    SM for these inputs"""
+    area_t = area if isinstance(area, torch.Tensor) else None
+    plan, grid, _ = gmix_eval.plan_for(gm, v, u, area_t, fast)
+    attrs = gmix_eval.kernel_attrs(v.device, v.dtype, fast, gm.shape[1], plan.smem_bytes)
+    return dict(attrs, tile=plan.tile, lanes=plan.lanes, grid=grid)
+
+
+def attrs_text(r):
+    return ("%d registers, %d + %d bytes shared, %d blocks an SM"
+            % (r["regs"], r["static_smem"], r["dynamic_smem"], r["blocks_per_sm"]))
 
 
 # ----------------------------------------------------------------------
@@ -687,7 +752,8 @@ def time_lm_kernels(hom, device):
     b_ms, by = bound(gm, v, area)
     rows.append(dict(kernel="K2", shape="exp-lm get_loglike n=%d fast [%dx%d]"
                      % (gm.shape[1], *v.shape), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                     bound_by=by, max_abs_err=err, max_rel_err=rel))
+                     bound_by=by, max_abs_err=err, max_rel_err=rel,
+                     **k2_launch_attrs(gm, v, u, area, True)))
     return rows
 
 
@@ -964,9 +1030,10 @@ def main():
 
     t0 = time.perf_counter()
     max_abs, ncase, worst = check_kernel(device)
+    indep = check_k2_batch_independence(device)
     phase_line("3 kernel", t0, "%d cases agree; max abs err %.3e; max rel err "
-               "f32 %.3e f64 %.3e" % (ncase, max_abs, worst[torch.float32],
-                                      worst[torch.float64]))
+               "f32 %.3e f64 %.3e; bitwise on %d permuted lanes"
+               % (ncase, max_abs, worst[torch.float32], worst[torch.float64], indep))
 
     t0 = time.perf_counter()
     gmix_eval.launches = 0
@@ -1001,9 +1068,10 @@ def main():
     rows = time_kernel(main_path_shapes(device, B_MAIN))
     for r in rows:
         print("    K2 %s: agrees (max abs err %.3e, rel %.3e); %.4f ms, plain "
-              "%.4f ms, bound %.4f ms (%s)"
+              "%.4f ms, bound %.4f ms (%s); %s, grid %d, tile %d"
               % (r["shape"], r["max_abs_err"], r["max_rel_err"], r["ms"],
-                 r["plain_ms"], r["bound_ms"], r["bound_by"]), flush=True)
+                 r["plain_ms"], r["bound_ms"], r["bound_by"], attrs_text(r), r["grid"],
+                 r["tile"]), flush=True)
     phase_line("6 times", t0, "total %.1f s" % (time.perf_counter() - t_all))
 
     t0 = time.perf_counter()
@@ -1044,9 +1112,14 @@ def main():
     lm_rows = time_lm_kernels(hom, device)
     for r in lm_rows:
         print("    %s %s: agrees (max abs err %.3e, rel %.3e); %.4f ms, plain "
-              "%.4f ms, bound %.4f ms (%s)"
+              "%.4f ms, bound %.4f ms (%s)%s"
               % (r["kernel"], r["shape"], r["max_abs_err"], r["max_rel_err"], r["ms"],
-                 r["plain_ms"], r["bound_ms"], r["bound_by"]), flush=True)
+                 r["plain_ms"], r["bound_ms"], r["bound_by"],
+                 "; %s, grid %d, tile %d" % (attrs_text(r), r["grid"], r["tile"])
+                 if r["kernel"] == "K2" else ""), flush=True)
+    fit_p = LM_CONF.fit_dims[0] * LM_CONF.fit_dims[1]
+    k3_attrs = lm_solve.kernel_attrs(torch.float32, fit_p)
+    print("    K3 float32 at %d pixels a lane: %s" % (fit_p, attrs_text(k3_attrs)), flush=True)
     phase_line("11 k-times", t0, "total %.1f s" % (time.perf_counter() - t_all))
 
     t0 = time.perf_counter()
@@ -1100,6 +1173,8 @@ def main():
         "bound_ms": top["bound_ms"],
         "bound_by": top["bound_by"],
         "library_ms": None,
+        "attrs": {k: top[k] for k in ("regs", "static_smem", "dynamic_smem",
+                                      "blocks_per_sm")},
         "shapes": rows + [lm_rows[1]],
     }, {
         "name": "normal_eqs",
@@ -1130,6 +1205,7 @@ def main():
         "bound_ms": k3_row["bound_ms"],
         "bound_by": k3_row["bound_by"],
         "library_ms": None,
+        "attrs": k3_attrs,
         "shapes": [k3_row],
         "exp_lm_calls": calls,
     }]}, allow_nan=False), flush=True)

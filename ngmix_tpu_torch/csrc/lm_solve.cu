@@ -635,6 +635,13 @@ __global__ void __launch_bounds__(kThreads) lm_solve_kernel(Args<T> a) {
   }
 }
 
+// dynamic shared memory of a block: each warp's four planes and gaussians
+template <typename T>
+size_t smem_bytes(int64_t P) {
+  return static_cast<size_t>(kWarps) *
+         (4 * static_cast<size_t>(P) + kNGauss * kGStride) * sizeof(T);
+}
+
 template <typename T>
 int launch(const void* guess, const void* lo, const void* hi, const void* psf,
            const void* v, const void* u, const void* ia, const void* ve,
@@ -648,8 +655,7 @@ int launch(const void* guess, const void* lo, const void* hi, const void* psf,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   conf.maxfev = static_cast<int>(maxfev);
-  const size_t smem = static_cast<size_t>(kWarps) *
-                      (4 * static_cast<size_t>(P) + kNGauss * kGStride) * sizeof(T);
+  const size_t smem = smem_bytes<T>(P);
   cudaError_t err = cudaFuncSetAttribute(
       lm_solve_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -681,6 +687,31 @@ int launch(const void* guess, const void* lo, const void* hi, const void* psf,
   return static_cast<int>(cudaGetLastError());
 }
 
+// registers a thread, static and dynamic shared memory, and blocks an SM
+// of the kernel at P pixels a lane, as launch() sets it up
+template <typename T>
+int attrs(int64_t P, int* out) {
+  if (P < 1 || P > kMaxP) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes<T>(P);
+  cudaError_t err = cudaFuncSetAttribute(
+      lm_solve_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  if ((err = cudaFuncGetAttributes(&fa, lm_solve_kernel<T>)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, lm_solve_kernel<T>,
+                                                      kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.sharedSizeBytes);
+  out[2] = static_cast<int>(smem);
+  out[3] = per_sm;
+  return 0;
+}
+
 }  // namespace
 
 // Plain C interface for ctypes. Each launches on `stream`, which must
@@ -706,3 +737,6 @@ int launch(const void* guess, const void* lo, const void* hi, const void* psf,
 
 NGMIX_LM_SOLVE(ngmix_lm_solve_f32, float)
 NGMIX_LM_SOLVE(ngmix_lm_solve_f64, double)
+
+extern "C" int ngmix_lm_solve_attrs_f32(int64_t P, int* out) { return attrs<float>(P, out); }
+extern "C" int ngmix_lm_solve_attrs_f64(int64_t P, int* out) { return attrs<double>(P, out); }

@@ -95,13 +95,27 @@ def load():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i64 = ctypes.c_void_p, ctypes.c_int64
+        ip = ctypes.POINTER(ctypes.c_int)
         for name in ("ngmix_gmix_eval_f32", "ngmix_gmix_eval_f64"):
             fn = getattr(lib, name)
-            # gmix, v, u, area, area_scalar, out, B, n, P, fast, stream
+            # gmix, v, u, area, area_scalar, out, B, n, P, fast, then the
+            # launch plan: tile, head, ntiles, nfull, magic, shift, grid,
+            # smem; stream
             fn.argtypes = [
                 p, p, p, p, ctypes.c_double, p, i64, i64, i64,
-                ctypes.c_int, p,
+                ctypes.c_int, *[i64] * 8, p,
             ]
+            fn.restype = ctypes.c_int
+        for name in ("ngmix_gmix_eval_attrs_f32", "ngmix_gmix_eval_attrs_f64"):
+            fn = getattr(lib, name)
+            # fast, n, smem, out[4]: registers, static and dynamic shared
+            # memory, blocks an SM
+            fn.argtypes = [ctypes.c_int, i64, i64, ip]
+            fn.restype = ctypes.c_int
+        for name in ("ngmix_lm_solve_attrs_f32", "ngmix_lm_solve_attrs_f64"):
+            fn = getattr(lib, name)
+            # P, out[4] as for K2
+            fn.argtypes = [i64, ip]
             fn.restype = ctypes.c_int
         for name in ("ngmix_normal_eqs_f32", "ngmix_normal_eqs_f64"):
             fn = getattr(lib, name)

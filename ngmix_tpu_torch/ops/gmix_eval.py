@@ -7,17 +7,22 @@ kernel, body ``_eval_kernel_body``). The kernel is
 ``ngmix_tpu_torch/csrc/gmix_eval.cu``, built by ``ops/_build.py`` and
 bound with ctypes; ``eval_gmix_plain`` is its plain PyTorch version.
 
-What bounds it on an H100: at the gaussmom shape (n = 1 over
-[5 B, 361]) it reads v, u and area and writes the model, about 16
-bytes a pixel in float32 against a few dozen operations, so it is
-memory-bound. At the sims' shape (n = 18 over [B, 2401]) each pixel
-costs 18 exponentials and about 15 operations per gaussian, so the
-arithmetic, and the exponentials in it, may bound it instead. The
-design answers both: one block per (lane, pixel tile) loads the lane's
-n gaussians into shared memory once, derives pnorm and the inverse
-covariance there, and each thread streams its pixels with neighbouring
-threads on neighbouring addresses, keeping the [B, n, P] intermediate
-of the plain version out of device memory.
+What bounds it on an H100: at the gaussmom weight and the exp-LM guess
+(n = 1 over [5 B, 361], area [B, P]) it reads v, u and area and writes
+the model, 16 bytes a pixel in float32 against a few dozen
+instructions: bytes. At the exp-LM s/n sums (n = 6, fast, same shape)
+the bytes and the ~25 instructions a (pixel, gaussian) take about as
+long. At the sims' shape (n = 18 over [B, 2401]) the arithmetic, and
+its exponentials, bound it.
+
+The design (the source's header has it in full): the planes are flat
+[B * P] streams cut into tiles whose slices start on 16-byte
+boundaries; a persistent grid walks the tiles, copying the next
+tile's slices into a two-stage shared-memory ring with TMA bulk copies
+while it computes the current one; each thread takes 16 bytes of
+pixels and finds their lane by a multiply-high. ``launch_plan``
+computes the tiling and ``lane_magic`` the division on the host, so
+both are tested without a card.
 
 Area is a scalar or a [B, P] tensor. A scalar is handed to the kernel
 as a value with a null area pointer (scalar mode), so it is never
@@ -26,6 +31,11 @@ broadcast into a tensor.
 The wrapper takes the plain version only for tensors on the CPU. For a
 CUDA tensor it launches the kernel or raises; it never falls back.
 """
+import ctypes
+import functools
+import math
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -35,12 +45,24 @@ from . import _build
 MAX_GAUSS = 64
 _APOD_IWIDTH = 1.0 / (FASTEXP_MAX_CHI2 - FASTEXP_APOD_CHI2)
 
+# values of one gaussian's set-up record (csrc/gmix_eval.cu: kSetup)
+SETUP_VALUES = 8
+# most bytes of one array's slice of a tile, and of a tile's set-ups
+SLICE_BYTES = 16384
+SETUP_BYTES = 16384
+# the kernel's element indices are 32-bit
+MAX_ELEMENTS = 2**31 - 1
+
 # launches of the CUDA kernel since the last reset (set it to 0 to reset)
 launches = 0
 
 _C_FUNCS = {
     torch.float32: "ngmix_gmix_eval_f32",
     torch.float64: "ngmix_gmix_eval_f64",
+}
+_C_ATTRS = {
+    torch.float32: "ngmix_gmix_eval_attrs_f32",
+    torch.float64: "ngmix_gmix_eval_attrs_f64",
 }
 
 
@@ -75,6 +97,113 @@ def eval_gmix_plain(gmix, v, u, area=1.0, fast=True):
     return torch.sum(pnorm * val, dim=-2) * area
 
 
+# ----------------------------------------------------------------------
+# the launch plan
+
+
+def lane_magic(P):
+    """(magic, shift) such that the lane of flat element f,
+    (umulhi(f, magic) + f) >> shift with the sum in 64 bits, is f // P
+    for every 0 <= f < 2**32: the round-up method with a 33-bit
+    multiplier whose top bit is the added f (Granlund and Montgomery)"""
+    if P < 1:
+        raise ValueError("P must be >= 1, got %d" % P)
+    shift = (P - 1).bit_length()
+    magic = (2**32 * (2**shift - P)) // P + 1
+    return magic, shift
+
+
+class Plan(NamedTuple):
+    """K2's tiling of [B, P] planes (see launch_plan)"""
+
+    lanes: int  # whole lanes a tile, or 0 when a tile is SLICE_BYTES of elements
+    tile: int  # elements a tile
+    head: int  # elements before the first tile, taken with plain loads
+    ntiles: int  # tiles after the head; the last may be ragged
+    nfull: int  # the first nfull tiles go through the ring (TMA)
+    span: int  # most lanes a tile or the head touches
+    magic: int
+    shift: int
+    stage_bytes: int  # one stage of the ring: every array's slice of a tile
+    smem_bytes: int  # dynamic shared memory: two stages and the set-ups
+
+    def tile_range(self, t, N):
+        """flat elements [start, end) of tile t"""
+        start = self.head + t * self.tile
+        return start, min(N, start + self.tile)
+
+
+def launch_plan(B, n, P, esize, narrays, offset=0):
+    """the tiling of K2 over [B, P] planes of esize-byte elements for n
+    gaussians, with narrays arrays read (2 with a scalar area, 3 with an
+    area tensor). offset is the number of elements by which every
+    input's base lies past a 16-byte boundary, or None when they
+    disagree, which sends every tile through plain loads.
+
+    A tile is the fewest whole lanes whose slice of an array fills
+    16-byte vectors, times as many as fit in SLICE_BYTES; where one such
+    group is larger than SLICE_BYTES, a tile is SLICE_BYTES of elements
+    (the sims' 49x49 stamps in float32). The head of (16 - offset esize)
+    / esize elements brings the first tile to a 16-byte boundary, so
+    every tile's slices start on one. Set-ups are capped at SETUP_BYTES.
+    """
+    vec = 16 // esize
+    N = B * P
+    if N > MAX_ELEMENTS:
+        raise ValueError("K2 takes at most %d elements a plane, got B x P = %d"
+                         % (MAX_ELEMENTS, N))
+    group = vec // math.gcd(P, vec)
+    setup_lane = n * SETUP_VALUES * esize
+    if group * P * esize <= SLICE_BYTES:
+        lanes = group * max(1, SLICE_BYTES // (group * P * esize))
+        # the set-ups of a tile's lanes, and of one more for a shifted
+        # start, within SETUP_BYTES
+        cap = (SETUP_BYTES // setup_lane - 1) // group * group
+        lanes = max(group, min(lanes, cap))
+        tile = lanes * P
+    else:
+        lanes = 0
+        tile = SLICE_BYTES // esize
+    head = 0 if not offset else min(N, vec - offset)
+    ntiles = -(-(N - head) // tile)
+    nfull = 0 if offset is None else (N - head) // tile
+    span = (tile + P - 2) // P + 1
+    magic, shift = lane_magic(P)
+    stage_bytes = narrays * tile * esize
+    smem_bytes = 2 * stage_bytes + span * setup_lane
+    return Plan(lanes, tile, head, ntiles, nfull, span, magic, shift, stage_bytes,
+                smem_bytes)
+
+
+def grid_size(ntiles, sms, per_sm):
+    """the persistent grid: a block for each tile, at most as many as the
+    card holds at once; one block when there are only head elements"""
+    return max(1, min(ntiles, sms * per_sm))
+
+
+def input_offset(tensors):
+    """the common offset, in elements, of the tensors' bases past a
+    16-byte boundary, or None when they disagree"""
+    offs = {t.data_ptr() % 16 // t.element_size() for t in tensors}
+    return offs.pop() if len(offs) == 1 else None
+
+
+def _empty_at(like, offset):
+    """an empty tensor shaped like `like` whose base lies offset elements
+    past a 16-byte boundary, so the kernel's 16-byte stores line up with
+    the inputs' loads"""
+    if not offset:
+        return torch.empty_like(like)
+    vec = 16 // like.element_size()
+    buf = like.new_empty((like.numel() + vec,))
+    shift = (offset - buf.data_ptr() % 16 // like.element_size()) % vec
+    return buf[shift:shift + like.numel()].view(like.shape)
+
+
+# ----------------------------------------------------------------------
+# the wrapper
+
+
 def _check(gmix, v, u, area):
     """raise on what the kernel does not take; returns the area tensor
     or None for scalar mode"""
@@ -106,6 +235,42 @@ def _check(gmix, v, u, area):
     return area_t
 
 
+@functools.lru_cache(maxsize=None)
+def _attrs(device, dtype, fast, n, smem):
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        err = getattr(_build.load(), _C_ATTRS[dtype])(int(fast), n, smem, out)
+    if err != 0:
+        raise RuntimeError("K2 gmix_eval attributes failed: CUDA error %d" % err)
+    return dict(regs=out[0], static_smem=out[1], dynamic_smem=out[2], blocks_per_sm=out[3])
+
+
+def kernel_attrs(device, dtype, fast, n, smem):
+    """registers a thread, static and dynamic shared memory (bytes) and
+    blocks an SM of the kernel that serves n gaussians at smem bytes of
+    dynamic shared memory on a CUDA device; queried once per combination
+    and cached"""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return _attrs(device, dtype, bool(fast), int(n), int(smem))
+
+
+def plan_for(gmix, v, u, area_t, fast):
+    """the launch plan, grid and input offset (launch_plan) of K2 on
+    these CUDA tensors, area_t the area tensor or None"""
+    inputs = [v, u] + ([area_t] if area_t is not None else [])
+    offset = input_offset(inputs)
+    B, n, _ = gmix.shape
+    plan = launch_plan(B, n, v.shape[1], v.element_size(), len(inputs), offset)
+    per_sm = kernel_attrs(v.device, v.dtype, fast, n, plan.smem_bytes)["blocks_per_sm"]
+    if per_sm < 1:
+        raise RuntimeError("K2 does not fit an SM with %d bytes of shared memory"
+                           % plan.smem_bytes)
+    sms = torch.cuda.get_device_properties(v.device).multi_processor_count
+    return plan, grid_size(plan.ntiles, sms, per_sm), offset
+
+
 def eval_gmix(gmix, v, u, area=1.0, fast=True):
     """K2: evaluate [B, n, 6] mixtures over [B, P] pixel coordinates.
 
@@ -119,21 +284,23 @@ def eval_gmix(gmix, v, u, area=1.0, fast=True):
     if gmix.device.type != "cuda":
         raise RuntimeError("K2 runs on CUDA or CPU tensors, not %s" % gmix.device)
 
-    fn = getattr(_build.load(), _C_FUNCS[gmix.dtype])
     B, n, _ = gmix.shape
     P = v.shape[1]
-    out = torch.empty_like(v)
-    if out.numel() == 0:
-        return out
+    if B * P == 0:
+        return torch.empty_like(v)
+    fn = getattr(_build.load(), _C_FUNCS[gmix.dtype])
     area_scalar = 0.0 if area_t is not None else float(area)
     # the tensors' device is current only for the launch, so the caller's
     # current device is left as it was
     with torch.cuda.device(gmix.device):
+        plan, grid, offset = plan_for(gmix, v, u, area_t, fast)
+        out = _empty_at(v, offset)
         err = fn(
             gmix.data_ptr(), v.data_ptr(), u.data_ptr(),
             area_t.data_ptr() if area_t is not None else None,
             area_scalar, out.data_ptr(), B, n, P, int(bool(fast)),
-            torch.cuda.current_stream().cuda_stream,
+            plan.tile, plan.head, plan.ntiles, plan.nfull, plan.magic, plan.shift,
+            grid, plan.smem_bytes, torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError("K2 gmix_eval launch failed: CUDA error %d" % err)

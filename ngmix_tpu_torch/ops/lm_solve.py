@@ -33,6 +33,8 @@ depend on its batch or on the warp that ran it.
 The wrapper takes the plain version only for tensors on the CPU. For a
 CUDA tensor it launches the kernel or raises; it never falls back.
 """
+import ctypes
+
 import torch
 
 from ..fitting import lm
@@ -49,6 +51,10 @@ launches = 0
 _C_FUNCS = {
     torch.float32: "ngmix_lm_solve_f32",
     torch.float64: "ngmix_lm_solve_f64",
+}
+_C_ATTRS = {
+    torch.float32: "ngmix_lm_solve_attrs_f32",
+    torch.float64: "ngmix_lm_solve_attrs_f64",
 }
 
 
@@ -160,3 +166,14 @@ def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf):
         raise RuntimeError("K3 lm_solve launch failed: CUDA error %d" % err)
     launches += 1
     return out
+
+
+def kernel_attrs(dtype, P):
+    """registers a thread, static and dynamic shared memory (bytes) and
+    blocks an SM of the kernel at P pixels a lane, on the current CUDA
+    device"""
+    out = (ctypes.c_int * 4)()
+    err = getattr(_build.load(), _C_ATTRS[dtype])(P, out)
+    if err != 0:
+        raise RuntimeError("K3 lm_solve attributes failed: CUDA error %d" % err)
+    return dict(regs=out[0], static_smem=out[1], dynamic_smem=out[2], blocks_per_sm=out[3])

@@ -11,6 +11,7 @@ The CUDA kernel itself runs only on the card (chip_smoke.py); here the
 wrapper's dispatch is checked with a mocked CUDA tensor and library.
 """
 import contextlib
+import functools
 import types
 
 import jax
@@ -141,18 +142,31 @@ def _fake_cuda(x):
 
 
 def _mock_card(monkeypatch, ret):
-    """a fake kernel library that records its calls, and a plain
-    version that must not be taken"""
+    """a fake kernel library that records its calls, a card of 132 SMs
+    that holds 3 blocks an SM, and a plain version that must not be
+    taken"""
     calls = []
 
     def fake_kernel(*args):
         calls.append(args)
         return ret
 
+    def fake_attrs(fast, n, smem, out):
+        out[0], out[1], out[2], out[3] = 40, 16, smem, 3
+        return 0
+
     lib = types.SimpleNamespace(
-        ngmix_gmix_eval_f32=fake_kernel, ngmix_gmix_eval_f64=fake_kernel
+        ngmix_gmix_eval_f32=fake_kernel, ngmix_gmix_eval_f64=fake_kernel,
+        ngmix_gmix_eval_attrs_f32=fake_attrs, ngmix_gmix_eval_attrs_f64=fake_attrs,
     )
     monkeypatch.setattr(_build, "load", lambda: lib)
+    # a cache of the fake card's attributes for this test only
+    monkeypatch.setattr(gmix_eval, "_attrs",
+                        functools.lru_cache()(gmix_eval._attrs.__wrapped__))
+    monkeypatch.setattr(
+        torch.cuda, "get_device_properties",
+        lambda d=None: types.SimpleNamespace(multi_processor_count=132),
+    )
 
     def no_plain(*a, **k):
         raise AssertionError("the plain version ran for a CUDA tensor")
@@ -173,24 +187,52 @@ def _mock_card(monkeypatch, ret):
     return calls
 
 
-@pytest.mark.parametrize("area_mode", ["scalar", "tensor"])
+def _at_offset(x, k=1):
+    """a copy of x whose base lies k elements into its 16-byte aligned
+    buffer"""
+    buf = np.empty(x.size + k, dtype=x.dtype)
+    assert buf.ctypes.data % 16 == 0
+    view = buf[k:].reshape(x.shape)
+    view[...] = x
+    return view
+
+
+@pytest.mark.parametrize("area_mode", ["scalar", "tensor", "offset"])
 def test_cuda_tensor_launches_kernel_never_plain(monkeypatch, area_mode):
+    """the launch's arguments; "offset" hands v, u and area as views one
+    element past a 16-byte boundary, which the plan takes as a head, and
+    the output lies at the same offset"""
     calls = _mock_card(monkeypatch, 0)
-    gm, v, u, area = (_fake_cuda(x) for x in _inputs(18, B=3, P=40))
+    gm, v, u, area = _inputs(18, B=3, P=40)
+    if area_mode == "offset":
+        v, u, area = (_at_offset(x) for x in (v, u, area))
+    gm, v, u, area = (_fake_cuda(x) for x in (gm, v, u, area))
     if area_mode == "scalar":
         area = 0.069
     monkeypatch.setattr(gmix_eval, "launches", 0)
-    gmix_eval.eval_gmix(gm, v, u, area, fast=False)
+    out = gmix_eval.eval_gmix(gm, v, u, area, fast=False)
     assert gmix_eval.launches == 1
-    (_, dev), args = calls
-    assert dev == gm.device
-    gp, vp, up, ap, ascalar, op, B, n, P, fast, stream = args
-    assert (gp, vp, up) == (gm.data_ptr(), v.data_ptr(), u.data_ptr())
+    devices = [c[1] for c in calls if c[0] == "device"]
+    (args,) = [c for c in calls if c[0] != "device"]
+    assert devices and all(d == gm.device for d in devices)
+    (gp, vp, up, ap, ascalar, op, B, n, P, fast,
+     tile, head, ntiles, nfull, magic, shift, grid, smem, stream) = args
+    assert (gp, vp, up, op) == (gm.data_ptr(), v.data_ptr(), u.data_ptr(), out.data_ptr())
     if area_mode == "scalar":
         assert ap is None and ascalar == 0.069
+        inputs = [v, u]
     else:
         assert ap == area.data_ptr()
+        inputs = [v, u, area]
     assert (B, n, P, fast, stream) == (3, 18, 40, 0, 1234)
+    # the launch plan for these inputs, on the fake card's 132 x 3 blocks
+    plan = gmix_eval.launch_plan(3, 18, 40, 8, len(inputs), gmix_eval.input_offset(inputs))
+    assert (tile, head, ntiles, nfull, magic, shift, smem) == (
+        plan.tile, plan.head, plan.ntiles, plan.nfull, plan.magic, plan.shift,
+        plan.smem_bytes)
+    assert grid == gmix_eval.grid_size(plan.ntiles, 132, 3)
+    assert head == (1 if area_mode == "offset" else 0)
+    assert op % 16 == vp % 16
 
 
 def test_cuda_launch_error_raises(monkeypatch):
