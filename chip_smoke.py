@@ -2,11 +2,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's two main paths on the card, bench.py's
-metacal_gaussmom workload and its exp-LM headline at the production
-chunk size, and holds the hand-written CUDA kernels K2 (mixture
-evaluation), K1 (LM normal equations) and K3 (every lane's whole
-exp-LM solve) against their plain PyTorch versions. The exp-LM path
+Drives the port's main paths on the card, bench.py's metacal_gaussmom
+workload, its exp-LM headline and its metacal_admom workload at the
+production chunk size, and the azgauss, fitgauss and dilate psf modes;
+and holds the hand-written CUDA kernels K2 (mixture evaluation), K1
+(LM normal equations) and K3 (every lane's whole exp-LM solve) against
+their plain PyTorch versions. The exp-LM path
 runs through K3; its host-loop route (run_lm_normal_batched with K1,
 reached through _exp_lm_measure's host_loop argument) is driven for the
 phases that hold K1 and for the comparison. Phases, in order, each
@@ -99,7 +100,42 @@ printing one timed line as soon as it ends:
            launches over them printed), and the share of its float32
            lanes whose e1/e2/T/flux differ from the K3 route's by more
            than rtol 1e-4, with the largest difference in units of
-           pars_err, is printed.
+           pars_err, is printed;
+14. admom: the admom metacal pipeline (bench.py's metacal_admom
+           configuration) in float32 on the homogeneous and
+           heterogeneous sims at B = 10240 (5 B = 51200 lanes), gated
+           like phase 4, with K2 launched and one call launching K2
+           twice an iteration and once more; prints numiter (mean, p50,
+           max), the host loop's iterations a call, stamps/s (median
+           and range of 3 calls), the device operations a call and the
+           device idle share, measured as in phase 13;
+15. admom-cpu: the first 256 stamps in float64 on the card and on the
+           CPU: flags and numiter equal, every field to rtol 1e-8 and
+           atol 1e-10 with NaNs in the same places;
+16. admom-batch: bench.py's standalone admom shape, admom_batch on
+           B = 10240 full 49x49 stamps from a round T = 0.6 guess
+           (flags, numiter, stamps/s); K2 at admom's two shapes (n = 1,
+           fast, over [5 B, 361] with a [B, P] area and over [B, 2401]),
+           on the inputs of each path's first weight, held against its
+           plain version at phase 3's tolerances and timed beside its
+           bound, with its launches a call at that shape;
+17. psf-modes: at B = 10240 in float32 on both sims, gaussmom under
+           fitgauss, azgauss and dilate (all 9 types, with the
+           psf-sheared ones), and admom and exp-LM (through K3) under
+           dilate: flagged lanes within phase 4's bound, K2 (and K3)
+           launched, fitgauss |m| < 1.5e-3, and under dilate
+           psf_shear_response finite, for gaussmom with diagonal > 0.02
+           and |off-diagonal| < 0.5 x diagonal
+           (tests/test_batch_pipeline.py:474-480); K3 against its plain
+           version on the dilate exp-LM solve's own inputs (an
+           elliptical psf per lane) by phase 13's criterion; K2 on the
+           psf-stamp admom weight of the fitgauss gaussmom call (n = 1,
+           fast, [B, 625]) and of the dilate exp-LM call ([9 B, 625],
+           the nine types' rendered targets), each held against its
+           plain version and timed as in phase 16; then the
+           first 256 stamps of each run in float64 on the card and the
+           CPU: psf_sigma and every field of the moments measures to
+           rtol 1e-8 as in phase 15, exp-LM by phase 12's criterion.
 
 Needs one CUDA card and exits nonzero, printing the reason, on any
 failure or without a card. The last line is the JSON result.
@@ -126,6 +162,7 @@ B_BOUNDED = 256
 N_TIMED = 5
 NTYPES = 5
 CONF = nt.sims.METACAL_GAUSSMOM_CONFIG
+ADMOM_CONF = nt.sims.METACAL_ADMOM_CONFIG
 LM_CONF = nt.sims.METACAL_EXP_LM_CONFIG
 SHEAR_TRUE = nt.sims.SHEAR_TRUE
 
@@ -296,61 +333,57 @@ def m_of(sr):
     return float(sr["shear"][0]) / SHEAR_TRUE - 1.0
 
 
-def run_main(device, B):
-    """the main path: sims -> pipeline -> shear_response, homogeneous
-    and heterogeneous, float32"""
-    fn = nt.make_metacal_pipeline_fn(CONF, measure="gaussmom", device=device)
+def run_main(device, B, conf=CONF, measure="gaussmom"):
+    """a moments main path: sims -> pipeline -> shear_response,
+    homogeneous and heterogeneous, float32; three timed calls on the
+    homogeneous sims (wall time, and the span between CUDA events at
+    their start and end)"""
+    fn = nt.make_metacal_pipeline_fn(conf, measure=measure, device=device)
     gen = torch.Generator(device=device).manual_seed(314)
     hom = nt.make_sim_batch(gen, B, torch.float32, device=device)
     res = fn(*hom)
-    sr = nt.shear_response(res)
     # timed calls after the first, which pays for FFT plans and library
     # setup; the median of three
-    times = []
+    times, spans = [], []
     for _ in range(3):
-        _sync(device)
-        t0 = time.perf_counter()
-        fn(*hom)
-        _sync(device)
-        times.append(time.perf_counter() - t0)
+        _, wall, span = timed_call(fn, *hom)
+        times.append(wall)
+        spans.append(span)
     dt = sorted(times)[1]
     het = nt.make_sim_batch_hetero(torch.Generator(device=device).manual_seed(271),
                                    B, torch.float32, device=device)
     het_res = fn(*het)
-    het_sr = nt.shear_response(het_res)
     _sync(device)
     out = dict(
-        m=m_of(sr), het_m=m_of(het_sr), R11=float(sr["R"][0, 0]),
-        flagged=int((res["noshear"]["flags"] != 0).sum()),
-        het_flagged=int((het_res["noshear"]["flags"] != 0).sum()),
+        moments_gate(res, het_res, B),
         stamps_per_s=B / dt, sec=dt, sec_range=(min(times), max(times)),
+        span_ms=sorted(spans)[1], res=res, het_res=het_res,
     )
-    for r in (res, het_res):
-        for t in nt.batch.GALSHEAR_TYPES:
-            pars = r[t]["pars"]
-            ok = r[t]["flags"] == 0
-            if tuple(pars.shape) != (B, 6) or not bool(torch.isfinite(pars[ok]).all()):
-                raise SmokeFailure("bad pars for type %s: shape %s or not finite"
-                                   % (t, tuple(pars.shape)))
     return out, hom
 
 
-def compare_card_cpu(hom, n=256):
-    """per-lane float64 run of the first n stamps on the card and the CPU"""
-    args = [a[:n].double() for a in hom]
-    card = nt.make_metacal_pipeline_fn(CONF, device="cuda")(*args)
-    cpu = nt.make_metacal_pipeline_fn(CONF, device="cpu")(*(a.cpu() for a in args))
+def compare_results(card, cpu, what, int_keys=("flags", "numiter", "T_flags", "flux_flags",
+                                               "rho4_flags")):
+    """every field of two float64 result dicts of one type, card against
+    CPU: the integer fields equal, the others to rtol 1e-8 and atol
+    1e-10 with NaNs in the same places. Returns the largest share of
+    that tolerance a difference takes"""
     worst = 0.0
-    for t in nt.batch.GALSHEAR_TYPES:
-        if not torch.equal(card[t]["flags"].cpu(), cpu[t]["flags"]):
-            raise SmokeFailure("flags differ between card and CPU for %s" % t)
-        for k in ("pars", "s2n"):
-            a, b = card[t][k].cpu(), cpu[t][k]
-            err = (a - b).abs()
-            if bool((err > 1e-10 + 1e-8 * b.abs()).any()):
-                raise SmokeFailure("%s/%s differ between card and CPU: max %.3e"
-                                   % (t, k, float(err.max())))
-            worst = max(worst, float((err / b.abs().clamp_min(1e-300)).max()))
+    for k, b in cpu.items():
+        a = card[k].cpu()
+        if k in int_keys:
+            if not torch.equal(a, b):
+                raise SmokeFailure("%s: %s differ between card and CPU" % (what, k))
+            continue
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            raise SmokeFailure("%s: NaNs of %s differ between card and CPU" % (what, k))
+        a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+        err = (a - b).abs()
+        tol = 1e-10 + 1e-8 * b.abs()
+        if bool((err > tol).any()):
+            raise SmokeFailure("%s: %s differ between card and CPU: max %.3e"
+                               % (what, k, float(err.max())))
+        worst = max(worst, float((err / tol).max()))
     return worst
 
 
@@ -420,22 +453,26 @@ def bound(gm, v, area):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def time_kernel(shapes):
-    """K2 at each main-path shape: held against its plain version on
-    the same inputs, then timed beside it and its bound"""
-    rows = []
-    for name, (gm, v, u, area) in shapes.items():
-        err, rel = compare(gmix_eval.eval_gmix(gm, v, u, area, fast=False),
-                           _plain_chunked(gm, v, u, area, False), name)
-        ms = time_ms(lambda: gmix_eval.eval_gmix(gm, v, u, area, fast=False), 20)
-        plain_ms = time_ms(
-            lambda: gmix_eval.eval_gmix_plain(gm, v, u, area, fast=False), 3, warmup=1
-        )
-        b_ms, by = bound(gm, v, area)
-        rows.append(dict(shape=name, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                         bound_by=by, max_abs_err=err, max_rel_err=rel,
-                         **k2_launch_attrs(gm, v, u, area, False)))
-    return rows
+def time_k2(name, gm, v, u, area, fast):
+    """K2 on these inputs: held against its plain version at phase 3's
+    tolerances, then timed beside it and its bound"""
+    err, rel = compare(gmix_eval.eval_gmix(gm, v, u, area, fast=fast),
+                       _plain_chunked(gm, v, u, area, fast), name)
+    ms = time_ms(lambda: gmix_eval.eval_gmix(gm, v, u, area, fast=fast), 20)
+    plain_ms = time_ms(lambda: gmix_eval.eval_gmix_plain(gm, v, u, area, fast=fast), 3,
+                       warmup=1)
+    b_ms, by = bound(gm, v, area)
+    return dict(kernel="K2", shape=name, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                max_abs_err=err, max_rel_err=rel, **k2_launch_attrs(gm, v, u, area, fast))
+
+
+def k2_row_text(r):
+    return ("    K2 %s: agrees (max abs err %.3e, rel %.3e); %.4f ms, plain %.4f ms, bound "
+            "%.4f ms (%s); %s, grid %d, tile %d%s"
+            % (r["shape"], r["max_abs_err"], r["max_rel_err"], r["ms"], r["plain_ms"],
+               r["bound_ms"], r["bound_by"], attrs_text(r), r["grid"], r["tile"],
+               "; %d launches a call" % r["launches_a_call"] if "launches_a_call" in r
+               else ""))
 
 
 def k2_launch_attrs(gm, v, u, area, fast):
@@ -577,9 +614,13 @@ def exp_lm_gate(res, het_res, B):
 
 
 def check_gate(g, B, what):
-    limit = max(8, int(0.005 * B))
     if not (abs(g["m"]) < 1e-3 and abs(g["het_m"]) < 1e-3):
         raise SmokeFailure("%s m gate failed: m=%.3e hetero m=%.3e" % (what, g["m"], g["het_m"]))
+    check_flagged(g, B, what)
+
+
+def check_flagged(g, B, what):
+    limit = max(8, int(0.005 * B))
     if g["flagged"] > limit or g["het_flagged"] > limit:
         raise SmokeFailure("too many flagged %s lanes: %d, %d > %d"
                            % (what, g["flagged"], g["het_flagged"], limit))
@@ -744,25 +785,17 @@ def time_lm_kernels(hom, device):
     rows.append(dict(kernel="K1", shape="n=%d [%dx%d]" % (k1_args[0].shape[1], *k1_args[2].shape),
                      ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
                      max_abs_err=err, max_rel_err=rel))
-    err, rel = compare(gmix_eval.eval_gmix(gm, v, u, area, fast=True),
-                       _plain_chunked(gm, v, u, area, True), "get_loglike shape")
-    ms = time_ms(lambda: gmix_eval.eval_gmix(gm, v, u, area, fast=True), 20)
-    plain_ms = time_ms(lambda: gmix_eval.eval_gmix_plain(gm, v, u, area, fast=True), 3,
-                       warmup=1)
-    b_ms, by = bound(gm, v, area)
-    rows.append(dict(kernel="K2", shape="exp-lm get_loglike n=%d fast [%dx%d]"
-                     % (gm.shape[1], *v.shape), ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                     bound_by=by, max_abs_err=err, max_rel_err=rel,
-                     **k2_launch_attrs(gm, v, u, area, True)))
+    rows.append(time_k2("exp-lm get_loglike n=%d fast [%dx%d]" % (gm.shape[1], *v.shape),
+                        gm, v, u, area, True))
     return rows
 
 
 # ----------------------------------------------------------------------
 # K3
 
-def capture_k3_inputs(args, device):
+def capture_k3_inputs(args, device, conf=LM_CONF):
     """the inputs of the exp-LM path's K3 call but the LMConf, from one
-    pipeline call on args, and the pipeline's results"""
+    pipeline call under conf on args, and the pipeline's results"""
     seen = {}
     k3 = lm_solve.lm_solve
 
@@ -771,7 +804,7 @@ def capture_k3_inputs(args, device):
         return k3(*a)
 
     with mock.patch.object(lm_solve, "lm_solve", spy):
-        res = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device=device)(*args)
+        res = nt.make_metacal_pipeline_fn(conf, measure="exp-lm", device=device)(*args)
     return seen["k3"], res
 
 
@@ -1009,6 +1042,277 @@ def time_k3(device, hom, het, res_k3):
     return row, calls, host
 
 
+# ----------------------------------------------------------------------
+# admom and the psf modes
+
+def numiter_stats(*numiter):
+    """mean, p50 and max of the lanes' numiter over every tensor given;
+    the max is the host loop's iterations (a lane stays active from the
+    first iteration until it is done)"""
+    x = torch.cat(numiter).double()
+    return float(x.mean()), float(torch.quantile(x, 0.5)), int(x.max())
+
+
+def pipeline_numiter(res, types=nt.batch.GALSHEAR_TYPES):
+    return numiter_stats(*(res[t]["numiter"] for t in types))
+
+
+def capture_k2_inputs(fn, *args):
+    """the inputs of the first K2 launch with fast=True in one call
+    fn(*args), and how many fast launches of that call had their shape
+    (gaussians and [B, P])"""
+    first, shapes = [], []
+    k2 = gmix_eval.eval_gmix
+
+    def spy(gm, v, u, area=1.0, fast=True):
+        if fast:
+            if not first:
+                first.append((gm, v, u, area))
+            shapes.append((gm.shape[1], *v.shape))
+        return k2(gm, v, u, area, fast=fast)
+
+    with mock.patch.object(gmix_eval, "eval_gmix", spy):
+        fn(*args)
+    gm, v = first[0][:2]
+    return first[0], shapes.count((gm.shape[1], *v.shape))
+
+
+def time_k2_captured(name, fn, *args, pixels=None):
+    """time_k2 on the first fast K2 launch of fn(*args), with its
+    launches a call at that shape; fails if that launch does not have
+    the pixels a lane expected"""
+    inputs, launches = capture_k2_inputs(fn, *args)
+    gm, v = inputs[:2]
+    if pixels is not None and v.shape[1] != pixels:
+        raise SmokeFailure("%s: the first fast K2 launch has %d pixels a lane, not %d"
+                           % (name, v.shape[1], pixels))
+    row = time_k2("%s n=%d fast [%dx%d]" % (name, gm.shape[1], *v.shape), *inputs, fast=True)
+    return dict(row, launches_a_call=launches)
+
+
+def run_admom_batch(device, hom):
+    """bench.py's standalone admom shape: admom_batch on the full 49x49
+    stamps with a round T = 0.6 guess, three timed calls; and K2 on the
+    inputs of its first weight"""
+    B = hom[0].shape[0]
+    pixels = nt.batch.make_pixels_batch(hom[0], hom[1], hom[2], CONF)
+    wt0 = nt.batch.round_wt0(B, 0.6, torch.float32, device)
+    area = torch.full((B,), nt.sims.SCALE**2, dtype=torch.float32, device=device)
+    conf = nt.AdmomConf()
+    fn = functools.partial(nt.admom_batch, conf=conf, device=device)
+    res = fn(pixels, wt0, area)
+    times = sorted(timed_call(fn, pixels, wt0, area)[1] for _ in range(3))
+    row = time_k2_captured("admom_batch", fn, pixels, wt0, area)
+    return dict(flagged=int((res["flags"] != 0).sum()), numiter=numiter_stats(res["numiter"]),
+                stamps_per_s=B / times[1], sec_range=(times[0], times[-1])), row
+
+
+def check_k3_dilate(k3_args):
+    """K3 against its plain version on the dilate exp-LM solve's inputs
+    (an elliptical psf per lane), phase 13's float32 criterion: flags
+    equal, e1/e2/T/flux within half the lane's pars_err"""
+    conf = nt.LMConf()
+    a = solve_columns(lm_solve.lm_solve(*k3_args, conf), k3_args, conf)
+    b = solve_columns(lm_solve.lm_solve_plain(*k3_args, conf), k3_args, conf)
+    flags_diff = int((a["flags"] != b["flags"]).sum())
+    split, in_err = f32_split(a, b)
+    finite = all(bool(torch.isfinite(a[k]).all()) for k in ("e1", "e2", "T", "flux"))
+    if not finite or flags_diff or not in_err <= 0.5:
+        raise SmokeFailure("K3 disagrees with its plain version on the dilate exp-LM inputs: "
+                           "flags differ on %d lanes, largest difference %.3e pars_err, "
+                           "finite %s" % (flags_diff, in_err, finite))
+    psf = k3_args[3]
+    return dict(lanes=a["flags"].numel(), split=split, max_in_err=in_err,
+                max_abs_irc=float(psf[:, 1].abs().max()))
+
+
+def psf_mode_runs(device, hom, het):
+    """the psf modes at B_MAIN in float32: gaussmom under fitgauss,
+    azgauss and dilate (all 9 types), admom and exp-LM under dilate,
+    on the homogeneous and heterogeneous sims, gated on flagged lanes;
+    fitgauss also on |m|, dilate on psf_shear_response; K3 against its
+    plain version on the dilate exp-LM solve's own inputs; K2 on the
+    psf-stamp admom weights of fitgauss and of the dilate exp-LM"""
+    types9 = nt.batch.GALSHEAR_TYPES + nt.batch.PSFSHEAR_TYPES
+    runs = [("gaussmom", CONF._replace(psf_mode="fitgauss")),
+            ("gaussmom", CONF._replace(psf_mode="azgauss")),
+            ("gaussmom", CONF._replace(psf_mode="dilate", types=types9)),
+            ("admom", ADMOM_CONF._replace(psf_mode="dilate", types=types9)),
+            ("exp-lm", LM_CONF._replace(psf_mode="dilate", types=types9))]
+    out, k2_rows = [], []
+    k3 = None
+    psf_pixels = CONF.psf_dims[0] * CONF.psf_dims[1]
+    for measure, conf in runs:
+        fn = nt.make_metacal_pipeline_fn(conf, measure=measure, device=device)
+        _sync(device)
+        reset_launches()
+        if measure == "exp-lm":
+            k3_args, res = capture_k3_inputs(hom, device, conf)
+        else:
+            res = fn(*hom)
+        het_res = fn(*het)
+        _sync(device)
+        row = dict(measure=measure, mode=conf.psf_mode, launches=read_launches(),
+                   **exp_lm_gate(res, het_res, B_MAIN) if measure == "exp-lm"
+                   else moments_gate(res, het_res, B_MAIN))
+        check_flagged(row, B_MAIN, "%s %s" % (measure, conf.psf_mode))
+        if conf.psf_mode == "fitgauss" and not abs(row["m"]) < 1.5e-3:
+            raise SmokeFailure("fitgauss m gate failed: m=%.3e" % row["m"])
+        if conf.psf_mode == "dilate":
+            rp = nt.psf_shear_response(res)
+            row["R_psf"] = rp.tolist()
+            if not bool(torch.isfinite(rp).all()):
+                raise SmokeFailure("%s dilate psf_shear_response not finite" % measure)
+            d, off = rp.diagonal(), torch.stack([rp[0, 1], rp[1, 0]])
+            # the reference's bounds for a psf-blind measure
+            # (tests/test_batch_pipeline.py:474-480)
+            if measure == "gaussmom" and not (bool((d > 0.02).all())
+                                              and bool((off.abs() < 0.5 * d).all())):
+                raise SmokeFailure("gaussmom dilate psf_shear_response out of bounds: %s"
+                                   % rp.tolist())
+        if measure == "admom":
+            row["numiter"] = pipeline_numiter(res, types9)
+        if measure == "exp-lm":
+            k3 = check_k3_dilate(k3_args)
+            if row["launches"]["k3"] <= 0:
+                raise SmokeFailure("the dilate exp-LM path did not launch K3")
+        if row["launches"]["k2"] <= 0:
+            raise SmokeFailure("%s under %s did not launch K2" % (measure, conf.psf_mode))
+        if (measure, conf.psf_mode) in (("gaussmom", "fitgauss"), ("exp-lm", "dilate")):
+            # the first fast K2 launch of these calls is the admom weight
+            # over the psf stamps (fitgauss) or over the nine types'
+            # rendered targets (dilate)
+            k2_rows.append(time_k2_captured("%s %s psf-stamp admom" % (measure, conf.psf_mode),
+                                            fn, *hom, pixels=psf_pixels))
+        out.append(row)
+    return out, runs, k3, k2_rows
+
+
+def moments_gate(res, het_res, B):
+    """m, hetero m and the flagged noshear lanes of a moments pipeline's
+    hom and het results, after the shape and finiteness checks"""
+    for r in (res, het_res):
+        for t in nt.batch.GALSHEAR_TYPES:
+            pars = r[t]["pars"]
+            ok = r[t]["flags"] == 0
+            if tuple(pars.shape) != (B, 6) or not bool(torch.isfinite(pars[ok]).all()):
+                raise SmokeFailure("bad pars for type %s: shape %s or not finite"
+                                   % (t, tuple(pars.shape)))
+    sr = nt.shear_response(res)
+    return dict(m=m_of(sr), het_m=m_of(nt.shear_response(het_res)), R11=float(sr["R"][0, 0]),
+                flagged=int((res["noshear"]["flags"] != 0).sum()),
+                het_flagged=int((het_res["noshear"]["flags"] != 0).sum()))
+
+
+def psf_modes_card_cpu(hom, runs, n=256):
+    """the first n stamps of each psf-mode run in float64 on the card and
+    the CPU: psf_sigma and every result field to rtol 1e-8 (the moments
+    measures); the exp-LM card route (K3) against the CPU's plain
+    version by phase 12's criterion (flags equal, e1/e2/T/flux to rtol
+    1e-5 and atol 1e-7, nfev within 2). Returns the largest share of
+    the tolerance of the rtol 1e-8 comparisons"""
+    args = [a[:n].double() for a in hom]
+    worst = 0.0
+    for measure, conf in runs:
+        card = nt.make_metacal_pipeline_fn(conf, measure=measure, device="cuda")(*args)
+        cpu = nt.make_metacal_pipeline_fn(conf, measure=measure, device="cpu")(
+            *(a.cpu() for a in args))
+        what = "%s %s" % (measure, conf.psf_mode)
+        worst = max(worst, compare_results({"s": card["psf_sigma"]},
+                                           {"s": cpu["psf_sigma"]}, what + " psf_sigma"))
+        for t in conf.types:
+            if measure == "exp-lm":
+                per_lane_diff({k: card[t][k].cpu() for k in cpu[t]}, cpu[t], what + " " + t)
+            else:
+                worst = max(worst, compare_results(card[t], cpu[t], "%s %s" % (what, t)))
+    return worst
+
+
+def admom_phases(device, t_all):
+    """phases 14-17: the admom main path and its checks, admom_batch at
+    bench.py's standalone shape, and the psf modes. Returns K2's
+    launches on the admom path, K2's rows at admom's shapes (the psf
+    stamps' included) and the psf-mode runs"""
+    t0 = time.perf_counter()
+    _sync(device)
+    reset_launches()
+    ap, hom = run_main(device, B_MAIN, ADMOM_CONF, "admom")
+    _sync(device)
+    admom_launches = read_launches()["k2"]
+    it_hom, it_het = pipeline_numiter(ap["res"]), pipeline_numiter(ap["het_res"])
+    fn_admom = nt.make_metacal_pipeline_fn(ADMOM_CONF, measure="admom", device=device)
+    admom_ops, admom_busy = device_profile(fn_admom, *hom)
+    phase_line(
+        "14 admom", t0,
+        "B=%d m=%.3e hetero_m=%.3e R11=%.4f flagged=%d hetero_flagged=%d k2_launches=%d "
+        "stamps/s=%.1f (median %.4f s/call of 3, range %.4f-%.4f)"
+        % (B_MAIN, ap["m"], ap["het_m"], ap["R11"], ap["flagged"], ap["het_flagged"],
+           admom_launches, ap["stamps_per_s"], ap["sec"], *ap["sec_range"]))
+    print("    numiter (mean, p50, max): hom (%.3f, %g, %d) het (%.3f, %g, %d); host-loop "
+          "iterations a call: hom %d het %d; %d device operations a call, busy %.3f ms, "
+          "event span %.3f ms, idle %.1f%%"
+          % (*it_hom, *it_het, it_hom[2], it_het[2], admom_ops, admom_busy, ap["span_ms"],
+             100 * (1 - admom_busy / ap["span_ms"])), flush=True)
+    check_gate(ap, B_MAIN, "admom")
+    if admom_launches <= 0:
+        raise SmokeFailure("the admom path did not launch K2")
+    # one call: two K2 launches an iteration and one for the covariance
+    reset_launches()
+    fn_admom(*hom)
+    _sync(device)
+    if read_launches()["k2"] != 2 * it_hom[2] + 1:
+        raise SmokeFailure("an admom call launched K2 %d times, not twice an iteration and "
+                           "once more" % read_launches()["k2"])
+
+    t0 = time.perf_counter()
+    args = [a[:256].double() for a in hom]
+    card = fn_admom(*args)
+    cpu = nt.make_metacal_pipeline_fn(ADMOM_CONF, measure="admom", device="cpu")(
+        *(a.cpu() for a in args))
+    admom_worst = max(compare_results(card[t], cpu[t], "admom " + t)
+                      for t in nt.batch.GALSHEAR_TYPES)
+    phase_line("15 admom-cpu", t0, "256 stamps float64: flags and numiter equal, every field "
+               "within rtol 1e-8 + atol 1e-10 (at most %.3e of it)" % admom_worst)
+
+    t0 = time.perf_counter()
+    ab, ab_row = run_admom_batch(device, hom)
+    admom_rows = [time_k2_captured("admom pipeline", fn_admom, *hom), ab_row]
+    for r in admom_rows:
+        print(k2_row_text(r), flush=True)
+    phase_line("16 admom-batch", t0, "B=%d 49x49: flagged=%d numiter (mean, p50, max) "
+               "(%.3f, %g, %d) stamps/s=%.1f (median of 3, range %.4f-%.4f s)"
+               % (B_MAIN, ab["flagged"], *ab["numiter"], ab["stamps_per_s"],
+                  *ab["sec_range"]))
+
+    t0 = time.perf_counter()
+    het = nt.make_sim_batch_hetero(torch.Generator(device=device).manual_seed(271),
+                                   B_MAIN, torch.float32, device=device)
+    modes, runs, k3d, psf_rows = psf_mode_runs(device, hom, het)
+    del het
+    for r in psf_rows:
+        print(k2_row_text(r), flush=True)
+    for r in modes:
+        print("    %s %s: m=%.3e hetero_m=%.3e flagged=%d hetero_flagged=%d launches k3=%d "
+              "k2=%d%s%s"
+              % (r["measure"], r["mode"], r["m"], r["het_m"], r["flagged"],
+                 r["het_flagged"], r["launches"]["k3"], r["launches"]["k2"],
+                 " R_psf=[[%.4f, %.4f], [%.4f, %.4f]]" % sum(map(tuple, r["R_psf"]), ())
+                 if "R_psf" in r else "",
+                 " numiter (%.3f, %g, %d)" % r["numiter"] if "numiter" in r else ""),
+              flush=True)
+    print("    K3 on the dilate exp-LM inputs (%d lanes, |psf irc| up to %.3e) against its "
+          "plain version: flags equal, %.4f outside rtol 1e-4, largest difference %.3e "
+          "pars_err" % (k3d["lanes"], k3d["max_abs_irc"], k3d["split"], k3d["max_in_err"]),
+          flush=True)
+    modes_worst = psf_modes_card_cpu(hom, runs)
+    del hom
+    phase_line("17 psf-modes", t0, "256 stamps float64 card against CPU: psf_sigma and the "
+               "moments results within rtol 1e-8 + atol 1e-10 (at most %.3e of it), exp-LM "
+               "within phase 12's tolerances; total %.1f s"
+               % (modes_worst, time.perf_counter() - t_all))
+    return admom_launches, admom_rows + psf_rows, modes
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1059,19 +1363,19 @@ def main():
                            % (mp["flagged"], mp["het_flagged"], limit))
 
     t0 = time.perf_counter()
-    worst_rel = compare_card_cpu(hom)
-    phase_line("5 cpu", t0, "256 stamps float64: flags equal, pars/s2n max rel "
-               "diff %.3e" % worst_rel)
+    args = [a[:256].double() for a in hom]
+    card_res = nt.make_metacal_pipeline_fn(CONF, device="cuda")(*args)
+    cpu_res = nt.make_metacal_pipeline_fn(CONF, device="cpu")(*(a.cpu() for a in args))
+    worst = max(compare_results(card_res[t], cpu_res[t], "gaussmom " + t)
+                for t in nt.batch.GALSHEAR_TYPES)
+    phase_line("5 cpu", t0, "256 stamps float64: flags equal, every field within rtol "
+               "1e-8 + atol 1e-10 (at most %.3e of it)" % worst)
     del hom
 
     t0 = time.perf_counter()
-    rows = time_kernel(main_path_shapes(device, B_MAIN))
+    rows = [time_k2(name, *x, fast=False) for name, x in main_path_shapes(device, B_MAIN).items()]
     for r in rows:
-        print("    K2 %s: agrees (max abs err %.3e, rel %.3e); %.4f ms, plain "
-              "%.4f ms, bound %.4f ms (%s); %s, grid %d, tile %d"
-              % (r["shape"], r["max_abs_err"], r["max_rel_err"], r["ms"],
-                 r["plain_ms"], r["bound_ms"], r["bound_by"], attrs_text(r), r["grid"],
-                 r["tile"]), flush=True)
+        print(k2_row_text(r), flush=True)
     phase_line("6 times", t0, "total %.1f s" % (time.perf_counter() - t_all))
 
     t0 = time.perf_counter()
@@ -1157,16 +1461,20 @@ def main():
                  c["busy_ms"], c["span_ms"], 100 * c["idle"]), flush=True)
     phase_line("13 k3-times", t0, "total %.1f s" % (time.perf_counter() - t_all))
 
+    admom_launches, admom_rows, modes = admom_phases(device, t_all)
+
     top = rows[0]
     k1_row = lm_rows[0]
+    k2_modes = {"%s %s" % (r["measure"], r["mode"]): r["launches"]["k2"] for r in modes}
     print(json.dumps({"kernels": [{
         "name": "gmix_eval",
         "route": "cuda",
         "source": "ngmix_tpu_torch/csrc/gmix_eval.cu",
         "replaces": "ngmix_tpu/ops/pallas_gmix.py:88",
-        "launches": launches + k2_lm_launches,
-        "launches_by_path": {"gaussmom": launches, "exp-lm": k2_lm_launches},
-        "max_abs_err": max(max_abs, *(r["max_abs_err"] for r in rows),
+        "launches": launches + k2_lm_launches + admom_launches + sum(k2_modes.values()),
+        "launches_by_path": dict({"gaussmom": launches, "exp-lm": k2_lm_launches,
+                                  "admom": admom_launches}, **k2_modes),
+        "max_abs_err": max(max_abs, *(r["max_abs_err"] for r in rows + admom_rows),
                            lm_rows[1]["max_abs_err"]),
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
@@ -1175,7 +1483,7 @@ def main():
         "library_ms": None,
         "attrs": {k: top[k] for k in ("regs", "static_smem", "dynamic_smem",
                                       "blocks_per_sm")},
-        "shapes": rows + [lm_rows[1]],
+        "shapes": rows + [lm_rows[1]] + admom_rows,
     }, {
         "name": "normal_eqs",
         "route": "cuda",
@@ -1197,8 +1505,9 @@ def main():
         "source": "ngmix_tpu_torch/csrc/lm_solve.cu",
         "replaces": "ngmix_tpu/ops/pallas_lm.py:149",
         "replaces_loop": "ngmix_tpu/fitting/lm.py:539-790",
-        "launches": k3_launches,
-        "launches_by_path": {"exp-lm": k3_launches, "exp-lm host loop": hl["k3"]},
+        "launches": k3_launches + modes[-1]["launches"]["k3"],
+        "launches_by_path": {"exp-lm": k3_launches, "exp-lm host loop": hl["k3"],
+                             "exp-lm dilate": modes[-1]["launches"]["k3"]},
         "max_abs_err": max(k3c["plain64"][0], k3_row["max_abs_err"]),
         "ms": k3_row["ms"],
         "plain_ms": k3_row["plain_ms"],

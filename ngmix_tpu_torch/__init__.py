@@ -1,25 +1,33 @@
 """ngmix_tpu_torch: the PyTorch/CUDA port of ngmix_tpu.
 
-Runs the batched metacal pipeline with the gaussmom and exp-LM measures
-on an NVIDIA H100. The gaussian-mixture evaluation is the hand-written
-CUDA kernel K2 (ops/gmix_eval.py, csrc/gmix_eval.cu) and the LM's
-normal equations are K1 (ops/normal_eqs.py, csrc/normal_eqs.cu). Entry
-points run on the CUDA card unless the caller passes device="cpu".
+Runs the batched metacal pipeline with the gaussmom, admom and exp-LM
+measures and the gauss, azgauss, fitgauss and dilate psf modes on an
+NVIDIA H100. The gaussian-mixture evaluation is the hand-written CUDA
+kernel K2 (ops/gmix_eval.py, csrc/gmix_eval.cu); the exp-LM solve of
+every lane is one launch of K3 (ops/lm_solve.py, csrc/lm_solve.cu),
+whose plain version is the host loop over K1, the LM's normal
+equations (ops/normal_eqs.py, csrc/normal_eqs.cu). Entry points run on
+the CUDA card unless the caller passes device="cpu".
 """
+from .admom import AdmomConf, admom_batch
 from .batch import (
     MetacalConfig,
     make_metacal_pipeline_fn,
     metacal_pipeline,
+    psf_shear_response,
     shear_response,
 )
 from .fitting.lm import LMConf
 from .sims import make_sim_batch, make_sim_batch_hetero
 
 __all__ = [
+    "AdmomConf",
     "LMConf",
     "MetacalConfig",
+    "admom_batch",
     "make_metacal_pipeline_fn",
     "metacal_pipeline",
+    "psf_shear_response",
     "shear_response",
     "make_sim_batch",
     "make_sim_batch_hetero",

@@ -1,16 +1,20 @@
-"""Batched metacal pipeline over [B] stamps, with the gaussmom and
-exp-LM measures.
+"""Batched metacal pipeline over [B] stamps, with the gaussmom, admom
+and exp-LM measures.
 
-The gaussmom and exp-LM subset of ``ngmix_tpu/batch.py``: target-psf
-derivation, the 5-type k-space metacal image set with optional
-fixnoise, stacking of the types into 5 B lanes, the measure of every
-lane and the shear response. gaussmom takes gaussian weighted moments
-(the weight goes through K2). exp-LM fits an exponential model
-convolved with the round target psf by the normal-equation LM: on the
-card every lane's whole solve runs in K3 (ops/lm_solve.py), and the
-host loop of fitting/lm.py with K1 for the normal equations is its
-plain version; its moments guess and its s/n sums evaluate the model
-through K2.
+The subset of ``ngmix_tpu/batch.py`` for those measures: target-psf
+derivation (the gauss, azgauss, fitgauss and dilate psf modes), the
+metacal image set with optional fixnoise (the five galshear types and,
+under dilate, the four psf-sheared types), stacking of the types into
+lanes, the measure of every lane, and the shear and psf-shear
+responses. gaussmom takes gaussian weighted moments (the weight goes
+through K2). admom iterates adaptive moments (admom.py, its weight
+through K2); fitgauss and dilate also run it on psf stamps. exp-LM fits
+an exponential model convolved with a one-gaussian psf (the round
+target, or under dilate the admom fit of each type's rendered target)
+by the normal-equation LM: on the card every lane's whole solve runs in
+K3 (ops/lm_solve.py), and the host loop of fitting/lm.py with K1 for
+the normal equations is its plain version; its moments guess and its
+s/n sums evaluate the model through K2.
 
 Entry points (``metacal_pipeline``, ``make_metacal_pipeline_fn``) take
 numpy arrays or tensors and run on the CUDA card unless the caller
@@ -22,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .admom import AdmomConf, admom_batch
 from .defaults import GMIX_LOW_DETVAL
 from .fitting import lm
 from .gaussmom import gaussmom_measure
@@ -29,7 +34,7 @@ from .gmix import core as gcore, tables
 from .jacobian import Jacobian
 from .metacal import kops
 from .metacal.defaults import DEFAULT_STEP
-from .moments import fwhm_to_T
+from .moments import e2mom, fwhm_to_T
 from .ops import lm_solve, normal_eqs
 from .pixels import Pixels
 from .shape import ONE_MINUS_EPS
@@ -45,7 +50,7 @@ class MetacalConfig(NamedTuple):
     step: float = DEFAULT_STEP
     types: tuple = ("noshear", "1p", "1m", "2p", "2m")
     fixnoise: bool = True
-    psf_mode: str = "gauss"  # only 'gauss' in this port so far
+    psf_mode: str = "gauss"  # 'gauss' | 'azgauss' | 'fitgauss' | 'dilate'
     # FFT grid = good_fft_size(ceil(pad_factor * stamp size))
     pad_factor: float = 4
     # optional central window for the measurement stage
@@ -65,11 +70,11 @@ _LATER_MEASURES = {
     "dev-lm": "ROADMAP queue item 5 (other flat LM models)",
     "bdf-lm": "ROADMAP queue item 5 (other flat LM models)",
     "bd-lm": "ROADMAP queue item 5 (other flat LM models)",
-    "admom": "ROADMAP queue item 6 (the admom measure)",
     "pgauss": "ROADMAP queue item 8 (pre-PSF moments)",
     "ksigma": "ROADMAP queue item 8 (pre-PSF moments)",
 }
-_MEASURES = ("gaussmom", "exp-lm")
+_MEASURES = ("gaussmom", "admom", "exp-lm")
+_PSF_MODES = ("gauss", "azgauss", "fitgauss", "dilate")
 
 
 def _host_jacobian(conf):
@@ -77,14 +82,16 @@ def _host_jacobian(conf):
 
 
 def _type_shear(type_, step):
-    """(g1, g2) that a galshear metacal type applies to the galaxy"""
+    """(g1, g2) that a metacal type applies: to the galaxy for the
+    galshear types, to the target psf for the *_psf types"""
+    base = type_[:-4] if type_.endswith("_psf") else type_
     return {
         "noshear": (0.0, 0.0),
         "1p": (step, 0.0),
         "1m": (-step, 0.0),
         "2p": (0.0, step),
         "2m": (0.0, -step),
-    }[type_]
+    }[base]
 
 
 def _check_types(conf):
@@ -92,21 +99,24 @@ def _check_types(conf):
         if t in GALSHEAR_TYPES:
             continue
         if t in PSFSHEAR_TYPES:
-            raise NotImplementedError(
-                "psf-sheared metacal types need psf_mode='dilate', which "
-                "this port has not taken over yet"
-            )
+            if conf.psf_mode != "dilate":
+                # as in the reference, round-gaussian targets are not
+                # psf-sheared
+                raise ValueError(
+                    "psf-sheared metacal types need psf_mode='dilate', "
+                    "got %r" % (conf.psf_mode,)
+                )
+            continue
         raise ValueError("bad metacal type: %s" % t)
 
 
 def prepare_psf_kdata(psf_images, psf_cens, conf: MetacalConfig):
     """psf-side k data shared by the image and fixnoise pipelines:
-    (normalized psfhat, target sigma, pixel response, sky |k|^2)"""
-    if conf.psf_mode != "gauss":
-        raise NotImplementedError(
-            "psf_mode=%r: this port has only the 'gauss' target so far"
-            % (conf.psf_mode,)
-        )
+    the normalized psfhat, the round target sigma of conf.psf_mode, the
+    pixel response, the sky |k|^2 and, under dilate, the pixel-free
+    psf transform"""
+    if conf.psf_mode not in _PSF_MODES:
+        raise ValueError("bad psf_mode: %r" % (conf.psf_mode,))
     N = kops.good_fft_size(
         int(np.ceil(
             conf.pad_factor * max(max(conf.dims), max(conf.psf_dims))
@@ -119,20 +129,106 @@ def prepare_psf_kdata(psf_images, psf_cens, conf: MetacalConfig):
     psfhat_n = psfhat / psf_flux
     pix = kops.pixel_kresponse(N, dtype=dtype, device=dev)
     ksq = kops.sky_ksq(N, jac, dtype=dtype, device=dev)
-    sigma = kops.gauss_target_sigma(psfhat, ksq)
-    return dict(N=N, psfhat_n=psfhat_n, pix=pix, ksq=ksq, sigma=sigma)
+    psfhat_nopix = None
+    if conf.psf_mode == "dilate":
+        # the target is the dilated original psf: its pixel-free
+        # transform serves the per-type remaps. sigma comes from the
+        # normalized psfhat here, unlike the other modes
+        psfhat_nopix = psfhat_n / torch.where(torch.abs(pix) > 1e-8, pix, 1e-8)
+        sigma = kops.gauss_target_sigma(psfhat_n, ksq)
+    elif conf.psf_mode == "azgauss":
+        sigma = kops.azgauss_target_sigma(psfhat, ksq, nbin=N)
+    elif conf.psf_mode == "fitgauss":
+        sigma = _fitgauss_target_sigma_batch(psf_images, psf_cens, conf)
+        # per lane, the k-pinned sigma where the fit failed
+        sigma = torch.where(
+            torch.isfinite(sigma) & (sigma > 0),
+            sigma, kops.gauss_target_sigma(psfhat, ksq),
+        )
+    else:
+        sigma = kops.gauss_target_sigma(psfhat, ksq)
+    return dict(N=N, psfhat_n=psfhat_n, pix=pix, ksq=ksq, sigma=sigma,
+                psfhat_nopix=psfhat_nopix)
+
+
+def round_wt0(n, T, dtype, device):
+    """[n, 6] round gaussians (p, row, col, irr, irc, icc) = (1, 0, 0,
+    T/2, 0, T/2): admom's starting weight"""
+    wt0 = torch.zeros((n, 6), dtype=dtype, device=device)
+    wt0[:, 0] = 1.0
+    wt0[:, 3] = T / 2
+    wt0[:, 5] = T / 2
+    return wt0
+
+
+def _admom_gauss_fit_batch(psf_images, psf_cens, conf):
+    """adaptive-moments gaussian fit of every psf stamp with unit
+    weights, started from a round gaussian of FWHM 3.5 pixels; returns
+    the admom result dict"""
+    B = psf_images.shape[0]
+    pixels = make_pixels_batch(
+        psf_images, torch.ones_like(psf_images), psf_cens,
+        conf._replace(dims=conf.psf_dims),
+    )
+    scale = abs(conf.jac[0] * conf.jac[3] - conf.jac[1] * conf.jac[2]) ** 0.5
+    wt0 = round_wt0(B, float(fwhm_to_T(3.5 * scale)), psf_images.dtype, psf_images.device)
+    area = torch.full((B,), scale**2, dtype=psf_images.dtype, device=psf_images.device)
+    return admom_batch(pixels, wt0, area, AdmomConf(), device=psf_images.device)
+
+
+def _psf_moms_from_stamps(psf_images, conf, fallback_sigma):
+    """(irr, irc, icc) [B, 3] of the admom gaussian fit of rendered
+    target-psf stamps centered on their stamp, and round with
+    fallback_sigma [B] where the fit failed: the LM's psf model under
+    psf_mode='dilate', where the target is not an analytic gaussian"""
+    B = psf_images.shape[0]
+    Hp, Wp = conf.psf_dims
+    pcens = torch.tensor([(Hp - 1) / 2.0, (Wp - 1) / 2.0], dtype=psf_images.dtype,
+                         device=psf_images.device).expand(B, 2)
+    res = _admom_gauss_fit_batch(psf_images, pcens, conf)
+    T_safe = torch.where(res["T"] > 0, res["T"], 1.0)
+    irr, irc, icc = e2mom(res["e1"], res["e2"], T_safe)
+    ok = (res["flags"] == 0) & (res["T"] > 0)
+    rnd = fallback_sigma**2
+    return torch.stack(
+        [torch.where(ok, irr, rnd), torch.where(ok, irc, 0.0), torch.where(ok, icc, rnd)],
+        dim=-1,
+    )
+
+
+def _fitgauss_target_sigma_batch(psf_images, psf_cens, conf):
+    """round target sigma [B] from the admom gaussian fit of each psf
+    stamp, dilated by its ellipticity (at most 1.1 in T); NaN where the
+    fit failed, for the caller to replace"""
+    res = _admom_gauss_fit_batch(psf_images, psf_cens, conf)
+    e1, e2, T = res["e1"], res["e2"], res["T"]
+    T_safe = torch.where(T > 0, T, 1.0)
+    irr, irc, icc = e2mom(e1, e2, T_safe)
+    half = 0.5 * (irr + icc)
+    d = torch.sqrt((0.5 * (irr - icc)) ** 2 + irc**2)
+    eigmax = half + d
+    dil = torch.clamp(1.0 + 2.0 * (torch.sqrt(eigmax / (T_safe / 2.0)) - 1.0), max=1.1)
+    sigma = torch.sqrt(T_safe * dil / 2.0)
+    ok = (res["flags"] == 0) & (T > 0)
+    return torch.where(ok, sigma, torch.nan)
 
 
 def metacal_image_set(images, cens, psf_images, psf_cens,
-                      conf: MetacalConfig, psfdata=None, crop=None):
-    """the galshear metacal image set of a batch.
+                      conf: MetacalConfig, psfdata=None, with_psf_images=False,
+                      crop=None):
+    """the metacal image set of a batch.
 
     images [B, H, W]; cens [B, 2]; psf_images [B, Hp, Wp]; psf_cens
     [B, 2]. Returns (dict type -> [B, H, W] images, target_sigma [B] of
     the undilated round target psf). ``psfdata`` (prepare_psf_kdata)
-    shares the psf transforms with the fixnoise pass. crop: optional
-    (r0, c0, fh, fw); the images are then only that window [B, fh, fw],
-    evaluated by partial inverse-DFT matrix products.
+    shares the psf transforms with the fixnoise pass. The galshear
+    types shear the deconvolved galaxy and reconvolve it with the
+    dilated target; the *_psf types (psf_mode='dilate' only) reconvolve
+    the unsheared galaxy with the sheared dilated psf.
+    with_psf_images: also return {type: [B, Hp, Wp]} the rendered
+    target psf of each type, centered on the stamp. crop: optional
+    (r0, c0, fh, fw); the images are then only that window
+    [B, fh, fw], evaluated by partial inverse-DFT matrix products.
     """
     _check_types(conf)
     if psfdata is None:
@@ -142,28 +238,48 @@ def metacal_image_set(images, cens, psf_images, psf_cens,
 
     imhat = _batched_centered_fft(images, cens, N)
     objhat = kops.deconvolve_k(imhat, psfdata["psfhat_n"])
+    pix = psfdata["pix"]
     ksq = psfdata["ksq"]
     sigma = psfdata["sigma"]
 
-    # round-gaussian target WITHOUT the pixel: the deconvolution
-    # removed the pixelized psf and the target is drawn without one
     dilation = 1.0 + 2.0 * conf.step
-    sig_d = sigma * dilation
-    ghat = torch.exp(-0.5 * (sig_d[:, None, None] ** 2) * ksq)
-    ghat = ghat.to(psfdata["psfhat_n"].dtype)
+    if conf.psf_mode == "dilate":
+        # the dilated original psf (its pixel-free transform evaluated
+        # at d k, exactly), reconvolved by the pixel
+        ghat = kops.remap_k(psfdata["psfhat_nopix"], np.eye(2) * dilation) * pix
+    else:
+        # round-gaussian target WITHOUT the pixel: the deconvolution
+        # removed the pixelized psf and the target is drawn without one
+        sig_d = sigma * dilation
+        ghat = torch.exp(-0.5 * (sig_d[:, None, None] ** 2) * ksq)
+        ghat = ghat.to(psfdata["psfhat_n"].dtype)
 
     out = {}
+    psf_out = {}
+    B = images.shape[0]
     for type_ in conf.types:
         g1, g2 = _type_shear(type_, conf.step)
-        if type_ == "noshear":
+        ghat_t = ghat
+        if type_ in PSFSHEAR_TYPES:
+            M = kops.kmap_matrix(jac, kops.shear_matrix(g1, g2)) @ (np.eye(2) * dilation)
+            ghat_t = kops.remap_k(psfdata["psfhat_nopix"], M) * pix
+            sheared = objhat
+        elif type_ == "noshear":
             sheared = objhat
         else:
             M = kops.kmap_matrix(jac, kops.shear_matrix(g1, g2))
             sheared = kops.remap_k(objhat, M)
         if crop is not None:
-            out[type_] = _batched_centered_ifft_crop(sheared * ghat, cens, *crop)
+            out[type_] = _batched_centered_ifft_crop(sheared * ghat_t, cens, *crop)
         else:
-            out[type_] = _batched_centered_ifft(sheared * ghat, cens, conf.dims)
+            out[type_] = _batched_centered_ifft(sheared * ghat_t, cens, conf.dims)
+        if with_psf_images:
+            Hp, Wp = conf.psf_dims
+            pcen = torch.tensor([(Hp - 1) / 2.0, (Wp - 1) / 2.0], dtype=images.dtype,
+                                device=images.device).expand(B, 2)
+            psf_out[type_] = _batched_centered_ifft(ghat_t, pcen, conf.psf_dims)
+    if with_psf_images:
+        return out, sigma, psf_out
     return out, sigma
 
 
@@ -282,11 +398,12 @@ def metacal_pipeline(images, weights, cens, psf_images, psf_cens, noise,
     images/weights/noise [B, H, W], cens [B, 2], psf_images [B, Hp, Wp],
     psf_cens [B, 2], as numpy arrays or tensors; noise is the fixnoise
     field (zeros with fixnoise=False). measure: "gaussmom" (fixed
-    gaussian weighted moments) or "exp-lm" (exponential-model LM fits,
-    configured by lm_conf, an LMConf). lm_prior, lm_bounds, a nonzero
-    conf.sheared_refine and the other measures are not ported yet and
-    raise NotImplementedError. Returns dict type -> result dict of
-    [B, ...] tensors, plus "psf_sigma" [B].
+    gaussian weighted moments), "admom" (adaptive moments started from
+    a round gaussian of FWHM measure_fwhm) or "exp-lm"
+    (exponential-model LM fits, configured by lm_conf, an LMConf).
+    lm_prior, lm_bounds, a nonzero conf.sheared_refine and the other
+    measures are not ported yet and raise NotImplementedError. Returns
+    dict type -> result dict of [B, ...] tensors, plus "psf_sigma" [B].
     """
     _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds)
     full_precision_matmuls()
@@ -296,9 +413,15 @@ def metacal_pipeline(images, weights, cens, psf_images, psf_cens, noise,
 
     psfdata = prepare_psf_kdata(psf_images, psf_cens, conf)
     crop = _fit_crop(conf)
-    odict, sigma = metacal_image_set(
-        images, cens, psf_images, psf_cens, conf, psfdata=psfdata, crop=crop,
+    # under dilate the target psf is not an analytic gaussian: the LM
+    # takes its psf model from each type's rendered target
+    need_psf_stamps = conf.psf_mode == "dilate" and measure == "exp-lm"
+    out = metacal_image_set(
+        images, cens, psf_images, psf_cens, conf, psfdata=psfdata,
+        with_psf_images=need_psf_stamps, crop=crop,
     )
+    odict, sigma = out[:2]
+    psfdict = out[2] if need_psf_stamps else None
 
     if conf.fixnoise:
         # rotate the noise field by 90 deg, metacal it, rotate back and
@@ -316,7 +439,7 @@ def metacal_pipeline(images, weights, cens, psf_images, psf_cens, noise,
     area = abs(conf.jac[0] * conf.jac[3] - conf.jac[1] * conf.jac[2])
 
     # stack the metacal types into the batch axis: one measurement of
-    # 5 B lanes
+    # len(types) B lanes
     types = list(odict.keys())
     B = weights.shape[0]
     ims_all = torch.cat([odict[t] for t in types], dim=0)
@@ -341,17 +464,28 @@ def metacal_pipeline(images, weights, cens, psf_images, psf_cens, noise,
         conf_fit = conf
     pixels = make_pixels_batch(ims_all, wt_all, cens_all, conf_fit)
 
+    sig_d = sigma * (1.0 + 2.0 * conf.step)
     if measure == "gaussmom":
         res_all = gaussmom_measure(pixels, measure_fwhm, area)
+    elif measure == "admom":
+        nb = pixels.val.shape[0]
+        wt0 = round_wt0(nb, float(fwhm_to_T(measure_fwhm)), pixels.val.dtype,
+                        pixels.val.device)
+        area_b = torch.full((nb,), area, dtype=pixels.val.dtype, device=pixels.val.device)
+        res_all = admom_batch(pixels, wt0, area_b, AdmomConf(), device=pixels.val.device)
     else:
-        # the round target psf of every lane as (irr, irc, icc)
-        sig_d = sigma * (1.0 + 2.0 * conf.step)
-        psf_moms = torch.stack(
-            [sig_d**2, torch.zeros_like(sig_d), sig_d**2], dim=-1
-        )
-        res_all = _exp_lm_measure(
-            pixels, psf_moms.repeat(len(types), 1), lm_conf or lm.LMConf(),
-        )
+        if psfdict is not None:
+            # the admom gaussian fit of each type's rendered target, all
+            # types in one lane-independent batch
+            psf_moms = _psf_moms_from_stamps(
+                torch.cat([psfdict[t] for t in types]), conf, sig_d.repeat(len(types))
+            )
+        else:
+            # the round target psf of every lane as (irr, irc, icc)
+            psf_moms = torch.stack(
+                [sig_d**2, torch.zeros_like(sig_d), sig_d**2], dim=-1
+            ).repeat(len(types), 1)
+        res_all = _exp_lm_measure(pixels, psf_moms, lm_conf or lm.LMConf())
 
     nall = len(types) * B
     results = {}
@@ -722,3 +856,19 @@ def shear_response(results, step=DEFAULT_STEP):
     """mean shear and response of a batched metacal result dict:
     e_mean [2], R [2, 2] and shear [2] = R^-1 e_mean"""
     return shear_response_from_sums(shear_response_sums(results), step=step)
+
+
+def psf_shear_response(results, step=DEFAULT_STEP):
+    """psf-leakage response R_psf [2, 2] from the *_psf metacal types
+    (psf_mode='dilate'): R_psf[i, j] = d<e_i> / d g_psf_j over the
+    unflagged lanes of each type"""
+    def mean_e(t):
+        ok = results[t]["flags"] == 0
+        n = torch.clamp(torch.sum(ok), min=1)
+        e1 = torch.sum(torch.where(ok, results[t]["e1"], 0.0)) / n
+        e2 = torch.sum(torch.where(ok, results[t]["e2"], 0.0)) / n
+        return torch.stack([e1, e2])
+
+    d1 = (mean_e("1p_psf") - mean_e("1m_psf")) / (2 * step)
+    d2 = (mean_e("2p_psf") - mean_e("2m_psf")) / (2 * step)
+    return torch.stack([d1, d2], dim=-1)

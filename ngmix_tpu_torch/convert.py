@@ -1,14 +1,16 @@
 """Carry state over from the JAX package.
 
 This system has no weights. Its state is the pipeline configuration
-and the arrays that go in: the MetacalConfig and LMConf fields (the
-plain dict that a NamedTuple's ``_asdict()`` gives) and mixtures and
+and the arrays that go in: the MetacalConfig, LMConf and AdmomConf
+fields (the plain dict that a NamedTuple's ``_asdict()`` gives, or the
+attributes of a plain configuration object) and mixtures and
 pixel planes as numpy arrays. Nothing here imports JAX; JAX arrays are read through
 numpy.
 """
 import numpy as np
 import torch
 
+from .admom import AdmomConf
 from .batch import MetacalConfig
 from .fitting.lm import LMConf
 from .pixels import Pixels
@@ -35,6 +37,15 @@ def lm_conf_from_fields(fields):
     """an LMConf from another package's LM config fields, read like
     config_from_fields"""
     return _from_fields(LMConf, fields)
+
+
+def admom_conf_from_fields(fields):
+    """an AdmomConf from a dict of its fields or from another package's
+    admom configuration object, read through its attributes (maxiter,
+    shiftmax, etol, Ttol, cenonly)"""
+    if not isinstance(fields, dict):
+        fields = {k: getattr(fields, k) for k in AdmomConf._fields}
+    return _from_fields(AdmomConf, fields)
 
 
 def to_tensor(x, device="cpu", dtype=None):

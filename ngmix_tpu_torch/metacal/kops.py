@@ -228,6 +228,43 @@ def gauss_target_sigma(psfhat, ksq, small_kval=1.0e-2, smaller_kval=3.0e-3):
     return torch.sqrt(sigma_sq)
 
 
+def azgauss_target_sigma(psfhat, ksq, nbin, small_kval=3.0e-2,
+                         smaller_kval=9.0e-3):
+    """round-gaussian target psf size [B] of psfhat [B, N, N] from the
+    azimuthally averaged k profile: annuli of width dk = |k|[0, 1] over
+    the shared ksq [N, N] (bins at or beyond nbin are dropped, empty
+    ones are inf), the first annulus i >= 1 whose mean Re(P)/P(0) is
+    below small_kval, a log-interpolated crossing between annuli i - 1
+    and i (linear where either is not positive), and the value
+    smaller_kval there in the target"""
+    B = psfhat.shape[0]
+    re = (psfhat.real / psfhat.real[..., 0:1, 0:1]).reshape(B, -1)
+    kmag = torch.sqrt(ksq)
+    dk = kmag[0, 1]
+    # one overflow bin at nbin takes the dropped indices
+    ibin = torch.clamp(torch.round(kmag / dk).to(torch.int64), max=nbin).reshape(-1)
+    num = torch.zeros(nbin + 1, dtype=re.dtype, device=re.device).index_add_(
+        0, ibin, torch.ones_like(re[0]))[:nbin]
+    tot = torch.zeros((B, nbin + 1), dtype=re.dtype, device=re.device).scatter_add_(
+        1, ibin.expand(B, -1), re)[:, :nbin]
+    prof = torch.where(num > 0, tot / torch.where(num > 0, num, 1.0), torch.inf)
+
+    thresh = small_kval
+    # the first annulus below the threshold (argmax returns the first
+    # maximum), at least 1
+    i = torch.clamp(torch.argmax((prof < thresh).to(torch.int32), dim=-1), min=1)
+    p0 = torch.gather(prof, 1, (i - 1)[:, None])[:, 0]
+    p1 = torch.gather(prof, 1, i[:, None])[:, 0]
+    pos = (p0 > 0) & (p1 > 0)
+    lp0 = torch.log(torch.abs(p0) + 1e-300)
+    frac_log = (np.log(thresh) - lp0) / (torch.log(torch.abs(p1) + 1e-300) - lp0)
+    frac_lin = (thresh - p0) / torch.where(p1 != p0, p1 - p0, 1.0)
+    frac = torch.where(pos, frac_log, frac_lin)
+    k_cross = ((i - 1).to(re.dtype) + frac) * dk
+    sigma_sq = -2.0 * np.log(smaller_kval) / k_cross**2
+    return torch.sqrt(sigma_sq)
+
+
 # ----------------------------------------------------------------------
 # exact shear remap
 

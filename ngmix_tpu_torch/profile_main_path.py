@@ -1,10 +1,11 @@
 """Where a main path's time goes on the card.
 
-    python -m ngmix_tpu_torch.profile_main_path [--measure {gaussmom,exp-lm}] [B]
+    python -m ngmix_tpu_torch.profile_main_path [--measure {admom,exp-lm,gaussmom}] [B]
 
 Runs the metacal pipeline with the given measure (default gaussmom) at
-its main-path configuration (bench.py's metacal_gaussmom configuration
-for gaussmom, its headline configuration for exp-lm; float32) on the
+its main-path configuration (bench.py's metacal_gaussmom and
+metacal_admom configurations for gaussmom and admom, its headline
+configuration for exp-lm; float32) on the
 port's homogeneous sims at B stamps (default 10240): one warm-up call,
 then one call under torch.profiler. Prints the card's name and power
 limit (nvidia-smi), the call's wall time, the device's busy share (the
@@ -22,9 +23,10 @@ from torch.profiler import ProfilerActivity, profile
 
 from . import make_metacal_pipeline_fn, make_sim_batch
 from .batch import GALSHEAR_TYPES
-from .sims import METACAL_EXP_LM_CONFIG, METACAL_GAUSSMOM_CONFIG
+from .sims import METACAL_ADMOM_CONFIG, METACAL_EXP_LM_CONFIG, METACAL_GAUSSMOM_CONFIG
 
-CONFS = {"gaussmom": METACAL_GAUSSMOM_CONFIG, "exp-lm": METACAL_EXP_LM_CONFIG}
+CONFS = {"gaussmom": METACAL_GAUSSMOM_CONFIG, "admom": METACAL_ADMOM_CONFIG,
+         "exp-lm": METACAL_EXP_LM_CONFIG}
 
 # kernel-name fragments -> class, first match wins
 _CLASSES = (
@@ -106,6 +108,10 @@ def main(measure="gaussmom", B=10240):
         nfev = torch.cat([warm[t]["nfev"] for t in GALSHEAR_TYPES]).double()
         print("LM evaluations a lane (nfev): mean %.3f, p50 %g, max %d, sum %d"
               % (nfev.mean(), nfev.median(), nfev.max(), nfev.sum()))
+    if measure == "admom":
+        numiter = torch.cat([warm[t]["numiter"] for t in GALSHEAR_TYPES]).double()
+        print("admom iterations a lane (numiter): mean %.3f, p50 %g, max %d (the host "
+              "loop's iterations a call)" % (numiter.mean(), numiter.median(), numiter.max()))
     print("top kernels:")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print("  %9.3f ms %4d x  %s" % (t / 1e3, n, name[:90]))

@@ -30,6 +30,9 @@ METACAL_GAUSSMOM_CONFIG = MetacalConfig(
     dims=DIMS, psf_dims=PSF_DIMS, jac=JAC, fixnoise=True, pad_factor=2,
     fit_dims=(19, 19),
 )
+# bench.py's metacal_admom configuration (bench.py:382-392), the main
+# path on the card of measure="admom": the same fields as gaussmom's
+METACAL_ADMOM_CONFIG = METACAL_GAUSSMOM_CONFIG
 # bench.py's headline configuration (the FFT grid is N = 64), the main
 # path on the card of measure="exp-lm"
 METACAL_EXP_LM_CONFIG = MetacalConfig(

@@ -1,8 +1,9 @@
-"""The gaussmom and exp-LM metacal pipelines of the PyTorch port against
-the JAX package, per lane and per type, in float64 at B = 8 on inputs
-made once with numpy from a seed.
+"""The gaussmom, admom and exp-LM metacal pipelines of the PyTorch port
+against the JAX package, per lane and per type, in float64 at B = 8 on
+inputs made once with numpy from a seed.
 
-Tolerance: flags equal (and nfev for exp-LM); pars, s2n and
+Tolerance: flags equal (and nfev for exp-LM, numiter and every field
+for admom); pars, s2n and
 shear_response's R and shear to rtol 1e-8 and atol 1e-10, as
 tests/test_batch_pipeline.py holds two implementations of one objective
 against each other. The exp-LM reference is the JAX package's K1 route:
@@ -144,6 +145,63 @@ def test_exp_lm_pipeline_matches_jax_per_lane(exp_lm_runs):
         np.testing.assert_allclose(tsr[k], np.asarray(jsr[k]), rtol=1e-8, atol=1e-10)
 
 
+@pytest.fixture(scope="module")
+def admom_runs(inputs):
+    """(JAX results, port results) of bench.py's metacal_admom
+    configuration on the inputs with stamp 0 fully masked and every
+    other column of stamp 1 masked, computed once per module"""
+    args = list(inputs)
+    w = args[1].copy()
+    w[0] = 0.0
+    w[1, :, ::2] = 0.0
+    args[1] = w
+    jconf = jbatch.MetacalConfig(dims=DIMS, psf_dims=PSF_DIMS, **CONFS["bench"])
+    jres = jbatch.make_metacal_pipeline_fn(jconf, measure="admom")(*map(jnp.asarray, args))
+    tres = nt.make_metacal_pipeline_fn(convert.config_from_fields(jconf), measure="admom",
+                                       device="cpu")(*args)
+    return jax.tree.map(np.asarray, jres), convert.to_numpy(tres)
+
+
+def test_admom_pipeline_matches_jax_per_lane(admom_runs):
+    jres, tres = admom_runs
+    assert set(tres) == set(jres)
+    for t in jbatch.GALSHEAR_TYPES:
+        assert set(tres[t]) == set(jres[t])
+        for k, ref in jres[t].items():
+            if k in ("flags", "numiter", "T_flags", "flux_flags", "rho4_flags"):
+                np.testing.assert_array_equal(tres[t][k], ref, err_msg=(t, k))
+            else:
+                np.testing.assert_allclose(tres[t][k], ref, rtol=1e-8, atol=1e-10,
+                                           equal_nan=True, err_msg=(t, k))
+    jsr = jbatch.shear_response(jax.tree.map(jnp.asarray, jres))
+    tsr = convert.to_numpy(tbatch.shear_response(
+        {t: {k: torch.as_tensor(v) for k, v in r.items()}
+         for t, r in tres.items() if isinstance(r, dict)}
+    ))
+    for k in ("R", "shear", "e_mean"):
+        np.testing.assert_allclose(tsr[k], np.asarray(jsr[k]), rtol=1e-8, atol=1e-10)
+
+
+def test_admom_fully_masked_lane_is_flagged(admom_runs):
+    """the stamp with zero weight everywhere comes out flagged and out
+    of the calibration, which stays finite; the partly masked stamp
+    measures"""
+    _, tres = admom_runs
+    flags = tres["noshear"]["flags"]
+    assert flags[0] != 0 and np.all(flags[1:] == 0)
+    calib = convert.to_numpy(tbatch.shear_response(
+        {t: {k: torch.as_tensor(v) for k, v in r.items()}
+         for t, r in tres.items() if isinstance(r, dict)}
+    ))
+    assert int(calib["n_used"]) == B - 1
+    assert np.all(np.isfinite(calib["shear"])) and np.all(np.isfinite(calib["R"]))
+
+
+def test_admom_config_is_the_main_path_config():
+    conf = nt.MetacalConfig(dims=DIMS, psf_dims=PSF_DIMS, **CONFS["bench"])
+    assert sims.METACAL_ADMOM_CONFIG == conf
+
+
 def test_exp_lm_config_is_the_main_path_config():
     conf = nt.MetacalConfig(dims=DIMS, psf_dims=PSF_DIMS, **EXP_LM_CONF)
     assert sims.METACAL_EXP_LM_CONFIG == conf
@@ -217,9 +275,12 @@ def test_chunked_matches_single_batch(inputs):
 
 def test_unported_options_raise(inputs):
     conf = nt.MetacalConfig(dims=DIMS, psf_dims=PSF_DIMS, **CONFS["bench"])
-    for measure, item in (("admom", 6), ("pgauss", 8), ("gauss-lm", 5), ("bdf-lm", 5)):
+    for measure, item in (("pgauss", 8), ("gauss-lm", 5), ("bdf-lm", 5)):
         with pytest.raises(NotImplementedError, match="queue item %d" % item):
             nt.metacal_pipeline(*inputs, conf, measure=measure, device="cpu")
+    with pytest.raises(NotImplementedError, match="queue item 8"):
+        nt.metacal_pipeline(*inputs, conf._replace(psf_mode="dilate"), measure="ksigma",
+                            device="cpu")
     for kw, item in ((dict(lm_prior=object()), 5), (dict(lm_bounds=([0] * 6, [1] * 6)), 5),
                      (dict(lm_conf=nt.LMConf(varpro=True)), 10),
                      (dict(lm_conf=nt.LMConf(flux_col=True)), 10)):
@@ -228,9 +289,8 @@ def test_unported_options_raise(inputs):
     with pytest.raises(NotImplementedError, match="queue item 10"):
         nt.metacal_pipeline(*inputs, conf._replace(sheared_refine=2),
                             measure="exp-lm", device="cpu")
-    with pytest.raises(NotImplementedError):
-        nt.metacal_pipeline(*inputs, conf._replace(psf_mode="dilate"), device="cpu")
-    with pytest.raises(NotImplementedError):
+    # as in the JAX package, the psf-sheared types need psf_mode='dilate'
+    with pytest.raises(ValueError, match="psf_mode='dilate'"):
         nt.metacal_pipeline(*inputs, conf._replace(types=("noshear", "1p_psf")),
                             device="cpu")
     with pytest.raises(ValueError):
