@@ -4,10 +4,11 @@
 
 Drives the port's main paths on the card, bench.py's metacal_gaussmom
 workload, its exp-LM headline and its metacal_admom workload at the
-production chunk size, and the azgauss, fitgauss and dilate psf modes;
-and holds the hand-written CUDA kernels K2 (mixture evaluation), K1
-(LM normal equations) and K3 (every lane's whole exp-LM solve) against
-their plain PyTorch versions. The exp-LM path
+production chunk size, the azgauss, fitgauss and dilate psf modes, and
+its multi-band workload; and holds the hand-written CUDA kernels K2
+(mixture evaluation), K1 (LM normal equations), K3 (every lane's whole
+exp-LM solve) and K3-mb (every object's joint multi-band solve)
+against their plain PyTorch versions. The exp-LM path
 runs through K3; its host-loop route (run_lm_normal_batched with K1,
 reached through _exp_lm_measure's host_loop argument) is driven for the
 phases that hold K1 and for the comparison. Phases, in order, each
@@ -135,7 +136,27 @@ printing one timed line as soon as it ends:
            plain version and timed as in phase 16; then the
            first 256 stamps of each run in float64 on the card and the
            CPU: psf_sigma and every field of the moments measures to
-           rtol 1e-8 as in phase 15, exp-LM by phase 12's criterion.
+           rtol 1e-8 as in phase 15, exp-LM by phase 12's criterion;
+18. mb:    bench.py's multi-band workload, metacal_pipeline_mb at B = 2048
+           objects x E = 3 epochs (every epoch a copy, band [0, 0, 1],
+           nband = 2), exp-LM through K3-mb at pad 2 in float32 on both
+           sims, gated like phase 8 (|m|, |hetero m| < 1e-3, flagged <=
+           max(8, 0.5% B), e1 equal to pars[:, 2]) with K3-mb launched
+           once a call and K2 launched; objects/s and epoch-stamps/s
+           (median and range of 3 calls), device operations, idle share
+           and nfev as in phase 13. Then: the flat exp-LM (through K3) on
+           the same stamps, whose optimum the joint fit shares: the share
+           of lanes whose e1/e2/T differ by more than half the flat
+           pars_err, and both band fluxes within half the flat flux
+           error; K3-mb against its plain version on the main path's
+           solve inputs by phase 13's criterion, bitwise on a permuted
+           and truncated batch, at E = 8 over 64 objects (E P = 2888,
+           past shared memory) in float64 by phase 12's criterion, and
+           at E = 1 and one band against K3 by phase 12's criterion; 256
+           objects whose epochs are not copies, with a per-object band
+           map, in float64 on the card and the CPU (flags equal, nfev
+           within 2, pars and s2n to rtol 1e-8 and atol 1e-10); K3-mb
+           and K2 at the mb shapes timed beside their bounds.
 
 Needs one CUDA card and exits nonzero, printing the reason, on any
 failure or without a card. The last line is the JSON result.
@@ -150,7 +171,7 @@ from unittest import mock
 import torch
 
 import ngmix_tpu_torch as nt
-from ngmix_tpu_torch.fitting import lm as tlm
+from ngmix_tpu_torch.fitting import fit_model, lm as tlm
 from ngmix_tpu_torch.gmix import core as gcore
 from ngmix_tpu_torch.gaussmom import make_weight_gmix
 from ngmix_tpu_torch.ops import _build, gmix_eval, lm_solve, normal_eqs
@@ -165,6 +186,8 @@ CONF = nt.sims.METACAL_GAUSSMOM_CONFIG
 ADMOM_CONF = nt.sims.METACAL_ADMOM_CONFIG
 LM_CONF = nt.sims.METACAL_EXP_LM_CONFIG
 SHEAR_TRUE = nt.sims.SHEAR_TRUE
+B_MB = 2048
+MB_CONF = nt.sims.METACAL_MB_CONFIG
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -485,8 +508,9 @@ def k2_launch_attrs(gm, v, u, area, fast):
 
 
 def attrs_text(r):
-    return ("%d registers, %d + %d bytes shared, %d blocks an SM"
-            % (r["regs"], r["static_smem"], r["dynamic_smem"], r["blocks_per_sm"]))
+    return ("%d registers, %d + %d bytes shared, %d blocks an SM%s"
+            % (r["regs"], r["static_smem"], r["dynamic_smem"], r["blocks_per_sm"],
+               ", %d bytes local" % r["local_bytes"] if "local_bytes" in r else ""))
 
 
 # ----------------------------------------------------------------------
@@ -588,11 +612,12 @@ def host_loop_route(**kw):
 
 
 def reset_launches():
-    gmix_eval.launches = normal_eqs.launches = lm_solve.launches = 0
+    gmix_eval.launches = normal_eqs.launches = lm_solve.launches = lm_solve.launches_mb = 0
 
 
 def read_launches():
-    return dict(k3=lm_solve.launches, k1=normal_eqs.launches, k2=gmix_eval.launches)
+    return dict(k3=lm_solve.launches, k1=normal_eqs.launches, k2=gmix_eval.launches,
+                k3mb=lm_solve.launches_mb)
 
 
 def exp_lm_gate(res, het_res, B):
@@ -808,10 +833,11 @@ def capture_k3_inputs(args, device, conf=LM_CONF):
     return seen["k3"], res
 
 
-def per_lane_diff(a, b, what, rtol=1e-5, atol=1e-7, dnfev=2):
+def per_lane_diff(a, b, what, rtol=1e-5, atol=1e-7, dnfev=2, keys=("e1", "e2", "T", "flux")):
     """hold two exp-LM results (dicts of [N] columns) per lane: flags
-    equal, e1/e2/T/flux to rtol and atol, nfev within dnfev. Returns the
-    largest absolute and relative differences and the nfev difference"""
+    equal, the keys (e1/e2/T/flux) to rtol and atol, nfev within dnfev.
+    Returns the largest absolute and relative differences and the nfev
+    difference"""
     if not torch.equal(a["flags"], b["flags"]):
         raise SmokeFailure("%s: flags differ on %d lanes"
                            % (what, int((a["flags"] != b["flags"]).sum())))
@@ -819,7 +845,7 @@ def per_lane_diff(a, b, what, rtol=1e-5, atol=1e-7, dnfev=2):
     if d > dnfev:
         raise SmokeFailure("%s: nfev differs by %d" % (what, d))
     max_abs = max_rel = 0.0
-    for k in ("e1", "e2", "T", "flux"):
+    for k in keys:
         x, y = a[k].double(), b[k].double()
         err = (x - y).abs()
         if not bool(torch.isfinite(x).all()) or bool((err > atol + rtol * y.abs()).any()):
@@ -842,11 +868,10 @@ def solve_columns(state, args, conf):
     return solve_cols(tlm._normal_epilogue(state, args[1], args[2], conf, nres))
 
 
-def f32_split(a, b):
-    """the share of lanes whose e1/e2/T/flux differ by more than rtol
-    1e-4, and the largest difference over lanes unflagged in both in
-    units of b's pars_err"""
-    keys = ("e1", "e2", "T", "flux")
+def f32_split(a, b, keys=("e1", "e2", "T", "flux")):
+    """the share of lanes whose keys (e1/e2/T/flux, the columns of err)
+    differ by more than rtol 1e-4, and the largest difference over lanes
+    unflagged in both in units of b's pars_err"""
     split = torch.stack([(a[k] - b[k]).abs() > 1e-4 * b[k].abs() for k in keys]).any(0)
     ok = (a["flags"] == 0) & (b["flags"] == 0)
     d = torch.stack([(a[k].double() - b[k].double()).abs() for k in keys], -1)
@@ -854,17 +879,17 @@ def f32_split(a, b):
     return float(split.double().mean()), float((d / sig)[ok].max())
 
 
-def check_batch_independence(args, conf):
-    """K3 on a permuted third of the lanes gives the bits of the same
-    lanes in the full batch"""
-    full = lm_solve.lm_solve(*args, conf)
+def check_batch_independence(args, conf, solve=lm_solve.lm_solve):
+    """K3 (or K3-mb) on a permuted third of the lanes gives the bits of
+    the same lanes in the full batch"""
+    full = solve(*args, conf)
     n = args[0].shape[0]
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(5))[: n // 3]
     perm = perm.to(args[0].device)
-    sub = lm_solve.lm_solve(*(a if a.dim() == 1 else a[perm].contiguous() for a in args), conf)
+    sub = solve(*(a if a.dim() == 1 else a[perm].contiguous() for a in args), conf)
     for k, x in sub.items():
         if not torch.equal(x, full[k][perm]):
-            raise SmokeFailure("K3 is not batch independent: %s differs" % k)
+            raise SmokeFailure("%s is not batch independent: %s differs" % (solve.__name__, k))
     return n // 3
 
 
@@ -1313,6 +1338,271 @@ def admom_phases(device, t_all):
     return admom_launches, admom_rows + psf_rows, modes
 
 
+# ----------------------------------------------------------------------
+# the multi-band, multi-epoch pipeline
+
+MB_KEYS = ("e1", "e2", "T", "flux0", "flux1")
+
+
+def mb_cols(out, keys=MB_KEYS):
+    """e1, e2, T, the band fluxes (keys names them), their pars_err,
+    flags and nfev of a joint multi-band LM result"""
+    cols = dict(zip(keys, out["pars"][:, 2:].unbind(-1)))
+    return dict(cols, err=out["pars_err"][:, 2:], flags=out["flags"], nfev=out["nfev"])
+
+
+def _epilogue_mb(state, args, conf):
+    """the LM result of a K3-mb state on K3-mb's inputs args = (guess,
+    lo, hi, psf, band, v, u, ia, ve)"""
+    nres = torch.sum(args[7] > 0, dim=(-2, -1))
+    return tlm._normal_epilogue(state, args[1], args[2], conf, nres)
+
+
+
+def capture_mb_inputs(fn, *args):
+    """the inputs of the K3-mb call but the LMConf and of every K2 call
+    (gm, v, u, area, fast) of one call fn(*args), and its result"""
+    seen = {"k2": []}
+    k3mb, k2 = lm_solve.lm_solve_mb, gmix_eval.eval_gmix
+
+    def spy(*a):
+        seen["k3mb"] = a[:9]
+        return k3mb(*a)
+
+    def k2_spy(gm, v, u, area=1.0, fast=True):
+        seen["k2"].append((gm, v, u, area, fast))
+        return k2(gm, v, u, area, fast=fast)
+
+    with mock.patch.object(lm_solve, "lm_solve_mb", spy), \
+            mock.patch.object(gmix_eval, "eval_gmix", k2_spy):
+        res = fn(*args)
+    return seen, res
+
+
+def mb_gate(res, het_res, B):
+    """bench.py's gate values of a hom and a het mb result, after the
+    shape, finiteness and e1 == pars[:, 2] checks"""
+    for r in (res, het_res):
+        for t in nt.batch.GALSHEAR_TYPES:
+            if not torch.equal(r[t]["e1"], r[t]["pars"][:, 2]):
+                raise SmokeFailure("mb e1 is not pars[:, 2] for type %s" % t)
+            if tuple(r[t]["pars"].shape) != (B, 5 + nt.sims.MB_NBAND):
+                raise SmokeFailure("bad mb pars shape %s" % (tuple(r[t]["pars"].shape),))
+            if not bool(torch.isfinite(r[t]["pars"][r[t]["flags"] == 0]).all()):
+                raise SmokeFailure("non-finite mb pars for type %s" % t)
+    sr, het_sr = nt.shear_response(res), nt.shear_response(het_res)
+    return dict(m=m_of(sr), het_m=m_of(het_sr), R11=float(sr["R"][0, 0]),
+                flagged=int((res["noshear"]["flags"] != 0).sum()),
+                het_flagged=int((het_res["noshear"]["flags"] != 0).sum()))
+
+
+def mb_against_flat(res, flat):
+    """the joint fit of E copies of a stamp against the flat fit of it,
+    over lanes unflagged in both: the share whose e1/e2/T differ by more
+    than half the flat pars_err and the largest such difference in its
+    units; fails unless both band fluxes lie within half the flat flux
+    error"""
+    share, worst = [], 0.0
+    for t in nt.batch.GALSHEAR_TYPES:
+        ok = (res[t]["flags"] == 0) & (flat[t]["flags"] == 0)
+        err = flat[t]["pars_err"][ok].double()
+        d = (res[t]["pars"][ok, 2:5].double() - flat[t]["pars"][ok, 2:5].double()).abs()
+        d = d / err[:, 2:5]
+        share.append(float((d > 0.5).any(-1).double().mean()))
+        worst = max(worst, float(d.max()))
+        df = (res[t]["flux"][ok].double() - flat[t]["flux"][ok, None].double()).abs()
+        df = df / err[:, 5:6]
+        if not bool((df <= 0.5).all()):
+            raise SmokeFailure("mb band fluxes differ from the flat fit by %.3e flux errors "
+                               "(type %s)" % (float(df.max()), t))
+    return max(share), worst
+
+
+def mb_k3_checks(args, conf):
+    """K3-mb against its plain version on the main path's solve inputs
+    (float32, phase 13's criterion), its batch independence, the E = 8
+    global-memory case and E = 1 against K3 (float64, phase 12's
+    criterion)"""
+    a = mb_cols(_epilogue_mb(lm_solve.lm_solve_mb(*args, conf), args, conf))
+    plain_state, _, plain_ms = timed_call(lm_solve.lm_solve_mb_plain, *args, conf)
+    b = mb_cols(_epilogue_mb(plain_state, args, conf))
+    flags_diff = int((a["flags"] != b["flags"]).sum())
+    split, in_err = f32_split(a, b, MB_KEYS)
+    finite = all(bool(torch.isfinite(a[k]).all()) for k in MB_KEYS)
+    if not finite or flags_diff or not in_err <= 0.5:
+        raise SmokeFailure("K3-mb disagrees with its plain version on the mb inputs: flags "
+                           "differ on %d lanes, largest difference %.3e pars_err, finite %s"
+                           % (flags_diff, in_err, finite))
+    max_abs = max(float((a[k].double() - b[k].double()).abs().max()) for k in MB_KEYS)
+    indep = check_batch_independence(args, conf, lm_solve.lm_solve_mb)
+
+    a64 = [x.double() if x.dtype.is_floating_point else x for x in args]
+    # E = 8 over 64 objects (the planes past shared memory) in six bands,
+    # each band's flux guess the first band's
+    pick = [0, 1, 2, 0, 1, 2, 0, 1]
+    inf = torch.full((11,), torch.inf, dtype=torch.float64, device=args[0].device)
+    e8 = (torch.cat([a64[0][:64, :5], a64[0][:64, 5:6].expand(64, 6)], -1).contiguous(),
+          -inf, inf, a64[3][:64, pick].contiguous(),
+          torch.tensor([0, 1, 2, 3, 4, 5, 0, 1], dtype=torch.int32, device=args[0].device),
+          *(x[:64, pick].contiguous() for x in a64[5:]))
+    keys8 = ("e1", "e2", "T") + tuple("flux%d" % i for i in range(6))
+    d8 = per_lane_diff(mb_cols(_epilogue_mb(lm_solve.lm_solve_mb(*e8, conf), e8, conf), keys8),
+                       mb_cols(_epilogue_mb(lm_solve.lm_solve_mb_plain(*e8, conf), e8, conf),
+                               keys8),
+                       "K3-mb at E = 8 over six bands and its plain version", keys=keys8)
+    # E = 1, one band: K3's problem, K3-mb's bad-point convention
+    k3_args = (a64[0][:, :6].contiguous(), a64[1][:6], a64[2][:6],
+               a64[3][:, 0].contiguous(), *(x[:, 0].contiguous() for x in a64[5:]))
+    e1 = (*k3_args[:3], a64[3][:, :1].contiguous(),
+          torch.zeros(1, dtype=torch.int32, device=args[0].device),
+          *(x[:, :1].contiguous() for x in a64[5:]))
+    one = solve_cols(_epilogue_mb(lm_solve.lm_solve_mb(*e1, conf), e1, conf))
+    d1 = per_lane_diff(one, solve_columns(lm_solve.lm_solve(*k3_args, conf), k3_args, conf),
+                       "K3-mb at E = 1 and K3")
+    return dict(split=split, max_in_err=in_err, max_abs_err=max(max_abs, d8[0]),
+                plain_ms=plain_ms, indep=indep, e8=d8, e1=d1, lanes=a["flags"].numel())
+
+
+def k3mb_bound(args, state):
+    """least time (ms) for K3-mb's work, counted as k3_bound counts K3's:
+    the planes, guess, bounds, psf and bands read once and the state
+    written once, or K3's operations per pixel and gaussian of every
+    epoch at the guess times each lane's nfev"""
+    guess, lo, hi, psf, band, v, u, ia, ve = args
+    B, E, P = v.shape
+    bp = fit_model.epoch_band_pars("exp", guess, band).reshape(B * E, 6)
+    rp = nt.batch._exp_reparam(bp, nt.batch._psf_gmix(psf.reshape(B * E, 3)))[0]
+    per_row = pixel_ops(rp, v.reshape(B * E, P), u.reshape(B * E, P), K3_OPS)
+    ops = int((per_row.reshape(B, E).sum(-1) * state["nfev"].long()).sum())
+    esize = v.element_size()
+    nbytes = (esize * (4 * B * E * P + guess.numel() + lo.numel() + hi.numel() + psf.numel())
+              + band.numel() * band.element_size()
+              + sum(x.numel() * x.element_size() for x in state.values()))
+    return least_ms(nbytes, ops, v.dtype)
+
+
+def compare_mb_card_cpu(het, n=256):
+    """n objects whose E epochs are the het stamps i + n e (not copies),
+    with a per-object band map, in float64 on the card (K3-mb) and the
+    CPU (its plain version): flags equal, nfev within 2, pars and s2n to
+    rtol 1e-8 and atol 1e-10. Returns the largest share of that
+    tolerance a difference takes"""
+    E = len(nt.sims.MB_BAND)
+    args = [torch.stack([a[n * e:n * (e + 1), 0] for e in range(E)], 1).double() for a in het]
+    band = torch.tensor([[0, 0, 1], [1, 0, 1]], dtype=torch.int32).repeat(n // 2, 1)
+    card = nt.make_metacal_pipeline_mb_fn(MB_CONF, band, nt.sims.MB_NBAND, device="cuda")(*args)
+    cpu = nt.make_metacal_pipeline_mb_fn(MB_CONF, band, nt.sims.MB_NBAND, device="cpu")(
+        *(a.cpu() for a in args))
+    worst, dnfev = 0.0, 0
+    for t in nt.batch.GALSHEAR_TYPES:
+        if not torch.equal(card[t]["flags"].cpu(), cpu[t]["flags"]):
+            raise SmokeFailure("mb flags differ between card and CPU for %s" % t)
+        dnfev = max(dnfev, int((card[t]["nfev"].cpu() - cpu[t]["nfev"]).abs().max()))
+        if dnfev > 2:
+            raise SmokeFailure("mb nfev differs by %d between card and CPU" % dnfev)
+        worst = max(worst, compare_results({k: card[t][k] for k in ("pars", "s2n")},
+                                           {k: cpu[t][k] for k in ("pars", "s2n")},
+                                           "mb " + t))
+    return worst, dnfev
+
+
+def mb_phase(device, t_all):
+    """phase 18: bench.py's mb workload through K3-mb and its checks.
+    Returns the K3-mb row, K2's mb rows and the main path's launches"""
+    t0 = time.perf_counter()
+    fn = nt.make_metacal_pipeline_mb_fn(MB_CONF, nt.sims.MB_BAND, nt.sims.MB_NBAND,
+                                        device=device)
+    hom = nt.make_sim_batch_mb(torch.Generator(device=device).manual_seed(314), B_MB,
+                               torch.float32, device=device)
+    het = nt.make_sim_batch_mb(torch.Generator(device=device).manual_seed(271), B_MB,
+                               torch.float32, device=device, hetero=True)
+    _sync(device)
+    reset_launches()
+    res = fn(*hom)
+    het_res = fn(*het)
+    _sync(device)
+    launches = read_launches()
+    g = mb_gate(res, het_res, B_MB)
+    check_gate(g, B_MB, "mb exp-LM")
+    reset_launches()
+    seen, _ = capture_mb_inputs(fn, *hom)
+    _sync(device)
+    one = read_launches()
+    if launches["k3mb"] != 2 or one["k3mb"] != 1 or one["k2"] <= 0 or one["k3"] != 0:
+        raise SmokeFailure("the mb path launched K3-mb %d times in two calls and %d in one, "
+                           "K2 %d and K3 %d times in one call, not K3-mb once a call and K2"
+                           % (launches["k3mb"], one["k3mb"], one["k2"], one["k3"]))
+    times, spans = [], []
+    for _ in range(3):
+        _, wall, span = timed_call(fn, *hom)
+        times.append(wall)
+        spans.append(span)
+    w = sorted(times)
+    nops, busy = device_profile(fn, *hom)
+    E = len(nt.sims.MB_BAND)
+    types = nt.batch.GALSHEAR_TYPES
+    nfev = [numiter_stats(*(r[t]["nfev"] for t in types)) for r in (res, het_res)]
+    phase_line(
+        "18 mb", t0,
+        "B=%dx%d m=%.3e hetero_m=%.3e R11=%.4f flagged=%d hetero_flagged=%d launches of the "
+        "hom and het calls: k3mb=%d k2=%d; objects/s=%.1f epoch-stamps/s=%.1f (median %.4f "
+        "s/call of 3, range %.4f-%.4f)"
+        % (B_MB, E, g["m"], g["het_m"], g["R11"], g["flagged"], g["het_flagged"],
+           launches["k3mb"], launches["k2"], B_MB / w[1], E * B_MB / w[1], w[1], w[0], w[2]))
+    print("    nfev (mean, p50, max): hom (%.3f, %g, %d) het (%.3f, %g, %d); %d device "
+          "operations a call, busy %.3f ms, event span %.3f ms, idle %.1f%%"
+          % (*nfev[0], *nfev[1], nops, busy, sorted(spans)[1],
+             100 * (1 - busy / sorted(spans)[1])), flush=True)
+
+    flat = nt.make_metacal_pipeline_fn(MB_CONF, measure="exp-lm", device=device)(
+        *(a[:, 0] for a in hom))
+    share, worst = mb_against_flat(res, flat)
+    conf = nt.LMConf()
+    args = seen["k3mb"]
+    chk = mb_k3_checks(args, conf)
+    print("    against the flat exp-LM on the same stamps: %.4f of lanes with e1/e2/T "
+          "beyond half the flat pars_err (largest %.3e), band fluxes within it; K3-mb "
+          "against its plain version: flags equal, %.4f outside rtol 1e-4, largest "
+          "difference %.3e pars_err; bitwise on %d permuted lanes; E=8 (64 objects, 2888 "
+          "pixels, 6 bands, float64) max rel %.3e nfev diff %d; E=1 against K3 max rel %.3e "
+          "nfev diff %d"
+          % (share, worst, chk["split"], chk["max_in_err"], chk["indep"], chk["e8"][1],
+             chk["e8"][2], chk["e1"][1], chk["e1"][2]), flush=True)
+    cpu_worst, cpu_dnfev = compare_mb_card_cpu(het)
+
+    state = lm_solve.lm_solve_mb(*args, conf)
+    ms = time_ms(lambda: lm_solve.lm_solve_mb(*args, conf), 10)
+    b_ms, by = k3mb_bound(args, state)
+    B, _, P = args[5].shape
+    attrs = lm_solve.kernel_attrs_mb(args[0].dtype, nt.sims.MB_NBAND, E, P)
+    # local memory a thread (spills) at every band count, float32 and 64
+    local = {dt: [lm_solve.kernel_attrs_mb(dt, nb, E, P)["local_bytes"] for nb in range(1, 7)]
+             for dt in (torch.float32, torch.float64)}
+    row = dict(shape="[%dx%dx%d]" % (B, E, P), ms=ms, plain_ms=chk["plain_ms"], bound_ms=b_ms,
+               bound_by=by, max_abs_err=chk["max_abs_err"], split=chk["split"],
+               max_in_err=chk["max_in_err"], indep=chk["indep"],
+               nfev_sum=int(state["nfev"].sum()), attrs=attrs)
+    print("    K3-mb %s: %.4f ms, plain %.4f ms, bound %.4f ms (%s), sum nfev %d; %s; local "
+          "bytes a thread at nband 1-6: float32 %s, float64 %s"
+          % (row["shape"], ms, row["plain_ms"], b_ms, by, row["nfev_sum"], attrs_text(attrs),
+             local[torch.float32], local[torch.float64]), flush=True)
+    # K2 at the mb shapes: the pooled guess (n = 1 over each object's
+    # E P pixels) and the s/n sums (n = 6 fast over the epoch rows)
+    k2_in = {(x[0].shape[1], x[4]): x for x in reversed(seen["k2"])}
+    k2_rows = []
+    for (n, fast), name in (((1, False), "mb guess"), ((6, True), "mb get_loglike")):
+        gm, v, u, area, _ = k2_in[(n, fast)]
+        r = time_k2("%s n=%d %s [%dx%d]" % (name, n, "fast" if fast else "exact", *v.shape),
+                    gm, v, u, area, fast)
+        r["launches_a_call"] = sum(1 for x in seen["k2"] if (x[0].shape[1], x[4]) == (n, fast))
+        k2_rows.append(r)
+        print(k2_row_text(r), flush=True)
+    phase_line("18 mb-checks", t0, "256 objects float64 card against CPU: flags equal, nfev "
+               "within %d, pars and s2n within rtol 1e-8 + atol 1e-10 (at most %.3e of it); "
+               "total %.1f s" % (cpu_dnfev, cpu_worst, time.perf_counter() - t_all))
+    return row, k2_rows, launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1462,6 +1752,7 @@ def main():
     phase_line("13 k3-times", t0, "total %.1f s" % (time.perf_counter() - t_all))
 
     admom_launches, admom_rows, modes = admom_phases(device, t_all)
+    k3mb_row, mb_k2_rows, mb_launches = mb_phase(device, t_all)
 
     top = rows[0]
     k1_row = lm_rows[0]
@@ -1471,10 +1762,12 @@ def main():
         "route": "cuda",
         "source": "ngmix_tpu_torch/csrc/gmix_eval.cu",
         "replaces": "ngmix_tpu/ops/pallas_gmix.py:88",
-        "launches": launches + k2_lm_launches + admom_launches + sum(k2_modes.values()),
+        "launches": (launches + k2_lm_launches + admom_launches + sum(k2_modes.values())
+                     + mb_launches["k2"]),
         "launches_by_path": dict({"gaussmom": launches, "exp-lm": k2_lm_launches,
-                                  "admom": admom_launches}, **k2_modes),
-        "max_abs_err": max(max_abs, *(r["max_abs_err"] for r in rows + admom_rows),
+                                  "admom": admom_launches, "mb exp-lm": mb_launches["k2"]},
+                                 **k2_modes),
+        "max_abs_err": max(max_abs, *(r["max_abs_err"] for r in rows + admom_rows + mb_k2_rows),
                            lm_rows[1]["max_abs_err"]),
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
@@ -1483,7 +1776,7 @@ def main():
         "library_ms": None,
         "attrs": {k: top[k] for k in ("regs", "static_smem", "dynamic_smem",
                                       "blocks_per_sm")},
-        "shapes": rows + [lm_rows[1]] + admom_rows,
+        "shapes": rows + [lm_rows[1]] + admom_rows + mb_k2_rows,
     }, {
         "name": "normal_eqs",
         "route": "cuda",
@@ -1517,6 +1810,22 @@ def main():
         "attrs": k3_attrs,
         "shapes": [k3_row],
         "exp_lm_calls": calls,
+    }, {
+        "name": "lm_solve_mb",
+        "route": "cuda",
+        "source": "ngmix_tpu_torch/csrc/lm_solve_mb.cu",
+        "replaces": "ngmix_tpu/ops/pallas_lm.py:149",
+        "replaces_loop": "ngmix_tpu/fitting/lm.py:539-790 under ngmix_tpu/batch.py:1795-1866",
+        "launches": mb_launches["k3mb"],
+        "launches_by_path": {"mb exp-lm": mb_launches["k3mb"]},
+        "max_abs_err": k3mb_row["max_abs_err"],
+        "ms": k3mb_row["ms"],
+        "plain_ms": k3mb_row["plain_ms"],
+        "bound_ms": k3mb_row["bound_ms"],
+        "bound_by": k3mb_row["bound_by"],
+        "library_ms": None,
+        "attrs": k3mb_row.pop("attrs"),
+        "shapes": [k3mb_row],
     }]}, allow_nan=False), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -2,23 +2,29 @@
 
 Runs the batched metacal pipeline with the gaussmom, admom and exp-LM
 measures and the gauss, azgauss, fitgauss and dilate psf modes on an
-NVIDIA H100. The gaussian-mixture evaluation is the hand-written CUDA
-kernel K2 (ops/gmix_eval.py, csrc/gmix_eval.cu); the exp-LM solve of
-every lane is one launch of K3 (ops/lm_solve.py, csrc/lm_solve.cu),
-whose plain version is the host loop over K1, the LM's normal
-equations (ops/normal_eqs.py, csrc/normal_eqs.cu). Entry points run on
-the CUDA card unless the caller passes device="cpu".
+NVIDIA H100, and its multi-band, multi-epoch form (metacal_pipeline_mb:
+a joint exp-LM fit of every object over its epochs and bands, or
+pooled moments). The gaussian-mixture evaluation is the hand-written
+CUDA kernel K2 (ops/gmix_eval.py, csrc/gmix_eval.cu); the exp-LM solve
+of every lane is one launch of K3 (ops/lm_solve.py, csrc/lm_solve.cu),
+and the joint multi-band solve one launch of K3-mb
+(csrc/lm_solve_mb.cu); their plain versions are the host loop over K1,
+the LM's normal equations (ops/normal_eqs.py, csrc/normal_eqs.cu).
+Entry points run on the CUDA card unless the caller passes
+device="cpu".
 """
 from .admom import AdmomConf, admom_batch
 from .batch import (
     MetacalConfig,
     make_metacal_pipeline_fn,
+    make_metacal_pipeline_mb_fn,
     metacal_pipeline,
+    metacal_pipeline_mb,
     psf_shear_response,
     shear_response,
 )
 from .fitting.lm import LMConf
-from .sims import make_sim_batch, make_sim_batch_hetero
+from .sims import make_sim_batch, make_sim_batch_hetero, make_sim_batch_mb
 
 __all__ = [
     "AdmomConf",
@@ -26,9 +32,12 @@ __all__ = [
     "MetacalConfig",
     "admom_batch",
     "make_metacal_pipeline_fn",
+    "make_metacal_pipeline_mb_fn",
     "metacal_pipeline",
+    "metacal_pipeline_mb",
     "psf_shear_response",
     "shear_response",
     "make_sim_batch",
     "make_sim_batch_hetero",
+    "make_sim_batch_mb",
 ]

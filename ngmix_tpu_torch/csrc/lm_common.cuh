@@ -1,0 +1,598 @@
+// Device functions shared by K3 (lm_solve.cu, one stamp a lane) and
+// K3-mb (lm_solve_mb.cu, one object over its epochs and bands a lane):
+// the exp model's constants, the bounds maps of fitting/lm.py, one
+// epoch's gaussians and pixel pass (K1's sums of its 6 effective
+// parameters), and the Levenberg-Marquardt loop of fitting/lm.py
+// _lm_step over any number of parameters.
+//
+// A warp runs one lane. Every function here is called by all 32 threads
+// of the warp, which hold the same bits of every value the loop decides
+// on. exp is the full-precision libm routine: build without fast-math.
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kNGauss = 6;
+// the 6 parameters (row, col, g1, g2, T, flux) one stamp sees
+constexpr int kNPar = 6;
+// the largest pixel count of a lane whose planes fit the shared memory
+// (4 warps x 4 planes x kMaxP float64 values per block)
+constexpr int kMaxP = 1536;
+// per gaussian in shared memory: q = (N, row, col, Fvv, Fvu, Fuu), then
+// dN/dflux, then (dN, dFvv, dFvu, dFuu) / d g1, d g2, d T
+constexpr int kGStride = 6 + 1 + 12;
+// one stamp's running sums: cost, Jtr [6], the upper triangle of JtJ [21]
+constexpr int kNSum = 1 + kNPar + kNPar * (kNPar + 1) / 2;
+
+constexpr double kMaxChi2 = 25.0;
+constexpr double kApodChi2 = 20.0;
+constexpr double kApodIWidth = 1.0 / (kMaxChi2 - kApodChi2);
+constexpr double kLowDetval = 1.0e-200;
+constexpr double kTwoPi = 6.283185307179586;
+constexpr double kOneMinusEps = 0.9999999999999999;
+constexpr double kYClip = 27.631021;       // ln(1e12)
+constexpr double kNearBoth = 9.2103404;    // ln(1e4)
+constexpr double kNearOne = 1.4142e-2;     // sqrt(2e-4)
+constexpr double kPredFloor = 1.0e-300;
+
+// the exp model's fixed gaussian expansion (gmix/tables.py)
+__constant__ double kPvals[kNGauss] = {
+    0.00061601229677880041, 0.0079461395724623237, 0.053280454055540001,
+    0.21797364640726541, 0.45496740582554868, 0.26521634184240478};
+__constant__ double kFvals[kNGauss] = {
+    0.002467115141477932, 0.018147435573256168, 0.07944063151366336,
+    0.27137669897479122, 0.79782256866993773, 2.1623306025075739};
+
+struct Conf {
+  double ftol, xtol, lambda0, lambda_up, lambda_down, lambda_min, lambda_max;
+  int maxfev;
+};
+
+// a lane's finished solver state, as fitting.lm.run_lm_normal_state
+// returns it: y, jtr [B, n]; cost, lam [B]; jtj [B, n, n]; nfev [B]
+// int32; done, ier_small_step, ier_small_cost [B] and pinned [B, n] as
+// bytes 0/1
+template <typename T>
+struct Out {
+  T* y;
+  T* cost;
+  T* jtr;
+  T* jtj;
+  T* lam;
+  int32_t* nfev;
+  uint8_t* done;
+  uint8_t* ier_small_step;
+  uint8_t* ier_small_cost;
+  uint8_t* pinned;
+};
+
+__device__ __forceinline__ float dexp(float x) { return expf(x); }
+__device__ __forceinline__ double dexp(double x) { return exp(x); }
+__device__ __forceinline__ float dsqrt(float x) { return sqrtf(x); }
+__device__ __forceinline__ double dsqrt(double x) { return sqrt(x); }
+__device__ __forceinline__ float dlog(float x) { return logf(x); }
+__device__ __forceinline__ double dlog(double x) { return log(x); }
+__device__ __forceinline__ float dabs(float x) { return fabsf(x); }
+__device__ __forceinline__ double dabs(double x) { return fabs(x); }
+__device__ __forceinline__ bool finite(float x) { return isfinite(x); }
+__device__ __forceinline__ bool finite(double x) { return isfinite(x); }
+
+template <typename T> __device__ __forceinline__ T inf_of();
+template <> __device__ __forceinline__ float inf_of<float>() {
+  return __int_as_float(0x7f800000);
+}
+template <> __device__ __forceinline__ double inf_of<double>() {
+  return __longlong_as_double(0x7ff0000000000000LL);
+}
+template <typename T> __device__ __forceinline__ T tiny_of();
+template <> __device__ __forceinline__ float tiny_of<float>() {
+  return 1.17549435e-38f;
+}
+template <> __device__ __forceinline__ double tiny_of<double>() {
+  return 2.2250738585072014e-308;
+}
+
+// one-sided clamps as the plain version's: a nan stays nan
+template <typename T> __device__ __forceinline__ T clamp_min(T x, T m) {
+  return x < m ? m : x;
+}
+template <typename T> __device__ __forceinline__ T clamp_max(T x, T m) {
+  return x > m ? m : x;
+}
+template <typename T> __device__ __forceinline__ T sigmoid(T y) {
+  return T(1) / (T(1) + dexp(-y));
+}
+
+// index of (k, m) in the upper-triangle sums of an n x n symmetric
+// matrix, row by row (K1's order)
+template <int N>
+__device__ __forceinline__ constexpr int tri(int k, int m) {
+  return k <= m ? k * N - k * (k - 1) / 2 + (m - k)
+                : m * N - m * (m - 1) / 2 + (k - m);
+}
+
+// ----------------------------------------------------------------------
+// bounds maps (fitting/lm.py): logistic for two-sided dims, the sqrt
+// forms for one-sided dims, identity for open dims
+
+template <typename T>
+__device__ __forceinline__ T i2e(T y, T lo, T hi) {
+  const bool hl = finite(lo), hh = finite(hi);
+  const T lo_s = hl ? lo : T(0);
+  const T hi_s = hh ? hi : T(0);
+  if (hl && hh) return lo_s + (hi_s - lo_s) * sigmoid(y);
+  const T s = dsqrt(y * y + T(1));
+  if (hl) return lo_s - T(1) + s;
+  if (hh) return hi_s + T(1) - s;
+  return y;
+}
+
+template <typename T>
+__device__ __forceinline__ T i2e_grad(T y, T lo, T hi) {
+  const bool hl = finite(lo), hh = finite(hi);
+  if (hl && hh) return (hi - lo) * sigmoid(y) * sigmoid(-y);
+  const T s = dsqrt(y * y + T(1));
+  if (hl) return y / s;
+  if (hh) return -y / s;
+  return T(1);
+}
+
+template <typename T>
+__device__ __forceinline__ T e2i(T x, T lo, T hi) {
+  const bool hl = finite(lo), hh = finite(hi);
+  const T lo_s = hl ? lo : T(0);
+  const T hi_s = hh ? hi : T(1);
+  if (hl && hh) {
+    const T span = hi_s - lo_s;
+    const T t = clamp_min(x - lo_s, T(1.0e-12) * span);
+    const T u = clamp_min(hi_s - x, T(1.0e-12) * span);
+    return dlog(t) - dlog(u);
+  }
+  if (hl) {
+    const T a = x - lo_s + T(1);
+    return dsqrt(clamp_min(a * a - T(1), T(0)));
+  }
+  if (hh) {
+    const T a = hi_s - x + T(1);
+    return dsqrt(clamp_min(a * a - T(1), T(0)));
+  }
+  return x;
+}
+
+// ----------------------------------------------------------------------
+// one stamp: the exp model's gaussians and K1's pixel pass
+
+// the exp fill's shape terms of (g1, g2): e(g) with the clip at |g| = 1,
+// and de/dg inside |g| < 1 (a point outside is bad and uses no chain)
+template <typename T>
+struct Shape {
+  bool gbad;
+  T e1, e2, de1_g1, de1_g2, de2_g2;
+};
+
+template <typename T>
+__device__ __forceinline__ Shape<T> exp_shape(T g1, T g2) {
+  Shape<T> s;
+  const T gsq = g1 * g1 + g2 * g2;
+  s.gbad = gsq >= T(1);
+  const T scale = s.gbad ? T(kOneMinusEps) / dsqrt(gsq) : T(1);
+  const T g1c = g1 * scale, g2c = g2 * scale;
+  const T fac = T(2) / (T(1) + g1c * g1c + g2c * g2c);
+  s.e1 = fac * g1c;
+  s.e2 = fac * g2c;
+  const T f2 = fac * fac;
+  s.de1_g1 = fac - f2 * g1c * g1c;
+  s.de1_g2 = -f2 * g1c * g2c;
+  s.de2_g2 = fac - f2 * g2c * g2c;
+  return s;
+}
+
+// the 6 gaussians of the convolved exp model at (row, col, shape, tsz,
+// flux) with the psf gaussian (pirr, pirc, picc), and their chain terms,
+// into gs [kNGauss * kGStride]: threads 0-5 of the warp compute one
+// gaussian each. Returns, on every thread, whether a gaussian fails
+// gmix_flags' rule (low determinant).
+template <typename T>
+__device__ __forceinline__ bool exp_gaussians(T* gs, int lid, T row, T col,
+                                              const Shape<T>& sh, T tsz, T flux,
+                                              T pirr, T pirc, T picc) {
+  // every thread has read the previous point's gaussians
+  __syncwarp();
+  bool lowdet = false;
+  if (lid < kNGauss) {
+    const int g = lid;
+    const T fv = static_cast<T>(kFvals[g]);
+    const T pv = static_cast<T>(kPvals[g]);
+    const T h = T(0.5) * tsz * fv;
+    const T irr = h * (T(1) - sh.e1) + pirr;
+    const T irc = h * sh.e2 + pirc;
+    const T icc = h * (T(1) + sh.e1) + picc;
+    const T det = irr * icc - irc * irc;
+    const T tc = irr + icc;
+    // gmix_flags' rule, then gmix_reparam's
+    lowdet = det < static_cast<T>(kLowDetval) || tc <= static_cast<T>(kLowDetval);
+    const bool valid = det > static_cast<T>(kLowDetval) && tc > T(0);
+    T* q = gs + g * kGStride;
+    q[1] = row;
+    q[2] = col;
+    if (valid) {
+      const T idet = T(1) / det;
+      const T denom = static_cast<T>(kTwoPi) * dsqrt(det);
+      const T N = flux * pv / denom;
+      const T Fvv = icc * idet, Fvu = -irc * idet, Fuu = irr * idet;
+      q[0] = N;
+      q[3] = Fvv;
+      q[4] = Fvu;
+      q[5] = Fuu;
+      q[6] = pv / denom;
+      // d (irr, irc, icc) / d (g1, g2, T)
+      const T d_rr[3] = {-h * sh.de1_g1, -h * sh.de1_g2, T(0.5) * fv * (T(1) - sh.e1)};
+      const T d_rc[3] = {h * sh.de1_g2, h * sh.de2_g2, T(0.5) * fv * sh.e2};
+      const T d_cc[3] = {h * sh.de1_g1, h * sh.de1_g2, T(0.5) * fv * (T(1) + sh.e1)};
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        const T ddet = icc * d_rr[s] + irr * d_cc[s] - T(2) * irc * d_rc[s];
+        q[7 + 4 * s] = T(-0.5) * N * ddet * idet;
+        q[8 + 4 * s] = (d_cc[s] - Fvv * ddet) * idet;
+        q[9 + 4 * s] = (-d_rc[s] - Fvu * ddet) * idet;
+        q[10 + 4 * s] = (d_rr[s] - Fuu * ddet) * idet;
+      }
+    } else {
+      // an invalid gaussian adds nothing: N = 0, unit inverse covariance
+      q[0] = T(0);
+      q[3] = T(1);
+      q[4] = T(0);
+      q[5] = T(1);
+#pragma unroll
+      for (int i = 6; i < kGStride; ++i) q[i] = T(0);
+    }
+  }
+  const bool bad = __any_sync(kFull, lowdet);
+  __syncwarp();
+  return bad;
+}
+
+// K1's sums over one stamp's P pixels (planes v, u, ia, ve) with the
+// gaussians gs: acc = (cost, Jtr [6], JtJ upper triangle [21]) of the 6
+// effective parameters, the same bits on every thread
+template <typename T>
+__device__ __forceinline__ void pixel_pass(const T* gs, int lid, const T* v,
+                                           const T* u, const T* ia, const T* ve,
+                                           int P, T (&acc)[kNSum]) {
+#pragma unroll
+  for (int i = 0; i < kNSum; ++i) acc[i] = T(0);
+  for (int p = lid; p < P; p += 32) {
+    const T vv = v[p];
+    const T uu = u[p];
+    T f = T(0);
+    T J[kNPar];
+#pragma unroll
+    for (int k = 0; k < kNPar; ++k) J[k] = T(0);
+#pragma unroll
+    for (int g = 0; g < kNGauss; ++g) {
+      const T* q = gs + g * kGStride;
+      const T dv = vv - q[1];
+      const T du = uu - q[2];
+      const T gv = q[3] * dv + q[4] * du;
+      const T gu = q[4] * dv + q[5] * du;
+      const T chi2 = gv * dv + gu * du;
+      // outside [0, 25) the window and its derivative are 0
+      if (!(chi2 >= T(0) && chi2 < static_cast<T>(kMaxChi2))) continue;
+      T win = T(1);
+      T dwin = T(0);
+      if (chi2 > static_cast<T>(kApodChi2)) {
+        const T t = (static_cast<T>(kMaxChi2) - chi2) *
+                    static_cast<T>(kApodIWidth);
+        win = t * t * t * (T(10) + t * (T(-15) + T(6) * t));
+        const T tmt = t * (T(1) - t);
+        dwin = T(-30) * tmt * tmt * static_cast<T>(kApodIWidth);
+      }
+      const T e = dexp(T(-0.5) * chi2);
+      const T mw = e * win;
+      f += q[0] * mw;
+      // d(N e(chi2) w(chi2)) / d chi2, then d value / d q
+      const T c = q[0] * e * (dwin - T(0.5) * win);
+      const T dq1 = T(-2) * c * gv;
+      const T dq2 = T(-2) * c * gu;
+      const T dq3 = c * dv * dv;
+      const T dq4 = T(2) * c * dv * du;
+      const T dq5 = c * du * du;
+      J[0] += dq1;
+      J[1] += dq2;
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        J[2 + s] += mw * q[7 + 4 * s] + dq3 * q[8 + 4 * s] +
+                    dq4 * q[9 + 4 * s] + dq5 * q[10 + 4 * s];
+      }
+      J[5] += mw * q[6];
+    }
+    const T iap = ia[p];
+    const T fd = f * iap - ve[p];
+    T Jw[kNPar];
+#pragma unroll
+    for (int k = 0; k < kNPar; ++k) Jw[k] = J[k] * iap;
+    acc[0] += fd * fd;
+#pragma unroll
+    for (int k = 0; k < kNPar; ++k) acc[1 + k] += Jw[k] * fd;
+#pragma unroll
+    for (int k = 0; k < kNPar; ++k) {
+#pragma unroll
+      for (int m = k; m < kNPar; ++m) acc[1 + kNPar + tri<kNPar>(k, m)] += Jw[k] * Jw[m];
+    }
+  }
+  // fixed-order shuffle tree, then lane 0's totals to every thread
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+    for (int i = 0; i < kNSum; ++i) {
+      acc[i] += __shfl_down_sync(kFull, acc[i], off);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kNSum; ++i) acc[i] = __shfl_sync(kFull, acc[i], 0);
+}
+
+// the bounds chain rule J_int = J_ext diag(g), in place
+template <typename T, int NP>
+__device__ __forceinline__ void bounds_chain(const T (&y)[NP], const T (&lo)[NP],
+                                             const T (&hi)[NP], T (&jtr)[NP],
+                                             T (&jtj)[NP * (NP + 1) / 2]) {
+  T gr[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) gr[k] = i2e_grad(y[k], lo[k], hi[k]);
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    jtr[k] = jtr[k] * gr[k];
+#pragma unroll
+    for (int m = k; m < NP; ++m) jtj[tri<NP>(k, m)] = jtj[tri<NP>(k, m)] * gr[k] * gr[m];
+  }
+}
+
+// ----------------------------------------------------------------------
+// one lane's solve, in the order of fitting/lm.py _lm_step, over NP
+// parameters: evaluate(y, cost, jtr, jtj) gives (cost, Jtr, JtJ) in
+// internal coordinates at y, JtJ as its upper triangle
+
+template <typename T, int NP, typename Eval>
+__device__ void solve_lane(const Conf& cf, const T* guess,
+                                           const T (&lo)[NP], const T (&hi)[NP],
+                                           Eval&& evaluate, const Out<T>& o,
+                                           size_t b, int lid) {
+  constexpr int NT = NP * (NP + 1) / 2;
+  const T ftol = static_cast<T>(cf.ftol);
+  const T xtol = static_cast<T>(cf.xtol);
+  const T lambda0 = static_cast<T>(cf.lambda0);
+
+  T y[NP];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) y[k] = e2i(guess[k], lo[k], hi[k]);
+  T cost, jtr[NP], jtj[NT];
+  evaluate(y, cost, jtr, jtj);
+
+  T lam = lambda0;
+  int nfev = 1;
+  bool done = false, ier_step = false, ier_cost = false;
+  unsigned pinned = 0;
+  while (!done && nfev < cf.maxfev) {
+    // dims on a finite bound whose gradient points outward and whose
+    // whole remaining improvement is below the ftol resolution
+    unsigned pin = 0;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const bool hl = finite(lo[k]), hh = finite(hi[k]);
+      const T g = i2e_grad(y[k], lo[k], hi[k]);
+      const T xk = i2e(y[k], lo[k], hi[k]);
+      const bool near = (hl && hh) ? dabs(y[k]) >= static_cast<T>(kNearBoth)
+                                   : dabs(y[k]) <= static_cast<T>(kNearOne);
+      const bool to_lo = (jtr[k] * g > T(0)) && hl;
+      const bool to_hi = (jtr[k] * g < T(0)) && hh;
+      const T d_out = to_lo ? xk - lo[k] : (to_hi ? hi[k] - xk : inf_of<T>());
+      const T g_safe = clamp_min(dabs(g), tiny_of<T>());
+      const T available = T(2) * dabs(jtr[k]) * d_out / g_safe;
+      if (near && (to_lo || to_hi) && available < ftol * cost) pin |= 1u << k;
+    }
+    const bool pin_changed = pin != pinned;
+    const T lam_eff = pin_changed ? lambda0 : lam;
+
+    // the masked normal equations, damped (Marquardt scaling), as the
+    // lower triangle of A, and b = -Jtr over the free dims
+    T free_[NP];
+#pragma unroll
+    for (int k = 0; k < NP; ++k) free_[k] = (pin >> k) & 1u ? T(0) : T(1);
+    T A[NP][NP];
+    T rhs[NP];
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+#pragma unroll
+      for (int j = 0; j <= i; ++j) A[i][j] = jtj[tri<NP>(j, i)] * free_[i] * free_[j];
+      if ((pin >> i) & 1u) A[i][i] = A[i][i] + T(1);
+      const T d = A[i][i] > T(0) ? A[i][i] : T(1);
+      A[i][i] = A[i][i] + lam_eff * d;
+      rhs[i] = -(jtr[i] * free_[i]);
+    }
+    // unrolled Cholesky (ops/small_linalg.py's order); nan where A is
+    // not positive definite
+    T L[NP][NP];
+#pragma unroll
+    for (int j = 0; j < NP; ++j) {
+      T s = A[j][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) s = s - L[j][k] * L[j][k];
+      const T d = dsqrt(s);
+      L[j][j] = d;
+      const T inv_d = T(1) / d;
+#pragma unroll
+      for (int i = j + 1; i < NP; ++i) {
+        T t = A[i][j];
+#pragma unroll
+        for (int k = 0; k < j; ++k) t = t - L[i][k] * L[j][k];
+        L[i][j] = t * inv_d;
+      }
+    }
+    T z[NP];
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      T s = rhs[i];
+#pragma unroll
+      for (int k = 0; k < i; ++k) s = s - L[i][k] * z[k];
+      z[i] = s / L[i][i];
+    }
+    T dy[NP];
+#pragma unroll
+    for (int i = NP - 1; i >= 0; --i) {
+      T s = z[i];
+#pragma unroll
+      for (int k = i + 1; k < NP; ++k) s = s - L[k][i] * dy[k];
+      dy[i] = s / L[i][i];
+    }
+    bool step_ok = true;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) step_ok = step_ok && finite(dy[k]);
+
+    T y_try[NP];
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      T t = y[k] + (step_ok ? dy[k] : T(0));
+      if (finite(lo[k]) && finite(hi[k])) {
+        t = clamp_max(clamp_min(t, static_cast<T>(-kYClip)), static_cast<T>(kYClip));
+      }
+      y_try[k] = t;
+      dy[k] = t - y[k];
+    }
+    T cost_try, jtr_try[NP], jtj_try[NT];
+    evaluate(y_try, cost_try, jtr_try, jtj_try);
+    if (!finite(cost_try)) cost_try = inf_of<T>();
+    const bool accept = step_ok && cost_try < cost;
+
+    // predicted reduction of the quadratic model, sums left to right
+    T pred_g = dy[0] * (T(2) * jtr[0]);
+    T pred_h = T(0);
+#pragma unroll
+    for (int i = 0; i < NP; ++i) {
+      if (i > 0) pred_g = pred_g + dy[i] * (T(2) * jtr[i]);
+      T Hdy = jtj[tri<NP>(i, 0)] * dy[0];
+#pragma unroll
+      for (int j = 1; j < NP; ++j) Hdy = Hdy + jtj[tri<NP>(i, j)] * dy[j];
+      pred_h = i == 0 ? dy[0] * Hdy : pred_h + dy[i] * Hdy;
+    }
+    const T pred = clamp_min(-pred_g - pred_h, static_cast<T>(kPredFloor));
+    const T actual = cost - cost_try;
+    const bool small_cost =
+        accept && actual <= ftol * cost && pred <= ftol * cost;
+    // xtol over the free dims only
+    T ysq = T(0), dsq = T(0);
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      const T yf = y[k] * free_[k];
+      ysq = k == 0 ? yf * yf : ysq + yf * yf;
+      dsq = k == 0 ? dy[k] * dy[k] : dsq + dy[k] * dy[k];
+    }
+    const bool small_step =
+        accept && dsqrt(dsq) <= xtol * (dsqrt(ysq) + xtol);
+    const bool stuck = !accept && lam_eff >= static_cast<T>(cf.lambda_max);
+
+    lam = accept
+              ? clamp_min(lam_eff / static_cast<T>(cf.lambda_down),
+                          static_cast<T>(cf.lambda_min))
+              : clamp_max(lam_eff * static_cast<T>(cf.lambda_up),
+                          static_cast<T>(cf.lambda_max * 10.0));
+    if (accept) {
+      cost = cost_try;
+#pragma unroll
+      for (int k = 0; k < NP; ++k) {
+        y[k] = y_try[k];
+        jtr[k] = jtr_try[k];
+      }
+#pragma unroll
+      for (int i = 0; i < NT; ++i) jtj[i] = jtj_try[i];
+    }
+    nfev += 1;
+    done = (small_cost || small_step || stuck) && !pin_changed;
+    ier_step = small_step;
+    ier_cost = small_cost;
+    pinned = pin;
+  }
+
+  if (lid == 0) {
+    o.cost[b] = cost;
+    o.lam[b] = lam;
+    o.nfev[b] = nfev;
+    o.done[b] = done;
+    o.ier_small_step[b] = ier_step;
+    o.ier_small_cost[b] = ier_cost;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      o.y[NP * b + k] = y[k];
+      o.jtr[NP * b + k] = jtr[k];
+      o.pinned[NP * b + k] = (pinned >> k) & 1u;
+#pragma unroll
+      for (int m = 0; m < NP; ++m) {
+        o.jtj[(NP * b + k) * NP + m] = jtj[tri<NP>(k, m)];
+      }
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src),
+               "n"(N)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+}
+
+// the persistent grid of a kernel: blocks of kThreads, as many as are
+// resident on the device at smem bytes of dynamic shared memory a
+// block, and no more than the lanes need; 0 or a CUDA error
+template <typename K>
+int grid_size(K kernel, size_t smem, int64_t lanes, unsigned* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int dev = 0, nsm = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+  err = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  const int64_t want = (lanes + kWarps - 1) / kWarps;
+  const int64_t resident = static_cast<int64_t>(nsm) * per_sm;
+  *blocks = static_cast<unsigned>(want < resident ? want : resident);
+  return 0;
+}
+
+// registers a thread, static and dynamic shared memory, blocks an SM and
+// local memory a thread (the stack frame, spills included) of a kernel
+// at smem bytes of dynamic shared memory a block, into out[5]
+template <typename K>
+int kernel_attrs(K kernel, size_t smem, int* out) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaFuncAttributes fa;
+  if ((err = cudaFuncGetAttributes(&fa, kernel)) != cudaSuccess) {
+    return static_cast<int>(err);
+  }
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = fa.numRegs;
+  out[1] = static_cast<int>(fa.sharedSizeBytes);
+  out[2] = static_cast<int>(smem);
+  out[3] = per_sm;
+  out[4] = static_cast<int>(fa.localSizeBytes);
+  return 0;
+}
+
+}  // namespace

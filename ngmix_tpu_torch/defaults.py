@@ -7,6 +7,8 @@ package exactly.
 # parameter / covariance values reported when a fit fails
 PDEF = -9.999e9
 CDEF = 9.999e9
+# s/n denominator of a fit whose parameter point is bad
+BIGVAL = 9999.0e47
 
 # Gaussian evaluations are smoothly apodized to zero over
 # chi^2 in [APOD_CHI2, MAX_CHI2] so rendered models are C2 in the

@@ -321,7 +321,7 @@ def compaction_levels(nfev, compact_capacity):
 
 
 def run_lm_normal_batched(normal_fn, data, guess, lo, hi, conf: LMConf,
-                          nres, compact_capacity=None):
+                          nres, compact_capacity=None, gather_fn=None):
     """Batched LM driven by normal-equation reductions: the finished
     solver state of run_lm_normal_state through _normal_epilogue.
 
@@ -338,19 +338,24 @@ def run_lm_normal_batched(normal_fn, data, guess, lo, hi, conf: LMConf,
     once, into a batch of that size; the results are scattered back at
     the end. Results are bitwise equal to the uncompacted run.
 
-    The reference's prior rows (prior_fn), custom gathers (gather_fn)
-    and k-space residuals (k_space) are not ported yet (ROADMAP queue
-    items 5, 9 and 13).
+    gather_fn(data, idx) -> data gathers the data of the lanes idx [K]
+    at a compaction level, for data whose lane axis is not the leading
+    axis of every tensor (the multi-band fit's epoch rows, E a lane);
+    the default takes idx on the leading axis of every tensor.
+
+    The reference's prior rows (prior_fn) and k-space residuals
+    (k_space) are not ported yet (ROADMAP queue items 5 and 13).
     """
     lo = torch.as_tensor(lo, dtype=guess.dtype, device=guess.device)
     hi = torch.as_tensor(hi, dtype=guess.dtype, device=guess.device)
     state = run_lm_normal_state(normal_fn, data, guess, lo, hi, conf,
-                                compact_capacity=compact_capacity)
+                                compact_capacity=compact_capacity,
+                                gather_fn=gather_fn)
     return _normal_epilogue(state, lo, hi, conf, nres)
 
 
 def run_lm_normal_state(normal_fn, data, guess, lo, hi, conf: LMConf,
-                        compact_capacity=None):
+                        compact_capacity=None, gather_fn=None):
     """the solver loop of run_lm_normal_batched (same arguments but
     nres): the finished per-lane state y, cost, Jtr, JtJ (internal
     coordinates), lam, nfev, done, ier_small_step, ier_small_cost and
@@ -397,7 +402,7 @@ def run_lm_normal_state(normal_fn, data, guess, lo, hi, conf: LMConf,
         inactive = (~_active(cur_state, conf)).to(torch.int32)
         idx = torch.argsort(inactive, stable=True)[:K]
         outer.append((cur_state, idx))
-        cur_data = _take(cur_data, idx)
+        cur_data = (_take if gather_fn is None else gather_fn)(cur_data, idx)
         cur_state = _take(cur_state, idx)
 
     while n_act > 0:

@@ -1,10 +1,12 @@
 """Build the package's CUDA sources into one shared library, at first use.
 
-One ``nvcc`` call compiles every ``csrc/*.cu`` for Hopper (sm_90a)
-into a shared library with a plain C interface: no PyTorch headers and
-no ninja, so the build takes seconds. The library is named by a hash
-of the sources and the command, lives in ``build/ngmix_tpu_torch/`` at
-the root of the checkout, and is loaded with ctypes.
+Every ``csrc/*.cu`` is compiled for Hopper (sm_90a) by its own ``nvcc``
+process, all started together, and the objects are linked into one
+shared library with a plain C interface: no PyTorch headers and no
+ninja, so the build takes as long as its slowest source. The library
+is named by a hash of the sources, their headers and the flags, lives
+in ``build/ngmix_tpu_torch/`` at the root of the checkout, and is
+loaded with ctypes.
 """
 import ctypes
 import hashlib
@@ -12,16 +14,19 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ngmix_tpu_torch"
-BUILD_TIMEOUT_S = 120
+# the slowest source, csrc/lm_solve_mb.cu with its 12 instantiations,
+# takes about a minute
+BUILD_TIMEOUT_S = 300
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _lib = None
@@ -39,17 +44,45 @@ def find_nvcc():
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def nvcc_command(out, nvcc="nvcc"):
-    """the nvcc command that builds every source into ``out``"""
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, sources())]
+def nvcc_commands(out, nvcc="nvcc"):
+    """the commands that build every source into ``out``: one compile a
+    source into an object beside ``out`` (they run in parallel), and the
+    link of the objects into the shared library"""
+    objs = ["%s.%s.o" % (out, src.stem) for src in sources()]
+    compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+                for src, obj in zip(sources(), objs)]
+    return compiles, [nvcc, "-shared", "-o", str(out), *objs]
 
 
 def library_path():
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    # the sources and the headers they include
+    for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / ("libngmix_tpu_torch_%s.so" % h.hexdigest()[:16])
+
+
+def _run_all(cmds, deadline):
+    """run the commands at once; raises with the first failure's output,
+    or when the deadline (time.monotonic()) passes, stopping the rest"""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    try:
+        for cmd, proc in zip(cmds, procs):
+            try:
+                out = proc.communicate(timeout=max(deadline - time.monotonic(), 0.0))[0]
+            except subprocess.TimeoutExpired as exc:
+                raise RuntimeError("nvcc did not finish in %d s: %s"
+                                   % (BUILD_TIMEOUT_S, " ".join(cmd))) from exc
+            if proc.returncode != 0:
+                raise RuntimeError("nvcc failed (%d): %s\n%s"
+                                   % (proc.returncode, " ".join(cmd), out))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
 
 
 def build():
@@ -63,28 +96,16 @@ def build():
     if path.exists():
         return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
+    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
     try:
-        cmd = nvcc_command(tmp, nvcc=find_nvcc())
-        try:
-            proc = subprocess.run(
-                cmd, capture_output=True, text=True, timeout=BUILD_TIMEOUT_S
-            )
-        except subprocess.TimeoutExpired as exc:
-            raise RuntimeError(
-                "nvcc did not finish in %d s: %s\n%s"
-                % (BUILD_TIMEOUT_S, " ".join(cmd), exc.stderr or "")
-            ) from exc
-        if proc.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed (%d): %s\n%s%s"
-                % (proc.returncode, " ".join(cmd), proc.stdout, proc.stderr)
-            )
+        tmp = os.path.join(tmpdir, path.name)
+        compiles, link = nvcc_commands(tmp, nvcc=find_nvcc())
+        deadline = time.monotonic() + BUILD_TIMEOUT_S
+        _run_all(compiles, deadline)
+        _run_all([link], deadline)
         os.replace(tmp, path)
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+        shutil.rmtree(tmpdir, ignore_errors=True)
     return path
 
 
@@ -114,7 +135,7 @@ def load():
             fn.restype = ctypes.c_int
         for name in ("ngmix_lm_solve_attrs_f32", "ngmix_lm_solve_attrs_f64"):
             fn = getattr(lib, name)
-            # P, out[4] as for K2
+            # P, out[5]: K2's four values and local memory a thread
             fn.argtypes = [i64, ip]
             fn.restype = ctypes.c_int
         for name in ("ngmix_normal_eqs_f32", "ngmix_normal_eqs_f64"):
@@ -129,6 +150,19 @@ def load():
             # B, P, maxfev, ftol, xtol, lambda0, lambda_up, lambda_down,
             # lambda_min, lambda_max, stream
             fn.argtypes = [p] * 19 + [i64] * 3 + [ctypes.c_double] * 7 + [p]
+            fn.restype = ctypes.c_int
+        for name in ("ngmix_lm_solve_mb_f32", "ngmix_lm_solve_mb_f64"):
+            fn = getattr(lib, name)
+            # guess, lo, hi, psf, band, v, u, ia, ve, y, cost, jtr, jtj,
+            # lam, nfev, done, ier_small_step, ier_small_cost, pinned,
+            # counter, B, E, P, nband, maxfev, ftol, xtol, lambda0,
+            # lambda_up, lambda_down, lambda_min, lambda_max, stream
+            fn.argtypes = [p] * 20 + [i64] * 5 + [ctypes.c_double] * 7 + [p]
+            fn.restype = ctypes.c_int
+        for name in ("ngmix_lm_solve_mb_attrs_f32", "ngmix_lm_solve_mb_attrs_f64"):
+            fn = getattr(lib, name)
+            # nband, E, P, out[5] as for K3
+            fn.argtypes = [i64, i64, i64, ip]
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -30,10 +30,23 @@ shared memory once (cp.async) and every evaluation reads them there.
 Sums reduce in a fixed shuffle order, so a lane's result does not
 depend on its batch or on the warp that ran it.
 
+K3-mb (``lm_solve_mb``, ``csrc/lm_solve_mb.cu``) is the same solve for
+the joint multi-band, multi-epoch exp fit of ``batch.metacal_pipeline_mb``:
+a lane is one object over its E epochs, each epoch with its own psf
+gaussian and band, and 5 + nband parameters (the shape and one flux a
+band). Per evaluation each epoch's 6 effective parameters go through
+K3's fill, chain and pixel pass, and the band one-hot sums assemble the
+global system, as ``batch._mb_exp_normal_fn`` does; a bad point in any
+epoch gives the reference's poisoned lane (cost E P FDIFF_BAD^2, Jtr 0,
+JtJ 0). ``lm_solve_mb_plain`` is its plain version. It replaces the same
+TPU kernel and loop, under the multi-band objective
+(``ngmix_tpu/batch.py: _mb_epochwise_normal_fn_f``).
+
 The wrapper takes the plain version only for tensors on the CPU. For a
 CUDA tensor it launches the kernel or raises; it never falls back.
 """
 import ctypes
+import functools
 
 import torch
 
@@ -45,8 +58,13 @@ NPARS = 6
 # (4 warps x 4 planes x P float64 values per block)
 MAX_P = 1536
 
-# launches of the CUDA kernel since the last reset (set it to 0 to reset)
+# the bands K3-mb is built for (ugrizy)
+MAX_NBAND = 6
+
+# launches of the CUDA kernels since the last reset (set them to 0 to
+# reset): K3 and K3-mb
 launches = 0
+launches_mb = 0
 
 _C_FUNCS = {
     torch.float32: "ngmix_lm_solve_f32",
@@ -55,6 +73,14 @@ _C_FUNCS = {
 _C_ATTRS = {
     torch.float32: "ngmix_lm_solve_attrs_f32",
     torch.float64: "ngmix_lm_solve_attrs_f64",
+}
+_C_FUNCS_MB = {
+    torch.float32: "ngmix_lm_solve_mb_f32",
+    torch.float64: "ngmix_lm_solve_mb_f64",
+}
+_C_ATTRS_MB = {
+    torch.float32: "ngmix_lm_solve_mb_attrs_f32",
+    torch.float64: "ngmix_lm_solve_mb_attrs_f64",
 }
 
 
@@ -74,6 +100,44 @@ def lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf):
         normal_fn, ((v, u, ia, ve), batch._psf_gmix(psf)), guess, lo, hi,
         conf, compact_capacity=None,
     )
+
+
+def _check_common(guess, tensors, conf):
+    """dtype, device, contiguity and maxfev of K3's and K3-mb's
+    arguments"""
+    if guess.dtype not in _C_FUNCS:
+        raise TypeError("dtype must be float32 or float64, got %s" % guess.dtype)
+    for t in tensors:
+        if t.dtype != guess.dtype or t.device != guess.device:
+            raise TypeError(
+                "guess, lo, hi, psf, v, u, ia and ve must share dtype and device"
+            )
+        if not t.is_contiguous():
+            raise ValueError("guess, lo, hi, psf, v, u, ia and ve must be contiguous")
+    if conf.maxfev < 1:
+        raise ValueError("maxfev must be >= 1, got %d" % conf.maxfev)
+
+
+def _empty_state(guess):
+    """the solver state's output tensors for guess [B, npars]"""
+    B, npars = guess.shape
+    return {
+        "y": guess.new_empty((B, npars)),
+        "cost": guess.new_empty((B,)),
+        "Jtr": guess.new_empty((B, npars)),
+        "JtJ": guess.new_empty((B, npars, npars)),
+        "lam": guess.new_empty((B,)),
+        "nfev": guess.new_empty((B,), dtype=torch.int32),
+        "done": guess.new_empty((B,), dtype=torch.bool),
+        "ier_small_step": guess.new_empty((B,), dtype=torch.bool),
+        "ier_small_cost": guess.new_empty((B,), dtype=torch.bool),
+        "pinned": guess.new_empty((B, npars), dtype=torch.bool),
+    }
+
+
+def _conf_args(conf):
+    return (conf.maxfev, conf.ftol, conf.xtol, conf.lambda0, conf.lambda_up,
+            conf.lambda_down, conf.lambda_min, conf.lambda_max)
 
 
 def _check(guess, lo, hi, psf, planes, conf):
@@ -101,17 +165,7 @@ def _check(guess, lo, hi, psf, planes, conf):
             )
     if not 1 <= P <= MAX_P:
         raise ValueError("K3 holds 1 <= P <= %d pixels a lane, got %d" % (MAX_P, P))
-    if guess.dtype not in _C_FUNCS:
-        raise TypeError("dtype must be float32 or float64, got %s" % guess.dtype)
-    for t in (guess, lo, hi, psf) + tuple(planes):
-        if t.dtype != guess.dtype or t.device != guess.device:
-            raise TypeError(
-                "guess, lo, hi, psf, v, u, ia and ve must share dtype and device"
-            )
-        if not t.is_contiguous():
-            raise ValueError("guess, lo, hi, psf, v, u, ia and ve must be contiguous")
-    if conf.maxfev < 1:
-        raise ValueError("maxfev must be >= 1, got %d" % conf.maxfev)
+    _check_common(guess, (guess, lo, hi, psf) + tuple(planes), conf)
 
 
 def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf):
@@ -135,18 +189,7 @@ def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf):
 
     fn = getattr(_build.load(), _C_FUNCS[guess.dtype])
     B, P = v.shape
-    out = {
-        "y": guess.new_empty((B, NPARS)),
-        "cost": guess.new_empty((B,)),
-        "Jtr": guess.new_empty((B, NPARS)),
-        "JtJ": guess.new_empty((B, NPARS, NPARS)),
-        "lam": guess.new_empty((B,)),
-        "nfev": guess.new_empty((B,), dtype=torch.int32),
-        "done": guess.new_empty((B,), dtype=torch.bool),
-        "ier_small_step": guess.new_empty((B,), dtype=torch.bool),
-        "ier_small_cost": guess.new_empty((B,), dtype=torch.bool),
-        "pinned": guess.new_empty((B, NPARS), dtype=torch.bool),
-    }
+    out = _empty_state(guess)
     if B == 0:
         return out
     # the lane counter the kernel's warps take their lanes from
@@ -158,9 +201,7 @@ def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf):
             guess.data_ptr(), lo.data_ptr(), hi.data_ptr(), psf.data_ptr(),
             v.data_ptr(), u.data_ptr(), ia.data_ptr(), ve.data_ptr(),
             *(x.data_ptr() for x in out.values()), counter.data_ptr(),
-            B, P, conf.maxfev, conf.ftol, conf.xtol, conf.lambda0,
-            conf.lambda_up, conf.lambda_down, conf.lambda_min,
-            conf.lambda_max, torch.cuda.current_stream().cuda_stream,
+            B, P, *_conf_args(conf), torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError("K3 lm_solve launch failed: CUDA error %d" % err)
@@ -168,12 +209,119 @@ def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf):
     return out
 
 
+def lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf):
+    """plain PyTorch version of K3-mb: the host loop of
+    fitting.lm.run_lm_normal_state without compaction, over the joint
+    multi-band normal equations (batch._mb_exp_normal_fn with K1's plain
+    version). Same arguments and result as lm_solve_mb."""
+    from .. import batch
+
+    B, E, P = v.shape
+    band = torch.broadcast_to(band, (B, E))
+    planes = tuple(x.reshape(B * E, P) for x in (v, u, ia, ve))
+    psf_gmix = batch._psf_gmix(psf.reshape(B * E, 3))
+    return lm.run_lm_normal_state(
+        functools.partial(batch._mb_exp_normal_fn, plain=True),
+        (planes, psf_gmix, band), guess, lo, hi, conf, compact_capacity=None,
+    )
+
+
+def _check_mb(guess, lo, hi, psf, band, planes, conf):
+    lm.check_supported(conf)
+    if guess.dim() != 2:
+        raise ValueError("guess must be [B, 5 + nband], got %s" % (tuple(guess.shape),))
+    B, npars = guess.shape
+    nband = npars - 5
+    if not 1 <= nband <= MAX_NBAND:
+        raise ValueError(
+            "K3-mb fits 1 to %d bands (5 + nband parameters), got guess %s"
+            % (MAX_NBAND, tuple(guess.shape))
+        )
+    if tuple(lo.shape) != (npars,) or tuple(hi.shape) != (npars,):
+        raise ValueError("lo and hi must be [%d], got %s and %s"
+                         % (npars, tuple(lo.shape), tuple(hi.shape)))
+    shape = tuple(planes[0].shape)
+    if len(shape) != 3 or shape[0] != B or min(shape) < 1:
+        raise ValueError("v, u, ia and ve must be [B, E, P] with B = %d, got %s"
+                         % (B, [tuple(x.shape) for x in planes]))
+    for x in planes:
+        if tuple(x.shape) != shape:
+            raise ValueError("v, u, ia and ve must share one [B, E, P] shape, got %s"
+                             % [tuple(x.shape) for x in planes])
+    E = shape[1]
+    if tuple(psf.shape) != (B, E, 3):
+        raise ValueError(
+            "K3-mb takes one psf gaussian per epoch as psf [B, E, 3] = (irr, irc, "
+            "icc) = %s, got %s" % ((B, E, 3), tuple(psf.shape))
+        )
+    if band.dtype != torch.int32 or band.device != guess.device or \
+            tuple(band.shape) not in ((E,), (B, E)):
+        raise ValueError("band must be an int32 [E] or [B, E] tensor on the device of "
+                         "guess (E = %d), got %s %s" % (E, band.dtype, tuple(band.shape)))
+    _check_common(guess, (guess, lo, hi, psf) + tuple(planes), conf)
+
+
+def lm_solve_mb(guess, lo, hi, psf, band, v, u, ia, ve, conf):
+    """K3-mb: the joint multi-band exp-model LM solve of every object.
+
+    guess [B, 5 + nband] external (row, col, g1, g2, T, one flux a
+    band), 1 <= nband <= MAX_NBAND; lo, hi [5 + nband] with +-inf for
+    unbounded sides; psf [B, E, 3] the (irr, irc, icc) of each epoch's
+    unit-flux psf gaussian; band int32 [E] (shared) or [B, E], the band
+    of each epoch (a band outside [0, nband) gives that epoch no flux);
+    v, u, ia = ierr * area and ve = val * ierr [B, E, P]; conf an
+    LMConf. Returns the finished solver state, as lm_solve does, with
+    5 + nband parameters. CPU tensors go to lm_solve_mb_plain; CUDA
+    tensors launch the kernel.
+    """
+    global launches_mb
+    _check_mb(guess, lo, hi, psf, band, (v, u, ia, ve), conf)
+    if guess.device.type == "cpu":
+        return lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf)
+    if guess.device.type != "cuda":
+        raise RuntimeError("K3-mb runs on CUDA or CPU tensors, not %s" % guess.device)
+
+    fn = getattr(_build.load(), _C_FUNCS_MB[guess.dtype])
+    B, E, P = v.shape
+    band = torch.broadcast_to(band, (B, E)).contiguous()
+    out = _empty_state(guess)
+    counter = guess.new_zeros((1,), dtype=torch.int32)
+    with torch.cuda.device(guess.device):
+        err = fn(
+            guess.data_ptr(), lo.data_ptr(), hi.data_ptr(), psf.data_ptr(),
+            band.data_ptr(), v.data_ptr(), u.data_ptr(), ia.data_ptr(), ve.data_ptr(),
+            *(x.data_ptr() for x in out.values()), counter.data_ptr(),
+            B, E, P, guess.shape[1] - 5, *_conf_args(conf),
+            torch.cuda.current_stream().cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError("K3-mb lm_solve_mb launch failed: CUDA error %d" % err)
+    launches_mb += 1
+    return out
+
+
+def _attrs(out):
+    return dict(regs=out[0], static_smem=out[1], dynamic_smem=out[2], blocks_per_sm=out[3],
+                local_bytes=out[4])
+
+
 def kernel_attrs(dtype, P):
-    """registers a thread, static and dynamic shared memory (bytes) and
-    blocks an SM of the kernel at P pixels a lane, on the current CUDA
-    device"""
-    out = (ctypes.c_int * 4)()
+    """registers a thread, static and dynamic shared memory (bytes),
+    blocks an SM and local memory a thread (bytes: the stack frame,
+    spills included) of the kernel at P pixels a lane, on the current
+    CUDA device"""
+    out = (ctypes.c_int * 5)()
     err = getattr(_build.load(), _C_ATTRS[dtype])(P, out)
     if err != 0:
         raise RuntimeError("K3 lm_solve attributes failed: CUDA error %d" % err)
-    return dict(regs=out[0], static_smem=out[1], dynamic_smem=out[2], blocks_per_sm=out[3])
+    return _attrs(out)
+
+
+def kernel_attrs_mb(dtype, nband, E, P):
+    """kernel_attrs of K3-mb at nband bands and E epochs of P pixels a
+    lane"""
+    out = (ctypes.c_int * 5)()
+    err = getattr(_build.load(), _C_ATTRS_MB[dtype])(nband, E, P, out)
+    if err != 0:
+        raise RuntimeError("K3-mb attributes failed: CUDA error %d" % err)
+    return _attrs(out)

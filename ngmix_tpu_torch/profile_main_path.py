@@ -1,13 +1,15 @@
 """Where a main path's time goes on the card.
 
-    python -m ngmix_tpu_torch.profile_main_path [--measure {admom,exp-lm,gaussmom}] [B]
+    python -m ngmix_tpu_torch.profile_main_path [--measure {admom,exp-lm,exp-lm-mb,gaussmom}] [B]
 
 Runs the metacal pipeline with the given measure (default gaussmom) at
 its main-path configuration (bench.py's metacal_gaussmom and
 metacal_admom configurations for gaussmom and admom, its headline
-configuration for exp-lm; float32) on the
-port's homogeneous sims at B stamps (default 10240): one warm-up call,
-then one call under torch.profiler. Prints the card's name and power
+configuration for exp-lm, its multi-band workload for exp-lm-mb:
+metacal_pipeline_mb on 3 epochs over 2 bands; float32) on the port's
+homogeneous sims at B stamps (default 10240), or for exp-lm-mb B
+objects (default 2048): one warm-up call, then one call under
+torch.profiler. Prints the card's name and power
 limit (nvidia-smi), the call's wall time, the device's busy share (the
 union of kernel intervals over the wall time), and the device time by
 kernel class and by kernel name. Needs a CUDA card.
@@ -21,15 +23,28 @@ from collections import defaultdict
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from . import make_metacal_pipeline_fn, make_sim_batch
+from . import (
+    make_metacal_pipeline_fn,
+    make_metacal_pipeline_mb_fn,
+    make_sim_batch,
+    make_sim_batch_mb,
+)
 from .batch import GALSHEAR_TYPES
-from .sims import METACAL_ADMOM_CONFIG, METACAL_EXP_LM_CONFIG, METACAL_GAUSSMOM_CONFIG
+from .sims import (
+    MB_BAND,
+    MB_NBAND,
+    METACAL_ADMOM_CONFIG,
+    METACAL_EXP_LM_CONFIG,
+    METACAL_GAUSSMOM_CONFIG,
+    METACAL_MB_CONFIG,
+)
 
 CONFS = {"gaussmom": METACAL_GAUSSMOM_CONFIG, "admom": METACAL_ADMOM_CONFIG,
-         "exp-lm": METACAL_EXP_LM_CONFIG}
+         "exp-lm": METACAL_EXP_LM_CONFIG, "exp-lm-mb": METACAL_MB_CONFIG}
 
 # kernel-name fragments -> class, first match wins
 _CLASSES = (
+    ("lm_solve_mb", "K3-mb lm_solve_mb"),
     ("lm_solve", "K3 lm_solve"),
     ("gmix_eval", "K2 gmix_eval"),
     ("normal_eqs", "K1 normal_eqs"),
@@ -64,13 +79,19 @@ def _busy_us(events):
     return busy
 
 
-def main(measure="gaussmom", B=10240):
+def main(measure="gaussmom", B=None):
     if not torch.cuda.is_available():
         print("profile_main_path: no CUDA device", file=sys.stderr)
         return 2
-    fn = make_metacal_pipeline_fn(CONFS[measure], measure=measure)
-    args = make_sim_batch(torch.Generator(device="cuda").manual_seed(314), B,
-                          device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(314)
+    if measure == "exp-lm-mb":
+        B = B or 2048
+        fn = make_metacal_pipeline_mb_fn(CONFS[measure], MB_BAND, MB_NBAND)
+        args = make_sim_batch_mb(gen, B, device="cuda")
+    else:
+        B = B or 10240
+        fn = make_metacal_pipeline_fn(CONFS[measure], measure=measure)
+        args = make_sim_batch(gen, B, device="cuda")
     warm = fn(*args)
     torch.cuda.synchronize()
 
@@ -104,7 +125,7 @@ def main(measure="gaussmom", B=10240):
              100 - 100 * _busy_us(kernels) / wall_us, len(kernels)))
     for cls, t in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print("  %-26s %9.3f ms %5.1f%%" % (cls, t / 1e3, 100 * t / total))
-    if measure == "exp-lm":
+    if measure.startswith("exp-lm"):
         nfev = torch.cat([warm[t]["nfev"] for t in GALSHEAR_TYPES]).double()
         print("LM evaluations a lane (nfev): mean %.3f, p50 %g, max %d, sum %d"
               % (nfev.mean(), nfev.median(), nfev.max(), nfev.sum()))
@@ -121,6 +142,6 @@ def main(measure="gaussmom", B=10240):
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--measure", choices=sorted(CONFS), default="gaussmom")
-    ap.add_argument("B", type=int, nargs="?", default=10240)
+    ap.add_argument("B", type=int, nargs="?", default=None)
     args = ap.parse_args()
     sys.exit(main(args.measure, args.B))

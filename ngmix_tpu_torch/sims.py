@@ -41,6 +41,15 @@ METACAL_EXP_LM_CONFIG = MetacalConfig(
 )
 
 
+# bench.py's multi-band workload (bench.py:358-380): 3 epochs an
+# object over 2 bands, each epoch a copy of a flat sim stamp, fitted
+# jointly with the exp model at the gaussmom configuration's pad 2 and
+# 19x19 window; the main path on the card of metacal_pipeline_mb
+METACAL_MB_CONFIG = METACAL_GAUSSMOM_CONFIG
+MB_BAND = (0, 0, 1)
+MB_NBAND = 2
+
+
 def _sim_device(gen, device):
     """the device the sims run on; raises if gen lives elsewhere"""
     dev = resolve_device(device)
@@ -176,3 +185,16 @@ def make_sim_batch_hetero(gen, B, dtype=torch.float32, device=None):
     weights = torch.full((B,) + DIMS, 1.0 / NOISE**2, dtype=dtype, device=dev)
     noise_field = _normal(gen, (B,) + DIMS, dtype) * NOISE
     return imgs, weights, cens, pimgs, pcens, noise_field
+
+
+def make_sim_batch_mb(gen, B, dtype=torch.float32, device=None, hetero=False):
+    """bench.py's multi-band batch: B objects of len(MB_BAND) epochs,
+    each epoch a copy of the object's flat sim stamp (make_sim_batch, or
+    make_sim_batch_hetero with hetero=True), as bench.py tiles them.
+    Returns (images, weights, cens, psf_images, psf_cens, noise), each
+    [B, E, ...]; the epochs' bands are MB_BAND over MB_NBAND bands."""
+    flat = (make_sim_batch_hetero if hetero else make_sim_batch)(gen, B, dtype, device)
+    E = len(MB_BAND)
+    return tuple(
+        a[:, None].expand((a.shape[0], E) + a.shape[1:]).contiguous() for a in flat
+    )

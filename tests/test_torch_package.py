@@ -48,13 +48,18 @@ def test_no_jax_imports(path):
 
 
 def test_nvcc_command_targets_hopper_and_csrc_only():
-    cmd = _build.nvcc_command("out.so")
-    assert "arch=compute_90a,code=sm_90a" in cmd
-    assert "-shared" in cmd and "-O3" in cmd
-    assert not any("fast_math" in c or "fast-math" in c for c in cmd)
-    srcs = [Path(c) for c in cmd if c.endswith((".cu", ".cuh", ".cpp"))]
-    # both kernels, K1 and K2, in the one call
-    assert {s.name for s in srcs} >= {"gmix_eval.cu", "normal_eqs.cu"}, cmd
+    compiles, link = _build.nvcc_commands("out.so")
+    for cmd in compiles:
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "-c" in cmd and "-O3" in cmd
+        assert not any("fast_math" in c or "fast-math" in c for c in cmd)
+    assert "-shared" in link and link[link.index("-o") + 1] == "out.so"
+    srcs = [Path(c) for cmd in compiles for c in cmd if c.endswith((".cu", ".cuh", ".cpp"))]
+    # one compile a source, every kernel's source among them, and the
+    # link takes every object
+    assert len(srcs) == len(compiles) == len(_build.sources())
+    assert {s.name for s in srcs} >= {"gmix_eval.cu", "normal_eqs.cu"}, compiles
+    assert [cmd[cmd.index("-o") + 1] for cmd in compiles] == link[link.index("-o") + 2:]
     for s in srcs:
         assert s.resolve().parent == PKG / "csrc", s
     # no PyTorch headers in the kernel sources
