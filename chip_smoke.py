@@ -4,11 +4,12 @@
 
 Drives the port's main paths on the card, bench.py's metacal_gaussmom
 workload, its exp-LM headline and its metacal_admom workload at the
-production chunk size, the azgauss, fitgauss and dilate psf modes, and
-its multi-band workload; and holds the hand-written CUDA kernels K2
-(mixture evaluation), K1 (LM normal equations), K3 (every lane's whole
-exp-LM solve) and K3-mb (every object's joint multi-band solve)
-against their plain PyTorch versions. The exp-LM path
+production chunk size, the azgauss, fitgauss and dilate psf modes, its
+multi-band workload, its pre-psf moments (standalone and as the pgauss
+and ksigma metacal measures) and its single-gaussian EM; and holds the
+hand-written CUDA kernels K2 (mixture evaluation), K1 (LM normal
+equations), K3 (every lane's whole exp-LM solve) and K3-mb (every
+object's joint multi-band solve) against their plain PyTorch versions. The exp-LM path
 runs through K3; its host-loop route (run_lm_normal_batched with K1,
 reached through _exp_lm_measure's host_loop argument) is driven for the
 phases that hold K1 and for the comparison. Phases, in order, each
@@ -156,7 +157,31 @@ printing one timed line as soon as it ends:
            objects whose epochs are not copies, with a per-object band
            map, in float64 on the card and the CPU (flags equal, nfev
            within 2, pars and s2n to rtol 1e-8 and atol 1e-10); K3-mb
-           and K2 at the mb shapes timed beside their bounds.
+           and K2 at the mb shapes timed beside their bounds;
+19. prepsf: bench.py's pre-psf moments, prepsfmom_batch (ksigma, FWHM
+           2.0, target_dim 196, tot_var = NOISE^2, partial modes) on
+           B = 10240 49x49 sim stamps in float32: stamps/s (median and
+           range of 3 calls), device operations a call, T finite and
+           kernel_nrm within 1e-5 of 1; the pgauss and ksigma metacal
+           pipelines (the gaussmom fields, FWHM 2.0) at B = 10240 with
+           the reference's gate, |m| < 1.5e-3, 1.1 < R11 < 1.8
+           (tests/test_batch_pipeline.py:223-240), flagged <= max(8,
+           0.5% B) and K2 launched once a call (the round target psf
+           render), and pgauss under dilate with |m| < 3e-3 (:491-503);
+           K2 on the psf render's inputs (n = 1, exact, [B, 625],
+           scalar area) held against its plain version and timed; then
+           256 stamps in float64 on the card and the CPU for pgauss and
+           ksigma by both routes, with white and measured noise: flags
+           equal, sums and covariance to rtol 1e-10 and atol 1e-13
+           (tests/test_prepsfmom.py:226); and remap_k at N = 520 (the
+           chirp-z route) card against CPU in float64 to 1e-10;
+20. em:    bench.py's em1 workload, em_batch of one gaussian on the
+           sky-shifted stamps (sims.em1_inputs) at B = 10240 with the
+           default EMConf in float32: flagged lanes, numiter (mean,
+           p50, p90, p99, max), stamps/s (median and range of 3 calls),
+           device operations and idle share as in phase 13; then 256
+           stamps in float64 on the card and the CPU: flags and numiter
+           equal, gmix, gmix_conv and sky to rtol 1e-8 and atol 1e-10.
 
 Needs one CUDA card and exits nonzero, printing the reason, on any
 failure or without a card. The last line is the JSON result.
@@ -367,20 +392,15 @@ def run_main(device, B, conf=CONF, measure="gaussmom"):
     res = fn(*hom)
     # timed calls after the first, which pays for FFT plans and library
     # setup; the median of three
-    times, spans = [], []
-    for _ in range(3):
-        _, wall, span = timed_call(fn, *hom)
-        times.append(wall)
-        spans.append(span)
-    dt = sorted(times)[1]
+    dt, dt_range, span = timed3(fn, *hom)
     het = nt.make_sim_batch_hetero(torch.Generator(device=device).manual_seed(271),
                                    B, torch.float32, device=device)
     het_res = fn(*het)
     _sync(device)
     out = dict(
         moments_gate(res, het_res, B),
-        stamps_per_s=B / dt, sec=dt, sec_range=(min(times), max(times)),
-        span_ms=sorted(spans)[1], res=res, het_res=het_res,
+        stamps_per_s=B / dt, sec=dt, sec_range=dt_range, span_ms=span, res=res,
+        het_res=het_res,
     )
     return out, hom
 
@@ -1082,20 +1102,21 @@ def pipeline_numiter(res, types=nt.batch.GALSHEAR_TYPES):
     return numiter_stats(*(res[t]["numiter"] for t in types))
 
 
-def capture_k2_inputs(fn, *args):
-    """the inputs of the first K2 launch with fast=True in one call
-    fn(*args), and how many fast launches of that call had their shape
-    (gaussians and [B, P])"""
+def capture_k2_inputs(fn, *args, fast=True):
+    """the inputs of the first K2 launch in mode fast in one call
+    fn(*args), and how many launches of that call in that mode had
+    their shape (gaussians and [B, P])"""
     first, shapes = [], []
     k2 = gmix_eval.eval_gmix
 
     def spy(gm, v, u, area=1.0, fast=True):
-        if fast:
+        if fast == mode:
             if not first:
                 first.append((gm, v, u, area))
             shapes.append((gm.shape[1], *v.shape))
         return k2(gm, v, u, area, fast=fast)
 
+    mode = fast
     with mock.patch.object(gmix_eval, "eval_gmix", spy):
         fn(*args)
     gm, v = first[0][:2]
@@ -1126,10 +1147,10 @@ def run_admom_batch(device, hom):
     conf = nt.AdmomConf()
     fn = functools.partial(nt.admom_batch, conf=conf, device=device)
     res = fn(pixels, wt0, area)
-    times = sorted(timed_call(fn, pixels, wt0, area)[1] for _ in range(3))
+    sec, sec_range, _ = timed3(fn, pixels, wt0, area)
     row = time_k2_captured("admom_batch", fn, pixels, wt0, area)
     return dict(flagged=int((res["flags"] != 0).sum()), numiter=numiter_stats(res["numiter"]),
-                stamps_per_s=B / times[1], sec_range=(times[0], times[-1])), row
+                stamps_per_s=B / sec, sec_range=sec_range), row
 
 
 def check_k3_dilate(k3_args):
@@ -1532,12 +1553,7 @@ def mb_phase(device, t_all):
         raise SmokeFailure("the mb path launched K3-mb %d times in two calls and %d in one, "
                            "K2 %d and K3 %d times in one call, not K3-mb once a call and K2"
                            % (launches["k3mb"], one["k3mb"], one["k2"], one["k3"]))
-    times, spans = [], []
-    for _ in range(3):
-        _, wall, span = timed_call(fn, *hom)
-        times.append(wall)
-        spans.append(span)
-    w = sorted(times)
+    sec, (lo, hi), span = timed3(fn, *hom)
     nops, busy = device_profile(fn, *hom)
     E = len(nt.sims.MB_BAND)
     types = nt.batch.GALSHEAR_TYPES
@@ -1548,11 +1564,10 @@ def mb_phase(device, t_all):
         "hom and het calls: k3mb=%d k2=%d; objects/s=%.1f epoch-stamps/s=%.1f (median %.4f "
         "s/call of 3, range %.4f-%.4f)"
         % (B_MB, E, g["m"], g["het_m"], g["R11"], g["flagged"], g["het_flagged"],
-           launches["k3mb"], launches["k2"], B_MB / w[1], E * B_MB / w[1], w[1], w[0], w[2]))
+           launches["k3mb"], launches["k2"], B_MB / sec, E * B_MB / sec, sec, lo, hi))
     print("    nfev (mean, p50, max): hom (%.3f, %g, %d) het (%.3f, %g, %d); %d device "
           "operations a call, busy %.3f ms, event span %.3f ms, idle %.1f%%"
-          % (*nfev[0], *nfev[1], nops, busy, sorted(spans)[1],
-             100 * (1 - busy / sorted(spans)[1])), flush=True)
+          % (*nfev[0], *nfev[1], nops, busy, span, 100 * (1 - busy / span)), flush=True)
 
     flat = nt.make_metacal_pipeline_fn(MB_CONF, measure="exp-lm", device=device)(
         *(a[:, 0] for a in hom))
@@ -1601,6 +1616,212 @@ def mb_phase(device, t_all):
                "within %d, pars and s2n within rtol 1e-8 + atol 1e-10 (at most %.3e of it); "
                "total %.1f s" % (cpu_dnfev, cpu_worst, time.perf_counter() - t_all))
     return row, k2_rows, launches
+
+
+# ----------------------------------------------------------------------
+# the pre-psf moments and EM
+
+PREPSF_FWHM = nt.sims.PREPSF_FWHM
+# bench.py's prepsfmom_batch call (bench.py:319-333)
+PREPSF_KW = dict(target_dim=4 * nt.sims.DIMS[0], kernel="ksigma", jac_tuple=nt.sims.JAC,
+                 fwhm=PREPSF_FWHM)
+
+
+def prepsf_args(sims):
+    """prepsfmom_batch's inputs from a sim batch, as bench.py gives them:
+    (images, cens, psf_images, psf_cens, tot_var = NOISE^2)"""
+    imgs, _, cens, pimgs, pcens, _ = sims
+    tot_var = torch.full((imgs.shape[0],), nt.sims.NOISE**2, dtype=imgs.dtype,
+                         device=imgs.device)
+    return imgs, cens, pimgs, pcens, tot_var
+
+
+def timed3(fn, *args):
+    """median, min and max wall time (s) and median event span (ms) of
+    three calls"""
+    runs = [timed_call(fn, *args)[1:] for _ in range(3)]
+    w = sorted(r[0] for r in runs)
+    return w[1], (w[0], w[2]), sorted(r[1] for r in runs)[1]
+
+
+def run_prepsfmom(device, hom):
+    """bench.py's standalone pre-psf moments: ksigma at target_dim 196
+    on the 49x49 stamps, float32, partial modes; three timed calls and
+    the device operations of one"""
+    args = prepsf_args(hom)
+    fn = functools.partial(nt.prepsfmom_batch, device=device, **PREPSF_KW)
+    res = fn(*args)
+    B = args[0].shape[0]
+    ok = res["flags"] == 0
+    if not bool(torch.isfinite(res["T"][ok]).all()) or not bool(
+            ((res["kernel_nrm"] - 1.0).abs() < 1e-5).all()):
+        raise SmokeFailure("prepsfmom_batch: T not finite or kernel_nrm away from 1")
+    sec, rng, span = timed3(fn, *args)
+    nops, busy = device_profile(fn, *args)
+    return dict(flagged=int((~ok).sum()), stamps_per_s=B / sec, sec=sec, sec_range=rng,
+                ops=nops, busy_ms=busy, span_ms=span)
+
+
+def run_prepsf_pipelines(device, hom):
+    """the pgauss and ksigma metacal pipelines (the gaussmom fields,
+    FWHM 2.0) at B_MAIN in float32 with their gates and K2's launches,
+    three timed calls each; pgauss under dilate with its gate; K2 on
+    the psf render's inputs"""
+    B = hom[0].shape[0]
+    out, fns = {}, {}
+    for measure, conf, m_max in (("pgauss", CONF, 1.5e-3), ("ksigma", CONF, 1.5e-3),
+                                 ("pgauss dilate", CONF._replace(psf_mode="dilate"), 3e-3)):
+        fn = fns[measure] = nt.make_metacal_pipeline_fn(
+            conf, measure=measure.split()[0], measure_fwhm=PREPSF_FWHM, device=device)
+        _sync(device)
+        reset_launches()
+        res = fn(*hom)
+        _sync(device)
+        launches = read_launches()["k2"]
+        for t in conf.types:
+            ok = res[t]["flags"] == 0
+            if tuple(res[t]["e1"].shape) != (B,) or not bool(
+                    torch.isfinite(res[t]["e"][ok]).all()):
+                raise SmokeFailure("%s: bad e for type %s" % (measure, t))
+        sr = nt.shear_response(res)
+        g = dict(m=m_of(sr), R11=float(sr["R"][0, 0]), launches=launches,
+                 flagged=int((res["noshear"]["flags"] != 0).sum()))
+        sec, rng, span = timed3(fn, *hom)
+        g.update(stamps_per_s=B / sec, sec=sec, sec_range=rng)
+        if not (abs(g["m"]) < m_max and 1.1 < g["R11"] < 1.8):
+            raise SmokeFailure("%s gate failed: m=%.3e R11=%.4f" % (measure, g["m"], g["R11"]))
+        check_flagged(dict(g, het_flagged=0), B, measure)
+        if conf.psf_mode == "gauss" and launches != 1:
+            raise SmokeFailure("the %s path launched K2 %d times, not once (the psf render)"
+                               % (measure, launches))
+        out[measure] = g
+    (gm, v, u, area), launches = capture_k2_inputs(fns["pgauss"], *hom, fast=False)
+    row = time_k2("prepsf psf render n=1 exact [%dx%d]" % tuple(v.shape), gm, v, u, area,
+                  fast=False)
+    row["launches_a_call"] = launches
+    return out, row
+
+
+def prepsf_card_cpu(hom, n=256):
+    """the first n stamps in float64 on the card and the CPU, for pgauss
+    and ksigma, by both routes, with white noise and with the sims'
+    noise fields: flags equal, the sums and their covariance within
+    rtol 1e-10 and atol 1e-13 (tests/test_prepsfmom.py:226). Returns the
+    largest share of that tolerance"""
+    args = [a[:n].double() for a in prepsf_args(hom)]
+    noise = hom[5][:n].double()
+    worst = 0.0
+    for kernel in ("gauss", "ksigma"):
+        for partial in (True, False):
+            for nz in (None, noise):
+                kw = dict(PREPSF_KW, kernel=kernel, partial_modes=partial)
+                card = nt.prepsfmom_batch(*args, noise_images=nz, device="cuda", **kw)
+                cpu = nt.prepsfmom_batch(*(a.cpu() for a in args), device="cpu",
+                                         noise_images=None if nz is None else nz.cpu(), **kw)
+                what = "prepsfmom %s partial=%s noise=%s" % (kernel, partial, nz is not None)
+                if not torch.equal(card["flags"].cpu(), cpu["flags"]):
+                    raise SmokeFailure("%s: flags differ between card and CPU" % what)
+                for k, sl in (("sums", slice(2, None)), ("sums_cov", slice(None))):
+                    a, b = card[k][:, sl].cpu(), cpu[k][:, sl]
+                    tol = 1e-13 + 1e-10 * b.abs()
+                    err = (a - b).abs()
+                    if not bool((err <= tol).all()):
+                        raise SmokeFailure("%s: %s differ between card and CPU: max %.3e"
+                                           % (what, k, float(err.max())))
+                    worst = max(worst, float((err / tol).max()))
+    return worst
+
+
+def check_remap_large(device, N=520):
+    """remap_k above MAX_MATMUL_N (the chirp-z route) on one stamp,
+    card against CPU in float64, to 1e-10 of the largest |value|"""
+    gen = torch.Generator().manual_seed(5)
+    khat = torch.complex(torch.randn((1, N, N), generator=gen, dtype=torch.float64),
+                         torch.randn((1, N, N), generator=gen, dtype=torch.float64))
+    M = nt.batch.kops.kmap_matrix(nt.batch._host_jacobian(CONF),
+                                  nt.batch.kops.shear_matrix(0.01, -0.007))
+    cpu = nt.batch.kops.remap_k(khat, M)
+    card = nt.batch.kops.remap_k(khat.to(device), M).cpu()
+    rel = float((card - cpu).abs().max() / cpu.abs().max())
+    if not rel <= 1e-10:
+        raise SmokeFailure("remap_k at N=%d: card and CPU differ by %.3e" % (N, rel))
+    return rel
+
+
+def prepsf_phase(device, t_all):
+    """phase 19: the pre-psf moments, standalone and as metacal
+    measures, and their checks. Returns K2's psf-render row and the
+    pipelines' results"""
+    t0 = time.perf_counter()
+    hom = nt.make_sim_batch(torch.Generator(device=device).manual_seed(314), B_MAIN,
+                            torch.float32, device=device)
+    pp = run_prepsfmom(device, hom)
+    pipes, row = run_prepsf_pipelines(device, hom)
+    phase_line(
+        "19 prepsf", t0,
+        "prepsfmom_batch B=%d ksigma target_dim %d: flagged=%d stamps/s=%.1f (median %.4f "
+        "s/call of 3, range %.4f-%.4f), %d device operations a call, busy %.3f ms, event "
+        "span %.3f ms" % (B_MAIN, PREPSF_KW["target_dim"], pp["flagged"], pp["stamps_per_s"],
+                          pp["sec"], *pp["sec_range"], pp["ops"], pp["busy_ms"],
+                          pp["span_ms"]))
+    print("    pipelines B=%d FWHM %.1f: %s" % (B_MAIN, PREPSF_FWHM, "; ".join(
+        "%s m=%.3e R11=%.4f flagged=%d k2=%d stamps/s=%.1f (range %.4f-%.4f s)"
+        % (k, g["m"], g["R11"], g["flagged"], g["launches"], g["stamps_per_s"], *g["sec_range"])
+        for k, g in pipes.items())), flush=True)
+    print(k2_row_text(row), flush=True)
+    t0 = time.perf_counter()
+    worst = prepsf_card_cpu(hom)
+    rel = check_remap_large(device)
+    phase_line("19 prepsf-cpu", t0, "256 stamps float64 card against CPU, pgauss and ksigma "
+               "by both routes, white and measured noise: flags equal, sums and covariance "
+               "within rtol 1e-10 + atol 1e-13 (at most %.3e of it); remap_k N=520 (chirp-z) "
+               "max rel %.3e; total %.1f s" % (worst, rel, time.perf_counter() - t_all))
+    return row, pipes
+
+
+def em_phase(device, t_all):
+    """phase 20: bench.py's em1 workload (em_batch of one gaussian on
+    the sky-shifted 49x49 stamps, default EMConf) in float32, and 256
+    stamps in float64 card against CPU"""
+    t0 = time.perf_counter()
+    hom = nt.make_sim_batch(torch.Generator(device=device).manual_seed(314), B_MAIN,
+                            torch.float32, device=device)
+    args = nt.sims.em1_inputs(*hom[:3])
+    conf = nt.EMConf()
+    fn = functools.partial(nt.em_batch, conf=conf, device=device)
+    res = fn(*args)
+    ok = res["flags"] == 0
+    if tuple(res["gmix"].shape) != (B_MAIN, 1, 6) or not bool(
+            torch.isfinite(res["gmix"][ok]).all()):
+        raise SmokeFailure("em_batch: bad gmix shape or not finite")
+    sec, rng, span = timed3(fn, *args)
+    nops, busy = device_profile(fn, *args)
+    it = res["numiter"].double()
+    q = [float(torch.quantile(it, x)) for x in (0.5, 0.9, 0.99)]
+    phase_line("20 em", t0, "em_batch B=%d 49x49 float32: flagged=%d (maxiter %d) "
+               "stamps/s=%.1f (median %.4f s/call of 3, range %.4f-%.4f)"
+               % (B_MAIN, int((~ok).sum()), int((res["numiter"] >= conf.maxiter).sum()),
+                  B_MAIN / sec, sec, *rng))
+    print("    numiter (mean, p50, p90, p99, max): %.3f, %g, %g, %g, %d (the host loop's "
+          "iterations a call); %d device operations a call, busy %.3f ms, event span %.3f "
+          "ms, idle %.1f%%" % (float(it.mean()), *q, int(it.max()), nops, busy, span,
+                                100 * (1 - busy / span)), flush=True)
+    t0 = time.perf_counter()
+    a64 = nt.sims.em1_inputs(*(a[:256].double() for a in hom[:3]))
+    card = nt.em_batch(*a64, conf, device="cuda")
+    cpu = nt.em_batch(tuple(x.cpu() for x in a64[0]), *(x.cpu() for x in a64[1:]), conf,
+                      device="cpu")
+    worst = compare_results({k: card[k] for k in ("gmix", "gmix_conv", "sky", "numiter",
+                                                  "flags")},
+                            {k: cpu[k] for k in ("gmix", "gmix_conv", "sky", "numiter",
+                                                 "flags")}, "em")
+    # fdiff is 0 on lanes that reach a fixed point, so its difference
+    # is printed absolute
+    fd = float((card["fdiff"].cpu() - cpu["fdiff"]).abs().max())
+    phase_line("20 em-cpu", t0, "256 stamps float64: flags and numiter equal (max %d), gmix, "
+               "gmix_conv and sky within rtol 1e-8 + atol 1e-10 (at most %.3e of it), fdiff "
+               "max abs diff %.3e; total %.1f s"
+               % (int(cpu["numiter"].max()), worst, fd, time.perf_counter() - t_all))
 
 
 def main():
@@ -1753,6 +1974,9 @@ def main():
 
     admom_launches, admom_rows, modes = admom_phases(device, t_all)
     k3mb_row, mb_k2_rows, mb_launches = mb_phase(device, t_all)
+    prepsf_row, prepsf = prepsf_phase(device, t_all)
+    em_phase(device, t_all)
+    prepsf_launches = {k: g["launches"] for k, g in prepsf.items() if "dilate" not in k}
 
     top = rows[0]
     k1_row = lm_rows[0]
@@ -1763,11 +1987,12 @@ def main():
         "source": "ngmix_tpu_torch/csrc/gmix_eval.cu",
         "replaces": "ngmix_tpu/ops/pallas_gmix.py:88",
         "launches": (launches + k2_lm_launches + admom_launches + sum(k2_modes.values())
-                     + mb_launches["k2"]),
+                     + mb_launches["k2"] + sum(prepsf_launches.values())),
         "launches_by_path": dict({"gaussmom": launches, "exp-lm": k2_lm_launches,
                                   "admom": admom_launches, "mb exp-lm": mb_launches["k2"]},
-                                 **k2_modes),
-        "max_abs_err": max(max_abs, *(r["max_abs_err"] for r in rows + admom_rows + mb_k2_rows),
+                                 **k2_modes, **prepsf_launches),
+        "max_abs_err": max(max_abs, *(r["max_abs_err"] for r in rows + admom_rows + mb_k2_rows
+                                      + [prepsf_row]),
                            lm_rows[1]["max_abs_err"]),
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
@@ -1776,7 +2001,7 @@ def main():
         "library_ms": None,
         "attrs": {k: top[k] for k in ("regs", "static_smem", "dynamic_smem",
                                       "blocks_per_sm")},
-        "shapes": rows + [lm_rows[1]] + admom_rows + mb_k2_rows,
+        "shapes": rows + [lm_rows[1]] + admom_rows + mb_k2_rows + [prepsf_row],
     }, {
         "name": "normal_eqs",
         "route": "cuda",

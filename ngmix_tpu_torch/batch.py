@@ -1,5 +1,5 @@
-"""Batched metacal pipeline over [B] stamps, with the gaussmom, admom
-and exp-LM measures.
+"""Batched metacal pipeline over [B] stamps, with the gaussmom, admom,
+exp-LM and pre-psf (pgauss, ksigma) measures.
 
 The subset of ``ngmix_tpu/batch.py`` for those measures: target-psf
 derivation (the gauss, azgauss, fitgauss and dilate psf modes), the
@@ -14,10 +14,13 @@ target, or under dilate the admom fit of each type's rendered target)
 by the normal-equation LM: on the card every lane's whole solve runs in
 K3 (ops/lm_solve.py), and the host loop of fitting/lm.py with K1 for
 the normal equations is its plain version; its moments guess and its
-s/n sums evaluate the model through K2. The multi-band, multi-epoch
-pipeline (``metacal_pipeline_mb``) folds the epochs into the same
-engine and fits each object jointly over its epochs and bands (K3-mb
-on the card), or pools its epochs' pixels for the moments measures.
+s/n sums evaluate the model through K2. pgauss and ksigma take pre-psf
+moments (prepsfmom.py) of the full stamps, deconvolving the round
+target psf rendered through K2, or under dilate each type's rendered
+target. The multi-band, multi-epoch pipeline (``metacal_pipeline_mb``)
+folds the epochs into the same engine and fits each object jointly
+over its epochs and bands (K3-mb on the card), or pools its epochs'
+pixels for the moments measures.
 
 Entry points (``metacal_pipeline``, ``make_metacal_pipeline_fn``,
 ``metacal_pipeline_mb``, ``make_metacal_pipeline_mb_fn``) take numpy
@@ -39,8 +42,9 @@ from .jacobian import Jacobian
 from .metacal import kops
 from .metacal.defaults import DEFAULT_STEP
 from .moments import e2mom, fwhm_to_T
-from .ops import lm_solve, normal_eqs
+from .ops import gmix_eval, lm_solve, normal_eqs
 from .pixels import Pixels
+from .prepsfmom import prepsfmom_batch
 from .shape import ONE_MINUS_EPS
 from .util import full_precision_matmuls, resolve_device
 
@@ -74,10 +78,9 @@ _LATER_MEASURES = {
     "dev-lm": "ROADMAP queue item 5 (other flat LM models)",
     "bdf-lm": "ROADMAP queue item 5 (other flat LM models)",
     "bd-lm": "ROADMAP queue item 5 (other flat LM models)",
-    "pgauss": "ROADMAP queue item 8 (pre-PSF moments)",
-    "ksigma": "ROADMAP queue item 8 (pre-PSF moments)",
 }
-_MEASURES = ("gaussmom", "admom", "exp-lm")
+_PREPSF_MEASURES = ("pgauss", "ksigma")
+_MEASURES = ("gaussmom", "admom", "exp-lm") + _PREPSF_MEASURES
 _PSF_MODES = ("gauss", "azgauss", "fitgauss", "dilate")
 
 
@@ -342,11 +345,13 @@ def make_pixels_batch(images, weights, cens, conf: MetacalConfig):
     return Pixels(v=v, u=u, area=torch.full_like(val, area), val=val, ierr=ierr)
 
 
-def _fit_crop(conf):
+def _fit_crop(conf, measure=None):
     """the central fit window (r0, c0, fh, fw) that the k engine can
-    evaluate directly, or None"""
+    evaluate directly, or None; the pre-psf measures always take the
+    full stamps"""
     if (
         conf.fit_dims is not None
+        and measure not in _PREPSF_MEASURES
         and conf.dims[0] == conf.dims[1]
         and conf.fit_dims[0] == conf.fit_dims[1]
         and (conf.dims[0] - conf.fit_dims[0]) % 2 == 0
@@ -403,40 +408,49 @@ def metacal_pipeline(images, weights, cens, psf_images, psf_cens, noise,
     psf_cens [B, 2], as numpy arrays or tensors; noise is the fixnoise
     field (zeros with fixnoise=False). measure: "gaussmom" (fixed
     gaussian weighted moments), "admom" (adaptive moments started from
-    a round gaussian of FWHM measure_fwhm) or "exp-lm"
-    (exponential-model LM fits, configured by lm_conf, an LMConf).
-    lm_prior, lm_bounds, a nonzero conf.sheared_refine and the other
-    measures are not ported yet and raise NotImplementedError. Returns
-    dict type -> result dict of [B, ...] tensors, plus "psf_sigma" [B].
+    a round gaussian of FWHM measure_fwhm), "exp-lm" (exponential-model
+    LM fits, configured by lm_conf, an LMConf), or "pgauss" / "ksigma"
+    (pre-psf moments of FWHM measure_fwhm on the full stamps,
+    deconvolving the round target psf, or under dilate each type's
+    rendered target). lm_prior, lm_bounds, a nonzero conf.sheared_refine
+    and the other measures are not ported yet and raise
+    NotImplementedError. Returns dict type -> result dict of [B, ...]
+    tensors, plus "psf_sigma" [B].
     """
     _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds)
     full_precision_matmuls()
     images, weights, cens, psf_images, psf_cens, noise = _as_inputs(
         (images, weights, cens, psf_images, psf_cens, noise), device
     )
-    pixels, sigma, psfdict = _stacked_pixels(
-        images, weights, cens, psf_images, psf_cens, noise, conf,
-        with_psf_stamps=measure == "exp-lm",
-    )
-    if measure == "exp-lm":
-        psf_moms = _lm_psf_moms(conf, sigma, psfdict)
-        res_all = _exp_lm_measure(pixels, psf_moms, lm_conf or lm.LMConf())
+    if measure in _PREPSF_MEASURES:
+        ims, wt, cens_all, sigma, psfdict = _stacked_stamps(
+            images, weights, cens, psf_images, psf_cens, noise, conf, crop=None,
+            need_psf_stamps=conf.psf_mode == "dilate",
+        )
+        res_all = _prepsf_measure(ims, wt, cens_all, sigma, psfdict, conf, measure,
+                                  measure_fwhm)
     else:
-        res_all = _moments_measure(pixels, conf, measure, measure_fwhm)
+        pixels, sigma, psfdict = _stacked_pixels(
+            images, weights, cens, psf_images, psf_cens, noise, conf,
+            with_psf_stamps=measure == "exp-lm",
+        )
+        if measure == "exp-lm":
+            psf_moms = _lm_psf_moms(conf, sigma, psfdict)
+            res_all = _exp_lm_measure(pixels, psf_moms, lm_conf or lm.LMConf())
+        else:
+            res_all = _moments_measure(pixels, conf, measure, measure_fwhm)
     return _split_types(res_all, conf.types, images.shape[0], sigma)
 
 
-def _stacked_pixels(images, weights, cens, psf_images, psf_cens, noise, conf,
-                    with_psf_stamps=False):
-    """the metacal image set of n stamps (+ fixnoise), its types
-    stacked into T n lanes of the fit window: (pixels [T n, P], target
-    sigma [n], and under dilate with with_psf_stamps the rendered
-    target psf of each type {type: [n, Hp, Wp]}, else None)"""
+def _stacked_stamps(images, weights, cens, psf_images, psf_cens, noise, conf, crop,
+                    need_psf_stamps):
+    """the metacal image set of n stamps (+ fixnoise), its types stacked
+    into T n lanes: (images [T n, h, w], weights [T n, H, W] (halved
+    under fixnoise), cens [T n, 2], target sigma [n], and with
+    need_psf_stamps the rendered target psf of each type {type: [n, Hp,
+    Wp]}, else None). With a crop the images come out of the k engine
+    as that window; the weights and centers stay those of the stamps"""
     psfdata = prepare_psf_kdata(psf_images, psf_cens, conf)
-    crop = _fit_crop(conf)
-    # under dilate the target psf is not an analytic gaussian: the LM
-    # takes its psf model from each type's rendered target
-    need_psf_stamps = conf.psf_mode == "dilate" and with_psf_stamps
     out = metacal_image_set(
         images, cens, psf_images, psf_cens, conf, psfdata=psfdata,
         with_psf_images=need_psf_stamps, crop=crop,
@@ -463,7 +477,22 @@ def _stacked_pixels(images, weights, cens, psf_images, psf_cens, noise, conf,
     ims_all = torch.cat([odict[t] for t in types], dim=0)
     wt_all = weights.repeat(len(types), 1, 1)
     cens_all = cens.repeat(len(types), 1)
+    return ims_all, wt_all, cens_all, sigma, psfdict
 
+
+def _stacked_pixels(images, weights, cens, psf_images, psf_cens, noise, conf,
+                    with_psf_stamps=False):
+    """the stacked metacal image set (_stacked_stamps) as the pixels of
+    the fit window: (pixels [T n, P], target sigma [n], and under dilate
+    with with_psf_stamps the rendered target psf of each type {type:
+    [n, Hp, Wp]}, else None)"""
+    crop = _fit_crop(conf)
+    # under dilate the target psf is not an analytic gaussian: the LM
+    # takes its psf model from each type's rendered target
+    ims_all, wt_all, cens_all, sigma, psfdict = _stacked_stamps(
+        images, weights, cens, psf_images, psf_cens, noise, conf, crop,
+        need_psf_stamps=conf.psf_mode == "dilate" and with_psf_stamps,
+    )
     if crop is not None:
         # the images came out of the k engine already cropped
         r0, c0, fh, fw = crop
@@ -481,6 +510,51 @@ def _stacked_pixels(images, weights, cens, psf_images, psf_cens, noise, conf,
     else:
         conf_fit = conf
     return make_pixels_batch(ims_all, wt_all, cens_all, conf_fit), sigma, psfdict
+
+
+def round_target_psf_stamps(sigma, conf):
+    """[B, Hp, Wp] stamps of the round unit-flux gaussian psf of sigma
+    [B] centered on the stamp, exact (untruncated) and times the pixel
+    area, through K2 (n = 1 over [B, Hp Wp] with a scalar area)"""
+    B = sigma.shape[0]
+    Hp, Wp = conf.psf_dims
+    dtype, dev = sigma.dtype, sigma.device
+    pr = torch.arange(Hp, dtype=dtype, device=dev) - (Hp - 1) / 2.0
+    pc = torch.arange(Wp, dtype=dtype, device=dev) - (Wp - 1) / 2.0
+    prr, pcc = torch.meshgrid(pr, pc, indexing="ij")
+    dvdrow, dvdcol, dudrow, dudcol = conf.jac
+    pv = (dvdrow * prr + dvdcol * pcc).reshape(1, -1).expand(B, -1).contiguous()
+    pu = (dudrow * prr + dudcol * pcc).reshape(1, -1).expand(B, -1).contiguous()
+    pg = torch.zeros((B, 1, 6), dtype=dtype, device=dev)
+    pg[:, 0, 0] = 1.0
+    pg[:, 0, 3] = sigma**2
+    pg[:, 0, 5] = sigma**2
+    area = abs(dvdrow * dudcol - dvdcol * dudrow)
+    return gmix_eval.eval_gmix(pg, pv, pu, area, fast=False).reshape(B, Hp, Wp)
+
+
+def _prepsf_measure(ims, wt, cens, sigma, psfdict, conf, measure, measure_fwhm):
+    """pre-psf moments (prepsfmom_batch, kernel of FWHM measure_fwhm on
+    the pad-4 grid) of every stacked full stamp, deconvolving the round
+    dilated target psf of its stamp, or under dilate its type's rendered
+    target; the white noise variance of a lane is the sum of 1 / weight
+    over its pixels of positive weight"""
+    types = list(conf.types)
+    Hp, Wp = conf.psf_dims
+    if psfdict is not None:
+        pimgs = torch.cat([psfdict[t] for t in types], dim=0)
+    else:
+        pimgs = round_target_psf_stamps(
+            sigma * (1.0 + 2.0 * conf.step), conf
+        ).repeat(len(types), 1, 1)
+    pcens = torch.tensor([(Hp - 1) / 2.0, (Wp - 1) / 2.0], dtype=ims.dtype,
+                         device=ims.device).expand(ims.shape[0], 2)
+    tot_var = torch.sum(1.0 / torch.where(wt > 0, wt, torch.inf), dim=(-2, -1))
+    return prepsfmom_batch(
+        ims, cens, pimgs, pcens, tot_var, target_dim=4 * conf.dims[0],
+        kernel="gauss" if measure == "pgauss" else "ksigma", jac_tuple=conf.jac,
+        fwhm=measure_fwhm, device=ims.device,
+    )
 
 
 def _moments_measure(pixels, conf, measure, measure_fwhm):

@@ -1,10 +1,10 @@
 """Carry state over from the JAX package.
 
 This system has no weights. Its state is the pipeline configuration
-and the arrays that go in: the MetacalConfig, LMConf and AdmomConf
-fields (the plain dict that a NamedTuple's ``_asdict()`` gives, or the
-attributes of a plain configuration object) and mixtures and
-pixel planes as numpy arrays. Nothing here imports JAX; JAX arrays are read through
+and the arrays that go in: the MetacalConfig, LMConf, AdmomConf and
+EMConf fields (the plain dict that a NamedTuple's ``_asdict()``
+gives, or the attributes of a plain configuration object) and
+mixtures and pixel planes as numpy arrays. Nothing here imports JAX; JAX arrays are read through
 numpy.
 """
 import numpy as np
@@ -12,6 +12,7 @@ import torch
 
 from .admom import AdmomConf
 from .batch import MetacalConfig
+from .em import EMConf
 from .fitting.lm import LMConf
 from .pixels import Pixels
 
@@ -46,6 +47,15 @@ def admom_conf_from_fields(fields):
     if not isinstance(fields, dict):
         fields = {k: getattr(fields, k) for k in AdmomConf._fields}
     return _from_fields(AdmomConf, fields)
+
+
+def em_conf_from_fields(fields):
+    """an EMConf from a dict of its fields or from another package's EM
+    configuration object, read through its attributes (mode, miniter,
+    maxiter, tol, vary_sky, fill_zero_weight)"""
+    if not isinstance(fields, dict):
+        fields = {k: getattr(fields, k) for k in EMConf._fields}
+    return _from_fields(EMConf, fields)
 
 
 def to_tensor(x, device="cpu", dtype=None):

@@ -1,4 +1,4 @@
-"""k-space image operations for metacal (the N <= 512 subset).
+"""k-space image operations for metacal.
 
 The port of ``ngmix_tpu/metacal/kops.py``. Everything happens in the
 pixel-frame Fourier domain on one padded grid: deconvolution by the
@@ -17,8 +17,8 @@ import functools
 import numpy as np
 import torch
 
-# the scale-axis evaluation below is a dense [N, N] matrix product;
-# larger grids need the chirp-z transform, which this slice leaves out
+# the scale-axis evaluation is a dense [N, N] matrix product up to this
+# grid size, and a chirp-z transform (O(N log N)) above it
 MAX_MATMUL_N = 512
 
 
@@ -99,6 +99,22 @@ def _build_shift_phase(N, coef, axis):
     return ph if axis == -2 else ph.T
 
 
+def _build_czt_chirp(N, b):
+    """e^{i pi b m^2 / N} over the natural-order signed index m"""
+    m = np.arange(N) - N // 2
+    return np.exp(1j * np.pi * float(b) * m * m / N)
+
+
+def _build_czt_filter(N, b):
+    """the FFT over good_fft_size(2 N) points of the zero-padded chirp
+    filter e^{-i pi b t^2 / N}, t in [-(N-1), N-1]"""
+    L = good_fft_size(2 * N)
+    t = np.arange(-(N - 1), N)
+    v = np.zeros(L, dtype=np.complex128)
+    v[: t.size] = np.exp(-1j * np.pi * float(b) * t * t / N)
+    return np.fft.fft(v)
+
+
 def _build_zeropad_dft(N, n):
     """[n, N] forward DFT rows of the first n inputs of an N-grid"""
     return np.exp((-2j * np.pi / N) * np.outer(np.arange(n), _signed(N)))
@@ -124,6 +140,8 @@ _BUILDERS = {
     "scale_w": _build_scale_w,
     "scale_fw": _build_scale_fw,
     "shift_phase": _build_shift_phase,
+    "czt_chirp": _build_czt_chirp,
+    "czt_filter": _build_czt_filter,
     "zeropad_dft": _build_zeropad_dft,
     "partial_idft": partial_idft_matrix,
 }
@@ -306,24 +324,58 @@ def _scale_axis_matmul(A, b, axis, shift=None):
     return torch.matmul(Ahat, W) if axis == -1 else torch.matmul(W.T, Ahat)
 
 
+def _along(x, axis, ndim):
+    """a [n] constant shaped to broadcast along axis of an ndim tensor"""
+    shape = [1] * ndim
+    shape[axis] = x.shape[0]
+    return x.reshape(shape)
+
+
+def _czt_scale_axis(A, b, axis, shift=None):
+    """evaluate the trig-poly interpolant of A at b * j + shift along
+    ``axis`` (-2 or -1), with j the signed fft-order index, by a
+    Bluestein chirp transform: exact, O(N log N).
+
+    A(b j) = (1/N) sum_m Ahat_m e^{2 pi i m b j / N}; with m b j = (m^2
+    + j^2 - (j - m)^2) b / 2 this is a linear convolution against a
+    chirp, done with zero-padded FFTs over good_fft_size(2 N) points.
+    shift is a scalar coefficient as in _scale_axis_matmul (the shear
+    factor of remap_k), applied in the conjugate domain. With no shift
+    and b = 1 it is the identity. The chirps and the filter's FFT are
+    built in float64 on the host."""
+    N = A.shape[axis]
+    dev, cdtype = A.device, complex_dtype(A.dtype)
+    Ahat = torch.fft.fft(A.to(cdtype), dim=axis)
+    if shift is not None:
+        Ahat = Ahat * _const("shift_phase", (N, float(shift), axis), dev, cdtype)
+    if b == 1.0:
+        return torch.fft.ifft(Ahat, dim=axis)
+    Ahat = torch.fft.fftshift(Ahat, dim=axis)
+
+    chirp = _along(_const("czt_chirp", (N, float(b)), dev, cdtype), axis, A.dim())
+    V = _along(_const("czt_filter", (N, float(b)), dev, cdtype), axis, A.dim())
+    # the linear convolution; output j (natural order) sits at N - 1 + j
+    U = torch.fft.fft(Ahat * chirp, n=V.shape[axis], dim=axis)
+    out = torch.fft.ifft(U * V, dim=axis).narrow(axis, N - 1, N)
+    out = out * chirp / N
+    return torch.fft.ifftshift(out, dim=axis)
+
+
 def remap_k(khat, M):
     """khat'(kappa) = khat(M kappa), exactly, for [..., N, N] khat.
 
     The k samples are a trigonometric polynomial, so evaluation at
     linearly remapped points is exact. M is factored as an upper
     shear, an axis scaling and a lower shear; each shear fuses into
-    the same-axis scaling (see ngmix_tpu/metacal/kops.py remap_k).
+    the same-axis scaling (see ngmix_tpu/metacal/kops.py remap_k). The
+    scaling is a dense matrix product up to N = MAX_MATMUL_N and a
+    chirp-z transform above it.
     """
     M = np.asarray(M, dtype=float)
     if abs(M[1, 1]) < 1e-8:
         raise ValueError("remap matrix too far from identity")
     N = khat.shape[-1]
-    if N > MAX_MATMUL_N:
-        raise NotImplementedError(
-            "remap_k on grids above N=%d needs the chirp-z scaling "
-            "(_czt_scale_axis), which this port has not taken over yet"
-            % MAX_MATMUL_N
-        )
+    scale_axis = _scale_axis_matmul if N <= MAX_MATMUL_N else _czt_scale_axis
     # M = [[d0 + a1 d1 c1, a1 d1], [d1 c1, d1]]
     d1 = M[1, 1]
     c1 = M[1, 0] / d1
@@ -335,9 +387,9 @@ def remap_k(khat, M):
     # upper shear then D0 on axis -2 (shift a1 * col index)
     shift0 = a1 if a1 != 0.0 else None
     if shift0 is not None or abs(d0 - 1.0) > 1e-14:
-        out = _scale_axis_matmul(out, d0, axis=-2, shift=shift0)
+        out = scale_axis(out, d0, axis=-2, shift=shift0)
     # lower shear then D1 on axis -1 (shift d1*c1 * row index)
     shift1 = ct if ct != 0.0 else None
     if shift1 is not None or abs(d1 - 1.0) > 1e-14:
-        out = _scale_axis_matmul(out, d1, axis=-1, shift=shift1)
+        out = scale_axis(out, d1, axis=-1, shift=shift1)
     return out

@@ -1,18 +1,22 @@
 """Where a main path's time goes on the card.
 
-    python -m ngmix_tpu_torch.profile_main_path [--measure {admom,exp-lm,exp-lm-mb,gaussmom}] [B]
+    python -m ngmix_tpu_torch.profile_main_path [--measure MEASURE] [B]
 
-Runs the metacal pipeline with the given measure (default gaussmom) at
-its main-path configuration (bench.py's metacal_gaussmom and
-metacal_admom configurations for gaussmom and admom, its headline
+MEASURE is one of admom, em, exp-lm, exp-lm-mb, gaussmom, ksigma and
+pgauss. Runs the metacal pipeline with the given measure (default
+gaussmom) at its main-path configuration (bench.py's metacal_gaussmom
+and metacal_admom configurations for gaussmom and admom, and with the
+pre-psf kernel of FWHM 2.0 for pgauss and ksigma, its headline
 configuration for exp-lm, its multi-band workload for exp-lm-mb:
-metacal_pipeline_mb on 3 epochs over 2 bands; float32) on the port's
-homogeneous sims at B stamps (default 10240), or for exp-lm-mb B
-objects (default 2048): one warm-up call, then one call under
-torch.profiler. Prints the card's name and power
-limit (nvidia-smi), the call's wall time, the device's busy share (the
-union of kernel intervals over the wall time), and the device time by
-kernel class and by kernel name. Needs a CUDA card.
+metacal_pipeline_mb on 3 epochs over 2 bands), or for em bench.py's
+em1 workload (em_batch of one gaussian on the sky-shifted stamps,
+default EMConf), in float32 on the port's homogeneous sims at B stamps
+(default 10240), or for exp-lm-mb B objects (default 2048): one
+warm-up call, then one call under torch.profiler. Prints the card's
+name and power limit (nvidia-smi), the call's wall time, the device's
+busy share (the union of kernel intervals over the wall time), and
+the device time by kernel class and by kernel name. Needs a CUDA
+card.
 """
 import argparse
 import subprocess
@@ -24,6 +28,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from . import (
+    EMConf,
+    em_batch,
     make_metacal_pipeline_fn,
     make_metacal_pipeline_mb_fn,
     make_sim_batch,
@@ -37,10 +43,14 @@ from .sims import (
     METACAL_EXP_LM_CONFIG,
     METACAL_GAUSSMOM_CONFIG,
     METACAL_MB_CONFIG,
+    PREPSF_FWHM,
+    em1_inputs,
 )
 
 CONFS = {"gaussmom": METACAL_GAUSSMOM_CONFIG, "admom": METACAL_ADMOM_CONFIG,
-         "exp-lm": METACAL_EXP_LM_CONFIG, "exp-lm-mb": METACAL_MB_CONFIG}
+         "exp-lm": METACAL_EXP_LM_CONFIG, "exp-lm-mb": METACAL_MB_CONFIG,
+         "pgauss": METACAL_GAUSSMOM_CONFIG, "ksigma": METACAL_GAUSSMOM_CONFIG}
+MEASURES = sorted(CONFS) + ["em"]
 
 # kernel-name fragments -> class, first match wins
 _CLASSES = (
@@ -88,9 +98,16 @@ def main(measure="gaussmom", B=None):
         B = B or 2048
         fn = make_metacal_pipeline_mb_fn(CONFS[measure], MB_BAND, MB_NBAND)
         args = make_sim_batch_mb(gen, B, device="cuda")
+    elif measure == "em":
+        B = B or 10240
+        args = em1_inputs(*make_sim_batch(gen, B, device="cuda")[:3])
+
+        def fn(*a):
+            return em_batch(*a, EMConf())
     else:
         B = B or 10240
-        fn = make_metacal_pipeline_fn(CONFS[measure], measure=measure)
+        kw = dict(measure_fwhm=PREPSF_FWHM) if measure in ("pgauss", "ksigma") else {}
+        fn = make_metacal_pipeline_fn(CONFS[measure], measure=measure, **kw)
         args = make_sim_batch(gen, B, device="cuda")
     warm = fn(*args)
     torch.cuda.synchronize()
@@ -129,10 +146,12 @@ def main(measure="gaussmom", B=None):
         nfev = torch.cat([warm[t]["nfev"] for t in GALSHEAR_TYPES]).double()
         print("LM evaluations a lane (nfev): mean %.3f, p50 %g, max %d, sum %d"
               % (nfev.mean(), nfev.median(), nfev.max(), nfev.sum()))
-    if measure == "admom":
-        numiter = torch.cat([warm[t]["numiter"] for t in GALSHEAR_TYPES]).double()
-        print("admom iterations a lane (numiter): mean %.3f, p50 %g, max %d (the host "
-              "loop's iterations a call)" % (numiter.mean(), numiter.median(), numiter.max()))
+    if measure in ("admom", "em"):
+        numiter = (warm["numiter"] if measure == "em" else
+                   torch.cat([warm[t]["numiter"] for t in GALSHEAR_TYPES])).double()
+        print("%s iterations a lane (numiter): mean %.3f, p50 %g, max %d (the host "
+              "loop's iterations a call)"
+              % (measure, numiter.mean(), numiter.median(), numiter.max()))
     print("top kernels:")
     for name, (t, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]:
         print("  %9.3f ms %4d x  %s" % (t / 1e3, n, name[:90]))
@@ -141,7 +160,7 @@ def main(measure="gaussmom", B=None):
 
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--measure", choices=sorted(CONFS), default="gaussmom")
+    ap.add_argument("--measure", choices=MEASURES, default="gaussmom")
     ap.add_argument("B", type=int, nargs="?", default=None)
     args = ap.parse_args()
     sys.exit(main(args.measure, args.B))

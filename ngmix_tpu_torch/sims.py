@@ -12,7 +12,8 @@ the same.
 import numpy as np
 import torch
 
-from .batch import MetacalConfig
+from .batch import MetacalConfig, make_pixels_batch
+from .em import prep_image
 from .gmix import core as gcore
 from .ops import gmix_eval
 from .util import resolve_device
@@ -48,6 +49,11 @@ METACAL_EXP_LM_CONFIG = MetacalConfig(
 METACAL_MB_CONFIG = METACAL_GAUSSMOM_CONFIG
 MB_BAND = (0, 0, 1)
 MB_NBAND = 2
+
+# bench.py's pre-psf kernel FWHM (arcsec): its prepsfmom_batch call
+# (bench.py:319-333), and the main path on the card of the pgauss and
+# ksigma measures (the gaussmom configuration's fields)
+PREPSF_FWHM = 2.0
 
 
 def _sim_device(gen, device):
@@ -198,3 +204,25 @@ def make_sim_batch_mb(gen, B, dtype=torch.float32, device=None, hetero=False):
     return tuple(
         a[:, None].expand((a.shape[0], E) + a.shape[1:]).contiguous() for a in flat
     )
+
+
+def em1_inputs(images, weights, cens):
+    """bench.py's single-gaussian EM input (bench.py:280-289) from a sim
+    batch: (pixels [B, H W] of the stamps shifted so that each stamp's
+    minimum is 0.001 times its range, gmix0 [B, 1, 6] the round guess
+    (1, 0, 0, 0.3, 0, 0.3), gmix_psf [B, 1, 6] the delta psf of unit
+    flux, sky [B] 0.001 times each stamp's range), on the images'
+    device"""
+    B = images.shape[0]
+    dtype, dev = images.dtype, images.device
+    shifted, _ = prep_image(images)
+    sky = 0.001 * (torch.amax(images, dim=(1, 2)) - torch.amin(images, dim=(1, 2)))
+    conf = MetacalConfig(dims=tuple(images.shape[1:]), psf_dims=PSF_DIMS, jac=JAC)
+    pixels = make_pixels_batch(shifted, weights, cens, conf)
+    gmix0 = torch.zeros((B, 1, 6), dtype=dtype, device=dev)
+    gmix0[:, 0, 0] = 1.0
+    gmix0[:, 0, 3] = 0.3
+    gmix0[:, 0, 5] = 0.3
+    psf = torch.zeros((B, 1, 6), dtype=dtype, device=dev)
+    psf[:, 0, 0] = 1.0
+    return pixels, gmix0, psf, sky

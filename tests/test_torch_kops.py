@@ -178,10 +178,31 @@ def test_partial_dft_matrices_exact():
     )
 
 
+@pytest.mark.parametrize("N", [64, 65])
+@pytest.mark.parametrize("axis", [-2, -1])
+@pytest.mark.parametrize("b,coef", [(1.013, None), (0.987, 0.021), (1.0, -0.013), (1.0, None)])
+def test_czt_scale_axis_matches(N, axis, b, coef):
+    """the chirp-z scaling at an even and an odd N, with and without a
+    shift, and at b = 1; it also equals the dense matrix route"""
+    rng = np.random.RandomState(N + 11)
+    A = _cplx(rng, (2, N, N))
+    idx = jk.signed_index(N)
+    jshift = None
+    if coef is not None:
+        jshift = coef * (idx[None, :] if axis == -2 else idx[:, None])
+    out = tk._czt_scale_axis(torch.as_tensor(A), b, axis=axis, shift=coef)
+    _close(out, jk._czt_scale_axis(jnp.asarray(A), b, axis=axis, shift=jshift))
+    _close(out, tk._scale_axis_matmul(torch.as_tensor(A), b, axis=axis, shift=coef).numpy())
+
+
 def test_remap_large_grid_not_ported():
-    with pytest.raises(NotImplementedError):
-        tk.remap_k(torch.zeros((1, 520, 520), dtype=torch.complex128),
-                   tk.shear_matrix(0.01, 0.0))
+    """above MAX_MATMUL_N remap_k leaves the dense matrix route for the
+    chirp-z scaling, and matches the JAX package there (one stamp)"""
+    N = tk.MAX_MATMUL_N + 8
+    rng = np.random.RandomState(N)
+    khat = _cplx(rng, (1, N, N))
+    M = tk.kmap_matrix(Jacobian(*_JAC), tk.shear_matrix(0.01, -0.007))
+    _close(tk.remap_k(torch.as_tensor(khat), M), jk.remap_k(jnp.asarray(khat), M))
 
 
 def test_constants_cached_per_device_and_dtype():

@@ -145,6 +145,78 @@ def test_exp_lm_pipeline_matches_jax_per_lane(exp_lm_runs):
         np.testing.assert_allclose(tsr[k], np.asarray(jsr[k]), rtol=1e-8, atol=1e-10)
 
 
+# the pre-psf measures (FWHM 2.0) under each psf mode, with and without
+# the fit window, which they ignore: they measure the full stamps
+PREPSF_CASES = {
+    "pgauss-gauss-fit": ("pgauss", dict(CONFS["bench"])),
+    "ksigma-gauss": ("ksigma", dict(CONFS["bench"], fit_dims=None)),
+    "pgauss-dilate": ("pgauss", dict(CONFS["bench"], fit_dims=None, psf_mode="dilate")),
+    "ksigma-dilate-fit": ("ksigma", dict(CONFS["bench"], psf_mode="dilate")),
+    "ksigma-azgauss-fit": ("ksigma", dict(CONFS["bench"], psf_mode="azgauss")),
+    "pgauss-fitgauss": ("pgauss", dict(CONFS["bench"], fit_dims=None, psf_mode="fitgauss")),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PREPSF_CASES))
+def test_prepsf_pipeline_matches_jax_per_lane(inputs, case):
+    """every result field of every type (kernel_nrm and the flags
+    included), psf_sigma and shear_response, against the JAX pipeline
+    at rtol 1e-8 and atol 1e-10"""
+    measure, fields = PREPSF_CASES[case]
+    jconf = jbatch.MetacalConfig(dims=DIMS, psf_dims=PSF_DIMS, **fields)
+    jres = jax.tree.map(np.asarray, jbatch.make_metacal_pipeline_fn(
+        jconf, measure=measure, measure_fwhm=2.0)(*map(jnp.asarray, inputs)))
+    tres = convert.to_numpy(nt.make_metacal_pipeline_fn(
+        convert.config_from_fields(jconf), measure=measure, measure_fwhm=2.0,
+        device="cpu")(*inputs))
+    assert set(tres) == set(jres)
+    for t in jconf.types:
+        assert set(tres[t]) == set(jres[t])
+        for k, ref in jres[t].items():
+            assert tres[t][k].shape == ref.shape, (t, k)
+            if ref.dtype.kind in "iub":
+                np.testing.assert_array_equal(tres[t][k], ref, err_msg=(t, k))
+            else:
+                np.testing.assert_allclose(tres[t][k], ref, rtol=1e-8, atol=1e-10,
+                                           equal_nan=True, err_msg=(t, k))
+        assert np.all(tres[t]["flags"] == 0)
+    np.testing.assert_allclose(tres["psf_sigma"], jres["psf_sigma"], rtol=1e-8, atol=1e-10)
+    jsr = jbatch.shear_response(jax.tree.map(jnp.asarray, jres))
+    tsr = convert.to_numpy(tbatch.shear_response(
+        {t: {k: torch.as_tensor(v) for k, v in r.items()}
+         for t, r in tres.items() if isinstance(r, dict)}
+    ))
+    for k in ("R", "shear", "e_mean"):
+        np.testing.assert_allclose(tsr[k], np.asarray(jsr[k]), rtol=1e-8, atol=1e-10)
+
+
+def test_prepsf_measures_take_the_full_stamps(inputs):
+    """with a fit window the pre-psf measures still measure the full
+    stamps: no crop in the k engine, and bitwise the results of the
+    configuration without the window"""
+    conf = nt.MetacalConfig(dims=DIMS, psf_dims=PSF_DIMS, **CONFS["bench"])
+    assert tbatch._fit_crop(conf) == (15, 15, 19, 19)
+    for measure in ("pgauss", "ksigma"):
+        assert tbatch._fit_crop(conf, measure) is None
+        win = nt.metacal_pipeline(*inputs, conf, measure=measure, device="cpu")
+        full = nt.metacal_pipeline(*inputs, conf._replace(fit_dims=None), measure=measure,
+                                   device="cpu")
+        for t in conf.types:
+            for k, x in full[t].items():
+                torch.testing.assert_close(win[t][k], x, rtol=0, atol=0, equal_nan=True)
+
+
+def test_prepsf_round_target_stamps_are_normalized():
+    """the round target psf stamps (K2's plain version here) hold unit
+    flux and are centred on the stamp"""
+    conf = nt.MetacalConfig(dims=DIMS, psf_dims=PSF_DIMS, **CONFS["bench"])
+    sigma = torch.tensor([0.3, 0.4, 0.5], dtype=torch.float64)
+    st = tbatch.round_target_psf_stamps(sigma, conf).numpy()
+    assert st.shape == (3,) + PSF_DIMS
+    np.testing.assert_allclose(st.sum((-2, -1)), 1.0, rtol=1e-6)
+    np.testing.assert_allclose(st, st[:, ::-1, ::-1], rtol=1e-12)
+
+
 @pytest.fixture(scope="module")
 def admom_runs(inputs):
     """(JAX results, port results) of bench.py's metacal_admom
@@ -275,11 +347,11 @@ def test_chunked_matches_single_batch(inputs):
 
 def test_unported_options_raise(inputs):
     conf = nt.MetacalConfig(dims=DIMS, psf_dims=PSF_DIMS, **CONFS["bench"])
-    for measure, item in (("pgauss", 8), ("gauss-lm", 5), ("bdf-lm", 5)):
+    for measure, item in (("dev-lm", 5), ("gauss-lm", 5), ("bdf-lm", 5)):
         with pytest.raises(NotImplementedError, match="queue item %d" % item):
             nt.metacal_pipeline(*inputs, conf, measure=measure, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue item 8"):
-        nt.metacal_pipeline(*inputs, conf._replace(psf_mode="dilate"), measure="ksigma",
+    with pytest.raises(NotImplementedError, match="queue item 5"):
+        nt.metacal_pipeline(*inputs, conf._replace(psf_mode="dilate"), measure="bd-lm",
                             device="cpu")
     for kw, item in ((dict(lm_prior=object()), 5), (dict(lm_bounds=([0] * 6, [1] * 6)), 5),
                      (dict(lm_conf=nt.LMConf(varpro=True)), 10),
