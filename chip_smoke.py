@@ -6,10 +6,11 @@ Drives the port's main paths on the card, bench.py's metacal_gaussmom
 workload, its exp-LM headline and its metacal_admom workload at the
 production chunk size, the azgauss, fitgauss and dilate psf modes, its
 multi-band workload, its pre-psf moments (standalone and as the pgauss
-and ksigma metacal measures) and its single-gaussian EM; and holds the
-hand-written CUDA kernels K2 (mixture evaluation), K1 (LM normal
-equations), K3 (every lane's whole exp-LM solve) and K3-mb (every
-object's joint multi-band solve) against their plain PyTorch versions. The exp-LM path
+and ksigma metacal measures), its single-gaussian EM and the gauss and
+dev LM models; and holds the hand-written CUDA kernels K2 (mixture
+evaluation), K1 (LM normal equations), K3 (every lane's whole LM solve
+of the exp, gauss or dev model) and K3-mb (every object's joint
+multi-band solve) against their plain PyTorch versions. The exp-LM path
 runs through K3; its host-loop route (run_lm_normal_batched with K1,
 reached through _exp_lm_measure's host_loop argument) is driven for the
 phases that hold K1 and for the comparison. Phases, in order, each
@@ -56,7 +57,9 @@ printing one timed line as soon as it ends:
            for bit, and K3 and K2 launched; prints the launches of K3,
            K1 and K2 over those two calls, nfev and the fraction of
            lanes frozen at their guess (flags 0, nfev <= 2, pars equal
-           to the guess);
+           to the guess); both selection estimators on those results
+           with a cut that never binds (s2n > -1): R_sel 0 and shear
+           equal to shear_response's to rtol 1e-10;
 9. lm-cpu: the host-loop route on the first 256 stamps in float64 on
            the card and on the CPU: flags equal, e1/e2/T/flux to rtol
            1e-5 and atol 1e-7, nfev within 2
@@ -80,7 +83,12 @@ printing one timed line as soon as it ends:
            within 2: the pipeline's K3 and host-loop routes, K3 against
            its plain version on the solve's own inputs, and a bounded
            case (finite lo and hi, pinned dims) at 256 synthetic stamps
-           against run_lm_normal_batched with the same bounds;
+           against run_lm_normal_batched with the same bounds; then K3
+           on full 49x49 stamps (P = 2401, the planes read from global
+           memory): 64 lanes of the sims from seed 1 (the reference's
+           README input) against its plain version by this criterion,
+           and 2048 of the main path's stamps (10240 lanes) in float32
+           by phase 13's criterion, timed beside its bound;
 13. k3-times: K3 at its main-path shape (float32, the pipeline's own
            solve inputs) against its plain version: flags equal on
            every lane, and on every lane that both leave unflagged
@@ -181,7 +189,24 @@ printing one timed line as soon as it ends:
            p50, p90, p99, max), stamps/s (median and range of 3 calls),
            device operations and idle share as in phase 13; then 256
            stamps in float64 on the card and the CPU: flags and numiter
-           equal, gmix, gmix_conv and sky to rtol 1e-8 and atol 1e-10.
+           equal, gmix, gmix_conv and sky to rtol 1e-8 and atol 1e-10;
+21. models: the gauss-lm and dev-lm metacal pipelines (through K3) at
+           bench.py's exp-LM configuration in float32 on both sims at
+           B = 10240: |m|, |hetero m| < 1e-3 for gauss and < 3e-3 for
+           dev (the reference's bound for a misspecified model,
+           tests/test_batch_pipeline.py:304-318), flagged <= max(8,
+           0.5% B), K3 launched once a call and K2 launched, stamps/s
+           (median and range of 3 calls) and nfev; K3 at NG = 1 and 10
+           on each path's solve inputs against its plain version by
+           phase 13's criterion, on 256 of them in float64 by phase
+           12's, and timed beside its bound; K3-mb at NG = 1 and 10 on
+           phase 18's solve inputs by phase 13's criterion, timed; K2
+           at dev's s/n sums (n = 10, fast, [5 B, 361]) held against its
+           plain version and timed; card against CPU in float64 on 256
+           stamps: exp-LM in the reference's bounds box
+           (tests/test_batch_pipeline.py:394-395; flags equal, nfev
+           within 2, pars to rtol 1e-8 and atol 1e-10, inside the box)
+           and the mb pipeline with gauss-lm and dev-lm as in phase 18.
 
 Needs one CUDA card and exits nonzero, printing the reason, on any
 failure or without a card. The last line is the JSON result.
@@ -210,6 +235,8 @@ NTYPES = 5
 CONF = nt.sims.METACAL_GAUSSMOM_CONFIG
 ADMOM_CONF = nt.sims.METACAL_ADMOM_CONFIG
 LM_CONF = nt.sims.METACAL_EXP_LM_CONFIG
+# the exp-LM configuration on the full 49x49 stamps (no fit window)
+FULL_CONF = LM_CONF._replace(fit_dims=None)
 SHEAR_TRUE = nt.sims.SHEAR_TRUE
 B_MB = 2048
 MB_CONF = nt.sims.METACAL_MB_CONFIG
@@ -237,6 +264,8 @@ K1_OPS = (11, 92, 14, 64)
 # (14); per pixel as K1 (64). The per-gaussian set-up, the shuffle tree
 # and the 6x6 step algebra, under 1% of an evaluation, are left out
 K3_OPS = (11, 48, 14, 64)
+# the gaussians of the LM models (gmix/tables.py)
+NGAUSS = {"exp": 6, "gauss": 1, "dev": 10}
 
 
 class SmokeFailure(Exception):
@@ -671,6 +700,29 @@ def check_flagged(g, B, what):
                            % (what, g["flagged"], g["het_flagged"], limit))
 
 
+def check_selection(*results):
+    """both selection estimators on exp-LM results with a cut that never
+    binds (s2n > -1): R_sel 0 and shear equal to shear_response's to
+    rtol 1e-10. Returns the largest relative difference"""
+    worst = 0.0
+    keep = lambda r: r["s2n"] > -1.0  # noqa: E731
+    for res in results:
+        plain = nt.shear_response(res)["shear"].double()
+        sel = nt.shear_response_select(res, keep)
+        if not bool((sel["R_sel"] == 0).all()):
+            raise SmokeFailure("shear_response_select: R_sel is not 0 under a cut that never "
+                               "binds: %s" % sel["R_sel"].tolist())
+        for name, out in (("shear_response_select", sel["shear"]),
+                          ("shear_response_select_consistent",
+                           nt.shear_response_select_consistent(res, keep)["shear"])):
+            err = (out.double() - plain).abs()
+            if not bool((err <= 1e-10 * plain.abs()).all()):
+                raise SmokeFailure("%s differs from shear_response: %s and %s"
+                                   % (name, out.tolist(), plain.tolist()))
+            worst = max(worst, float((err / plain.abs()).max()))
+    return worst
+
+
 def run_exp_lm(device, B):
     """the exp-LM main path (through K3): sims -> pipeline ->
     shear_response, homogeneous and heterogeneous, float32, with the
@@ -695,6 +747,7 @@ def run_exp_lm(device, B):
 
     types = nt.batch.GALSHEAR_TYPES
     gate = exp_lm_gate(res, het_res, B)
+    gate["select"] = check_selection(res, het_res)
     flags = torch.cat([res[t]["flags"] for t in types])
     nfev = torch.cat([res[t]["nfev"] for t in types]).double()
     het_nfev = torch.cat([het_res[t]["nfev"] for t in types]).double()
@@ -838,9 +891,10 @@ def time_lm_kernels(hom, device):
 # ----------------------------------------------------------------------
 # K3
 
-def capture_k3_inputs(args, device, conf=LM_CONF):
-    """the inputs of the exp-LM path's K3 call but the LMConf, from one
-    pipeline call under conf on args, and the pipeline's results"""
+def capture_k3_inputs(args, device, conf=LM_CONF, measure="exp-lm", **kw):
+    """the inputs of an LM path's K3 call but the LMConf and the model,
+    from one pipeline call of the measure under conf on args (kw: more
+    pipeline options), and the pipeline's results"""
     seen = {}
     k3 = lm_solve.lm_solve
 
@@ -849,7 +903,7 @@ def capture_k3_inputs(args, device, conf=LM_CONF):
         return k3(*a)
 
     with mock.patch.object(lm_solve, "lm_solve", spy):
-        res = nt.make_metacal_pipeline_fn(conf, measure="exp-lm", device=device)(*args)
+        res = nt.make_metacal_pipeline_fn(conf, measure=measure, device=device, **kw)(*args)
     return seen["k3"], res
 
 
@@ -899,14 +953,14 @@ def f32_split(a, b, keys=("e1", "e2", "T", "flux")):
     return float(split.double().mean()), float((d / sig)[ok].max())
 
 
-def check_batch_independence(args, conf, solve=lm_solve.lm_solve):
-    """K3 (or K3-mb) on a permuted third of the lanes gives the bits of
-    the same lanes in the full batch"""
-    full = solve(*args, conf)
+def check_batch_independence(args, conf, solve=lm_solve.lm_solve, model="exp"):
+    """K3 (or K3-mb) of the model on a permuted third of the lanes gives
+    the bits of the same lanes in the full batch"""
+    full = solve(*args, conf, model)
     n = args[0].shape[0]
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(5))[: n // 3]
     perm = perm.to(args[0].device)
-    sub = solve(*(a if a.dim() == 1 else a[perm].contiguous() for a in args), conf)
+    sub = solve(*(a if a.dim() == 1 else a[perm].contiguous() for a in args), conf, model)
     for k, x in sub.items():
         if not torch.equal(x, full[k][perm]):
             raise SmokeFailure("%s is not batch independent: %s differs" % (solve.__name__, k))
@@ -978,6 +1032,21 @@ def check_k3(device, hom):
     out["bounded"] = per_lane_diff(solve_columns(state, bargs, conf), ref_cols,
                                    "K3 and run_lm_normal_batched with bounds")
     out["pinned"] = int(state["pinned"].any(-1).sum())
+
+    # full 49x49 stamps (P = 2401, the planes past shared memory): the
+    # reference's README input, 13 stamps of sims seed 1 cut to 64 lanes,
+    # in float64; then 2048 stamps of the main path's sims in float32,
+    # checked and timed
+    full = [a.to(device) for a in nt.make_sim_batch(torch.Generator().manual_seed(1), 13,
+                                                      torch.float64, device="cpu")]
+    fargs, _ = capture_k3_inputs(full, device, conf=FULL_CONF)
+    fargs = tuple(a if a.dim() == 1 else a[:64].contiguous() for a in fargs)
+    out["full64"] = per_lane_diff(
+        solve_columns(lm_solve.lm_solve(*fargs, conf), fargs, conf),
+        solve_columns(lm_solve.lm_solve_plain(*fargs, conf), fargs, conf),
+        "K3 and its plain version at P = 2401")
+    args32, _ = capture_k3_inputs([a[:B_COMPACT] for a in hom], device, conf=FULL_CONF)
+    out["full32"] = k3_timed_row(args32, conf)
     return out
 
 
@@ -1008,14 +1077,24 @@ def device_profile(fn, *args):
     return len(ops), _busy_us(ops) / 1e3
 
 
-def k3_bound(args, state):
+def model_rp(pars, psf_gmix, model):
+    """the reparametrized gaussians of the model at pars, whose count
+    (6, 1 or 10) the operation counts take"""
+    rp = nt.batch._exp_reparam(pars, psf_gmix, model)[0]
+    if rp.shape[1] != NGAUSS[model]:
+        raise SmokeFailure("the %s model gave %d gaussians, not %d"
+                           % (model, rp.shape[1], NGAUSS[model]))
+    return rp
+
+
+def k3_bound(args, state, model="exp"):
     """least time (ms) for K3's work on these inputs: the planes, guess,
     bounds and psf read once and the state written once at the memory
-    rate, or K3's operations per evaluation (K3_OPS, the window counted
-    at the lane's guess) times each lane's nfev at the float peak,
-    whichever is larger"""
+    rate, or K3's operations per evaluation (K3_OPS over the model's
+    gaussians, the window counted at the lane's guess) times each lane's
+    nfev at the float peak, whichever is larger"""
     guess, lo, hi, psf, v, u, ia, ve = args
-    rp = nt.batch._exp_reparam(guess, nt.batch._psf_gmix(psf))[0]
+    rp = model_rp(guess, nt.batch._psf_gmix(psf), model)
     ops = int((pixel_ops(rp, v, u, K3_OPS) * state["nfev"].long()).sum())
     N, P = v.shape
     esize = v.element_size()
@@ -1024,31 +1103,41 @@ def k3_bound(args, state):
     return least_ms(nbytes, ops, v.dtype)
 
 
-def time_k3(device, hom, het, res_k3):
-    """phase 13: K3 at its main-path shape against its plain version and
-    timed; the exp-LM call by both routes, interleaved, the host-loop
-    route's gate from its first timed call and a het call"""
-    args, _ = capture_k3_inputs(hom, device)
-    conf = nt.LMConf()
-    state = lm_solve.lm_solve(*args, conf)
-    plain, _, plain_ms = timed_call(lm_solve.lm_solve_plain, *args, conf)
+def k3_timed_row(args, conf, model="exp"):
+    """K3 of the model on its captured float32 inputs against its plain
+    version (flags equal on every lane, and on every lane both leave
+    unflagged e1/e2/T/flux within half the lane's pars_err), bitwise
+    batch independent, and timed beside its bound and its plain
+    version"""
+    state = lm_solve.lm_solve(*args, conf, model)
+    plain, _, plain_ms = timed_call(lm_solve.lm_solve_plain, *args, conf, model)
     a, b = solve_columns(state, args, conf), solve_columns(plain, args, conf)
     n = a["flags"].numel()
     flags_diff = int((a["flags"] != b["flags"]).sum())
     split, in_err = f32_split(a, b)
     finite = all(bool(torch.isfinite(a[k]).all()) for k in ("e1", "e2", "T", "flux"))
     if not finite or flags_diff or not in_err <= 0.5:
-        raise SmokeFailure("K3 disagrees with its plain version at the main-path shape: "
-                           "flags differ on %d lanes, largest difference %.3e pars_err, "
-                           "finite %s" % (flags_diff, in_err, finite))
+        raise SmokeFailure("K3 (%s) disagrees with its plain version on %s: flags differ "
+                           "on %d lanes, largest difference %.3e pars_err, finite %s"
+                           % (model, tuple(args[4].shape), flags_diff, in_err, finite))
     max_abs = max(float((a[k].double() - b[k].double()).abs().max())
                   for k in ("e1", "e2", "T", "flux"))
-    indep = check_batch_independence(args, conf)
-    ms = time_ms(lambda: lm_solve.lm_solve(*args, conf), 10)
-    b_ms, by = k3_bound(args, state)
-    row = dict(shape="[%dx%d]" % tuple(args[4].shape), ms=ms, plain_ms=plain_ms,
-               bound_ms=b_ms, bound_by=by, max_abs_err=max_abs, split=split,
-               max_in_err=in_err, indep=indep, lanes=n, nfev_sum=int(state["nfev"].sum()))
+    indep = check_batch_independence(args, conf, model=model)
+    ms = time_ms(lambda: lm_solve.lm_solve(*args, conf, model), 10)
+    b_ms, by = k3_bound(args, state, model)
+    return dict(shape="%s NG=%d [%dx%d]" % (model, NGAUSS[model], *args[4].shape), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, max_abs_err=max_abs,
+                split=split, max_in_err=in_err, indep=indep, lanes=n,
+                nfev_sum=int(state["nfev"].sum()))
+
+
+def time_k3(device, hom, het, res_k3):
+    """phase 13: K3 at its main-path shape against its plain version and
+    timed; the exp-LM call by both routes, interleaved, the host-loop
+    route's gate from its first timed call and a het call"""
+    args, _ = capture_k3_inputs(hom, device)
+    conf = nt.LMConf()
+    row = k3_timed_row(args, conf)
 
     fn = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device=device)
 
@@ -1439,22 +1528,33 @@ def mb_against_flat(res, flat):
     return max(share), worst
 
 
-def mb_k3_checks(args, conf):
-    """K3-mb against its plain version on the main path's solve inputs
-    (float32, phase 13's criterion), its batch independence, the E = 8
-    global-memory case and E = 1 against K3 (float64, phase 12's
-    criterion)"""
-    a = mb_cols(_epilogue_mb(lm_solve.lm_solve_mb(*args, conf), args, conf))
-    plain_state, _, plain_ms = timed_call(lm_solve.lm_solve_mb_plain, *args, conf)
+def k3mb_against_plain(args, conf, model="exp"):
+    """K3-mb of the model against its plain version on the mb path's
+    float32 solve inputs by phase 13's criterion. Returns the share of
+    lanes outside rtol 1e-4, the largest difference in pars_err, the
+    largest absolute difference, the plain version's time (ms) and the
+    kernel's state"""
+    state = lm_solve.lm_solve_mb(*args, conf, model)
+    a = mb_cols(_epilogue_mb(state, args, conf))
+    plain_state, _, plain_ms = timed_call(lm_solve.lm_solve_mb_plain, *args, conf, model)
     b = mb_cols(_epilogue_mb(plain_state, args, conf))
     flags_diff = int((a["flags"] != b["flags"]).sum())
     split, in_err = f32_split(a, b, MB_KEYS)
     finite = all(bool(torch.isfinite(a[k]).all()) for k in MB_KEYS)
     if not finite or flags_diff or not in_err <= 0.5:
-        raise SmokeFailure("K3-mb disagrees with its plain version on the mb inputs: flags "
-                           "differ on %d lanes, largest difference %.3e pars_err, finite %s"
-                           % (flags_diff, in_err, finite))
+        raise SmokeFailure("K3-mb (%s) disagrees with its plain version on the mb inputs: "
+                           "flags differ on %d lanes, largest difference %.3e pars_err, "
+                           "finite %s" % (model, flags_diff, in_err, finite))
     max_abs = max(float((a[k].double() - b[k].double()).abs().max()) for k in MB_KEYS)
+    return split, in_err, max_abs, plain_ms, state
+
+
+def mb_k3_checks(args, conf):
+    """K3-mb against its plain version on the main path's solve inputs
+    (float32, phase 13's criterion), its batch independence, the E = 8
+    global-memory case and E = 1 against K3 (float64, phase 12's
+    criterion)"""
+    split, in_err, max_abs, plain_ms, state = k3mb_against_plain(args, conf)
     indep = check_batch_independence(args, conf, lm_solve.lm_solve_mb)
 
     a64 = [x.double() if x.dtype.is_floating_point else x for x in args]
@@ -1481,18 +1581,18 @@ def mb_k3_checks(args, conf):
     d1 = per_lane_diff(one, solve_columns(lm_solve.lm_solve(*k3_args, conf), k3_args, conf),
                        "K3-mb at E = 1 and K3")
     return dict(split=split, max_in_err=in_err, max_abs_err=max(max_abs, d8[0]),
-                plain_ms=plain_ms, indep=indep, e8=d8, e1=d1, lanes=a["flags"].numel())
+                plain_ms=plain_ms, indep=indep, e8=d8, e1=d1, lanes=state["nfev"].numel())
 
 
-def k3mb_bound(args, state):
+def k3mb_bound(args, state, model="exp"):
     """least time (ms) for K3-mb's work, counted as k3_bound counts K3's:
     the planes, guess, bounds, psf and bands read once and the state
     written once, or K3's operations per pixel and gaussian of every
     epoch at the guess times each lane's nfev"""
     guess, lo, hi, psf, band, v, u, ia, ve = args
     B, E, P = v.shape
-    bp = fit_model.epoch_band_pars("exp", guess, band).reshape(B * E, 6)
-    rp = nt.batch._exp_reparam(bp, nt.batch._psf_gmix(psf.reshape(B * E, 3)))[0]
+    bp = fit_model.epoch_band_pars(model, guess, band).reshape(B * E, 6)
+    rp = model_rp(bp, nt.batch._psf_gmix(psf.reshape(B * E, 3)), model)
     per_row = pixel_ops(rp, v.reshape(B * E, P), u.reshape(B * E, P), K3_OPS)
     ops = int((per_row.reshape(B, E).sum(-1) * state["nfev"].long()).sum())
     esize = v.element_size()
@@ -1502,18 +1602,23 @@ def k3mb_bound(args, state):
     return least_ms(nbytes, ops, v.dtype)
 
 
-def compare_mb_card_cpu(het, n=256):
+def compare_mb_card_cpu(het, n=256, measure="exp-lm"):
     """n objects whose E epochs are the het stamps i + n e (not copies),
     with a per-object band map, in float64 on the card (K3-mb) and the
-    CPU (its plain version): flags equal, nfev within 2, pars and s2n to
-    rtol 1e-8 and atol 1e-10. Returns the largest share of that
-    tolerance a difference takes"""
+    CPU (its plain version), measured by the LM measure: flags equal,
+    nfev within 2, pars and s2n to rtol 1e-8 and atol 1e-10. Returns the
+    largest share of that tolerance a difference takes, the largest nfev
+    difference and the K3-mb launches of the card call"""
     E = len(nt.sims.MB_BAND)
     args = [torch.stack([a[n * e:n * (e + 1), 0] for e in range(E)], 1).double() for a in het]
     band = torch.tensor([[0, 0, 1], [1, 0, 1]], dtype=torch.int32).repeat(n // 2, 1)
-    card = nt.make_metacal_pipeline_mb_fn(MB_CONF, band, nt.sims.MB_NBAND, device="cuda")(*args)
-    cpu = nt.make_metacal_pipeline_mb_fn(MB_CONF, band, nt.sims.MB_NBAND, device="cpu")(
-        *(a.cpu() for a in args))
+    reset_launches()
+    card = nt.make_metacal_pipeline_mb_fn(MB_CONF, band, nt.sims.MB_NBAND, measure=measure,
+                                          device="cuda")(*args)
+    _sync("cuda")
+    k3mb = read_launches()["k3mb"]
+    cpu = nt.make_metacal_pipeline_mb_fn(MB_CONF, band, nt.sims.MB_NBAND, measure=measure,
+                                         device="cpu")(*(a.cpu() for a in args))
     worst, dnfev = 0.0, 0
     for t in nt.batch.GALSHEAR_TYPES:
         if not torch.equal(card[t]["flags"].cpu(), cpu[t]["flags"]):
@@ -1524,12 +1629,13 @@ def compare_mb_card_cpu(het, n=256):
         worst = max(worst, compare_results({k: card[t][k] for k in ("pars", "s2n")},
                                            {k: cpu[t][k] for k in ("pars", "s2n")},
                                            "mb " + t))
-    return worst, dnfev
+    return worst, dnfev, k3mb
 
 
 def mb_phase(device, t_all):
     """phase 18: bench.py's mb workload through K3-mb and its checks.
-    Returns the K3-mb row, K2's mb rows and the main path's launches"""
+    Returns the K3-mb row, K2's mb rows, the main path's launches and
+    K3-mb's inputs on it but the LMConf"""
     t0 = time.perf_counter()
     fn = nt.make_metacal_pipeline_mb_fn(MB_CONF, nt.sims.MB_BAND, nt.sims.MB_NBAND,
                                         device=device)
@@ -1583,7 +1689,7 @@ def mb_phase(device, t_all):
           "nfev diff %d"
           % (share, worst, chk["split"], chk["max_in_err"], chk["indep"], chk["e8"][1],
              chk["e8"][2], chk["e1"][1], chk["e1"][2]), flush=True)
-    cpu_worst, cpu_dnfev = compare_mb_card_cpu(het)
+    cpu_worst, cpu_dnfev, _ = compare_mb_card_cpu(het)
 
     state = lm_solve.lm_solve_mb(*args, conf)
     ms = time_ms(lambda: lm_solve.lm_solve_mb(*args, conf), 10)
@@ -1615,7 +1721,7 @@ def mb_phase(device, t_all):
     phase_line("18 mb-checks", t0, "256 objects float64 card against CPU: flags equal, nfev "
                "within %d, pars and s2n within rtol 1e-8 + atol 1e-10 (at most %.3e of it); "
                "total %.1f s" % (cpu_dnfev, cpu_worst, time.perf_counter() - t_all))
-    return row, k2_rows, launches
+    return row, k2_rows, launches, args
 
 
 # ----------------------------------------------------------------------
@@ -1824,6 +1930,164 @@ def em_phase(device, t_all):
                % (int(cpu["numiter"].max()), worst, fd, time.perf_counter() - t_all))
 
 
+# ----------------------------------------------------------------------
+# the gauss and dev LM models and bounds
+
+# each model's |m| and |hetero m| limit: phase 8's for gauss, the
+# reference's for dev, a misspecified model of exp galaxies
+# (tests/test_batch_pipeline.py:304-318)
+MODEL_GATES = {"gauss": 1e-3, "dev": 3e-3}
+# the reference's bounds box (tests/test_batch_pipeline.py:394-395)
+BOX = ([-1.0, -1.0, -0.99, -0.99, 0.01, 1e-4], [1.0, 1.0, 0.99, 0.99, 10.0, 1e9])
+
+
+def run_model(device, model, hom, het):
+    """the model's LM main path (through K3) in float32 on both sims with
+    its gate and launches; three timed calls; then K3 on its captured
+    solve inputs against its plain version by phase 13's criterion (and
+    timed), and on 256 of them in float64 by phase 12's"""
+    fn = nt.make_metacal_pipeline_fn(LM_CONF, measure=model + "-lm", device=device)
+    _sync(device)
+    reset_launches()
+    res = fn(*hom)
+    het_res = fn(*het)
+    _sync(device)
+    launches = read_launches()
+    g = exp_lm_gate(res, het_res, B_MAIN)
+    if not (abs(g["m"]) < MODEL_GATES[model] and abs(g["het_m"]) < MODEL_GATES[model]):
+        raise SmokeFailure("%s-lm m gate failed: m=%.3e hetero m=%.3e > %g"
+                           % (model, g["m"], g["het_m"], MODEL_GATES[model]))
+    check_flagged(g, B_MAIN, model + "-lm")
+    if launches["k3"] != 2 or launches["k2"] <= 0 or launches["k1"] != 0:
+        raise SmokeFailure("the %s-lm path launched K3 %d times in two calls, K2 %d and K1 %d"
+                           % (model, launches["k3"], launches["k2"], launches["k1"]))
+    sec, (lo, hi), _ = timed3(fn, *hom)
+    types = nt.batch.GALSHEAR_TYPES
+    nfev = numiter_stats(*(r[t]["nfev"] for r in (res, het_res) for t in types))
+    conf = nt.LMConf()
+    args, _ = capture_k3_inputs(hom, device, measure=model + "-lm")
+    row = k3_timed_row(args, conf, model)
+    a64 = tuple((x if x.dim() == 1 else x[:256]).double().contiguous() for x in args)
+    d64 = per_lane_diff(solve_columns(lm_solve.lm_solve(*a64, conf, model), a64, conf),
+                        solve_columns(lm_solve.lm_solve_plain(*a64, conf, model), a64, conf),
+                        "K3 (%s) and its plain version in float64" % model)
+    return dict(g, launches=launches, stamps_per_s=B_MAIN / sec, sec_range=(lo, hi),
+                nfev=nfev, row=row, d64=d64), fn
+
+
+def k3mb_model_row(args, conf, model):
+    """K3-mb of the model on the mb path's float32 solve inputs (its
+    guess is the moments guess of every model) against its plain
+    version by phase 13's criterion, and timed beside its bound"""
+    split, in_err, max_abs, plain_ms, state = k3mb_against_plain(args, conf, model)
+    ms = time_ms(lambda: lm_solve.lm_solve_mb(*args, conf, model), 10)
+    b_ms, by = k3mb_bound(args, state, model)
+    B, E, P = args[5].shape
+    return dict(shape="%s NG=%d [%dx%dx%d]" % (model, NGAUSS[model], B, E, P), ms=ms,
+                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, max_abs_err=max_abs,
+                split=split, max_in_err=in_err, nfev_sum=int(state["nfev"].sum()))
+
+
+def bounded_card_cpu(hom, n=256):
+    """exp-LM inside the reference's bounds box on the first n stamps in
+    float64 on the card (K3) and the CPU (its plain version): flags
+    equal, nfev within 2, pars to rtol 1e-8 and atol 1e-10, every pars
+    inside the box. Returns the largest share of that tolerance a
+    difference takes, the largest nfev difference and the card call's
+    K3 launches"""
+    args = [a[:n].double() for a in hom]
+    reset_launches()
+    card = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", lm_bounds=BOX,
+                                       device="cuda")(*args)
+    _sync("cuda")
+    k3 = read_launches()["k3"]
+    cpu = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", lm_bounds=BOX,
+                                      device="cpu")(*(a.cpu() for a in args))
+    lo, hi = (torch.tensor(x, dtype=torch.float64) for x in BOX)
+    worst, dnfev = 0.0, 0
+    for t in nt.batch.GALSHEAR_TYPES:
+        if not torch.equal(card[t]["flags"].cpu(), cpu[t]["flags"]):
+            raise SmokeFailure("bounded exp-LM flags differ between card and CPU for %s" % t)
+        dnfev = max(dnfev, int((card[t]["nfev"].cpu() - cpu[t]["nfev"]).abs().max()))
+        if dnfev > 2:
+            raise SmokeFailure("bounded exp-LM nfev differs by %d between card and CPU" % dnfev)
+        worst = max(worst, compare_results({"pars": card[t]["pars"]}, {"pars": cpu[t]["pars"]},
+                                           "bounded exp-LM " + t))
+        pars = card[t]["pars"][card[t]["flags"] == 0].cpu()
+        if not bool(((pars > lo) & (pars < hi)).all()):
+            raise SmokeFailure("bounded exp-LM pars outside the box for %s" % t)
+    return worst, dnfev, k3
+
+
+def models_phase(device, t_all, mb_args):
+    """phase 21: the gauss-lm and dev-lm main paths through K3 with their
+    gates, K3 at NG = 1 and 10 against its plain version and timed, K3-mb
+    at NG = 1 and 10 on the mb path's inputs, K2 at dev's s/n sums, and
+    card against CPU in float64 for exp-LM in the reference's bounds box
+    and the mb pipeline with gauss-lm and dev-lm. Returns K3's and
+    K3-mb's rows and launches by path, and K2's row"""
+    t0 = time.perf_counter()
+    hom = nt.make_sim_batch(torch.Generator(device=device).manual_seed(314), B_MAIN,
+                            torch.float32, device=device)
+    het = nt.make_sim_batch_hetero(torch.Generator(device=device).manual_seed(271),
+                                   B_MAIN, torch.float32, device=device)
+    runs, fns = {}, {}
+    for model in MODEL_GATES:
+        runs[model], fns[model] = run_model(device, model, hom, het)
+    k2_row = time_k2_captured("dev-lm get_loglike", fns["dev"], *hom, pixels=361)
+    conf = nt.LMConf()
+    mb_rows = {model: k3mb_model_row(mb_args, conf, model) for model in MODEL_GATES}
+    phase_line("21 models", t0, "B=%d float32 through K3: %s" % (B_MAIN, "; ".join(
+        "%s-lm m=%.3e hetero_m=%.3e (|m| < %g) R11=%.4f flagged=%d hetero_flagged=%d "
+        "launches of the hom and het calls: k3=%d k2=%d; stamps/s=%.1f (range %.4f-%.4f s); "
+        "nfev (mean, p50, max) (%.3f, %g, %d)"
+        % (m, r["m"], r["het_m"], MODEL_GATES[m], r["R11"], r["flagged"], r["het_flagged"],
+           r["launches"]["k3"], r["launches"]["k2"], r["stamps_per_s"], *r["sec_range"],
+           *r["nfev"]) for m, r in runs.items())))
+
+    t1 = time.perf_counter()
+    b_worst, b_dnfev, b_k3 = bounded_card_cpu(hom)
+    het1 = [x[:, None] for x in het]
+    mb_cpu, mb_launches = {}, {}
+    for model in MODEL_GATES:
+        *mb_cpu[model], mb_launches[model] = compare_mb_card_cpu(het1, measure=model + "-lm")
+    print("    %s; K2 %s: %.4f ms, plain %.4f ms, bound %.4f ms (%s), %d launches a call; "
+          "card against CPU in float64, 256 stamps: exp-lm in the bounds box (k3=%d) "
+          "flags equal, nfev within %d, pars within rtol 1e-8 + atol 1e-10 (at most %.3e "
+          "of it); mb %s; %.1f s, total %.1f s"
+          % ("; ".join(
+              "K3 %s: %.4f ms, plain %.4f ms, bound %.4f ms (%s), sum nfev %d, %.4f outside "
+              "rtol 1e-4, within %.3e pars_err, float64 256 lanes max rel %.3e nfev diff %d"
+              % (r["row"]["shape"], r["row"]["ms"], r["row"]["plain_ms"],
+                 r["row"]["bound_ms"], r["row"]["bound_by"], r["row"]["nfev_sum"],
+                 r["row"]["split"], r["row"]["max_in_err"], r["d64"][1], r["d64"][2])
+              for r in runs.values()) + "; " + "; ".join(
+              "K3-mb %s: %.4f ms, plain %.4f ms, bound %.4f ms (%s), sum nfev %d, within "
+              "%.3e pars_err" % (r["shape"], r["ms"], r["plain_ms"], r["bound_ms"],
+                                 r["bound_by"], r["nfev_sum"], r["max_in_err"])
+              for r in mb_rows.values()),
+             k2_row["shape"], k2_row["ms"], k2_row["plain_ms"], k2_row["bound_ms"],
+             k2_row["bound_by"], k2_row["launches_a_call"], b_k3, b_dnfev, b_worst,
+             ", ".join("%s-lm (k3mb=%d) flags equal, nfev within %d, pars and s2n at most "
+                       "%.3e of rtol 1e-8 + atol 1e-10" % (m, mb_launches[m], d, w)
+                       for m, (w, d) in mb_cpu.items()),
+             time.perf_counter() - t1, time.perf_counter() - t_all), flush=True)
+    if b_k3 != 1 or any(n != 1 for n in mb_launches.values()):
+        raise SmokeFailure("card against CPU: the bounded exp-LM call launched K3 %d times, "
+                           "the mb calls K3-mb %s" % (b_k3, mb_launches))
+    return dict(
+        k3_rows=[r["row"] for r in runs.values()],
+        k3_launches=dict({"%s-lm" % m: r["launches"]["k3"] for m, r in runs.items()},
+                         **{"exp-lm bounded": b_k3}),
+        k3mb_rows=list(mb_rows.values()),
+        k3mb_launches={"mb %s-lm" % m: n for m, n in mb_launches.items()},
+        k2_row=k2_row,
+        k2_launches={"%s-lm" % m: r["launches"]["k2"] for m, r in runs.items()},
+        max_abs_err=max(max(r["row"]["max_abs_err"], r["d64"][0]) for r in runs.values()),
+        mb_max_abs_err=max(r["max_abs_err"] for r in mb_rows.values()),
+    )
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -1902,9 +2166,10 @@ def main():
     phase_line(
         "8 exp-lm", t0,
         "B=%d m=%.3e hetero_m=%.3e R11=%.4f flagged=%d hetero_flagged=%d frozen=%.4f "
-        "launches of the hom and het calls: k3=%d k1=%d k2=%d"
+        "launches of the hom and het calls: k3=%d k1=%d k2=%d; both selection estimators "
+        "(s2n > -1): R_sel 0, shear within rtol 1e-10 of shear_response's (max rel %.3e)"
         % (B_MAIN, lp["m"], lp["het_m"], lp["R11"], lp["flagged"], lp["het_flagged"],
-           lp["frozen"], k3_launches, lp["launches"]["k1"], k2_lm_launches),
+           lp["frozen"], k3_launches, lp["launches"]["k1"], k2_lm_launches, lp["select"]),
     )
     print("    nfev (mean, p50, p99, max): hom %s het %s" % tuple(
         "(%.3f, %g, %g, %d)" % x for x in lp["nfev"]), flush=True)
@@ -1943,9 +2208,14 @@ def main():
         "12 k3", t0,
         "float64 B=%d: routes agree (max rel %.3e, max nfev diff %d); K3 and its plain "
         "version agree (max abs %.3e, rel %.3e, nfev diff %d); bounded B=%d (%d lanes "
-        "pinned) agrees with run_lm_normal_batched (max rel %.3e, nfev diff %d)"
+        "pinned) agrees with run_lm_normal_batched (max rel %.3e, nfev diff %d); P=2401 "
+        "(planes in global memory), 64 lanes: K3 and its plain version agree (max rel "
+        "%.3e, nfev diff %d), float32 %s: %.4f ms, plain %.4f ms, bound %.4f ms (%s), "
+        "within %.3e pars_err"
         % (B_COMPACT, *k3c["routes64"], *k3c["plain64"], B_BOUNDED, k3c["pinned"],
-           k3c["bounded"][1], k3c["bounded"][2]))
+           k3c["bounded"][1], k3c["bounded"][2], k3c["full64"][1], k3c["full64"][2],
+           k3c["full32"]["shape"], k3c["full32"]["ms"], k3c["full32"]["plain_ms"],
+           k3c["full32"]["bound_ms"], k3c["full32"]["bound_by"], k3c["full32"]["max_in_err"]))
 
     t0 = time.perf_counter()
     k3_row, calls, host = time_k3(device, hom, het, res_k3)
@@ -1973,9 +2243,10 @@ def main():
     phase_line("13 k3-times", t0, "total %.1f s" % (time.perf_counter() - t_all))
 
     admom_launches, admom_rows, modes = admom_phases(device, t_all)
-    k3mb_row, mb_k2_rows, mb_launches = mb_phase(device, t_all)
+    k3mb_row, mb_k2_rows, mb_launches, mb_args = mb_phase(device, t_all)
     prepsf_row, prepsf = prepsf_phase(device, t_all)
     em_phase(device, t_all)
+    models = models_phase(device, t_all, mb_args)
     prepsf_launches = {k: g["launches"] for k, g in prepsf.items() if "dilate" not in k}
 
     top = rows[0]
@@ -1987,12 +2258,13 @@ def main():
         "source": "ngmix_tpu_torch/csrc/gmix_eval.cu",
         "replaces": "ngmix_tpu/ops/pallas_gmix.py:88",
         "launches": (launches + k2_lm_launches + admom_launches + sum(k2_modes.values())
-                     + mb_launches["k2"] + sum(prepsf_launches.values())),
+                     + mb_launches["k2"] + sum(prepsf_launches.values())
+                     + sum(models["k2_launches"].values())),
         "launches_by_path": dict({"gaussmom": launches, "exp-lm": k2_lm_launches,
                                   "admom": admom_launches, "mb exp-lm": mb_launches["k2"]},
-                                 **k2_modes, **prepsf_launches),
+                                 **k2_modes, **prepsf_launches, **models["k2_launches"]),
         "max_abs_err": max(max_abs, *(r["max_abs_err"] for r in rows + admom_rows + mb_k2_rows
-                                      + [prepsf_row]),
+                                      + [prepsf_row, models["k2_row"]]),
                            lm_rows[1]["max_abs_err"]),
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
@@ -2001,7 +2273,8 @@ def main():
         "library_ms": None,
         "attrs": {k: top[k] for k in ("regs", "static_smem", "dynamic_smem",
                                       "blocks_per_sm")},
-        "shapes": rows + [lm_rows[1]] + admom_rows + mb_k2_rows + [prepsf_row],
+        "shapes": rows + [lm_rows[1]] + admom_rows + mb_k2_rows + [prepsf_row,
+                                                                   models["k2_row"]],
     }, {
         "name": "normal_eqs",
         "route": "cuda",
@@ -2023,34 +2296,38 @@ def main():
         "source": "ngmix_tpu_torch/csrc/lm_solve.cu",
         "replaces": "ngmix_tpu/ops/pallas_lm.py:149",
         "replaces_loop": "ngmix_tpu/fitting/lm.py:539-790",
-        "launches": k3_launches + modes[-1]["launches"]["k3"],
-        "launches_by_path": {"exp-lm": k3_launches, "exp-lm host loop": hl["k3"],
-                             "exp-lm dilate": modes[-1]["launches"]["k3"]},
-        "max_abs_err": max(k3c["plain64"][0], k3_row["max_abs_err"]),
+        "launches": (k3_launches + modes[-1]["launches"]["k3"]
+                     + sum(models["k3_launches"].values())),
+        "launches_by_path": dict({"exp-lm": k3_launches, "exp-lm host loop": hl["k3"],
+                                  "exp-lm dilate": modes[-1]["launches"]["k3"]},
+                                 **models["k3_launches"]),
+        "max_abs_err": max(k3c["plain64"][0], k3c["full64"][0], k3_row["max_abs_err"],
+                           k3c["full32"]["max_abs_err"], models["max_abs_err"]),
         "ms": k3_row["ms"],
         "plain_ms": k3_row["plain_ms"],
         "bound_ms": k3_row["bound_ms"],
         "bound_by": k3_row["bound_by"],
         "library_ms": None,
         "attrs": k3_attrs,
-        "shapes": [k3_row],
+        "shapes": [k3_row, k3c["full32"]] + models["k3_rows"],
         "exp_lm_calls": calls,
     }, {
         "name": "lm_solve_mb",
         "route": "cuda",
-        "source": "ngmix_tpu_torch/csrc/lm_solve_mb.cu",
+        "source": "ngmix_tpu_torch/csrc/lm_solve_mb.cuh",
         "replaces": "ngmix_tpu/ops/pallas_lm.py:149",
         "replaces_loop": "ngmix_tpu/fitting/lm.py:539-790 under ngmix_tpu/batch.py:1795-1866",
-        "launches": mb_launches["k3mb"],
-        "launches_by_path": {"mb exp-lm": mb_launches["k3mb"]},
-        "max_abs_err": k3mb_row["max_abs_err"],
+        "launches": mb_launches["k3mb"] + sum(models["k3mb_launches"].values()),
+        "launches_by_path": dict({"mb exp-lm": mb_launches["k3mb"]},
+                                 **models["k3mb_launches"]),
+        "max_abs_err": max(k3mb_row["max_abs_err"], models["mb_max_abs_err"]),
         "ms": k3mb_row["ms"],
         "plain_ms": k3mb_row["plain_ms"],
         "bound_ms": k3mb_row["bound_ms"],
         "bound_by": k3mb_row["bound_by"],
         "library_ms": None,
         "attrs": k3mb_row.pop("attrs"),
-        "shapes": [k3mb_row],
+        "shapes": [k3mb_row] + models["k3mb_rows"],
     }]}, allow_nan=False), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

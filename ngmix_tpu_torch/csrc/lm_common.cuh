@@ -1,9 +1,15 @@
 // Device functions shared by K3 (lm_solve.cu, one stamp a lane) and
-// K3-mb (lm_solve_mb.cu, one object over its epochs and bands a lane):
-// the exp model's constants, the bounds maps of fitting/lm.py, one
-// epoch's gaussians and pixel pass (K1's sums of its 6 effective
-// parameters), and the Levenberg-Marquardt loop of fitting/lm.py
-// _lm_step over any number of parameters.
+// K3-mb (lm_solve_mb.cuh, one object over its epochs and bands a lane):
+// the models' constants, the bounds maps of fitting/lm.py, one epoch's
+// gaussians and pixel pass (K1's sums of its 6 effective parameters),
+// and the Levenberg-Marquardt loop of fitting/lm.py _lm_step over any
+// number of parameters.
+//
+// A model is a compile-time parameter M: M::kNG fixed gaussians with
+// the (p, f) tables of gmix/tables.py, M::pval(g) and M::fval(g). Every
+// model of batch._MODEL_FILLS is fill_simple over its tables, so the
+// fill, the closed-form chain and the pixel pass are one code for all
+// of them: exp (6 gaussians), gauss (1) and dev (10).
 //
 // A warp runs one lane. Every function here is called by all 32 threads
 // of the warp, which hold the same bits of every value the loop decides
@@ -18,11 +24,11 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr int kNGauss = 6;
 // the 6 parameters (row, col, g1, g2, T, flux) one stamp sees
 constexpr int kNPar = 6;
 // the largest pixel count of a lane whose planes fit the shared memory
-// (4 warps x 4 planes x kMaxP float64 values per block)
+// (4 warps x 4 planes x kMaxP float64 values per block); a lane with
+// more reads its planes from global memory
 constexpr int kMaxP = 1536;
 // per gaussian in shared memory: q = (N, row, col, Fvv, Fvu, Fuu), then
 // dN/dflux, then (dN, dFvv, dFvu, dFuu) / d g1, d g2, d T
@@ -41,13 +47,39 @@ constexpr double kNearBoth = 9.2103404;    // ln(1e4)
 constexpr double kNearOne = 1.4142e-2;     // sqrt(2e-4)
 constexpr double kPredFloor = 1.0e-300;
 
-// the exp model's fixed gaussian expansion (gmix/tables.py)
-__constant__ double kPvals[kNGauss] = {
+// the models' fixed gaussian expansions (gmix/tables.py)
+__constant__ double kPvalsExp[6] = {
     0.00061601229677880041, 0.0079461395724623237, 0.053280454055540001,
     0.21797364640726541, 0.45496740582554868, 0.26521634184240478};
-__constant__ double kFvals[kNGauss] = {
+__constant__ double kFvalsExp[6] = {
     0.002467115141477932, 0.018147435573256168, 0.07944063151366336,
     0.27137669897479122, 0.79782256866993773, 2.1623306025075739};
+__constant__ double kPvalsDev[10] = {
+    6.5288960012625658e-05, 0.00044199216814302695, 0.0020859587871659754,
+    0.0075913681418996841, 0.02260266219257237, 0.056532254390212859,
+    0.11939049233042602, 0.20969545753234975, 0.29254151133139222,
+    0.28905301416582552};
+__constant__ double kFvalsDev[10] = {
+    2.9934935706271918e-07, 3.4651596338231207e-06, 2.4807910570562753e-05,
+    1.4307404300535354e-04, 7.2753169298239500e-04, 3.4582464394427260e-03,
+    1.6086645440719100e-02, 7.7006776775654429e-02, 4.1012562102501476e-01,
+    2.9812509778548648e00};
+
+struct ExpModel {
+  static constexpr int kNG = 6;
+  __device__ static double pval(int g) { return kPvalsExp[g]; }
+  __device__ static double fval(int g) { return kFvalsExp[g]; }
+};
+struct GaussModel {
+  static constexpr int kNG = 1;
+  __device__ static double pval(int) { return 1.0; }
+  __device__ static double fval(int) { return 1.0; }
+};
+struct DevModel {
+  static constexpr int kNG = 10;
+  __device__ static double pval(int g) { return kPvalsDev[g]; }
+  __device__ static double fval(int g) { return kFvalsDev[g]; }
+};
 
 struct Conf {
   double ftol, xtol, lambda0, lambda_up, lambda_down, lambda_min, lambda_max;
@@ -166,9 +198,9 @@ __device__ __forceinline__ T e2i(T x, T lo, T hi) {
 }
 
 // ----------------------------------------------------------------------
-// one stamp: the exp model's gaussians and K1's pixel pass
+// one stamp: the model's gaussians and K1's pixel pass
 
-// the exp fill's shape terms of (g1, g2): e(g) with the clip at |g| = 1,
+// fill_simple's shape terms of (g1, g2): e(g) with the clip at |g| = 1,
 // and de/dg inside |g| < 1 (a point outside is bad and uses no chain)
 template <typename T>
 struct Shape {
@@ -177,7 +209,7 @@ struct Shape {
 };
 
 template <typename T>
-__device__ __forceinline__ Shape<T> exp_shape(T g1, T g2) {
+__device__ __forceinline__ Shape<T> fill_shape(T g1, T g2) {
   Shape<T> s;
   const T gsq = g1 * g1 + g2 * g2;
   s.gbad = gsq >= T(1);
@@ -193,22 +225,23 @@ __device__ __forceinline__ Shape<T> exp_shape(T g1, T g2) {
   return s;
 }
 
-// the 6 gaussians of the convolved exp model at (row, col, shape, tsz,
+// the M::kNG gaussians of the convolved model at (row, col, shape, tsz,
 // flux) with the psf gaussian (pirr, pirc, picc), and their chain terms,
-// into gs [kNGauss * kGStride]: threads 0-5 of the warp compute one
-// gaussian each. Returns, on every thread, whether a gaussian fails
-// gmix_flags' rule (low determinant).
-template <typename T>
-__device__ __forceinline__ bool exp_gaussians(T* gs, int lid, T row, T col,
-                                              const Shape<T>& sh, T tsz, T flux,
-                                              T pirr, T pirc, T picc) {
+// into gs [M::kNG * kGStride]: threads 0 to M::kNG - 1 of the warp
+// compute one gaussian each. Returns, on every thread, whether a
+// gaussian fails gmix_flags' rule (low determinant).
+template <typename M, typename T>
+__device__ __forceinline__ bool model_gaussians(T* gs, int lid, T row, T col,
+                                                const Shape<T>& sh, T tsz, T flux,
+                                                T pirr, T pirc, T picc) {
+  static_assert(M::kNG >= 1 && M::kNG <= 32, "one thread a gaussian");
   // every thread has read the previous point's gaussians
   __syncwarp();
   bool lowdet = false;
-  if (lid < kNGauss) {
+  if (lid < M::kNG) {
     const int g = lid;
-    const T fv = static_cast<T>(kFvals[g]);
-    const T pv = static_cast<T>(kPvals[g]);
+    const T fv = static_cast<T>(M::fval(g));
+    const T pv = static_cast<T>(M::pval(g));
     const T h = T(0.5) * tsz * fv;
     const T irr = h * (T(1) - sh.e1) + pirr;
     const T irc = h * sh.e2 + pirc;
@@ -258,10 +291,11 @@ __device__ __forceinline__ bool exp_gaussians(T* gs, int lid, T row, T col,
   return bad;
 }
 
-// K1's sums over one stamp's P pixels (planes v, u, ia, ve) with the
-// gaussians gs: acc = (cost, Jtr [6], JtJ upper triangle [21]) of the 6
-// effective parameters, the same bits on every thread
-template <typename T>
+// K1's sums over one stamp's P pixels (planes v, u, ia, ve, in shared
+// or global memory) with the M::kNG gaussians gs: acc = (cost, Jtr [6],
+// JtJ upper triangle [21]) of the 6 effective parameters, the same bits
+// on every thread
+template <typename M, typename T>
 __device__ __forceinline__ void pixel_pass(const T* gs, int lid, const T* v,
                                            const T* u, const T* ia, const T* ve,
                                            int P, T (&acc)[kNSum]) {
@@ -275,7 +309,7 @@ __device__ __forceinline__ void pixel_pass(const T* gs, int lid, const T* v,
 #pragma unroll
     for (int k = 0; k < kNPar; ++k) J[k] = T(0);
 #pragma unroll
-    for (int g = 0; g < kNGauss; ++g) {
+    for (int g = 0; g < M::kNG; ++g) {
       const T* q = gs + g * kGStride;
       const T dv = vv - q[1];
       const T du = uu - q[2];

@@ -1,5 +1,5 @@
-// K3: every lane's whole exp-model Levenberg-Marquardt solve, for Hopper
-// (sm_90a).
+// K3: every lane's whole Levenberg-Marquardt solve of a simple model
+// (exp, gauss or dev), for Hopper (sm_90a).
 //
 // Replaces ngmix_tpu/ops/pallas_lm.py: gmix_normal_eqs_pallas (K1, the
 // normal equations) together with the loop around it,
@@ -12,9 +12,10 @@
 //     solve; clip; eval at the trial point; accept if cost drops;
 //     predicted reduction; ftol / xtol / stuck; damping update
 //
-// eval(y) is i2e, the exp fill (e = 2 g / (1 + |g|^2) with the clip at
-// |g| = 1), the convolution with the lane's one psf gaussian, the
-// reparametrization q = (N, row, col, Fvv, Fvu, Fuu) of each of the 6
+// eval(y) is i2e, the model's fill (e = 2 g / (1 + |g|^2) with the clip
+// at |g| = 1; NG = 6, 1 or 10 gaussians of fixed (p, f) for exp, gauss
+// and dev), the convolution with the lane's one psf gaussian, the
+// reparametrization q = (N, row, col, Fvv, Fvu, Fuu) of each of the NG
 // gaussians, K1's pixel pass
 //
 //   cost = sum_p (f ia - ve)^2, Jtr = sum_p (J ia)(f ia - ve),
@@ -39,12 +40,18 @@
 //   warp and never the others, and there is no host round trip per
 //   iteration;
 // - the lane's four planes are copied into the warp's shared memory
-//   once (cp.async); every evaluation reads them there;
+//   once (cp.async) when P <= kMaxP; every evaluation reads them there.
+//   A lane with more pixels reads its planes from global memory
+//   (through L1 and L2), and the block's shared memory holds only the
+//   gaussians. Where the planes live is a template argument of the
+//   kernel, so each instance's pixel pass knows the address space of
+//   its loads (a runtime choice made them generic loads, and the exp
+//   model's main-path solve ~16% slower on an H100);
 // - the chain is in closed form: row and col pass through, flux scales
 //   N, and (g1, g2, T) reach N and F through 4 coefficients each, so a
 //   (pixel, gaussian) pair costs 15 multiply-adds of chain, not 36.
-//   Lanes 0-5 of the warp compute one gaussian each into shared memory,
-//   which the pixel pass reads as broadcasts;
+//   Lanes 0 to NG - 1 of the warp compute one gaussian each into shared
+//   memory, which the pixel pass reads as broadcasts;
 // - each thread keeps 28 running sums of its pixels; a fixed-order
 //   shuffle tree sums them and lane 0's totals are broadcast, so every
 //   thread holds the same bits and takes the same accept and stop
@@ -52,8 +59,10 @@
 // - nothing depends on which warp runs a lane or on the batch, so a
 //   lane's bits do not depend on either.
 //
-// The gaussians, the pixel pass and the LM loop are lm_common.cuh's,
-// shared with K3-mb (lm_solve_mb.cu).
+// The model is a template argument (lm_common.cuh's ExpModel,
+// GaussModel, DevModel): each model and type is its own instance and C
+// function. The gaussians, the pixel pass and the LM loop are
+// lm_common.cuh's, shared with K3-mb (lm_solve_mb.cuh).
 // exp is the full-precision libm routine: build without fast-math.
 #include "lm_common.cuh"
 
@@ -81,18 +90,18 @@ struct Args {
 
 template <typename T>
 struct Warp {
-  const T* v;   // [P] planes of the warp's lane, in shared memory
+  const T* v;   // [P] planes of the warp's lane, shared or global memory
   const T* u;
   const T* ia;
   const T* ve;
-  T* gs;        // [kNGauss * kGStride]
+  T* gs;        // [M::kNG * kGStride], shared memory
   int P;
   int lid;
 };
 
 // (cost, Jtr, JtJ) in internal coordinates at y; every thread of the
 // warp returns the same bits
-template <typename T>
+template <typename M, typename T>
 __device__ void evaluate(const Warp<T>& w, const T (&y)[kNPar],
                          const T (&lo)[kNPar], const T (&hi)[kNPar],
                          T pirr, T pirc, T picc, T& cost, T (&jtr)[kNPar],
@@ -100,9 +109,9 @@ __device__ void evaluate(const Warp<T>& w, const T (&y)[kNPar],
   T x[kNPar];
 #pragma unroll
   for (int k = 0; k < kNPar; ++k) x[k] = i2e(y[k], lo[k], hi[k]);
-  const Shape<T> sh = exp_shape(x[2], x[3]);
-  const bool lowdet = exp_gaussians(w.gs, w.lid, x[0], x[1], sh, x[4], x[5], pirr,
-                                    pirc, picc);
+  const Shape<T> sh = fill_shape(x[2], x[3]);
+  const bool lowdet = model_gaussians<M>(w.gs, w.lid, x[0], x[1], sh, x[4], x[5], pirr,
+                                         pirc, picc);
   if (sh.gbad || lowdet) {
     cost = static_cast<T>(kBadCost);
 #pragma unroll
@@ -114,7 +123,7 @@ __device__ void evaluate(const Warp<T>& w, const T (&y)[kNPar],
     }
   } else {
     T acc[kNSum];
-    pixel_pass(w.gs, w.lid, w.v, w.u, w.ia, w.ve, w.P, acc);
+    pixel_pass<M>(w.gs, w.lid, w.v, w.u, w.ia, w.ve, w.P, acc);
     cost = acc[0];
 #pragma unroll
     for (int k = 0; k < kNPar; ++k) jtr[k] = acc[1 + k];
@@ -124,14 +133,17 @@ __device__ void evaluate(const Warp<T>& w, const T (&y)[kNPar],
   bounds_chain<T, kNPar>(y, lo, hi, jtr, jtj);
 }
 
-template <typename T>
+// kSmemPlanes: the lane's planes are copied into shared memory (P <=
+// kMaxP), or read from global memory
+template <typename T, typename M, bool kSmemPlanes>
 __global__ void __launch_bounds__(kThreads) lm_solve_kernel(Args<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int P = a.P;
   const int lid = threadIdx.x & 31;
-  T* base = reinterpret_cast<T*>(smem_raw) +
-            static_cast<size_t>(threadIdx.x >> 5) * (4 * P + kNGauss * kGStride);
-  const Warp<T> w{base, base + P, base + 2 * P, base + 3 * P, base + 4 * P, P, lid};
+  const size_t per_warp = (kSmemPlanes ? 4 * static_cast<size_t>(P) : 0) +
+                          M::kNG * kGStride;
+  T* base = reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(threadIdx.x >> 5) * per_warp;
+  T* gs = kSmemPlanes ? base + 4 * static_cast<size_t>(P) : base;
   T lo[kNPar], hi[kNPar];
 #pragma unroll
   for (int k = 0; k < kNPar; ++k) {
@@ -143,23 +155,28 @@ __global__ void __launch_bounds__(kThreads) lm_solve_kernel(Args<T> a) {
     if (lid == 0) b = atomicAdd(a.counter, 1);
     b = __shfl_sync(kFull, b, 0);
     if (b >= a.B) break;
-    // the lane's planes into shared memory, each thread the pixels it
-    // reads in the pixel pass
     const size_t off = static_cast<size_t>(b) * P;
-    for (int p = lid; p < P; p += 32) {
-      cp_async<sizeof(T)>(base + p, a.v + off + p);
-      cp_async<sizeof(T)>(base + P + p, a.u + off + p);
-      cp_async<sizeof(T)>(base + 2 * P + p, a.ia + off + p);
-      cp_async<sizeof(T)>(base + 3 * P + p, a.ve + off + p);
+    if (kSmemPlanes) {
+      // the lane's planes into shared memory, each thread the pixels it
+      // reads in the pixel pass
+      for (int p = lid; p < P; p += 32) {
+        cp_async<sizeof(T)>(base + p, a.v + off + p);
+        cp_async<sizeof(T)>(base + P + p, a.u + off + p);
+        cp_async<sizeof(T)>(base + 2 * P + p, a.ia + off + p);
+        cp_async<sizeof(T)>(base + 3 * P + p, a.ve + off + p);
+      }
+      cp_async_wait_all();
+      __syncwarp();
     }
-    cp_async_wait_all();
-    __syncwarp();
+    const Warp<T> w = kSmemPlanes
+        ? Warp<T>{base, base + P, base + 2 * P, base + 3 * P, gs, P, lid}
+        : Warp<T>{a.v + off, a.u + off, a.ia + off, a.ve + off, gs, P, lid};
     const size_t lb = static_cast<size_t>(b);
     const T pirr = a.psf[3 * lb], pirc = a.psf[3 * lb + 1], picc = a.psf[3 * lb + 2];
     solve_lane<T, kNPar>(
         a.conf, a.guess + kNPar * lb, lo, hi,
         [&](const T (&y)[kNPar], T& cost, T (&jtr)[kNPar], T (&jtj)[kNTri]) {
-          evaluate(w, y, lo, hi, pirr, pirc, picc, cost, jtr, jtj);
+          evaluate<M>(w, y, lo, hi, pirr, pirc, picc, cost, jtr, jtj);
         },
         a.out, lb, lid);
     // every thread is done with the planes before the next copy
@@ -167,44 +184,53 @@ __global__ void __launch_bounds__(kThreads) lm_solve_kernel(Args<T> a) {
   }
 }
 
-// dynamic shared memory of a block: each warp's four planes and gaussians
-template <typename T>
+// the block's dynamic shared memory: each warp's planes (if P <=
+// kMaxP, where they go into shared memory) and gaussians
+template <typename T, typename M>
 size_t smem_bytes(int64_t P) {
   return static_cast<size_t>(kWarps) *
-         (4 * static_cast<size_t>(P) + kNGauss * kGStride) * sizeof(T);
+         ((P <= kMaxP ? 4 * static_cast<size_t>(P) : 0) + M::kNG * kGStride) * sizeof(T);
 }
 
-template <typename T>
+template <typename T, typename M, bool kSmemPlanes>
+int launch_kernel(const Args<T>& a, void* stream) {
+  const size_t smem = smem_bytes<T, M>(a.P);
+  unsigned blocks = 0;
+  const int err = grid_size(lm_solve_kernel<T, M, kSmemPlanes>, smem, a.B, &blocks);
+  if (err != 0) return err;
+  lm_solve_kernel<T, M, kSmemPlanes>
+      <<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, typename M>
 int launch(const void* guess, const void* lo, const void* hi, const void* psf,
            const void* v, const void* u, const void* ia, const void* ve,
            const Out<T>& out, void* counter, int64_t B, int64_t P, int64_t maxfev,
            Conf conf, void* stream) {
   if (B <= 0) return 0;
-  if (P < 1 || P > kMaxP || B > 2147483647LL || maxfev < 1 ||
+  if (P < 1 || P > 2147483647LL || B > 2147483647LL || maxfev < 1 ||
       maxfev > 2147483647LL) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   conf.maxfev = static_cast<int>(maxfev);
-  const size_t smem = smem_bytes<T>(P);
-  unsigned blocks = 0;
-  const int err = grid_size(lm_solve_kernel<T>, smem, B, &blocks);
-  if (err != 0) return err;
-
-  Args<T> a{static_cast<const T*>(guess), static_cast<const T*>(lo),
-            static_cast<const T*>(hi), static_cast<const T*>(psf),
-            static_cast<const T*>(v), static_cast<const T*>(u),
-            static_cast<const T*>(ia), static_cast<const T*>(ve), out,
-            static_cast<int*>(counter), static_cast<int>(B), static_cast<int>(P),
-            conf};
-  lm_solve_kernel<T><<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  const Args<T> a{static_cast<const T*>(guess), static_cast<const T*>(lo),
+                  static_cast<const T*>(hi), static_cast<const T*>(psf),
+                  static_cast<const T*>(v), static_cast<const T*>(u),
+                  static_cast<const T*>(ia), static_cast<const T*>(ve), out,
+                  static_cast<int*>(counter), static_cast<int>(B), static_cast<int>(P),
+                  conf};
+  return P <= kMaxP ? launch_kernel<T, M, true>(a, stream)
+                    : launch_kernel<T, M, false>(a, stream);
 }
 
 // kernel_attrs of the kernel at P pixels a lane, as launch() sets it up
-template <typename T>
+template <typename T, typename M>
 int attrs(int64_t P, int* out) {
-  if (P < 1 || P > kMaxP) return static_cast<int>(cudaErrorInvalidValue);
-  return kernel_attrs(lm_solve_kernel<T>, smem_bytes<T>(P), out);
+  if (P < 1 || P > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = smem_bytes<T, M>(P);
+  return P <= kMaxP ? kernel_attrs(lm_solve_kernel<T, M, true>, smem, out)
+                    : kernel_attrs(lm_solve_kernel<T, M, false>, smem, out);
 }
 
 }  // namespace
@@ -214,7 +240,7 @@ int attrs(int64_t P, int* out) {
 // the tensors' device current around the call), and returns the first
 // CUDA error of the set-up or the launch (0 on success); the launch is
 // asynchronous.
-#define NGMIX_LM_SOLVE(NAME, T)                                                \
+#define NGMIX_LM_SOLVE(NAME, T, M)                                             \
   extern "C" int NAME(                                                         \
       const void* guess, const void* lo, const void* hi, const void* psf,      \
       const void* v, const void* u, const void* ia, const void* ve, void* y,   \
@@ -232,12 +258,14 @@ int attrs(int64_t P, int* out) {
                      static_cast<uint8_t*>(ier_small_step),                    \
                      static_cast<uint8_t*>(ier_small_cost),                    \
                      static_cast<uint8_t*>(pinned)};                           \
-    return launch<T>(guess, lo, hi, psf, v, u, ia, ve, out, counter, B, P,     \
-                     maxfev, conf, stream);                                    \
-  }
+    return launch<T, M>(guess, lo, hi, psf, v, u, ia, ve, out, counter, B, P,  \
+                        maxfev, conf, stream);                                 \
+  }                                                                            \
+  extern "C" int NAME##_attrs(int64_t P, int* out) { return attrs<T, M>(P, out); }
 
-NGMIX_LM_SOLVE(ngmix_lm_solve_f32, float)
-NGMIX_LM_SOLVE(ngmix_lm_solve_f64, double)
-
-extern "C" int ngmix_lm_solve_attrs_f32(int64_t P, int* out) { return attrs<float>(P, out); }
-extern "C" int ngmix_lm_solve_attrs_f64(int64_t P, int* out) { return attrs<double>(P, out); }
+NGMIX_LM_SOLVE(ngmix_lm_solve_exp_f32, float, ExpModel)
+NGMIX_LM_SOLVE(ngmix_lm_solve_exp_f64, double, ExpModel)
+NGMIX_LM_SOLVE(ngmix_lm_solve_gauss_f32, float, GaussModel)
+NGMIX_LM_SOLVE(ngmix_lm_solve_gauss_f64, double, GaussModel)
+NGMIX_LM_SOLVE(ngmix_lm_solve_dev_f32, float, DevModel)
+NGMIX_LM_SOLVE(ngmix_lm_solve_dev_f64, double, DevModel)

@@ -1,5 +1,6 @@
-// K3-mb: every object's joint multi-band, multi-epoch exp-model
-// Levenberg-Marquardt solve, for Hopper (sm_90a).
+// K3-mb: every object's joint multi-band, multi-epoch
+// Levenberg-Marquardt solve of a simple model (exp, gauss or dev), for
+// Hopper (sm_90a).
 //
 // Replaces ngmix_tpu/ops/pallas_lm.py: gmix_normal_eqs_pallas (K1, the
 // normal equations) and the loop around it, ngmix_tpu/fitting/lm.py:
@@ -9,8 +10,8 @@
 // one flux a band). Per evaluation, for each epoch e of the lane:
 //
 //   the epoch's 6 effective parameters (the shape and the flux of its
-//   band), K3's exp fill, convolution with the epoch's own psf gaussian
-//   and closed-form chain, and K1's pixel pass over its P pixels into
+//   band), K3's fill of the model, convolution with the epoch's own psf
+//   gaussian and closed-form chain, and K1's pixel pass over its P pixels into
 //   28 sums, reduced over the warp; then added into the lane's sums: the
 //   shape block, the shape-flux column of the epoch's band and that
 //   band's diagonal flux entry (the flux block is diagonal: an epoch
@@ -39,6 +40,12 @@
 // - NB is a compile-time parameter, 1 to 6 (ugrizy); an epoch's band
 //   selects its flux column by unrolled comparisons, never a register
 //   index.
+// - the model M is a compile-time parameter too (lm_common.cuh), so a
+//   model and type hold 6 instances; each model's instances are their
+//   own translation unit (lm_solve_mb_<model>.cu, NGMIX_LM_SOLVE_MB
+//   below), which nvcc builds in parallel with the others.
+#pragma once
+
 #include "lm_common.cuh"
 
 namespace {
@@ -74,7 +81,7 @@ struct MbWarp {
   const T* ve;
   const T* psf;  // [E, 3]
   const int32_t* band;  // [E]
-  T* gs;        // [kNGauss * kGStride], shared memory
+  T* gs;        // [M::kNG * kGStride], shared memory
   int E;
   int P;
   int lid;
@@ -82,7 +89,7 @@ struct MbWarp {
 
 // (cost, Jtr, JtJ) in internal coordinates at y; every thread of the
 // warp returns the same bits
-template <typename T, int NB>
+template <typename M, typename T, int NB>
 __device__ void evaluate_mb(const MbWarp<T>& w, const T (&y)[5 + NB],
                             const T (&lo)[5 + NB], const T (&hi)[5 + NB], T& cost,
                             T (&jtr)[5 + NB],
@@ -92,7 +99,7 @@ __device__ void evaluate_mb(const MbWarp<T>& w, const T (&y)[5 + NB],
   T x[NP];
 #pragma unroll
   for (int k = 0; k < NP; ++k) x[k] = i2e(y[k], lo[k], hi[k]);
-  const Shape<T> sh = exp_shape(x[2], x[3]);
+  const Shape<T> sh = fill_shape(x[2], x[3]);
 
   cost = T(0);
 #pragma unroll
@@ -107,12 +114,12 @@ __device__ void evaluate_mb(const MbWarp<T>& w, const T (&y)[5 + NB],
     for (int i = 0; i < NB; ++i) {
       if (i == be) flux = x[5 + i];
     }
-    bad = exp_gaussians(w.gs, w.lid, x[0], x[1], sh, x[4], flux, w.psf[3 * e],
-                        w.psf[3 * e + 1], w.psf[3 * e + 2]);
+    bad = model_gaussians<M>(w.gs, w.lid, x[0], x[1], sh, x[4], flux, w.psf[3 * e],
+                             w.psf[3 * e + 1], w.psf[3 * e + 2]);
     if (bad) break;
     const size_t off = static_cast<size_t>(e) * w.P;
     T acc[kNSum];
-    pixel_pass(w.gs, w.lid, w.v + off, w.u + off, w.ia + off, w.ve + off, w.P, acc);
+    pixel_pass<M>(w.gs, w.lid, w.v + off, w.u + off, w.ia + off, w.ve + off, w.P, acc);
     // acc holds (cost, Jtr [6], JtJ [21]) over (row, col, g1, g2, T, flux)
     cost = cost + acc[0];
 #pragma unroll
@@ -147,7 +154,7 @@ __device__ void evaluate_mb(const MbWarp<T>& w, const T (&y)[5 + NB],
   bounds_chain<T, NP>(y, lo, hi, jtr, jtj);
 }
 
-template <typename T, int NB>
+template <typename T, typename M, int NB>
 __global__ void __launch_bounds__(kThreads) lm_solve_mb_kernel(MbArgs<T> a) {
   constexpr int NP = 5 + NB;
   constexpr int NT = NP * (NP + 1) / 2;
@@ -155,7 +162,7 @@ __global__ void __launch_bounds__(kThreads) lm_solve_mb_kernel(MbArgs<T> a) {
   const int EP = a.E * a.P;
   const int lid = threadIdx.x & 31;
   const size_t per_warp = (a.smem_planes ? 4 * static_cast<size_t>(EP) : 0) +
-                          kNGauss * kGStride;
+                          M::kNG * kGStride;
   T* base = reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(threadIdx.x >> 5) * per_warp;
   T* gs = a.smem_planes ? base + 4 * static_cast<size_t>(EP) : base;
   T lo[NP], hi[NP];
@@ -192,7 +199,7 @@ __global__ void __launch_bounds__(kThreads) lm_solve_mb_kernel(MbArgs<T> a) {
     solve_lane<T, NP>(
         a.conf, a.guess + NP * lb, lo, hi,
         [&](const T (&yy)[NP], T& cost, T (&jtr)[NP], T (&jtj)[NT]) {
-          evaluate_mb<T, NB>(w, yy, lo, hi, cost, jtr, jtj);
+          evaluate_mb<M, T, NB>(w, yy, lo, hi, cost, jtr, jtj);
         },
         a.out, lb, lid);
     // every thread is done with the planes before the next copy
@@ -202,15 +209,15 @@ __global__ void __launch_bounds__(kThreads) lm_solve_mb_kernel(MbArgs<T> a) {
 
 // whether a lane's E P pixels go into shared memory, and the block's
 // dynamic shared memory: each warp's planes (if they do) and gaussians
-template <typename T>
+template <typename T, typename M>
 size_t smem_bytes_mb(int64_t EP, bool* smem_planes) {
   *smem_planes = EP <= kMaxP;
   return static_cast<size_t>(kWarps) *
-         ((*smem_planes ? 4 * static_cast<size_t>(EP) : 0) + kNGauss * kGStride) *
+         ((*smem_planes ? 4 * static_cast<size_t>(EP) : 0) + M::kNG * kGStride) *
          sizeof(T);
 }
 
-template <typename T, int NB>
+template <typename T, typename M, int NB>
 int launch_mb(MbArgs<T> a, int64_t B, int64_t E, int64_t P, int64_t maxfev,
               void* stream) {
   if (B <= 0) return 0;
@@ -222,43 +229,43 @@ int launch_mb(MbArgs<T> a, int64_t B, int64_t E, int64_t P, int64_t maxfev,
   a.B = static_cast<int>(B);
   a.E = static_cast<int>(E);
   a.P = static_cast<int>(P);
-  const size_t smem = smem_bytes_mb<T>(E * P, &a.smem_planes);
+  const size_t smem = smem_bytes_mb<T, M>(E * P, &a.smem_planes);
   unsigned blocks = 0;
-  const int err = grid_size(lm_solve_mb_kernel<T, NB>, smem, B, &blocks);
+  const int err = grid_size(lm_solve_mb_kernel<T, M, NB>, smem, B, &blocks);
   if (err != 0) return err;
-  lm_solve_mb_kernel<T, NB>
+  lm_solve_mb_kernel<T, M, NB>
       <<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, typename M>
 int launch_nb(const MbArgs<T>& a, int64_t nband, int64_t B, int64_t E, int64_t P,
               int64_t maxfev, void* stream) {
   switch (nband) {
-    case 1: return launch_mb<T, 1>(a, B, E, P, maxfev, stream);
-    case 2: return launch_mb<T, 2>(a, B, E, P, maxfev, stream);
-    case 3: return launch_mb<T, 3>(a, B, E, P, maxfev, stream);
-    case 4: return launch_mb<T, 4>(a, B, E, P, maxfev, stream);
-    case 5: return launch_mb<T, 5>(a, B, E, P, maxfev, stream);
-    case 6: return launch_mb<T, 6>(a, B, E, P, maxfev, stream);
+    case 1: return launch_mb<T, M, 1>(a, B, E, P, maxfev, stream);
+    case 2: return launch_mb<T, M, 2>(a, B, E, P, maxfev, stream);
+    case 3: return launch_mb<T, M, 3>(a, B, E, P, maxfev, stream);
+    case 4: return launch_mb<T, M, 4>(a, B, E, P, maxfev, stream);
+    case 5: return launch_mb<T, M, 5>(a, B, E, P, maxfev, stream);
+    case 6: return launch_mb<T, M, 6>(a, B, E, P, maxfev, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 // kernel_attrs of the kernel at nband bands and E epochs of P pixels a
 // lane, as launch_mb() sets it up
-template <typename T>
+template <typename T, typename M>
 int attrs_mb(int64_t nband, int64_t E, int64_t P, int* out) {
   if (E < 1 || P < 1) return static_cast<int>(cudaErrorInvalidValue);
   bool smem_planes = false;
-  const size_t smem = smem_bytes_mb<T>(E * P, &smem_planes);
+  const size_t smem = smem_bytes_mb<T, M>(E * P, &smem_planes);
   switch (nband) {
-    case 1: return kernel_attrs(lm_solve_mb_kernel<T, 1>, smem, out);
-    case 2: return kernel_attrs(lm_solve_mb_kernel<T, 2>, smem, out);
-    case 3: return kernel_attrs(lm_solve_mb_kernel<T, 3>, smem, out);
-    case 4: return kernel_attrs(lm_solve_mb_kernel<T, 4>, smem, out);
-    case 5: return kernel_attrs(lm_solve_mb_kernel<T, 5>, smem, out);
-    case 6: return kernel_attrs(lm_solve_mb_kernel<T, 6>, smem, out);
+    case 1: return kernel_attrs(lm_solve_mb_kernel<T, M, 1>, smem, out);
+    case 2: return kernel_attrs(lm_solve_mb_kernel<T, M, 2>, smem, out);
+    case 3: return kernel_attrs(lm_solve_mb_kernel<T, M, 3>, smem, out);
+    case 4: return kernel_attrs(lm_solve_mb_kernel<T, M, 4>, smem, out);
+    case 5: return kernel_attrs(lm_solve_mb_kernel<T, M, 5>, smem, out);
+    case 6: return kernel_attrs(lm_solve_mb_kernel<T, M, 6>, smem, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -270,8 +277,9 @@ static_assert(kMaxBand == 6, "the dispatch covers nband 1 to 6");
 // Plain C interface for ctypes, as K3's: launches on `stream` (of the
 // calling thread's current device) and returns the first CUDA error of
 // the set-up or the launch, 0 on success; an nband outside 1-6 is
-// cudaErrorInvalidValue.
-#define NGMIX_LM_SOLVE_MB(NAME, T)                                             \
+// cudaErrorInvalidValue. NGMIX_LM_SOLVE_MB(model, M) defines
+// ngmix_lm_solve_mb_<model>_f32 and _f64 and their _attrs.
+#define NGMIX_LM_SOLVE_MB_T(NAME, T, M)                                        \
   extern "C" int NAME(                                                         \
       const void* guess, const void* lo, const void* hi, const void* psf,      \
       const void* band, const void* v, const void* u, const void* ia,          \
@@ -304,15 +312,12 @@ static_assert(kMaxBand == 6, "the dispatch covers nband 1 to 6");
                 false,                                                         \
                 Conf{ftol, xtol, lambda0, lambda_up, lambda_down, lambda_min,  \
                      lambda_max, 0}};                                          \
-    return launch_nb<T>(a, nband, B, E, P, maxfev, stream);                    \
+    return launch_nb<T, M>(a, nband, B, E, P, maxfev, stream);                 \
+  }                                                                            \
+  extern "C" int NAME##_attrs(int64_t nband, int64_t E, int64_t P, int* out) { \
+    return attrs_mb<T, M>(nband, E, P, out);                                   \
   }
 
-NGMIX_LM_SOLVE_MB(ngmix_lm_solve_mb_f32, float)
-NGMIX_LM_SOLVE_MB(ngmix_lm_solve_mb_f64, double)
-
-extern "C" int ngmix_lm_solve_mb_attrs_f32(int64_t nband, int64_t E, int64_t P, int* out) {
-  return attrs_mb<float>(nband, E, P, out);
-}
-extern "C" int ngmix_lm_solve_mb_attrs_f64(int64_t nband, int64_t E, int64_t P, int* out) {
-  return attrs_mb<double>(nband, E, P, out);
-}
+#define NGMIX_LM_SOLVE_MB(MODEL, M)                                            \
+  NGMIX_LM_SOLVE_MB_T(ngmix_lm_solve_mb_##MODEL##_f32, float, M)               \
+  NGMIX_LM_SOLVE_MB_T(ngmix_lm_solve_mb_##MODEL##_f64, double, M)

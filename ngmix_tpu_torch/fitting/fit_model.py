@@ -3,7 +3,9 @@
 The port's copy of the pieces of ``ngmix_tpu/fitting/fit_model.py``
 that the batched multi-band pipeline uses: the bad-point residual
 ``FDIFF_BAD`` and the per-epoch parameter rows (the shared shape plus
-that epoch's band flux).
+that epoch's band flux). The simple models (exp, gauss, dev, turb) take
+the 5 + nband layout (row, col, g1, g2, T, one flux a band); bdf and bd
+have more shape columns.
 """
 import torch
 

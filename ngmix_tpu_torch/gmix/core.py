@@ -239,9 +239,21 @@ def fill_exp(pars):
     )
 
 
+def fill_dev(pars):
+    return fill_simple(
+        pars, _table(tables.PVALS_DEV, pars), _table(tables.FVALS_DEV, pars)
+    )
+
+
 def fill_turb(pars):
     return fill_simple(
         pars, _table(tables.PVALS_TURB, pars), _table(tables.FVALS_TURB, pars)
+    )
+
+
+def fill_gauss(pars):
+    return fill_simple(
+        pars, _table(tables.PVALS_GAUSS, pars), _table(tables.FVALS_GAUSS, pars)
     )
 
 

@@ -20,9 +20,13 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ngmix_tpu_torch"
-# the slowest source, csrc/lm_solve_mb.cu with its 12 instantiations,
-# takes about a minute
+# the slowest sources, csrc/lm_solve_mb_<model>.cu with 12
+# instantiations each, take about a minute
 BUILD_TIMEOUT_S = 300
+
+# the models of K3 and K3-mb (ops/lm_solve.py), each with its own C
+# functions
+LM_MODELS = ("exp", "gauss", "dev")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -133,8 +137,9 @@ def load():
             # memory, blocks an SM
             fn.argtypes = [ctypes.c_int, i64, i64, ip]
             fn.restype = ctypes.c_int
-        for name in ("ngmix_lm_solve_attrs_f32", "ngmix_lm_solve_attrs_f64"):
-            fn = getattr(lib, name)
+        lm_names = ["%s_%s" % (m, dt) for m in LM_MODELS for dt in ("f32", "f64")]
+        for name in lm_names:
+            fn = getattr(lib, "ngmix_lm_solve_%s_attrs" % name)
             # P, out[5]: K2's four values and local memory a thread
             fn.argtypes = [i64, ip]
             fn.restype = ctypes.c_int
@@ -143,24 +148,24 @@ def load():
             # rp, chain, v, u, ia, ve, cost, jtr, jtj, B, n, P, stream
             fn.argtypes = [p] * 9 + [i64, i64, i64, p]
             fn.restype = ctypes.c_int
-        for name in ("ngmix_lm_solve_f32", "ngmix_lm_solve_f64"):
-            fn = getattr(lib, name)
+        for name in lm_names:
+            fn = getattr(lib, "ngmix_lm_solve_" + name)
             # guess, lo, hi, psf, v, u, ia, ve, y, cost, jtr, jtj, lam,
             # nfev, done, ier_small_step, ier_small_cost, pinned, counter,
             # B, P, maxfev, ftol, xtol, lambda0, lambda_up, lambda_down,
             # lambda_min, lambda_max, stream
             fn.argtypes = [p] * 19 + [i64] * 3 + [ctypes.c_double] * 7 + [p]
             fn.restype = ctypes.c_int
-        for name in ("ngmix_lm_solve_mb_f32", "ngmix_lm_solve_mb_f64"):
-            fn = getattr(lib, name)
+        for name in lm_names:
+            fn = getattr(lib, "ngmix_lm_solve_mb_" + name)
             # guess, lo, hi, psf, band, v, u, ia, ve, y, cost, jtr, jtj,
             # lam, nfev, done, ier_small_step, ier_small_cost, pinned,
             # counter, B, E, P, nband, maxfev, ftol, xtol, lambda0,
             # lambda_up, lambda_down, lambda_min, lambda_max, stream
             fn.argtypes = [p] * 20 + [i64] * 5 + [ctypes.c_double] * 7 + [p]
             fn.restype = ctypes.c_int
-        for name in ("ngmix_lm_solve_mb_attrs_f32", "ngmix_lm_solve_mb_attrs_f64"):
-            fn = getattr(lib, name)
+        for name in lm_names:
+            fn = getattr(lib, "ngmix_lm_solve_mb_%s_attrs" % name)
             # nband, E, P, out[5] as for K3
             fn.argtypes = [i64, i64, i64, ip]
             fn.restype = ctypes.c_int

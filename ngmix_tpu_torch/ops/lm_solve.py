@@ -1,17 +1,20 @@
-"""K3: every lane's whole exp-model Levenberg-Marquardt solve in one
-hand-written CUDA kernel.
+"""K3: every lane's whole Levenberg-Marquardt solve of a simple model
+(exp, gauss or dev) in one hand-written CUDA kernel.
 
 K3 computes what ``fitting.lm.run_lm_normal_state`` computes over the
-exp model's normal equations (``batch._exp_normal_fn``, K1's pixel
-pass) without compaction, lane by lane in the order of ``lm._lm_step``:
+model's normal equations (``batch._exp_normal_fn``, K1's pixel pass)
+without compaction, lane by lane in the order of ``lm._lm_step``:
 e2i of the guess and the first evaluation, then, while a lane is
 neither done nor at maxfev, the pinned dims, the masked and damped
 Cholesky solve, the clipped trial point and its evaluation, the accept
 test, the predicted reduction, the ftol / xtol / stuck rules and the
-damping update. An evaluation is the exp fill, the convolution with
-the one psf gaussian, gmix_reparam, the chain in closed form
-(``batch.exp_chain``), K1's sums and the bounds chain rule; a bad
-point gets cost 1e30, Jtr 0 and JtJ = I.
+damping update. An evaluation is the model's fill (6, 1 or 10
+gaussians for exp, gauss and dev), the convolution with the one psf
+gaussian, gmix_reparam, the chain in closed form (``batch.exp_chain``),
+K1's sums and the bounds chain rule; a bad point gets cost 1e30, Jtr 0
+and JtJ = I. The model is a template argument of the kernel: each model
+and type is its own instance, and a model the kernels do not hold
+raises.
 
 Replaces ``ngmix_tpu/ops/pallas_lm.py: gmix_normal_eqs_pallas`` together
 with the loop around it, ``ngmix_tpu/fitting/lm.py:
@@ -26,12 +29,14 @@ kernels per LM iteration and left the card idle; K3 is one launch. A
 persistent grid of warps takes lanes from an atomic counter, one warp
 per lane, so a lane that needs 23 evaluations holds one warp and no
 other lane waits for it; each warp copies its lane's planes into
-shared memory once (cp.async) and every evaluation reads them there.
+shared memory once (cp.async) and every evaluation reads them there; a
+lane of more than MAX_P pixels reads them from global memory.
 Sums reduce in a fixed shuffle order, so a lane's result does not
 depend on its batch or on the warp that ran it.
 
-K3-mb (``lm_solve_mb``, ``csrc/lm_solve_mb.cu``) is the same solve for
-the joint multi-band, multi-epoch exp fit of ``batch.metacal_pipeline_mb``:
+K3-mb (``lm_solve_mb``, ``csrc/lm_solve_mb.cuh``, one translation unit
+``csrc/lm_solve_mb_<model>.cu`` a model) is the same solve for the
+joint multi-band, multi-epoch fit of ``batch.metacal_pipeline_mb``:
 a lane is one object over its E epochs, each epoch with its own psf
 gaussian and band, and 5 + nband parameters (the shape and one flux a
 band). Per evaluation each epoch's 6 effective parameters go through
@@ -54,9 +59,13 @@ from ..fitting import lm
 from . import _build
 
 NPARS = 6
-# the largest pixel count whose planes fit the kernel's shared memory
-# (4 warps x 4 planes x P float64 values per block)
+# the largest pixel count whose planes the kernels copy into shared
+# memory (4 warps x 4 planes x P float64 values per block); a lane with
+# more pixels reads its planes from global memory
 MAX_P = 1536
+
+# the models the kernels hold (batch._MODEL_FILLS: 6, 1 and 10 gaussians)
+MODELS = _build.LM_MODELS
 
 # the bands K3-mb is built for (ugrizy)
 MAX_NBAND = 6
@@ -66,35 +75,31 @@ MAX_NBAND = 6
 launches = 0
 launches_mb = 0
 
-_C_FUNCS = {
-    torch.float32: "ngmix_lm_solve_f32",
-    torch.float64: "ngmix_lm_solve_f64",
-}
-_C_ATTRS = {
-    torch.float32: "ngmix_lm_solve_attrs_f32",
-    torch.float64: "ngmix_lm_solve_attrs_f64",
-}
-_C_FUNCS_MB = {
-    torch.float32: "ngmix_lm_solve_mb_f32",
-    torch.float64: "ngmix_lm_solve_mb_f64",
-}
-_C_ATTRS_MB = {
-    torch.float32: "ngmix_lm_solve_mb_attrs_f32",
-    torch.float64: "ngmix_lm_solve_mb_attrs_f64",
-}
+_DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
 
-def lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf):
+def c_name(kernel, model, dtype):
+    """the C function of a kernel ("lm_solve" or "lm_solve_mb") for a
+    model and dtype, e.g. ngmix_lm_solve_dev_f32"""
+    return "ngmix_%s_%s_%s" % (kernel, model, _DTYPES[dtype])
+
+
+def _check_model(model):
+    if model not in MODELS:
+        raise ValueError("K3 and K3-mb hold the models %s, not %r" % (MODELS, model))
+
+
+def lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp"):
     """plain PyTorch version of K3: the host loop of
-    fitting.lm.run_lm_normal_state without compaction, over the exp
-    model's normal equations with K1's plain version. Same arguments
-    and result as lm_solve."""
-    # batch imports this module, so its exp model is imported here
+    fitting.lm.run_lm_normal_state without compaction, over the model's
+    normal equations with K1's plain version. Same arguments and result
+    as lm_solve."""
+    # batch imports this module, so its models are imported here
     from .. import batch
 
     def normal_fn(pars, data):
         planes, psf_gmix = data
-        return batch._exp_normal_fn(pars, planes, psf_gmix, plain=True)
+        return batch._exp_normal_fn(pars, planes, psf_gmix, plain=True, model=model)
 
     return lm.run_lm_normal_state(
         normal_fn, ((v, u, ia, ve), batch._psf_gmix(psf)), guess, lo, hi,
@@ -105,7 +110,7 @@ def lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf):
 def _check_common(guess, tensors, conf):
     """dtype, device, contiguity and maxfev of K3's and K3-mb's
     arguments"""
-    if guess.dtype not in _C_FUNCS:
+    if guess.dtype not in _DTYPES:
         raise TypeError("dtype must be float32 or float64, got %s" % guess.dtype)
     for t in tensors:
         if t.dtype != guess.dtype or t.device != guess.device:
@@ -140,11 +145,12 @@ def _conf_args(conf):
             conf.lambda_down, conf.lambda_min, conf.lambda_max)
 
 
-def _check(guess, lo, hi, psf, planes, conf):
+def _check(guess, lo, hi, psf, planes, conf, model):
     lm.check_supported(conf)
+    _check_model(model)
     if guess.dim() != 2 or guess.shape[1] != NPARS:
         raise ValueError(
-            "K3 fits the 6-parameter exp model: guess must be [B, 6], got %s"
+            "K3 fits 6-parameter models: guess must be [B, 6], got %s"
             % (tuple(guess.shape),)
         )
     B = guess.shape[0]
@@ -163,13 +169,13 @@ def _check(guess, lo, hi, psf, planes, conf):
                 "v, u, ia and ve must be [B, P] with B = %d, got %s"
                 % (B, [tuple(x.shape) for x in planes])
             )
-    if not 1 <= P <= MAX_P:
-        raise ValueError("K3 holds 1 <= P <= %d pixels a lane, got %d" % (MAX_P, P))
+    if P < 1:
+        raise ValueError("K3 needs P >= 1 pixels a lane, got %d" % P)
     _check_common(guess, (guess, lo, hi, psf) + tuple(planes), conf)
 
 
-def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf):
-    """K3: the exp-model LM solve of every lane.
+def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp"):
+    """K3: the LM solve of the model (exp, gauss or dev) of every lane.
 
     guess [B, 6] external (row, col, g1, g2, T, flux); lo, hi [6] with
     +-inf for unbounded sides; psf [B, 3] the (irr, irc, icc) of one
@@ -177,17 +183,18 @@ def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf):
     [B, P]; conf an LMConf. Returns the finished solver state of
     fitting.lm.run_lm_normal_state: y, cost, Jtr, JtJ (internal
     coordinates), lam, nfev (int32), done, ier_small_step,
-    ier_small_cost and pinned (bool). CPU tensors go to lm_solve_plain;
-    CUDA tensors launch the kernel.
+    ier_small_cost and pinned (bool). Any P >= 1: past MAX_P the kernel
+    reads the planes from global memory. CPU tensors go to
+    lm_solve_plain; CUDA tensors launch the model's kernel.
     """
     global launches
-    _check(guess, lo, hi, psf, (v, u, ia, ve), conf)
+    _check(guess, lo, hi, psf, (v, u, ia, ve), conf, model)
     if guess.device.type == "cpu":
-        return lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf)
+        return lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf, model)
     if guess.device.type != "cuda":
         raise RuntimeError("K3 runs on CUDA or CPU tensors, not %s" % guess.device)
 
-    fn = getattr(_build.load(), _C_FUNCS[guess.dtype])
+    fn = getattr(_build.load(), c_name("lm_solve", model, guess.dtype))
     B, P = v.shape
     out = _empty_state(guess)
     if B == 0:
@@ -209,11 +216,12 @@ def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf):
     return out
 
 
-def lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf):
+def lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp"):
     """plain PyTorch version of K3-mb: the host loop of
     fitting.lm.run_lm_normal_state without compaction, over the joint
-    multi-band normal equations (batch._mb_exp_normal_fn with K1's plain
-    version). Same arguments and result as lm_solve_mb."""
+    multi-band normal equations of the model (batch._mb_exp_normal_fn
+    with K1's plain version). Same arguments and result as
+    lm_solve_mb."""
     from .. import batch
 
     B, E, P = v.shape
@@ -221,13 +229,14 @@ def lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf):
     planes = tuple(x.reshape(B * E, P) for x in (v, u, ia, ve))
     psf_gmix = batch._psf_gmix(psf.reshape(B * E, 3))
     return lm.run_lm_normal_state(
-        functools.partial(batch._mb_exp_normal_fn, plain=True),
+        functools.partial(batch._mb_exp_normal_fn, plain=True, model=model),
         (planes, psf_gmix, band), guess, lo, hi, conf, compact_capacity=None,
     )
 
 
-def _check_mb(guess, lo, hi, psf, band, planes, conf):
+def _check_mb(guess, lo, hi, psf, band, planes, conf, model):
     lm.check_supported(conf)
+    _check_model(model)
     if guess.dim() != 2:
         raise ValueError("guess must be [B, 5 + nband], got %s" % (tuple(guess.shape),))
     B, npars = guess.shape
@@ -261,8 +270,9 @@ def _check_mb(guess, lo, hi, psf, band, planes, conf):
     _check_common(guess, (guess, lo, hi, psf) + tuple(planes), conf)
 
 
-def lm_solve_mb(guess, lo, hi, psf, band, v, u, ia, ve, conf):
-    """K3-mb: the joint multi-band exp-model LM solve of every object.
+def lm_solve_mb(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp"):
+    """K3-mb: the joint multi-band LM solve of the model (exp, gauss or
+    dev) of every object.
 
     guess [B, 5 + nband] external (row, col, g1, g2, T, one flux a
     band), 1 <= nband <= MAX_NBAND; lo, hi [5 + nband] with +-inf for
@@ -272,16 +282,16 @@ def lm_solve_mb(guess, lo, hi, psf, band, v, u, ia, ve, conf):
     v, u, ia = ierr * area and ve = val * ierr [B, E, P]; conf an
     LMConf. Returns the finished solver state, as lm_solve does, with
     5 + nband parameters. CPU tensors go to lm_solve_mb_plain; CUDA
-    tensors launch the kernel.
+    tensors launch the model's kernel.
     """
     global launches_mb
-    _check_mb(guess, lo, hi, psf, band, (v, u, ia, ve), conf)
+    _check_mb(guess, lo, hi, psf, band, (v, u, ia, ve), conf, model)
     if guess.device.type == "cpu":
-        return lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf)
+        return lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf, model)
     if guess.device.type != "cuda":
         raise RuntimeError("K3-mb runs on CUDA or CPU tensors, not %s" % guess.device)
 
-    fn = getattr(_build.load(), _C_FUNCS_MB[guess.dtype])
+    fn = getattr(_build.load(), c_name("lm_solve_mb", model, guess.dtype))
     B, E, P = v.shape
     band = torch.broadcast_to(band, (B, E)).contiguous()
     out = _empty_state(guess)
@@ -305,23 +315,26 @@ def _attrs(out):
                 local_bytes=out[4])
 
 
-def kernel_attrs(dtype, P):
+def kernel_attrs(dtype, P, model="exp"):
     """registers a thread, static and dynamic shared memory (bytes),
     blocks an SM and local memory a thread (bytes: the stack frame,
-    spills included) of the kernel at P pixels a lane, on the current
-    CUDA device"""
+    spills included) of the model's kernel at P pixels a lane, on the
+    current CUDA device"""
+    _check_model(model)
     out = (ctypes.c_int * 5)()
-    err = getattr(_build.load(), _C_ATTRS[dtype])(P, out)
+    err = getattr(_build.load(), c_name("lm_solve", model, dtype) + "_attrs")(P, out)
     if err != 0:
         raise RuntimeError("K3 lm_solve attributes failed: CUDA error %d" % err)
     return _attrs(out)
 
 
-def kernel_attrs_mb(dtype, nband, E, P):
-    """kernel_attrs of K3-mb at nband bands and E epochs of P pixels a
-    lane"""
+def kernel_attrs_mb(dtype, nband, E, P, model="exp"):
+    """kernel_attrs of K3-mb for the model at nband bands and E epochs
+    of P pixels a lane"""
+    _check_model(model)
     out = (ctypes.c_int * 5)()
-    err = getattr(_build.load(), _C_ATTRS_MB[dtype])(nband, E, P, out)
+    err = getattr(_build.load(), c_name("lm_solve_mb", model, dtype) + "_attrs")(
+        nband, E, P, out)
     if err != 0:
         raise RuntimeError("K3-mb attributes failed: CUDA error %d" % err)
     return _attrs(out)

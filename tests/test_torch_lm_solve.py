@@ -244,8 +244,9 @@ def _mock_card(monkeypatch, ret):
         calls.append(args)
         return ret
 
-    lib = types.SimpleNamespace(ngmix_lm_solve_f32=fake_kernel,
-                                ngmix_lm_solve_f64=fake_kernel)
+    lib = types.SimpleNamespace(**{lm_solve.c_name("lm_solve", m, dt): fake_kernel
+                                   for m in lm_solve.MODELS
+                                   for dt in (torch.float32, torch.float64)})
     monkeypatch.setattr(_build, "load", lambda: lib)
 
     def no_plain(*a, **k):
@@ -312,9 +313,11 @@ def test_bad_inputs_raise():
         lm_solve.lm_solve(guess, lo[:5], hi, psf, v, u, ia, ve, conf)
     with pytest.raises(ValueError, match="must be"):
         lm_solve.lm_solve(guess, lo, hi, psf, v, u[:, :10], ia, ve, conf)
-    big = torch.zeros((3, lm_solve.MAX_P + 1), dtype=guess.dtype)
+    empty = torch.zeros((3, 0), dtype=guess.dtype)
     with pytest.raises(ValueError, match="pixels"):
-        lm_solve.lm_solve(guess, lo, hi, psf, big, big, big, big, conf)
+        lm_solve.lm_solve(guess, lo, hi, psf, empty, empty, empty, empty, conf)
+    with pytest.raises(ValueError, match="hold the models"):
+        lm_solve.lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, "bdf")
     with pytest.raises(TypeError):
         lm_solve.lm_solve(guess, lo, hi, psf, v.float(), u, ia, ve, conf)
     with pytest.raises(TypeError, match="float32 or float64"):

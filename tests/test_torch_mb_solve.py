@@ -44,11 +44,13 @@ torch.set_num_threads(1)
 NOBJ, E, NBAND = 4, 3, 2
 
 
-@pytest.mark.parametrize("model,npars", [("exp", 7), ("bdf", 8), ("bd", 9), ("coellip", 8)])
+@pytest.mark.parametrize("model,npars", [("exp", 7), ("gauss", 7), ("dev", 8), ("bdf", 8),
+                                         ("bd", 9), ("coellip", 8)])
 def test_epoch_band_pars_match_jax(model, npars):
     rng = np.random.RandomState(3)
     pars = rng.normal(size=(NOBJ, npars))
-    band = rng.randint(0, npars - 5 if model == "exp" else 2, size=(NOBJ, E)).astype(np.int32)
+    simple = model in ("exp", "gauss", "dev")
+    band = rng.randint(0, npars - 5 if simple else 2, size=(NOBJ, E)).astype(np.int32)
     ref = jax.vmap(lambda p, b: jfit.epoch_band_pars(model, p, b))(pars, band)
     out = fit_model.epoch_band_pars(model, torch.as_tensor(pars), torch.as_tensor(band))
     np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
@@ -204,7 +206,7 @@ def _small_mb(B=3, E_=2, P=50, nband=2, dtype=torch.float64):
 def test_cuda_tensor_launches_k3_mb_never_plain(monkeypatch):
     calls = _mock_card(monkeypatch, 0)
     lib = _build.load()  # the mocked library
-    lib.ngmix_lm_solve_mb_f32 = lib.ngmix_lm_solve_mb_f64 = lib.ngmix_lm_solve_f64
+    lib.ngmix_lm_solve_mb_exp_f32 = lib.ngmix_lm_solve_mb_exp_f64 = lib.ngmix_lm_solve_exp_f64
 
     def no_plain(*a, **k):
         raise AssertionError("the plain version ran for a CUDA tensor")
@@ -229,7 +231,7 @@ def test_cuda_tensor_launches_k3_mb_never_plain(monkeypatch):
 def test_cuda_launch_error_raises_mb(monkeypatch):
     _mock_card(monkeypatch, 700)
     lib = _build.load()
-    lib.ngmix_lm_solve_mb_f64 = lib.ngmix_lm_solve_f64
+    lib.ngmix_lm_solve_mb_exp_f64 = lib.ngmix_lm_solve_exp_f64
     monkeypatch.setattr(lm_solve, "launches_mb", 0)
     with pytest.raises(RuntimeError, match="CUDA error 700"):
         lm_solve.lm_solve_mb(*(_fake_cuda(x) for x in _small_mb()), tlm.LMConf())
@@ -273,7 +275,11 @@ def test_bad_inputs_raise_mb():
 
 
 def test_build_compiles_lm_solve_mb():
+    """one translation unit a model, so the models build in parallel"""
     compiles, _ = _build.nvcc_commands("out.so")
-    assert any(c.endswith("lm_solve_mb.cu") for cmd in compiles for c in cmd)
-    # the shared header is part of the library's hash
+    for model in lm_solve.MODELS:
+        assert sum(c.endswith("lm_solve_mb_%s.cu" % model) for cmd in compiles
+                   for c in cmd) == 1, model
+    # the shared headers are part of the library's hash
     assert (_build.CSRC / "lm_common.cuh").exists()
+    assert (_build.CSRC / "lm_solve_mb.cuh").exists()

@@ -347,14 +347,17 @@ def test_chunked_matches_single_batch(inputs):
 
 def test_unported_options_raise(inputs):
     conf = nt.MetacalConfig(dims=DIMS, psf_dims=PSF_DIMS, **CONFS["bench"])
-    for measure, item in (("dev-lm", 5), ("gauss-lm", 5), ("bdf-lm", 5)):
-        with pytest.raises(NotImplementedError, match="queue item %d" % item):
+    for measure in ("bdf-lm", "bd-lm"):
+        with pytest.raises(NotImplementedError, match="queue item 5b"):
             nt.metacal_pipeline(*inputs, conf, measure=measure, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue item 5"):
+    with pytest.raises(NotImplementedError, match="queue item 5b"):
         nt.metacal_pipeline(*inputs, conf._replace(psf_mode="dilate"), measure="bd-lm",
                             device="cpu")
-    for kw, item in ((dict(lm_prior=object()), 5), (dict(lm_bounds=([0] * 6, [1] * 6)), 5),
-                     (dict(lm_conf=nt.LMConf(varpro=True)), 10),
+    for measure in ("exp-lm", "gauss-lm", "dev-lm"):
+        with pytest.raises(NotImplementedError, match="queue item 5c"):
+            nt.make_metacal_pipeline_fn(conf, measure=measure, device="cpu",
+                                        lm_prior=object(), lm_bounds=([0] * 6, [1] * 6))
+    for kw, item in ((dict(lm_conf=nt.LMConf(varpro=True)), 10),
                      (dict(lm_conf=nt.LMConf(flux_col=True)), 10)):
         with pytest.raises(NotImplementedError, match="queue item %d" % item):
             nt.make_metacal_pipeline_fn(conf, measure="exp-lm", device="cpu", **kw)
