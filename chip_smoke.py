@@ -6,11 +6,12 @@ Drives the port's main paths on the card, bench.py's metacal_gaussmom
 workload, its exp-LM headline and its metacal_admom workload at the
 production chunk size, the azgauss, fitgauss and dilate psf modes, its
 multi-band workload, its pre-psf moments (standalone and as the pgauss
-and ksigma metacal measures), its single-gaussian EM and the gauss and
-dev LM models; and holds the hand-written CUDA kernels K2 (mixture
-evaluation), K1 (LM normal equations), K3 (every lane's whole LM solve
-of the exp, gauss or dev model) and K3-mb (every object's joint
-multi-band solve) against their plain PyTorch versions. The exp-LM path
+and ksigma metacal measures), its single-gaussian EM, the gauss and
+dev LM models and the bdf and bd bulge+disk models; and holds the
+hand-written CUDA kernels K2 (mixture evaluation), K1 (LM normal
+equations), K3 (every lane's whole LM solve of the exp, gauss, dev, bdf
+or bd model) and K3-mb (every object's joint multi-band solve) against
+their plain PyTorch versions. The exp-LM path
 runs through K3; its host-loop route (run_lm_normal_batched with K1,
 reached through _exp_lm_measure's host_loop argument) is driven for the
 phases that hold K1 and for the comparison. Phases, in order, each
@@ -206,14 +207,49 @@ printing one timed line as soon as it ends:
            stamps: exp-LM in the reference's bounds box
            (tests/test_batch_pipeline.py:394-395; flags equal, nfev
            within 2, pars to rtol 1e-8 and atol 1e-10, inside the box)
-           and the mb pipeline with gauss-lm and dev-lm as in phase 18.
-
+           and the mb pipeline with gauss-lm and dev-lm as in phase 18;
+22. composite: bdf-lm inside its production bounds
+           (tools/validate_scale.py:391-411, fracdev in [0, 1], flux in
+           [1e-3, 1e9]) and bd-lm inside the reference's box
+           (tests/test_batch_pipeline.py:366-367) through K3 at bench.py's
+           exp-LM configuration in float32 at B = 10240 on the exp sims
+           (fracdev on its bound) and the heterogeneous bdf-truth sims
+           (sims.make_sim_batch_hetero(gal_model="bdf")): |m|, |hetero
+           m| < 1e-3 for bdf and < 3e-3 for bd (the reference's bound,
+           :372), flagged <= max(8, 0.5% B), e1 equal to pars[:, 2], K3
+           launched once a call and K2 launched, stamps/s and nfev; the
+           mb pipeline with both models (the boxes' flux bounds repeated
+           a band, tools/validate_scale.py:436-442) through K3-mb on the
+           mb exp and bdf-truth sims at 2048 x 3, gated the same, K3-mb
+           once a call; K3 at bdf and bd on the bdf-truth path's solve
+           inputs against its plain version by phase 13's criterion,
+           timed beside its bound (the operations recounted for 7 and 8
+           parameters, k3_ops) with its registers and local memory, and
+           K3-mb at both on the mb bdf-truth path's inputs the same way,
+           with its local memory at nband 1-6. On the exp sims ROADMAP
+           fault 3.4 shows (float32 solves of K3 and its plain version
+           alike stop early on rare lanes; float64 solves part in nfev
+           where the fracdev pin toggles at a near-tie), so the checks
+           there count such lanes against stated limits (F32_LIMIT,
+           f64_lanes): K3 and K3-mb on the exp paths' solve inputs in
+           float32 against their own float64 solves, and on 256 lanes of
+           every path in float64 against their plain versions; K2 at
+           bdf's s/n sums (n = 16, fast, [5 B, 361]) against its plain
+           version and timed; card against CPU in float64 by f64_lanes,
+           bdf on phase 21's inputs (256 exp stamps, and 86 objects of 3
+           epochs that are not copies with the per-object band map of
+           phase 18) and bd, degenerate on exp truth, on the bdf-truth
+           sims (the same shapes).
+The float64 CPU sides of phases 18, 21 and 22 run in CPU_WORKERS
+spawned processes of one thread each from the end of phase 2, while the
+card runs the phases before them.
 Needs one CUDA card and exits nonzero, printing the reason, on any
 failure or without a card. The last line is the JSON result.
 """
 import functools
 import json
 import subprocess
+import multiprocessing
 import sys
 import time
 from unittest import mock
@@ -240,6 +276,14 @@ FULL_CONF = LM_CONF._replace(fit_dims=None)
 SHEAR_TRUE = nt.sims.SHEAR_TRUE
 B_MB = 2048
 MB_CONF = nt.sims.METACAL_MB_CONFIG
+# the float64 card-against-CPU checks of the LM measures (phases 18,
+# 21 and 22): 256 flat stamps, 256 mb objects of 3 epochs, and 86 (258
+# epoch stamps) for the composite models; their CPU sides run in
+# CPU_WORKERS processes of one thread each while the card works
+N_CPU = 256
+N_CPU_MB = 256
+N_CPU_MB_COMPOSITE = 86
+CPU_WORKERS = 5
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -256,16 +300,26 @@ OPS_PER_PIXEL_GAUSS = 15
 # (20, 25] the window and its derivative (14); per pixel the residual,
 # the weighted J and the 28 running sums (64)
 K1_OPS = (11, 92, 14, 64)
-# K3's arithmetic per evaluation, counted from csrc/lm_solve.cu the same
-# way: per (pixel, gaussian) the offsets and chi2 (11); per pair inside
-# the window the exponential and its argument, the windowed value and f
-# (5), c (4), the five d value / d q (11) and the closed-form chain into
-# J (28); per pair in the apodized band the window and its derivative
-# (14); per pixel as K1 (64). The per-gaussian set-up, the shuffle tree
-# and the 6x6 step algebra, under 1% of an evaluation, are left out
-K3_OPS = (11, 48, 14, 64)
-# the gaussians of the LM models (gmix/tables.py)
-NGAUSS = {"exp": 6, "gauss": 1, "dev": 10}
+# the gaussians of the LM models (gmix/tables.py; bdf and bd: fill_cm)
+NGAUSS = {"exp": 6, "gauss": 1, "dev": 10, "bdf": 16, "bd": 16}
+
+
+def k3_ops(npars):
+    """K3's arithmetic per evaluation of a model of npars = 6 + NX
+    parameters (NX extra shape columns: 0, bdf's 1, bd's 2), counted
+    from csrc/lm_common.cuh as K1_OPS is: per (pixel, gaussian) the
+    offsets and chi2 (11); per pair inside the window the exponential
+    and its argument, the windowed value and f (5), c (4), the five d
+    value / d q (11) and the closed-form chain into J (four
+    multiply-adds, 8, for each of the 3 + NX shape parameters, an add
+    each for row and col, a multiply-add for the flux: 28 + 8 NX), 48 +
+    8 NX in all; per pair in the apodized band the window and its
+    derivative (14); per pixel the residual (2), the weighted J (npars), the cost (2) and
+    the Jtr and JtJ sums (2 npars + npars (npars + 1)): 64 at npars = 6.
+    The per-gaussian set-up, the shuffle tree and the step algebra,
+    under 1% of an evaluation, are left out"""
+    nx = npars - 6
+    return (11, 48 + 8 * nx, 14, 4 + 3 * npars + npars * (npars + 1))
 
 
 class SmokeFailure(Exception):
@@ -669,14 +723,15 @@ def read_launches():
                 k3mb=lm_solve.launches_mb)
 
 
-def exp_lm_gate(res, het_res, B):
-    """bench.py's gate values of a hom and a het exp-LM result, after
-    the shape, finiteness and e1 == pars[:, 2] checks"""
+def exp_lm_gate(res, het_res, B, npars=6):
+    """bench.py's gate values of a hom and a het LM result of npars
+    parameters (exp-LM's 6 by default), after the shape, finiteness and
+    e1 == pars[:, 2] checks"""
     for r in (res, het_res):
         for t in nt.batch.GALSHEAR_TYPES:
             if not torch.equal(r[t]["e1"], r[t]["pars"][:, 2]):
                 raise SmokeFailure("e1 is not pars[:, 2] for type %s" % t)
-            if tuple(r[t]["pars"].shape) != (B, 6):
+            if tuple(r[t]["pars"].shape) != (B, npars):
                 raise SmokeFailure("bad pars shape %s" % (tuple(r[t]["pars"].shape),))
             ok = r[t]["flags"] == 0
             if not bool(torch.isfinite(r[t]["pars"][ok]).all()):
@@ -930,9 +985,12 @@ def per_lane_diff(a, b, what, rtol=1e-5, atol=1e-7, dnfev=2, keys=("e1", "e2", "
 
 
 def solve_cols(out):
-    """e1, e2, T, flux, their pars_err, flags and nfev of an LM result"""
-    cols = dict(zip(("e1", "e2", "T", "flux"), out["pars"][:, 2:].unbind(-1)))
-    return dict(cols, err=out["pars_err"][:, 2:], flags=out["flags"], nfev=out["nfev"])
+    """e1, e2, T, flux (the last column: bdf and bd have their extra
+    shape columns before it), their pars_err, flags and nfev of an LM
+    result"""
+    idx = [2, 3, 4, out["pars"].shape[1] - 1]
+    cols = dict(zip(("e1", "e2", "T", "flux"), out["pars"][:, idx].unbind(-1)))
+    return dict(cols, err=out["pars_err"][:, idx], flags=out["flags"], nfev=out["nfev"])
 
 
 def solve_columns(state, args, conf):
@@ -1090,12 +1148,12 @@ def model_rp(pars, psf_gmix, model):
 def k3_bound(args, state, model="exp"):
     """least time (ms) for K3's work on these inputs: the planes, guess,
     bounds and psf read once and the state written once at the memory
-    rate, or K3's operations per evaluation (K3_OPS over the model's
-    gaussians, the window counted at the lane's guess) times each lane's
-    nfev at the float peak, whichever is larger"""
+    rate, or K3's operations per evaluation (k3_ops over the model's
+    gaussians and parameters, the window counted at the lane's guess)
+    times each lane's nfev at the float peak, whichever is larger"""
     guess, lo, hi, psf, v, u, ia, ve = args
     rp = model_rp(guess, nt.batch._psf_gmix(psf), model)
-    ops = int((pixel_ops(rp, v, u, K3_OPS) * state["nfev"].long()).sum())
+    ops = int((pixel_ops(rp, v, u, k3_ops(guess.shape[1])) * state["nfev"].long()).sum())
     N, P = v.shape
     esize = v.element_size()
     nbytes = (esize * (4 * N * P + guess.numel() + 12 + psf.numel())
@@ -1426,15 +1484,14 @@ def admom_phases(device, t_all):
     del het
     for r in psf_rows:
         print(k2_row_text(r), flush=True)
-    for r in modes:
-        print("    %s %s: m=%.3e hetero_m=%.3e flagged=%d hetero_flagged=%d launches k3=%d "
-              "k2=%d%s%s"
-              % (r["measure"], r["mode"], r["m"], r["het_m"], r["flagged"],
-                 r["het_flagged"], r["launches"]["k3"], r["launches"]["k2"],
-                 " R_psf=[[%.4f, %.4f], [%.4f, %.4f]]" % sum(map(tuple, r["R_psf"]), ())
-                 if "R_psf" in r else "",
-                 " numiter (%.3f, %g, %d)" % r["numiter"] if "numiter" in r else ""),
-              flush=True)
+    print("    " + "; ".join(
+        "%s %s: m=%.3e hetero_m=%.3e flagged=%d hetero_flagged=%d launches k3=%d k2=%d%s%s"
+        % (r["measure"], r["mode"], r["m"], r["het_m"], r["flagged"], r["het_flagged"],
+           r["launches"]["k3"], r["launches"]["k2"],
+           " R_psf=[[%.4f, %.4f], [%.4f, %.4f]]" % sum(map(tuple, r["R_psf"]), ())
+           if "R_psf" in r else "",
+           " numiter (%.3f, %g, %d)" % r["numiter"] if "numiter" in r else "")
+        for r in modes), flush=True)
     print("    K3 on the dilate exp-LM inputs (%d lanes, |psf irc| up to %.3e) against its "
           "plain version: flags equal, %.4f outside rtol 1e-4, largest difference %.3e "
           "pars_err" % (k3d["lanes"], k3d["max_abs_irc"], k3d["split"], k3d["max_in_err"]),
@@ -1455,10 +1512,13 @@ MB_KEYS = ("e1", "e2", "T", "flux0", "flux1")
 
 
 def mb_cols(out, keys=MB_KEYS):
-    """e1, e2, T, the band fluxes (keys names them), their pars_err,
-    flags and nfev of a joint multi-band LM result"""
-    cols = dict(zip(keys, out["pars"][:, 2:].unbind(-1)))
-    return dict(cols, err=out["pars_err"][:, 2:], flags=out["flags"], nfev=out["nfev"])
+    """e1, e2, T, the band fluxes (keys names them: the last columns,
+    after bdf's and bd's extra shape columns), their pars_err, flags and
+    nfev of a joint multi-band LM result"""
+    n = out["pars"].shape[1]
+    idx = [2, 3, 4] + list(range(n - (len(keys) - 3), n))
+    cols = dict(zip(keys, out["pars"][:, idx].unbind(-1)))
+    return dict(cols, err=out["pars_err"][:, idx], flags=out["flags"], nfev=out["nfev"])
 
 
 def _epilogue_mb(state, args, conf):
@@ -1489,14 +1549,15 @@ def capture_mb_inputs(fn, *args):
     return seen, res
 
 
-def mb_gate(res, het_res, B):
-    """bench.py's gate values of a hom and a het mb result, after the
-    shape, finiteness and e1 == pars[:, 2] checks"""
+def mb_gate(res, het_res, B, nshape=5):
+    """bench.py's gate values of a hom and a het mb result of nshape
+    shape columns (exp's 5 by default), after the shape, finiteness and
+    e1 == pars[:, 2] checks"""
     for r in (res, het_res):
         for t in nt.batch.GALSHEAR_TYPES:
             if not torch.equal(r[t]["e1"], r[t]["pars"][:, 2]):
                 raise SmokeFailure("mb e1 is not pars[:, 2] for type %s" % t)
-            if tuple(r[t]["pars"].shape) != (B, 5 + nt.sims.MB_NBAND):
+            if tuple(r[t]["pars"].shape) != (B, nshape + nt.sims.MB_NBAND):
                 raise SmokeFailure("bad mb pars shape %s" % (tuple(r[t]["pars"].shape),))
             if not bool(torch.isfinite(r[t]["pars"][r[t]["flags"] == 0]).all()):
                 raise SmokeFailure("non-finite mb pars for type %s" % t)
@@ -1591,9 +1652,10 @@ def k3mb_bound(args, state, model="exp"):
     epoch at the guess times each lane's nfev"""
     guess, lo, hi, psf, band, v, u, ia, ve = args
     B, E, P = v.shape
-    bp = fit_model.epoch_band_pars(model, guess, band).reshape(B * E, 6)
+    npars = fit_model.shape_count(model) + 1
+    bp = fit_model.epoch_band_pars(model, guess, band).reshape(B * E, npars)
     rp = model_rp(bp, nt.batch._psf_gmix(psf.reshape(B * E, 3)), model)
-    per_row = pixel_ops(rp, v.reshape(B * E, P), u.reshape(B * E, P), K3_OPS)
+    per_row = pixel_ops(rp, v.reshape(B * E, P), u.reshape(B * E, P), k3_ops(npars))
     ops = int((per_row.reshape(B, E).sum(-1) * state["nfev"].long()).sum())
     esize = v.element_size()
     nbytes = (esize * (4 * B * E * P + guess.numel() + lo.numel() + hi.numel() + psf.numel())
@@ -1602,37 +1664,115 @@ def k3mb_bound(args, state, model="exp"):
     return least_ms(nbytes, ops, v.dtype)
 
 
-def compare_mb_card_cpu(het, n=256, measure="exp-lm"):
-    """n objects whose E epochs are the het stamps i + n e (not copies),
-    with a per-object band map, in float64 on the card (K3-mb) and the
-    CPU (its plain version), measured by the LM measure: flags equal,
-    nfev within 2, pars and s2n to rtol 1e-8 and atol 1e-10. Returns the
-    largest share of that tolerance a difference takes, the largest nfev
-    difference and the K3-mb launches of the card call"""
-    E = len(nt.sims.MB_BAND)
-    args = [torch.stack([a[n * e:n * (e + 1), 0] for e in range(E)], 1).double() for a in het]
-    band = torch.tensor([[0, 0, 1], [1, 0, 1]], dtype=torch.int32).repeat(n // 2, 1)
+def mb_cpu_results(args, band, measure, bounds=None):
+    """the mb pipeline's float64 results of the LM measure on the CPU (its
+    plain version) for args [B, E, ...] and band"""
+    return nt.make_metacal_pipeline_mb_fn(MB_CONF, band, nt.sims.MB_NBAND, measure=measure,
+                                          lm_bounds=bounds, device="cpu")(
+                                              *(a.cpu() for a in args))
+
+
+def mb_card_cpu(args, band, cpu, measure="exp-lm", bounds=None):
+    """the mb pipeline in float64 on the card (K3-mb) against the CPU (its
+    plain version, cpu: mb_cpu_results of the same arguments) for args
+    [B, E, ...] on the card and band, measured by the LM measure inside
+    bounds (or unbounded): flags equal, nfev within 2, pars and s2n to
+    rtol 1e-8 and atol 1e-10. Returns the largest share of that
+    tolerance a difference takes, the largest nfev difference and the
+    K3-mb launches of the card call"""
     reset_launches()
     card = nt.make_metacal_pipeline_mb_fn(MB_CONF, band, nt.sims.MB_NBAND, measure=measure,
-                                          device="cuda")(*args)
+                                          lm_bounds=bounds, device="cuda")(*args)
     _sync("cuda")
     k3mb = read_launches()["k3mb"]
-    cpu = nt.make_metacal_pipeline_mb_fn(MB_CONF, band, nt.sims.MB_NBAND, measure=measure,
-                                         device="cpu")(*(a.cpu() for a in args))
     worst, dnfev = 0.0, 0
     for t in nt.batch.GALSHEAR_TYPES:
         if not torch.equal(card[t]["flags"].cpu(), cpu[t]["flags"]):
-            raise SmokeFailure("mb flags differ between card and CPU for %s" % t)
+            raise SmokeFailure("mb %s flags differ between card and CPU for %s" % (measure, t))
         dnfev = max(dnfev, int((card[t]["nfev"].cpu() - cpu[t]["nfev"]).abs().max()))
         if dnfev > 2:
-            raise SmokeFailure("mb nfev differs by %d between card and CPU" % dnfev)
+            raise SmokeFailure("mb %s nfev differs by %d between card and CPU"
+                               % (measure, dnfev))
         worst = max(worst, compare_results({k: card[t][k] for k in ("pars", "s2n")},
                                            {k: cpu[t][k] for k in ("pars", "s2n")},
-                                           "mb " + t))
+                                           "mb %s %s" % (measure, t)))
     return worst, dnfev, k3mb
 
 
-def mb_phase(device, t_all):
+def distinct_epochs(het, n):
+    """float64 inputs of n objects whose E epochs are the stamps i + n e
+    of het [B, E0, ...] (epoch 0 of each; not copies), and a per-object
+    band map"""
+    E = len(nt.sims.MB_BAND)
+    args = [torch.stack([a[n * e:n * (e + 1), 0] for e in range(E)], 1).double() for a in het]
+    band = torch.tensor([[0, 0, 1], [1, 0, 1]], dtype=torch.int32).repeat(n // 2, 1)
+    return args, band
+
+
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+class CpuSide:
+    """the float64 CPU sides of the card-against-CPU checks, each
+    fn(args on the CPU, *rest) in a spawned worker process of one
+    thread, while the card runs the phases before the one that reads
+    it; the card side takes the same args"""
+
+    def __init__(self):
+        ctx = multiprocessing.get_context("spawn")
+        self.pool = ctx.Pool(CPU_WORKERS, initializer=_one_thread)
+        self.inputs, self.jobs = {}, {}
+
+    def submit(self, key, fn, args, *rest):
+        self.inputs[key] = (args,) + rest
+        self.jobs[key] = self.pool.apply_async(fn, ([a.cpu() for a in args],) + rest)
+
+    def get(self, key):
+        """the job's inputs (args on the card, *rest) and its result,
+        waiting for it"""
+        return self.inputs.pop(key), self.jobs.pop(key).get()
+
+    def close(self):
+        self.pool.terminate()
+        self.pool.join()
+
+
+def start_cpu_side(device):
+    """a CpuSide with the CPU sides of phases 18, 21 and 22 submitted in
+    the order the phases read them, on the phases' sims made here from
+    their seeds: phase 18's mb exp-LM and phase 21's exp-LM in its box
+    and mb gauss-lm and dev-lm; phase 22's bdf-lm on phase 21's inputs
+    and bd-lm on the bdf-truth sims (bd is degenerate on exp truth:
+    log10(Td/Te) has no information at fracdev 0, and its float64 CPU
+    run of 256 exp stamps took 450 s on one H100 host core)"""
+    side = CpuSide()
+    gen = functools.partial(torch.Generator(device=device).manual_seed)
+    nb = nt.sims.MB_NBAND
+    het_mb = nt.make_sim_batch_mb(gen(271), B_MB, torch.float32, device=device, hetero=True)
+    side.submit("18 mb", mb_cpu_results, *distinct_epochs(het_mb, N_CPU_MB), "exp-lm", None)
+    del het_mb
+    hom = nt.make_sim_batch(gen(314), B_MAIN, torch.float32, device=device)
+    het = [x[:, None] for x in nt.make_sim_batch_hetero(gen(271), B_MAIN, torch.float32,
+                                                          device=device)]
+    flat = [a[:N_CPU].double() for a in hom]
+    side.submit("21 exp-lm", flat_cpu_results, flat, "exp-lm", BOX)
+    mb = distinct_epochs(het, N_CPU_MB)
+    for model in MODEL_GATES:
+        side.submit("21 mb " + model, mb_cpu_results, *mb, model + "-lm", None)
+    truth = [x[:, None] for x in nt.make_sim_batch_hetero(
+        gen(271), B_MAIN, torch.float32, device=device, gal_model="bdf")]
+    for model, sims in (("bdf", het), ("bd", truth)):
+        box = COMPOSITE[model][0]
+        side.submit("22 flat " + model, flat_cpu_results,
+                    flat if model == "bdf" else [a[:N_CPU, 0].double() for a in truth],
+                    model + "-lm", box)
+        side.submit("22 mb " + model, mb_cpu_results,
+                    *distinct_epochs(sims, N_CPU_MB_COMPOSITE), model + "-lm", mb_box(box, nb))
+    return side
+
+
+def mb_phase(device, t_all, cpu_side):
     """phase 18: bench.py's mb workload through K3-mb and its checks.
     Returns the K3-mb row, K2's mb rows, the main path's launches and
     K3-mb's inputs on it but the LMConf"""
@@ -1689,7 +1829,8 @@ def mb_phase(device, t_all):
           "nfev diff %d"
           % (share, worst, chk["split"], chk["max_in_err"], chk["indep"], chk["e8"][1],
              chk["e8"][2], chk["e1"][1], chk["e1"][2]), flush=True)
-    cpu_worst, cpu_dnfev, _ = compare_mb_card_cpu(het)
+    (cpu_args, band, _, _), cpu = cpu_side.get("18 mb")
+    cpu_worst, cpu_dnfev, _ = mb_card_cpu(cpu_args, band, cpu)
 
     state = lm_solve.lm_solve_mb(*args, conf)
     ms = time_ms(lambda: lm_solve.lm_solve_mb(*args, conf), 10)
@@ -1988,38 +2129,45 @@ def k3mb_model_row(args, conf, model):
                 split=split, max_in_err=in_err, nfev_sum=int(state["nfev"].sum()))
 
 
-def bounded_card_cpu(hom, n=256):
-    """exp-LM inside the reference's bounds box on the first n stamps in
-    float64 on the card (K3) and the CPU (its plain version): flags
-    equal, nfev within 2, pars to rtol 1e-8 and atol 1e-10, every pars
-    inside the box. Returns the largest share of that tolerance a
-    difference takes, the largest nfev difference and the card call's
-    K3 launches"""
-    args = [a[:n].double() for a in hom]
+def flat_cpu_results(args, measure, box):
+    """the LM measure's float64 results inside the box on the CPU (its
+    plain version) for the stamps args"""
+    return nt.make_metacal_pipeline_fn(LM_CONF, measure=measure, lm_bounds=box,
+                                       device="cpu")(*(a.cpu() for a in args))
+
+
+def bounded_card_cpu(args, cpu, measure="exp-lm", box=BOX):
+    """the LM measure (exp-LM by default) inside its bounds box (the
+    reference's, tests/test_batch_pipeline.py:394-395, by default) on
+    the float64 stamps args on the card (K3) against the CPU (its plain
+    version, cpu: flat_cpu_results of args): flags equal, nfev within 2,
+    pars to rtol 1e-8 and atol 1e-10, every pars inside the box. Returns
+    the largest share of that tolerance a difference takes, the largest
+    nfev difference and the card call's K3 launches"""
     reset_launches()
-    card = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", lm_bounds=BOX,
+    card = nt.make_metacal_pipeline_fn(LM_CONF, measure=measure, lm_bounds=box,
                                        device="cuda")(*args)
     _sync("cuda")
     k3 = read_launches()["k3"]
-    cpu = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", lm_bounds=BOX,
-                                      device="cpu")(*(a.cpu() for a in args))
-    lo, hi = (torch.tensor(x, dtype=torch.float64) for x in BOX)
+    lo, hi = (torch.tensor(x, dtype=torch.float64) for x in box)
     worst, dnfev = 0.0, 0
     for t in nt.batch.GALSHEAR_TYPES:
         if not torch.equal(card[t]["flags"].cpu(), cpu[t]["flags"]):
-            raise SmokeFailure("bounded exp-LM flags differ between card and CPU for %s" % t)
+            raise SmokeFailure("bounded %s flags differ between card and CPU for %s"
+                               % (measure, t))
         dnfev = max(dnfev, int((card[t]["nfev"].cpu() - cpu[t]["nfev"]).abs().max()))
         if dnfev > 2:
-            raise SmokeFailure("bounded exp-LM nfev differs by %d between card and CPU" % dnfev)
+            raise SmokeFailure("bounded %s nfev differs by %d between card and CPU"
+                               % (measure, dnfev))
         worst = max(worst, compare_results({"pars": card[t]["pars"]}, {"pars": cpu[t]["pars"]},
-                                           "bounded exp-LM " + t))
+                                           "bounded %s %s" % (measure, t)))
         pars = card[t]["pars"][card[t]["flags"] == 0].cpu()
         if not bool(((pars > lo) & (pars < hi)).all()):
-            raise SmokeFailure("bounded exp-LM pars outside the box for %s" % t)
+            raise SmokeFailure("bounded %s pars outside the box for %s" % (measure, t))
     return worst, dnfev, k3
 
 
-def models_phase(device, t_all, mb_args):
+def models_phase(device, t_all, mb_args, cpu_side):
     """phase 21: the gauss-lm and dev-lm main paths through K3 with their
     gates, K3 at NG = 1 and 10 against its plain version and timed, K3-mb
     at NG = 1 and 10 on the mb path's inputs, K2 at dev's s/n sums, and
@@ -2046,15 +2194,16 @@ def models_phase(device, t_all, mb_args):
            *r["nfev"]) for m, r in runs.items())))
 
     t1 = time.perf_counter()
-    b_worst, b_dnfev, b_k3 = bounded_card_cpu(hom)
-    het1 = [x[:, None] for x in het]
+    (b_args, _, _), cpu = cpu_side.get("21 exp-lm")
+    b_worst, b_dnfev, b_k3 = bounded_card_cpu(b_args, cpu)
     mb_cpu, mb_launches = {}, {}
     for model in MODEL_GATES:
-        *mb_cpu[model], mb_launches[model] = compare_mb_card_cpu(het1, measure=model + "-lm")
+        (args, band, measure, _), cpu = cpu_side.get("21 mb " + model)
+        *mb_cpu[model], mb_launches[model] = mb_card_cpu(args, band, cpu, measure)
     print("    %s; K2 %s: %.4f ms, plain %.4f ms, bound %.4f ms (%s), %d launches a call; "
           "card against CPU in float64, 256 stamps: exp-lm in the bounds box (k3=%d) "
           "flags equal, nfev within %d, pars within rtol 1e-8 + atol 1e-10 (at most %.3e "
-          "of it); mb %s; %.1f s, total %.1f s"
+          "of it); mb %d objects x 3 epochs %s; %.1f s, total %.1f s"
           % ("; ".join(
               "K3 %s: %.4f ms, plain %.4f ms, bound %.4f ms (%s), sum nfev %d, %.4f outside "
               "rtol 1e-4, within %.3e pars_err, float64 256 lanes max rel %.3e nfev diff %d"
@@ -2067,7 +2216,7 @@ def models_phase(device, t_all, mb_args):
                                  r["bound_by"], r["nfev_sum"], r["max_in_err"])
               for r in mb_rows.values()),
              k2_row["shape"], k2_row["ms"], k2_row["plain_ms"], k2_row["bound_ms"],
-             k2_row["bound_by"], k2_row["launches_a_call"], b_k3, b_dnfev, b_worst,
+             k2_row["bound_by"], k2_row["launches_a_call"], b_k3, b_dnfev, b_worst, N_CPU_MB,
              ", ".join("%s-lm (k3mb=%d) flags equal, nfev within %d, pars and s2n at most "
                        "%.3e of rtol 1e-8 + atol 1e-10" % (m, mb_launches[m], d, w)
                        for m, (w, d) in mb_cpu.items()),
@@ -2085,6 +2234,375 @@ def models_phase(device, t_all, mb_args):
         k2_launches={"%s-lm" % m: r["launches"]["k2"] for m, r in runs.items()},
         max_abs_err=max(max(r["row"]["max_abs_err"], r["d64"][0]) for r in runs.values()),
         mb_max_abs_err=max(r["max_abs_err"] for r in mb_rows.values()),
+    )
+
+
+# ----------------------------------------------------------------------
+# the composite bulge+disk models
+
+# each composite model's box (bdf's production bounds, the reference's bd
+# box: sims.BDF_LM_BOUNDS, BD_LM_BOUNDS) and |m| limit: bench.py's for
+# bdf, the reference's only bd bound for bd
+# (tests/test_batch_pipeline.py:372)
+COMPOSITE = {"bdf": (nt.sims.BDF_LM_BOUNDS, 1e-3), "bd": (nt.sims.BD_LM_BOUNDS, 3e-3)}
+
+
+def mb_box(box, nband):
+    """a flat box with its flux bounds repeated once a band, as
+    tools/validate_scale.py:436-442 extends bdf's to two bands"""
+    return tuple(list(x[:-1]) + [x[-1]] * nband for x in box)
+
+
+def run_composite(device, model, hom, het):
+    """the composite model's LM main path (through K3) inside its box in
+    float32 on the exp sims (fracdev on its bound) and the bdf-truth
+    sims, gated, with its launches, and three timed calls"""
+    box, limit = COMPOSITE[model]
+    fn = nt.make_metacal_pipeline_fn(LM_CONF, measure=model + "-lm", lm_bounds=box,
+                                     device=device)
+    _sync(device)
+    reset_launches()
+    res = fn(*hom)
+    het_res = fn(*het)
+    _sync(device)
+    launches = read_launches()
+    g = exp_lm_gate(res, het_res, B_MAIN, npars=len(box[0]))
+    if not (abs(g["m"]) < limit and abs(g["het_m"]) < limit):
+        raise SmokeFailure("%s-lm m gate failed: m=%.3e hetero m=%.3e > %g"
+                           % (model, g["m"], g["het_m"], limit))
+    check_flagged(g, B_MAIN, model + "-lm")
+    if launches["k3"] != 2 or launches["k2"] <= 0 or launches["k1"] != 0:
+        raise SmokeFailure("the %s-lm path launched K3 %d times in two calls, K2 %d and K1 %d"
+                           % (model, launches["k3"], launches["k2"], launches["k1"]))
+    sec, (lo, hi), _ = timed3(fn, *hom)
+    types = nt.batch.GALSHEAR_TYPES
+    nfev = numiter_stats(*(r[t]["nfev"] for r in (res, het_res) for t in types))
+    fracdev = [float(torch.cat([r[t]["fracdev"][r[t]["flags"] == 0] for t in types]).mean())
+               for r in (res, het_res)]
+    return dict(g, launches=launches, stamps_per_s=B_MAIN / sec, sec_range=(lo, hi),
+                nfev=nfev, fracdev=fracdev), fn
+
+
+# ROADMAP fault 3.4: on the exp sims, where bdf's fracdev sits on its
+# bound and bd's log10(Td/Te) is then free, float32 LM solves stop early
+# on rare lanes, K3's and its plain version's alike, and float64 solves
+# by two routes part in nfev where the fracdev pin toggles at a
+# near-tie. The checks on those inputs count such lanes. In float32:
+# the lanes farther than half a pars_err from the float64 optimum (the
+# kernel's own float64 solve of the same inputs, held to its plain
+# version by f64_lanes), at most max(8, 1e-4 of the lanes) for bdf and
+# 5% for bd, degenerate there, and none beyond F32_MAX_ERR pars_err.
+# Measured on an H100 (flat 51,200 lanes, mb 10,240): bdf 1 lane by K3
+# and 1 by its plain version flat (3.9 and 1.3 pars_err), none mb; bd
+# 229 and 238 flat (3.7 and 7.5), 225 and 252 mb (4.1 and 6.1)
+F32_LIMIT = {"bdf": lambda n: max(8, n // 10000), "bd": lambda n: n // 20}
+F32_MAX_ERR = 10.0
+
+
+def beyond_optimum(model, a, opt, keys, what):
+    """hold a float32 LM result a of the composite model to the float64
+    optimum opt (solve_cols or mb_cols of the same inputs, keys their
+    columns): flags equal on every lane; of the lanes unflagged, those
+    whose keys lie farther than half of opt's pars_err at most
+    F32_LIMIT, none farther than F32_MAX_ERR. Returns that count and the
+    largest distance in pars_err"""
+    if not torch.equal(a["flags"], opt["flags"]):
+        raise SmokeFailure("%s: flags differ from the float64 optimum on %d lanes"
+                           % (what, int((a["flags"] != opt["flags"]).sum())))
+    ok = opt["flags"] == 0
+    d = torch.stack([(a[k].double() - opt[k]).abs() / opt["err"][:, i]
+                     for i, k in enumerate(keys)], -1)[ok].max(-1).values
+    n, worst, limit = int((d > 0.5).sum()), float(d.max()), F32_LIMIT[model](ok.numel())
+    if n > limit or not worst <= F32_MAX_ERR:
+        raise SmokeFailure("%s: %d lanes beyond half a pars_err of the float64 optimum "
+                           "(limit %d), largest %.3f pars_err (limit %g)"
+                           % (what, n, limit, worst, F32_MAX_ERR))
+    return n, worst
+
+
+def f64_lanes(a, b, what, keys=("pars",)):
+    """two float64 LM results of the same lanes (dicts of flags, nfev,
+    pars_err and keys; b the reference) by fault 3.4's criterion: flags
+    equal on every lane; keys (pars, and s2n where given) within rtol
+    1e-8 + atol 1e-10 with NaNs in the same places, except on at most
+    max(4, 1%) of the lanes, where every parameter lies within that
+    tolerance or within a thousandth of its pars_err and s2n within rtol
+    1e-5; nfev within 2 except on at most as many lanes. Returns the
+    largest absolute pars difference, the largest share of the
+    tolerance on the lanes not excepted, the excepted lanes, the largest
+    difference on them in pars_err, the lanes whose nfev differ by more
+    than 2 and the largest nfev difference"""
+    a, b = ({k: r[k].cpu() for k in ("flags", "nfev", "pars_err") + keys} for r in (a, b))
+    if not torch.equal(a["flags"], b["flags"]):
+        raise SmokeFailure("%s: flags differ on %d lanes"
+                           % (what, int((a["flags"] != b["flags"]).sum())))
+    n = a["flags"].numel()
+    limit = max(4, n // 100)
+    x = {}
+    for k in keys:
+        xa, xb = (r[k].double().reshape(n, -1) for r in (a, b))
+        if not torch.equal(torch.isnan(xa), torch.isnan(xb)):
+            raise SmokeFailure("%s: NaNs of %s differ" % (what, k))
+        x[k] = (torch.nan_to_num(xa), torch.nan_to_num(xb))
+    share = torch.stack([((xa - xb).abs() / (1e-10 + 1e-8 * xb.abs())).max(-1).values
+                         for xa, xb in x.values()], -1).max(-1).values
+    exc = share > 1
+    pa, pb = x["pars"]
+    d = (pa - pb).abs()
+    err = torch.nan_to_num(b["pars_err"].double())
+    in_tol = d <= 1e-10 + 1e-8 * pb.abs()
+    excused = (in_tol | (d <= 1e-3 * err)).all(-1)
+    if "s2n" in x:
+        sa, sb = x["s2n"]
+        excused &= ((sa - sb).abs() <= 1e-5 * sb.abs()).all(-1)
+    in_err = torch.where(in_tol, torch.zeros_like(d), d / err).max(-1).values
+    dn = (a["nfev"] - b["nfev"]).abs()
+    out = dict(max_abs=float(d.max()), share=float(share[~exc].max()) if bool((~exc).any())
+               else 0.0, excepted=int(exc.sum()),
+               excepted_err=float(in_err[exc].max()) if bool(exc.any()) else 0.0,
+               nfev_far=int((dn > 2).sum()), dnfev=int(dn.max()), limit=limit)
+    if out["excepted"] > limit or not bool(excused[exc].all()):
+        raise SmokeFailure("%s: %d of %d lanes outside rtol 1e-8 + atol 1e-10 (limit %d), "
+                           "up to %.3e pars_err" % (what, out["excepted"], n, limit,
+                                                    out["excepted_err"]))
+    if out["nfev_far"] > limit:
+        raise SmokeFailure("%s: nfev differs by more than 2 on %d of %d lanes (limit %d), up "
+                           "to %d" % (what, out["nfev_far"], n, limit, out["dnfev"]))
+    return out
+
+
+def f64_text(r):
+    return ("%d excepted (%.2e pars_err), nfev > 2 apart on %d (max %d), else within %.2e "
+            "of rtol 1e-8" % (r["excepted"], r["excepted_err"], r["nfev_far"], r["dnfev"],
+                              r["share"]))
+
+
+def lm_result(state, args, conf):
+    """the LM result of a K3 state on K3's inputs args"""
+    return tlm._normal_epilogue(state, args[1], args[2], conf, torch.sum(args[6] > 0, dim=-1))
+
+
+def float64(args):
+    """K3's or K3-mb's inputs with the floating ones in float64"""
+    return tuple((x.double() if x.dtype.is_floating_point else x).contiguous() for x in args)
+
+
+def first_lanes(args, n=256):
+    """the first n lanes of K3's or K3-mb's inputs, in float64"""
+    return float64(x if x.dim() == 1 else x[:n] for x in args)
+
+
+def composite_k3_checks(model, args, exp_args):
+    """K3 of the composite model on the bdf-truth path's float32 solve
+    inputs args against its plain version by phase 13's criterion,
+    timed beside its bound with its registers and local memory; on the
+    exp path's exp_args in float32 against its float64 solve
+    (beyond_optimum); on 256 lanes of each path in float64 against its
+    plain version (f64_lanes). Returns the row and the two checks'
+    numbers"""
+    conf = nt.LMConf()
+    row = k3_timed_row(args, conf, model)
+    row["attrs"] = lm_solve.kernel_attrs(args[0].dtype, args[4].shape[1], model)
+    e64 = float64(exp_args)
+    f32 = beyond_optimum(
+        model, solve_columns(lm_solve.lm_solve(*exp_args, conf, model), exp_args, conf),
+        solve_columns(lm_solve.lm_solve(*e64, conf, model), e64, conf),
+        ("e1", "e2", "T", "flux"), "K3 (%s) in float32 on the exp path" % model)
+    f64 = []
+    for name, a in (("bdf-truth", args), ("exp", exp_args)):
+        a64 = first_lanes(a)
+        f64.append(f64_lanes(lm_result(lm_solve.lm_solve(*a64, conf, model), a64, conf),
+                             lm_result(lm_solve.lm_solve_plain(*a64, conf, model), a64, conf),
+                             "K3 (%s) and its plain version in float64 on the %s path"
+                             % (model, name)))
+    return row, f32, f64
+
+
+def run_composite_mb(device, model, hom, het):
+    """the mb pipeline with the composite model inside its box extended
+    to the bands (through K3-mb) in float32 on the mb exp sims and the
+    mb bdf-truth sims, gated as run_composite, with K3-mb launched once
+    a call. Returns the gate values, the launches and K3-mb's inputs on
+    the het and the hom call"""
+    box, limit = COMPOSITE[model]
+    nb = nt.sims.MB_NBAND
+    fn = nt.make_metacal_pipeline_mb_fn(MB_CONF, nt.sims.MB_BAND, nb, measure=model + "-lm",
+                                        lm_bounds=mb_box(box, nb), device=device)
+    _sync(device)
+    reset_launches()
+    res = fn(*hom)
+    het_res = fn(*het)
+    _sync(device)
+    launches = read_launches()
+    g = mb_gate(res, het_res, B_MB, nshape=len(box[0]) - 1)
+    if not (abs(g["m"]) < limit and abs(g["het_m"]) < limit):
+        raise SmokeFailure("mb %s-lm m gate failed: m=%.3e hetero m=%.3e > %g"
+                           % (model, g["m"], g["het_m"], limit))
+    check_flagged(g, B_MB, "mb %s-lm" % model)
+    if launches["k3mb"] != 2 or launches["k2"] <= 0 or launches["k3"] != 0:
+        raise SmokeFailure("the mb %s-lm path launched K3-mb %d times in two calls, K2 %d and "
+                           "K3 %d" % (model, launches["k3mb"], launches["k2"], launches["k3"]))
+    return dict(g, launches=launches), [capture_mb_inputs(fn, *x)[0]["k3mb"] for x in (het, hom)]
+
+
+def composite_k3mb_checks(model, args, exp_args):
+    """K3-mb of the composite model as composite_k3_checks holds K3: on
+    the mb bdf-truth path's float32 solve inputs args by phase 13's
+    criterion, timed beside its bound with its registers and its local
+    memory at nband 1-6; on the mb exp path's exp_args in float32
+    against its float64 solve; on 256 object-lanes of each in float64
+    against its plain version"""
+    conf = nt.LMConf()
+    row = k3mb_model_row(args, conf, model)
+    E, P = args[5].shape[1:]
+    row["attrs"] = lm_solve.kernel_attrs_mb(torch.float32, nt.sims.MB_NBAND, E, P, model)
+    row["local_nband"] = [lm_solve.kernel_attrs_mb(torch.float32, n, E, P, model)["local_bytes"]
+                          for n in range(1, 7)]
+    e64 = float64(exp_args)
+    f32 = beyond_optimum(
+        model, mb_cols(_epilogue_mb(lm_solve.lm_solve_mb(*exp_args, conf, model), exp_args,
+                                    conf)),
+        mb_cols(_epilogue_mb(lm_solve.lm_solve_mb(*e64, conf, model), e64, conf)), MB_KEYS,
+        "K3-mb (%s) in float32 on the mb exp path" % model)
+    f64 = []
+    for name, a in (("bdf-truth", args), ("exp", exp_args)):
+        a64 = first_lanes(a)
+        f64.append(f64_lanes(
+            _epilogue_mb(lm_solve.lm_solve_mb(*a64, conf, model), a64, conf),
+            _epilogue_mb(lm_solve.lm_solve_mb_plain(*a64, conf, model), a64, conf),
+            "K3-mb (%s) and its plain version in float64 on the mb %s path" % (model, name)))
+    return row, f32, f64
+
+
+def cat_types(res, keys):
+    return {k: torch.cat([res[t][k] for t in nt.batch.GALSHEAR_TYPES]) for k in keys}
+
+
+def composite_card_cpu(cpu_side, kind, model):
+    """card against CPU in float64 for the composite model's flat or mb
+    pipeline on the inputs of its CpuSide job: f64_lanes over the five
+    types' lanes with s2n, and unflagged pars inside the box. Returns
+    f64_lanes' numbers, the card call's K3 or K3-mb launches and the
+    stamps or objects"""
+    inputs, cpu = cpu_side.get("22 %s %s" % (kind, model))
+    reset_launches()
+    if kind == "flat":
+        args, measure, box = inputs
+        card = nt.make_metacal_pipeline_fn(LM_CONF, measure=measure, lm_bounds=box,
+                                           device="cuda")(*args)
+    else:
+        args, band, measure, box = inputs
+        card = nt.make_metacal_pipeline_mb_fn(MB_CONF, band, nt.sims.MB_NBAND, measure=measure,
+                                              lm_bounds=box, device="cuda")(*args)
+    _sync("cuda")
+    launches = read_launches()["k3" if kind == "flat" else "k3mb"]
+    keys = ("flags", "nfev", "pars_err", "pars", "s2n")
+    a = cat_types(card, keys)
+    out = f64_lanes(a, cat_types(cpu, keys), "%s %s-lm card against CPU" % (kind, model),
+                    ("pars", "s2n"))
+    lo, hi = (torch.tensor(x, dtype=torch.float64) for x in box)
+    pars = a["pars"][a["flags"] == 0].cpu()
+    if not bool(((pars > lo) & (pars < hi)).all()):
+        raise SmokeFailure("%s %s-lm pars outside the box" % (kind, model))
+    return out, launches, args[0].shape[0]
+
+
+def composite_phase(device, t_all, cpu_side):
+    """phase 22: bdf-lm (production bounds) and bd-lm (the reference's
+    box) through K3 on the exp and bdf-truth sims, the mb pipeline with
+    both through K3-mb, each gated; K3 and K3-mb at both models against
+    their plain versions and timed (composite_k3_checks,
+    composite_k3mb_checks); K2 at bdf's s/n sums; card against CPU in
+    float64, flat and mb, from cpu_side. Returns K3's and K3-mb's rows
+    and launches by path, and K2's row and launches"""
+    t0 = time.perf_counter()
+    gen = functools.partial(torch.Generator(device=device).manual_seed)
+    hom = nt.make_sim_batch(gen(314), B_MAIN, torch.float32, device=device)
+    het = nt.make_sim_batch_hetero(gen(271), B_MAIN, torch.float32, device=device,
+                                   gal_model="bdf")
+    hom_mb = nt.make_sim_batch_mb(gen(314), B_MB, torch.float32, device=device)
+    het_mb = nt.make_sim_batch_mb(gen(271), B_MB, torch.float32, device=device, hetero=True,
+                                  gal_model="bdf")
+    runs, fns, mb, mb_args = {}, {}, {}, {}
+    for model in COMPOSITE:
+        runs[model], fns[model] = run_composite(device, model, hom, het)
+        mb[model], mb_args[model] = run_composite_mb(device, model, hom_mb, het_mb)
+    del hom_mb, het_mb
+    phase_line("22 composite", t0, "B=%d float32, exp sims and bdf-truth sims: %s; mb %dx%d: %s"
+               % (B_MAIN, "; ".join(
+                   "%s-lm m=%.3e hetero_m=%.3e (|m| < %g) R11=%.4f flagged=%d "
+                   "hetero_flagged=%d fracdev mean %.4f and %.4f launches k3=%d k2=%d "
+                   "stamps/s=%.1f (range %.4f-%.4f s) nfev (mean, p50, max) (%.3f, %g, %d)"
+                   % (m, r["m"], r["het_m"], COMPOSITE[m][1], r["R11"], r["flagged"],
+                      r["het_flagged"], *r["fracdev"], r["launches"]["k3"],
+                      r["launches"]["k2"], r["stamps_per_s"], *r["sec_range"], *r["nfev"])
+                   for m, r in runs.items()), B_MB, len(nt.sims.MB_BAND), "; ".join(
+                   "%s-lm m=%.3e hetero_m=%.3e flagged=%d hetero_flagged=%d launches k3mb=%d"
+                   % (m, r["m"], r["het_m"], r["flagged"], r["het_flagged"],
+                      r["launches"]["k3mb"]) for m, r in mb.items())))
+
+    t1 = time.perf_counter()
+    k3 = {}
+    for model, (box, _) in COMPOSITE.items():
+        truth_args, exp_args = (capture_k3_inputs(x, device, measure=model + "-lm",
+                                                  lm_bounds=box)[0] for x in (het, hom))
+        k3[model] = composite_k3_checks(model, truth_args, exp_args)
+    k2_in, k2_launches = capture_k2_inputs(fns["bdf"], *hom)
+    del hom, het
+    gm, v = k2_in[:2]
+    if v.shape[1] != 361:
+        raise SmokeFailure("bdf-lm's first fast K2 launch has %d pixels a lane, not 361"
+                           % v.shape[1])
+    k2_row = dict(time_k2("bdf-lm get_loglike n=%d fast [%dx%d]" % (gm.shape[1], *v.shape),
+                          *k2_in, fast=True), launches_a_call=k2_launches)
+    k3mb = {model: composite_k3mb_checks(model, *mb_args[model]) for model in COMPOSITE}
+    print("    %s; %s; K2 %s: %.4f ms, plain %.4f ms, bound %.4f ms (%s), %d launches a call; "
+          "%.1f s" % ("; ".join(
+              "K3 %s (bdf-truth inputs): %.4f ms, plain %.4f ms, bound %.4f ms (%s), sum nfev "
+              "%d, %.4f outside rtol 1e-4, within %.3e pars_err; %s; exp path float32: %d "
+              "lanes beyond 0.5 pars_err of the float64 optimum (largest %.3f); float64 "
+              "against plain, 256 lanes a path: %s"
+              % (row["shape"], row["ms"], row["plain_ms"], row["bound_ms"], row["bound_by"],
+                 row["nfev_sum"], row["split"], row["max_in_err"], attrs_text(row["attrs"]),
+                 *f32, "; ".join(f64_text(r) for r in f64))
+              for row, f32, f64 in k3.values()),
+              "; ".join(
+              "K3-mb %s: %.4f ms, plain %.4f ms, bound %.4f ms (%s), sum nfev %d, within "
+              "%.3e pars_err; %s, local bytes at nband 1-6 %s; mb exp path float32: %d "
+              "lanes beyond 0.5 pars_err (largest %.3f); float64 against plain: %s"
+              % (row["shape"], row["ms"], row["plain_ms"], row["bound_ms"], row["bound_by"],
+                 row["nfev_sum"], row["max_in_err"], attrs_text(row["attrs"]),
+                 row["local_nband"], *f32, "; ".join(f64_text(r) for r in f64))
+              for row, f32, f64 in k3mb.values()),
+              k2_row["shape"], k2_row["ms"], k2_row["plain_ms"], k2_row["bound_ms"],
+              k2_row["bound_by"], k2_row["launches_a_call"], time.perf_counter() - t1),
+          flush=True)
+
+    t1 = time.perf_counter()
+    cc = {(kind, model): composite_card_cpu(cpu_side, kind, model)
+          for model in COMPOSITE for kind in ("flat", "mb")}
+    phase_line("22 composite-cpu", t1, "float64 card against CPU, bdf on phase 21's exp "
+               "inputs, bd on the bdf-truth sims: %s; total %.1f s" % ("; ".join(
+                   "%s %s-lm, %d %s (%s=%d): %s" % (
+                       kind, m, n, "stamps" if kind == "flat" else "objects x 3 epochs",
+                       "k3" if kind == "flat" else "k3mb", launches, f64_text(r))
+                   for (kind, m), (r, launches, n) in cc.items()),
+                   time.perf_counter() - t_all))
+    if any(launches != 1 for _, launches, _ in cc.values()):
+        raise SmokeFailure("card against CPU: the composite calls launched K3 or K3-mb %s "
+                           "times" % [x[1] for x in cc.values()])
+    return dict(
+        k3_rows=[row for row, _, _ in k3.values()],
+        k3_launches={"%s-lm" % m: r["launches"]["k3"] for m, r in runs.items()},
+        k3mb_rows=[row for row, _, _ in k3mb.values()],
+        k3mb_launches={"mb %s-lm" % m: r["launches"]["k3mb"] for m, r in mb.items()},
+        k2_row=k2_row,
+        k2_launches=dict({"%s-lm" % m: r["launches"]["k2"] for m, r in runs.items()},
+                         **{"mb %s-lm" % m: r["launches"]["k2"] for m, r in mb.items()}),
+        max_abs_err=max(max(row["max_abs_err"], *(r["max_abs"] for r in f64))
+                        for row, _, f64 in k3.values()),
+        mb_max_abs_err=max(max(row["max_abs_err"], *(r["max_abs"] for r in f64))
+                           for row, _, f64 in k3mb.values()),
     )
 
 
@@ -2107,6 +2625,16 @@ def main():
     _build.load()
     phase_line("2 build", t0, str(path.relative_to(path.parents[2])))
 
+    cpu_side = start_cpu_side(device)
+    try:
+        return phases(device, t_all, kind, cpu_side)
+    finally:
+        cpu_side.close()
+
+
+def phases(device, t_all, kind, cpu_side):
+    """phases 3-22 and the kernels line, with the CPU sides of phases
+    18, 21 and 22 from cpu_side"""
     t0 = time.perf_counter()
     max_abs, ncase, worst = check_kernel(device)
     indep = check_k2_batch_independence(device)
@@ -2243,10 +2771,11 @@ def main():
     phase_line("13 k3-times", t0, "total %.1f s" % (time.perf_counter() - t_all))
 
     admom_launches, admom_rows, modes = admom_phases(device, t_all)
-    k3mb_row, mb_k2_rows, mb_launches, mb_args = mb_phase(device, t_all)
+    k3mb_row, mb_k2_rows, mb_launches, mb_args = mb_phase(device, t_all, cpu_side)
     prepsf_row, prepsf = prepsf_phase(device, t_all)
     em_phase(device, t_all)
-    models = models_phase(device, t_all, mb_args)
+    models = models_phase(device, t_all, mb_args, cpu_side)
+    comp = composite_phase(device, t_all, cpu_side)
     prepsf_launches = {k: g["launches"] for k, g in prepsf.items() if "dilate" not in k}
 
     top = rows[0]
@@ -2259,12 +2788,13 @@ def main():
         "replaces": "ngmix_tpu/ops/pallas_gmix.py:88",
         "launches": (launches + k2_lm_launches + admom_launches + sum(k2_modes.values())
                      + mb_launches["k2"] + sum(prepsf_launches.values())
-                     + sum(models["k2_launches"].values())),
+                     + sum(models["k2_launches"].values()) + sum(comp["k2_launches"].values())),
         "launches_by_path": dict({"gaussmom": launches, "exp-lm": k2_lm_launches,
                                   "admom": admom_launches, "mb exp-lm": mb_launches["k2"]},
-                                 **k2_modes, **prepsf_launches, **models["k2_launches"]),
+                                 **k2_modes, **prepsf_launches, **models["k2_launches"],
+                                 **comp["k2_launches"]),
         "max_abs_err": max(max_abs, *(r["max_abs_err"] for r in rows + admom_rows + mb_k2_rows
-                                      + [prepsf_row, models["k2_row"]]),
+                                      + [prepsf_row, models["k2_row"], comp["k2_row"]]),
                            lm_rows[1]["max_abs_err"]),
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
@@ -2273,8 +2803,8 @@ def main():
         "library_ms": None,
         "attrs": {k: top[k] for k in ("regs", "static_smem", "dynamic_smem",
                                       "blocks_per_sm")},
-        "shapes": rows + [lm_rows[1]] + admom_rows + mb_k2_rows + [prepsf_row,
-                                                                   models["k2_row"]],
+        "shapes": rows + [lm_rows[1]] + admom_rows + mb_k2_rows + [prepsf_row, models["k2_row"],
+                                                                   comp["k2_row"]],
     }, {
         "name": "normal_eqs",
         "route": "cuda",
@@ -2293,23 +2823,24 @@ def main():
     }, {
         "name": "lm_solve",
         "route": "cuda",
-        "source": "ngmix_tpu_torch/csrc/lm_solve.cu",
+        "source": "ngmix_tpu_torch/csrc/lm_solve.cuh",
         "replaces": "ngmix_tpu/ops/pallas_lm.py:149",
         "replaces_loop": "ngmix_tpu/fitting/lm.py:539-790",
         "launches": (k3_launches + modes[-1]["launches"]["k3"]
-                     + sum(models["k3_launches"].values())),
+                     + sum(models["k3_launches"].values()) + sum(comp["k3_launches"].values())),
         "launches_by_path": dict({"exp-lm": k3_launches, "exp-lm host loop": hl["k3"],
                                   "exp-lm dilate": modes[-1]["launches"]["k3"]},
-                                 **models["k3_launches"]),
+                                 **models["k3_launches"], **comp["k3_launches"]),
         "max_abs_err": max(k3c["plain64"][0], k3c["full64"][0], k3_row["max_abs_err"],
-                           k3c["full32"]["max_abs_err"], models["max_abs_err"]),
+                           k3c["full32"]["max_abs_err"], models["max_abs_err"],
+                           comp["max_abs_err"]),
         "ms": k3_row["ms"],
         "plain_ms": k3_row["plain_ms"],
         "bound_ms": k3_row["bound_ms"],
         "bound_by": k3_row["bound_by"],
         "library_ms": None,
         "attrs": k3_attrs,
-        "shapes": [k3_row, k3c["full32"]] + models["k3_rows"],
+        "shapes": [k3_row, k3c["full32"]] + models["k3_rows"] + comp["k3_rows"],
         "exp_lm_calls": calls,
     }, {
         "name": "lm_solve_mb",
@@ -2317,17 +2848,19 @@ def main():
         "source": "ngmix_tpu_torch/csrc/lm_solve_mb.cuh",
         "replaces": "ngmix_tpu/ops/pallas_lm.py:149",
         "replaces_loop": "ngmix_tpu/fitting/lm.py:539-790 under ngmix_tpu/batch.py:1795-1866",
-        "launches": mb_launches["k3mb"] + sum(models["k3mb_launches"].values()),
+        "launches": (mb_launches["k3mb"] + sum(models["k3mb_launches"].values())
+                     + sum(comp["k3mb_launches"].values())),
         "launches_by_path": dict({"mb exp-lm": mb_launches["k3mb"]},
-                                 **models["k3mb_launches"]),
-        "max_abs_err": max(k3mb_row["max_abs_err"], models["mb_max_abs_err"]),
+                                 **models["k3mb_launches"], **comp["k3mb_launches"]),
+        "max_abs_err": max(k3mb_row["max_abs_err"], models["mb_max_abs_err"],
+                           comp["mb_max_abs_err"]),
         "ms": k3mb_row["ms"],
         "plain_ms": k3mb_row["plain_ms"],
         "bound_ms": k3mb_row["bound_ms"],
         "bound_by": k3mb_row["bound_by"],
         "library_ms": None,
         "attrs": k3mb_row.pop("attrs"),
-        "shapes": [k3mb_row] + models["k3mb_rows"],
+        "shapes": [k3mb_row] + models["k3mb_rows"] + comp["k3mb_rows"],
     }]}, allow_nan=False), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

@@ -1,7 +1,7 @@
 """ngmix_tpu_torch: the PyTorch/CUDA port of ngmix_tpu.
 
 Runs the batched metacal pipeline with the gaussmom, admom, LM (exp,
-gauss and dev models, optionally bounded) and pre-psf (pgauss, ksigma)
+gauss, dev, bdf and bd models, optionally bounded) and pre-psf (pgauss, ksigma)
 measures and the gauss, azgauss, fitgauss and dilate psf modes on an
 NVIDIA H100, and its multi-band, multi-epoch form (metacal_pipeline_mb:
 a joint LM fit of every object over its epochs and bands, or pooled
@@ -10,7 +10,7 @@ responses; and the batched pre-psf moments
 (prepsfmom_batch) and EM decomposition (em_batch) on their own. The
 gaussian-mixture evaluation is the hand-written CUDA kernel K2
 (ops/gmix_eval.py, csrc/gmix_eval.cu); the LM solve of every lane
-is one launch of K3 (ops/lm_solve.py, csrc/lm_solve.cu), and the joint
+is one launch of K3 (ops/lm_solve.py, csrc/lm_solve.cuh), and the joint
 multi-band solve one launch of K3-mb (csrc/lm_solve_mb.cuh); their
 plain versions are the host loop over K1,
 the LM's normal equations (ops/normal_eqs.py, csrc/normal_eqs.cu).

@@ -1,5 +1,6 @@
 """Batched metacal pipeline over [B] stamps, with the gaussmom, admom,
-LM (exp, gauss and dev models) and pre-psf (pgauss, ksigma) measures.
+LM (exp, gauss, dev, bdf and bd models) and pre-psf (pgauss, ksigma)
+measures.
 
 The subset of ``ngmix_tpu/batch.py`` for those measures: target-psf
 derivation (the gauss, azgauss, fitgauss and dilate psf modes), the
@@ -10,7 +11,8 @@ responses. gaussmom takes gaussian weighted moments (the weight goes
 through K2). admom iterates adaptive moments (admom.py, its weight
 through K2); fitgauss and dilate also run it on psf stamps. The LM
 measures (exp-lm, gauss-lm, dev-lm) fit a model of 6, 1 or 10 fixed
-gaussians convolved with a one-gaussian psf (the round target, or under
+gaussians, and bdf-lm and bd-lm the 16-gaussian bulge+disk models,
+convolved with a one-gaussian psf (the round target, or under
 dilate the admom fit of each type's rendered target) by the
 normal-equation LM, optionally inside bounds: on the card every lane's
 whole solve runs in K3 (ops/lm_solve.py), and the host loop of
@@ -76,14 +78,8 @@ class MetacalConfig(NamedTuple):
 GALSHEAR_TYPES = ("noshear", "1p", "1m", "2p", "2m")
 PSFSHEAR_TYPES = ("1p_psf", "1m_psf", "2p_psf", "2m_psf")
 
-# measures of the JAX pipeline that this port has not taken over yet,
-# and the ROADMAP queue item each waits for
-_LATER_MEASURES = {
-    "bdf-lm": "ROADMAP queue item 5b (the bdf and bd models)",
-    "bd-lm": "ROADMAP queue item 5b (the bdf and bd models)",
-}
 _PREPSF_MEASURES = ("pgauss", "ksigma")
-_LM_MEASURES = ("exp-lm", "gauss-lm", "dev-lm")
+_LM_MEASURES = ("exp-lm", "gauss-lm", "dev-lm", "bdf-lm", "bd-lm")
 _MEASURES = ("gaussmom", "admom") + _LM_MEASURES + _PREPSF_MEASURES
 _PSF_MODES = ("gauss", "azgauss", "fitgauss", "dilate")
 
@@ -377,11 +373,6 @@ def _as_inputs(args, device):
 def _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds):
     """raise for a measure or LM option this port has not taken over"""
     if measure not in _MEASURES:
-        if measure in _LATER_MEASURES:
-            raise NotImplementedError(
-                "measure=%r is not ported yet: it waits for %s"
-                % (measure, _LATER_MEASURES[measure])
-            )
         raise ValueError("bad measure: %s" % measure)
     if measure not in _LM_MEASURES:
         return
@@ -408,15 +399,16 @@ def metacal_pipeline(images, weights, cens, psf_images, psf_cens, noise,
     psf_cens [B, 2], as numpy arrays or tensors; noise is the fixnoise
     field (zeros with fixnoise=False). measure: "gaussmom" (fixed
     gaussian weighted moments), "admom" (adaptive moments started from
-    a round gaussian of FWHM measure_fwhm), "exp-lm", "gauss-lm" or
-    "dev-lm" (LM fits of that model, configured by lm_conf, an LMConf,
-    inside lm_bounds = (lo, hi) of 6 values each with +-inf for an open
-    side, or unbounded), or "pgauss" / "ksigma" (pre-psf moments of
-    FWHM measure_fwhm on the full stamps, deconvolving the round target
-    psf, or under dilate each type's rendered target). lm_prior, a
-    nonzero conf.sheared_refine and the other measures are not ported
-    yet and raise NotImplementedError. Returns dict type -> result dict
-    of [B, ...] tensors, plus "psf_sigma" [B].
+    a round gaussian of FWHM measure_fwhm), "exp-lm", "gauss-lm",
+    "dev-lm", "bdf-lm" or "bd-lm" (LM fits of that model, configured by
+    lm_conf, an LMConf, inside lm_bounds = (lo, hi) of one value a
+    parameter each, 6 for the simple models, 7 for bdf and 8 for bd,
+    with +-inf for an open side, or unbounded), or "pgauss" / "ksigma"
+    (pre-psf moments of FWHM measure_fwhm on the full stamps,
+    deconvolving the round target psf, or under dilate each type's
+    rendered target). lm_prior and a nonzero conf.sheared_refine are
+    not ported yet and raise NotImplementedError. Returns dict type ->
+    result dict of [B, ...] tensors, plus "psf_sigma" [B].
     """
     _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds)
     full_precision_matmuls()
@@ -649,19 +641,23 @@ def make_metacal_pipeline_fn(conf: MetacalConfig, measure="gaussmom",
 # ----------------------------------------------------------------------
 # the LM measures
 
-# parameters before the flux column
-_NSHAPE = 5
-
 # the models of the LM measures: fill_simple over each model's fixed
-# (p, f) tables, 6 (exp), 1 (gauss) and 10 (dev) gaussians, all with
-# the (row, col, g1, g2, T) shape and one flux a band
+# (p, f) tables, 6 (exp), 1 (gauss) and 10 (dev) gaussians, with the
+# (row, col, g1, g2, T) shape and one flux a band; and the composite
+# bulge+disk models, 16 gaussians (fill_cm): bdf (Td/Te = 1, a free
+# fracdev column after T) and bd (log10(Td/Te) and fracdev after T)
 _MODEL_FILLS = {
     "exp": gcore.fill_exp,
     "gauss": gcore.fill_gauss,
     "dev": gcore.fill_dev,
+    "bdf": gcore.fill_bdf,
+    "bd": gcore.fill_bd,
 }
-# parameters before the flux column(s)
-_MODEL_NSHAPE = {"exp": 5, "gauss": 5, "dev": 5}
+# parameters before the flux column(s): 5, 6 for bdf, 7 for bd
+_MODEL_NSHAPE = {m: fit_model.shape_count(m) for m in _MODEL_FILLS}
+# starting values of the extra shape columns (after row, col, g1, g2,
+# T): fracdev 0.5; bd's log10(Td/Te) 0 (equal sizes)
+_MODEL_EXTRA_GUESS = {"bdf": (0.5,), "bd": (0.0, 0.5)}
 
 
 def _moments_lm_guess(pixels, Tpsf, guess_fwhm=1.2):
@@ -715,23 +711,61 @@ def _exp_reparam(pars, psf_gmix, model="exp"):
     return normal_eqs.gmix_reparam(gm), gm, gflags
 
 
-def exp_chain(pars, psf_gmix, model="exp"):
-    """K1's chain d rp[g, j] / d pars[k], [B, n, 6, 6], in closed form.
+def _composite_pf(x, model):
+    """the composite model's (p, f) [B, 16] before the flux and the
+    size, Tfactor [B], and their derivatives in its extra shape columns
+    x [B, nx] (bdf: fracdev; bd: l = log10(Td/Te), fracdev), a list of
+    (dp, df, dTfactor) a column: dp/dfracdev is -p_exp on the exp half
+    and +p_dev on the dev half, df/dl = ln 10 Td/Te f_dev on the dev
+    half, and dTfactor = -Tfactor^2 sum_g (dp_g f_g + p_g df_g)"""
+    fracdev = x[:, -1]
+    R = 10.0 ** x[:, 0] if model == "bd" else torch.ones_like(fracdev)
+    p, f = gcore._cm_pf(fracdev, R)
+    Tf = 1.0 / torch.sum(p * f, dim=-1)
+    B = x.shape[0]
+    pe, pd, fd = (torch.as_tensor(t, dtype=x.dtype, device=x.device)
+                  for t in (tables.PVALS_EXP, tables.PVALS_DEV, tables.FVALS_DEV))
+    zero = torch.zeros_like(p)
+    d_fracdev = (torch.cat([-pe, pd]).expand(B, -1), zero)
+    cols = [d_fracdev]
+    if model == "bd":
+        d_l = (zero, torch.cat([torch.zeros_like(pe).expand(B, -1),
+                                np.log(10.0) * R[:, None] * fd], dim=-1))
+        cols = [d_l, d_fracdev]
+    return p, f, Tf, [(dp, df, -Tf * Tf * torch.sum(dp * f + p * df, dim=-1))
+                      for dp, df in cols]
 
-    pars [B, 6] = (row, col, g1, g2, T, flux); psf_gmix [B, 1, 6], one
-    gaussian; model exp, gauss or dev, whose (p, f) tables give the n
-    gaussians. rp = (N, row, col, Fvv, Fvu, Fuu) of each gaussian of the
-    convolved model: row and col pass straight through; flux only
-    scales N; g1, g2 and T reach N and F through e(g) (with its clip at
-    |g| = 1), the convolved moments (irr, irc, icc) = h (1 - e1, e2,
-    1 + e1) + psf, h = T f_g / 2, and the inverse covariance. An
+
+def exp_chain(pars, psf_gmix, model="exp"):
+    """K1's chain d rp[g, j] / d pars[k], [B, n, 6, npars], in closed
+    form.
+
+    pars [B, npars] = (row, col, g1, g2, T, [extra shape columns,] flux);
+    psf_gmix [B, 1, 6], one gaussian; model exp, gauss or dev, whose
+    (p, f) tables give the n gaussians, or bdf and bd, whose 16 (p, f)
+    and size factor Tfactor depend on the extra columns (fracdev, and
+    bd's log10(Td/Te) before it). rp = (N, row, col, Fvv, Fvu, Fuu) of
+    each gaussian of the convolved model: row and col pass straight
+    through; flux only scales N; g1, g2, T and the extra columns reach
+    N and F through e(g) (with its clip at |g| = 1), the convolved
+    moments (irr, irc, icc) = h (1 - e1, e2, 1 + e1) + psf, h = T
+    Tfactor f_g / 2 (Tfactor 1 for the simple models), and the inverse
+    covariance; the extra columns also reach N directly through p_g. An
     invalid gaussian (gmix_reparam's rule) has constant N and F. The
     counterpart of the reference's jax.vmap(jax.jacfwd(reparam_of));
     K3 (ops/lm_solve.py) computes the same terms per gaussian.
     """
-    row, col, g1, g2, T, flux = pars.unbind(-1)
-    pv, fv = (torch.as_tensor(x, dtype=pars.dtype, device=pars.device)
-              for x in tables.MODEL_TABLES[model])
+    nshape = _MODEL_NSHAPE[model]
+    row, col, g1, g2, T = pars[:, :5].unbind(-1)
+    flux = pars[:, nshape]
+    if model in _MODEL_EXTRA_GUESS:
+        pv, fv, Tf, d_extra = _composite_pf(pars[:, 5:nshape], model)
+        Ts = T * Tf
+    else:
+        pv, fv = (torch.as_tensor(x, dtype=pars.dtype, device=pars.device)
+                  for x in tables.MODEL_TABLES[model])
+        d_extra = []
+        Ts = T
     # e(g) and de/dg through the clip gc = g min(1, c / |g|)
     sq = g1 * g1 + g2 * g2
     big = sq >= 1.0
@@ -749,20 +783,28 @@ def exp_chain(pars, psf_gmix, model="exp"):
     de = [[de_dgc[i][0] * dgc_dg[0][k] + de_dgc[i][1] * dgc_dg[1][k]
            for k in range(2)] for i in range(2)]
 
-    # the convolved moments [B, n] and their derivatives in (g1, g2, T)
+    # the convolved moments [B, n] and their derivatives in the shape
+    # columns 2 .. nshape - 1
     psf = psf_gmix[:, 0]
     # gmix_convolve's unit-flux normalization of the psf
     p_norm = psf[:, 0] * (1.0 / torch.where(psf[:, 0] == 0, 1.0, psf[:, 0]))
-    h = (0.5 * T)[:, None] * fv
+    h = (0.5 * Ts)[:, None] * fv
     irr = h * (1 - e1[:, None]) + psf[:, None, 3]
     irc = h * e2[:, None] + psf[:, None, 4]
     icc = h * (1 + e1[:, None]) + psf[:, None, 5]
     p = (flux[:, None] * pv) * p_norm[:, None]
+
+    def d_of(dh):
+        return dh * (1 - e1[:, None]), dh * e2[:, None], dh * (1 + e1[:, None])
+
+    dh_dT = 0.5 * fv if not d_extra else (0.5 * Tf)[:, None] * fv
     d_mom = [  # (d irr, d irc, d icc) per shape parameter
         (-h * de[0][k][:, None], h * de[1][k][:, None], h * de[0][k][:, None])
         for k in range(2)
-    ] + [(0.5 * fv * (1 - e1[:, None]), 0.5 * fv * e2[:, None],
-          0.5 * fv * (1 + e1[:, None]))]
+    ] + [d_of(dh_dT)] + [
+        d_of((0.5 * T)[:, None] * (dTf[:, None] * fv + Tf[:, None] * df))
+        for _, df, dTf in d_extra
+    ]
 
     det = irr * icc - irc * irc
     valid = (det > GMIX_LOW_DETVAL) & ((irr + icc) > 0)
@@ -773,13 +815,21 @@ def exp_chain(pars, psf_gmix, model="exp"):
 
     zero = torch.zeros_like(h)
     one = torch.ones_like(h)
-    cols = [[zero] * 6 for _ in range(6)]  # cols[j][k]
+    npars = nshape + 1
+    cols = [[zero] * npars for _ in range(6)]  # cols[j][k]
     cols[1][0] = one
     cols[2][1] = one
-    cols[0][5] = torch.where(valid, (pv * p_norm[:, None]) / (2.0 * np.pi * sqrt_det), 0.0)
-    for k, (d_rr, d_rc, d_cc) in zip((2, 3, 4), d_mom):
+    cols[0][nshape] = torch.where(valid, (pv * p_norm[:, None]) / (2.0 * np.pi * sqrt_det),
+                                  0.0)
+    # the direct term of N in the extra columns: flux dp_g / (2 pi sqrt det)
+    dN = [None] * 5 + [(flux[:, None] * dp) * p_norm[:, None] / (2.0 * np.pi * sqrt_det)
+                       for dp, _, _ in d_extra]
+    for k, (d_rr, d_rc, d_cc) in zip(range(2, nshape), d_mom):
         ddet = icc * d_rr + irr * d_cc - 2.0 * irc * d_rc
-        cols[0][k] = torch.where(valid, -0.5 * N * ddet / det_s, 0.0)
+        dNk = -0.5 * N * ddet / det_s
+        if dN[k] is not None:
+            dNk = dNk + dN[k]
+        cols[0][k] = torch.where(valid, dNk, 0.0)
         cols[3][k] = torch.where(valid, (d_cc - Fvv * ddet) / det_s, 0.0)
         cols[4][k] = torch.where(valid, (-d_rc - Fvu * ddet) / det_s, 0.0)
         cols[5][k] = torch.where(valid, (d_rr - Fuu * ddet) / det_s, 0.0)
@@ -855,8 +905,9 @@ def _model_s2n_sums(pars, flags, psf_gmix, pixels, model="exp"):
 
 
 def _lm_result_columns(out, s2n_sums, nband=1, model="exp"):
-    """add the derived catalog columns (e1, e2, T, flux, s2n_flux, s2n)
-    of a fit of the model (exp by default) to a batched LM result dict,
+    """add the derived catalog columns (e1, e2, T, flux, s2n_flux, s2n,
+    and fracdev for bdf, logTdByTe and fracdev for bd) of a fit of the
+    model (exp by default) to a batched LM result dict,
     in place. s2n = numer / sqrt(denom) of the model-weighted sums, 0
     for failed or zero-signal lanes. One band: flux [B] and s2n_flux =
     |flux| / flux_err. nband > 1: flux [B, nband], and s2n_flux takes
@@ -881,6 +932,11 @@ def _lm_result_columns(out, s2n_sums, nband=1, model="exp"):
     out["s2n"] = torch.where(
         ok, num / torch.sqrt(torch.where(den > 0, den, 1.0)), 0.0
     )
+    if model == "bdf":
+        out["fracdev"] = out["pars"][:, 5]
+    elif model == "bd":
+        out["logTdByTe"] = out["pars"][:, 5]
+        out["fracdev"] = out["pars"][:, 6]
 
 
 def _lm_bounds(bounds, npars, dtype, device):
@@ -911,26 +967,39 @@ def _caller_guess(guess, default_guess):
     return torch.where(bad[:, None], default_guess, guess)
 
 
+def _extra_guess(model, guess5):
+    """the starting values [B, nshape - 5] of the model's extra shape
+    columns (none for the simple models)"""
+    extra = _MODEL_EXTRA_GUESS.get(model, ())
+    return torch.tensor(extra, dtype=guess5.dtype, device=guess5.device).expand(
+        guess5.shape[0], len(extra))
+
+
 def _exp_lm_measure(pixels, psf_sigma, lm_conf, host_loop=False,
                     compact_capacity="auto", model="exp", bounds=None, guess=None):
-    """batched LM fit of the model (exp, gauss or dev) to every lane;
-    the psf is the analytic round target gaussian, psf_sigma a scalar
-    or [B] (round sigma) or [B, 3] (irr, irc, icc).
+    """batched LM fit of the model (exp, gauss, dev, bdf or bd) to
+    every lane; the psf is the analytic round target gaussian, psf_sigma
+    a scalar or [B] (round sigma) or [B, 3] (irr, irc, icc).
 
     Starting guesses come from a gaussian weighted-moments pass with
-    FWHM 1.2, or from guess [B, 6] (a warm start) on the lanes where
-    all its entries are finite and below 1e9. bounds = (lo, hi), [6]
+    FWHM 1.2 (bdf's fracdev at 0.5, bd's log10(Td/Te) and fracdev at 0
+    and 0.5), or from guess [B, npars] (a warm start) on the lanes where
+    all its entries are finite and below 1e9. bounds = (lo, hi), [npars]
     each with +-inf for an open side, bound the fit, the guess clamped
     inside them. The solve runs in K3 (ops/lm_solve.py), one kernel
     launch for every lane's whole solve; CPU tensors take its plain
     version. host_loop=True runs run_lm_normal_batched instead, the host
     loop with K1 and, by default ("auto"), the geometric compaction
     cascade (compact_capacity takes its values too); the card checks and
-    timings compare the two routes. The reference's bdf and bd models,
-    priors and refinement are not ported yet (ROADMAP queue items 5b,
-    5c and 10).
+    timings compare the two routes. K1 fits 6 parameters, as the TPU
+    kernel does, so bdf and bd raise ValueError there. Priors and
+    refinement are not ported yet (ROADMAP queue items 5c and 10).
     """
     lm.check_supported(lm_conf)
+    if host_loop and _MODEL_NSHAPE[model] + 1 != normal_eqs.NPARS:
+        raise ValueError("the host-loop route runs K1, which fits %d parameters; "
+                         "model %r has %d" % (normal_eqs.NPARS, model,
+                                              _MODEL_NSHAPE[model] + 1))
     B = pixels.val.shape[0]
     dtype, dev = pixels.val.dtype, pixels.val.device
     psf_sigma = torch.as_tensor(psf_sigma, dtype=dtype, device=dev)
@@ -946,7 +1015,7 @@ def _exp_lm_measure(pixels, psf_sigma, lm_conf, host_loop=False,
     psf_gmix = _psf_gmix(psf_moms)
 
     guess5, wsum = _moments_lm_guess(pixels, psf_moms[:, 0] + psf_moms[:, 2])
-    default_guess = torch.cat([guess5, wsum[:, None]], dim=-1)
+    default_guess = torch.cat([guess5, _extra_guess(model, guess5), wsum[:, None]], dim=-1)
     guess = default_guess if guess is None else _caller_guess(guess, default_guess)
     lo, hi = _lm_bounds(bounds, _MODEL_NSHAPE[model] + 1, dtype, dev)
     if bounds is not None:
@@ -1008,14 +1077,15 @@ def _check_measure_mb(conf, measure, nband, objective, lm_conf, lm_prior,
 
 def _mb_exp_normal_fn(pars, data, plain=False, model="exp"):
     """normal-equation reductions (cost, Jtr, JtJ) of the joint
-    multi-band fit of the model (exp by default): pars [Bc, 5 + nband];
+    multi-band fit of the model (exp by default): pars [Bc, nshape +
+    nband], the model's nshape shape columns and one flux a band;
     data = (planes, psf_gmix, band) with the epochs folded into the rows
     of the planes ([Bc E, P] each) and of psf_gmix ([Bc E, 1, 6]), band
     [Bc, E].
 
-    Each epoch sees 6 parameters, the shared shape and its band's flux
-    (fit_model.epoch_band_pars), so the epoch rows go through K1 as flat
-    lanes (_exp_normal_sums; plain=True: K1's plain version), and the
+    Each epoch sees nshape + 1 parameters, the shared shape and its
+    band's flux (fit_model.epoch_band_pars), so the epoch rows go
+    through K1 as flat lanes (_exp_normal_sums; plain=True: K1's plain version), and the
     band one-hot sums over the epochs assemble the global system: the
     shape block, the shape-flux column of each band and the diagonal
     flux block. As in the reference, a bad point in any epoch poisons
@@ -1026,22 +1096,23 @@ def _mb_exp_normal_fn(pars, data, plain=False, model="exp"):
     planes, psf_gmix, band = data
     Bc, E = band.shape
     P = planes[0].shape[-1]
-    nband = pars.shape[-1] - _NSHAPE
-    bp = fit_model.epoch_band_pars(model, pars, band).reshape(Bc * E, _NSHAPE + 1)
+    ns = _MODEL_NSHAPE[model]
+    nband = pars.shape[-1] - ns
+    bp = fit_model.epoch_band_pars(model, pars, band).reshape(Bc * E, ns + 1)
     cost_l, jtr_l, jtj_l, bad_l = _exp_normal_sums(bp, planes, psf_gmix, plain, model)
     bad = torch.any(bad_l.reshape(Bc, E), dim=1)
-    jtr_e = jtr_l.reshape(Bc, E, _NSHAPE + 1)
-    jtj_e = jtj_l.reshape(Bc, E, _NSHAPE + 1, _NSHAPE + 1)
+    jtr_e = jtr_l.reshape(Bc, E, ns + 1)
+    jtj_e = jtj_l.reshape(Bc, E, ns + 1, ns + 1)
     oh = (band[:, :, None] == torch.arange(nband, device=band.device)).to(pars.dtype)
 
     cost = torch.sum(cost_l.reshape(Bc, E), dim=1)
     Jtr = torch.cat([
-        torch.sum(jtr_e[..., :_NSHAPE], dim=1),
-        torch.sum(oh * jtr_e[..., _NSHAPE:], dim=1),
+        torch.sum(jtr_e[..., :ns], dim=1),
+        torch.sum(oh * jtr_e[..., ns:], dim=1),
     ], dim=-1)
-    SS = torch.sum(jtj_e[..., :_NSHAPE, :_NSHAPE], dim=1)
-    SF = torch.sum(jtj_e[..., :_NSHAPE, _NSHAPE:] * oh[:, :, None, :], dim=1)
-    FF = torch.diag_embed(torch.sum(oh * jtj_e[..., _NSHAPE, _NSHAPE:], dim=1))
+    SS = torch.sum(jtj_e[..., :ns, :ns], dim=1)
+    SF = torch.sum(jtj_e[..., :ns, ns:] * oh[:, :, None, :], dim=1)
+    FF = torch.diag_embed(torch.sum(oh * jtj_e[..., ns, ns:], dim=1))
     JtJ = torch.cat([torch.cat([SS, SF], dim=-1),
                      torch.cat([SF.transpose(-1, -2), FF], dim=-1)], dim=-2)
 
@@ -1072,7 +1143,7 @@ def _mb_s2n_sums(pars, flags, band, psf_gmix, pixels, model="exp"):
     numer 0 and denom BIGVAL, as in the reference"""
     Bc, E = band.shape
     bp = fit_model.epoch_band_pars(model, _safe_best_pars(pars, flags), band)
-    gm0, gflags = _MODEL_FILLS[model](bp.reshape(Bc * E, _NSHAPE + 1))
+    gm0, gflags = _MODEL_FILLS[model](bp.reshape(Bc * E, _MODEL_NSHAPE[model] + 1))
     gm = gcore.gmix_convolve(gm0, psf_gmix)
     _, num, den, _ = gcore.get_loglike(gm, pixels)
     bad = torch.any((gflags != 0).reshape(Bc, E), dim=1)
@@ -1084,15 +1155,18 @@ def _mb_s2n_sums(pars, flags, band, psf_gmix, pixels, model="exp"):
 
 def _mb_exp_lm_measure(pixels, psf_moms, band, nband, lm_conf, model="exp",
                        bounds=None):
-    """the joint LM fit of the model (exp, gauss or dev) of every
-    object-lane over its epochs and bands: pixels [Bc E, P] and psf_moms
-    [Bc E, 3] = (irr, irc, icc) with each lane's E epochs in consecutive
-    rows, band [Bc, E]; bounds = (lo, hi), [5 + nband] each, or None.
+    """the joint LM fit of the model (exp, gauss, dev, bdf or bd) of
+    every object-lane over its epochs and bands: pixels [Bc E, P] and
+    psf_moms [Bc E, 3] = (irr, irc, icc) with each lane's E epochs in
+    consecutive rows, band [Bc, E]; bounds = (lo, hi), [nshape + nband]
+    each, or None.
 
     The guess pools the epochs: one gaussian weighted-moments pass over
     the lane's E P pixels with the psf's T averaged over its real
-    epochs (those with an ierr > 0 pixel), and each band's flux the mean
-    masked pixel sum of its real epochs, so a pad epoch changes nothing.
+    epochs (those with an ierr > 0 pixel), the extra shape columns of
+    bdf and bd at the flat fit's starting values, and each band's flux
+    the mean masked pixel sum of its real epochs, so a pad epoch changes
+    nothing.
     On CUDA tensors the solve is one launch of K3-mb
     (ops.lm_solve.lm_solve_mb); CPU tensors take its plain version.
     """
@@ -1113,7 +1187,7 @@ def _mb_exp_lm_measure(pixels, psf_moms, band, nband, lm_conf, model="exp",
     ) & real_e[:, :, None]
     nep_band = torch.clamp(torch.sum(onehot, dim=1), min=1)
     flux_guess = torch.sum(wsum_e[:, :, None] * onehot, dim=1) / nep_band
-    guess = torch.cat([guess5, flux_guess], dim=-1)
+    guess = torch.cat([guess5, _extra_guess(model, guess5), flux_guess], dim=-1)
 
     lo, hi = _lm_bounds(bounds, _MODEL_NSHAPE[model] + nband, dtype, dev)
     if bounds is not None:
@@ -1140,12 +1214,13 @@ def metacal_pipeline_mb(images, weights, cens, psf_images, psf_cens, noise,
     E, Hp, Wp], psf_cens [B, E, 2]: E epochs an object, spanning nband
     bands, with band [E] the band of each epoch or [B, E] per object.
     Each epoch's metacal image set is made on its own (the epoch axis
-    folds into the engine's batch axis). measure: "exp-lm", "gauss-lm"
-    or "dev-lm", one joint LM fit of that model an object and type of
-    the 5 + nband parameters (row, col, g1, g2, T, one flux a band),
+    folds into the engine's batch axis). measure: "exp-lm", "gauss-lm",
+    "dev-lm", "bdf-lm" or "bd-lm", one joint LM fit of that model an
+    object and type of the nshape + nband parameters (row, col, g1, g2,
+    T, bdf's fracdev or bd's log10(Td/Te) and fracdev, one flux a band),
     each epoch with its own psf gaussian (the round dilated target,
     under dilate the admom fit of its type's rendered target), inside
-    lm_bounds = (lo, hi) of 5 + nband values each, or unbounded; or
+    lm_bounds = (lo, hi) of nshape + nband values each, or unbounded; or
     "gaussmom" / "admom" with nband = 1, which
     pool the weighted sums over the epochs' pixels (the moment-space
     coadd). The pre-psf moments raise ValueError, as in the reference.

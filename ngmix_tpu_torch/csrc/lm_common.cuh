@@ -1,15 +1,19 @@
 // Device functions shared by K3 (lm_solve.cu, one stamp a lane) and
 // K3-mb (lm_solve_mb.cuh, one object over its epochs and bands a lane):
 // the models' constants, the bounds maps of fitting/lm.py, one epoch's
-// gaussians and pixel pass (K1's sums of its 6 effective parameters),
-// and the Levenberg-Marquardt loop of fitting/lm.py _lm_step over any
-// number of parameters.
+// gaussians and pixel pass (K1's sums of its 6 + NX effective
+// parameters), and the Levenberg-Marquardt loop of fitting/lm.py
+// _lm_step over any number of parameters.
 //
-// A model is a compile-time parameter M: M::kNG fixed gaussians with
-// the (p, f) tables of gmix/tables.py, M::pval(g) and M::fval(g). Every
-// model of batch._MODEL_FILLS is fill_simple over its tables, so the
-// fill, the closed-form chain and the pixel pass are one code for all
-// of them: exp (6 gaussians), gauss (1) and dev (10).
+// A model is a compile-time parameter M with M::kNG gaussians and
+// M::kNX extra shape columns between T and the flux. The simple models
+// (NX = 0) are fill_simple over the fixed (p, f) tables of
+// gmix/tables.py, M::pval(g) and M::fval(g): exp (6 gaussians), gauss
+// (1) and dev (10). The composite bulge+disk models (fill_cm, 16
+// gaussians) compute each lane's (p, f) and size factor from their
+// extra columns, with the derivatives (M::weights): bdf (NX = 1,
+// fracdev) and bd (NX = 2, log10(Td/Te) and fracdev). The fill, the
+// closed-form chain and the pixel pass are one code for all of them.
 //
 // A warp runs one lane. Every function here is called by all 32 threads
 // of the warp, which hold the same bits of every value the loop decides
@@ -24,17 +28,10 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-// the 6 parameters (row, col, g1, g2, T, flux) one stamp sees
-constexpr int kNPar = 6;
 // the largest pixel count of a lane whose planes fit the shared memory
 // (4 warps x 4 planes x kMaxP float64 values per block); a lane with
 // more reads its planes from global memory
 constexpr int kMaxP = 1536;
-// per gaussian in shared memory: q = (N, row, col, Fvv, Fvu, Fuu), then
-// dN/dflux, then (dN, dFvv, dFvu, dFuu) / d g1, d g2, d T
-constexpr int kGStride = 6 + 1 + 12;
-// one stamp's running sums: cost, Jtr [6], the upper triangle of JtJ [21]
-constexpr int kNSum = 1 + kNPar + kNPar * (kNPar + 1) / 2;
 
 constexpr double kMaxChi2 = 25.0;
 constexpr double kApodChi2 = 20.0;
@@ -46,6 +43,7 @@ constexpr double kYClip = 27.631021;       // ln(1e12)
 constexpr double kNearBoth = 9.2103404;    // ln(1e4)
 constexpr double kNearOne = 1.4142e-2;     // sqrt(2e-4)
 constexpr double kPredFloor = 1.0e-300;
+constexpr double kLn10 = 2.302585092994046;
 
 // the models' fixed gaussian expansions (gmix/tables.py)
 __constant__ double kPvalsExp[6] = {
@@ -67,18 +65,107 @@ __constant__ double kFvalsDev[10] = {
 
 struct ExpModel {
   static constexpr int kNG = 6;
+  static constexpr int kNX = 0;
   __device__ static double pval(int g) { return kPvalsExp[g]; }
   __device__ static double fval(int g) { return kFvalsExp[g]; }
 };
 struct GaussModel {
   static constexpr int kNG = 1;
+  static constexpr int kNX = 0;
   __device__ static double pval(int) { return 1.0; }
   __device__ static double fval(int) { return 1.0; }
 };
 struct DevModel {
   static constexpr int kNG = 10;
+  static constexpr int kNX = 0;
   __device__ static double pval(int g) { return kPvalsDev[g]; }
   __device__ static double fval(int g) { return kFvalsDev[g]; }
+};
+
+__device__ __forceinline__ float dpow10(float x) { return powf(10.0f, x); }
+__device__ __forceinline__ double dpow10(double x) { return pow(10.0, x); }
+
+// a composite model's extra shape columns x (after row, col, g1, g2, T)
+template <typename T, int NX>
+struct Extra {
+  T v[NX > 0 ? NX : 1];
+};
+
+// one gaussian's weight p and size f (before the flux and T), the
+// model's size factor tf = 1 / sum_g p_g f_g, and their derivatives in
+// the extra columns
+template <typename T, int NX>
+struct Weights {
+  T p, f, tf;
+  T dp[NX > 0 ? NX : 1], df[NX > 0 ? NX : 1], dtf[NX > 0 ? NX : 1];
+};
+
+// the composite bulge+disk models of gmix/core.py fill_cm: 16 gaussians,
+// the 6 exp ones of weight p_exp (1 - fracdev) and size f_exp, the 10 dev
+// ones of weight p_dev fracdev and size f_dev Td/Te, every size scaled by
+// Tfactor. NX = 1 is bdf (x = fracdev, Td/Te = 1), NX = 2 is bd (x =
+// (l, fracdev), Td/Te = 10^l). dp/dfracdev is -p_exp or +p_dev, df/dl =
+// ln 10 Td/Te f_dev, and dTfactor = -Tfactor^2 sum_g (dp_g f_g + p_g df_g)
+// (batch._composite_pf).
+template <int NX>
+struct CompositeModel {
+  static_assert(NX == 1 || NX == 2, "bdf or bd");
+  static constexpr int kNG = 16;
+  static constexpr int kNX = NX;
+
+  template <typename T>
+  __device__ static Weights<T, NX> weights(int g, const Extra<T, NX>& x) {
+    const T d = x.v[NX - 1];
+    const T R = NX == 2 ? dpow10(x.v[0]) : T(1);
+    // the sums of p f and of its derivatives over the 16 gaussians, in
+    // the fill's order
+    T s = T(0), s_d = T(0), s_l = T(0);
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const bool dev = j >= 6;
+      const T pt = static_cast<T>(dev ? kPvalsDev[j - 6] : kPvalsExp[j]);
+      const T ft = static_cast<T>(dev ? kFvalsDev[j - 6] : kFvalsExp[j]);
+      const T p = dev ? pt * d : pt * (T(1) - d);
+      const T f = dev ? ft * R : ft;
+      s = s + p * f;
+      s_d = s_d + (dev ? pt : -pt) * f;
+      if (dev) s_l = s_l + p * (static_cast<T>(kLn10) * R * ft);
+    }
+    Weights<T, NX> w;
+    const bool dev = g >= 6;
+    const T pt = static_cast<T>(dev ? kPvalsDev[g - 6] : kPvalsExp[g]);
+    const T ft = static_cast<T>(dev ? kFvalsDev[g - 6] : kFvalsExp[g]);
+    w.p = dev ? pt * d : pt * (T(1) - d);
+    w.f = dev ? ft * R : ft;
+    w.tf = T(1) / s;
+    w.dp[NX - 1] = dev ? pt : -pt;
+    w.df[NX - 1] = T(0);
+    w.dtf[NX - 1] = -w.tf * w.tf * s_d;
+    if (NX == 2) {
+      w.dp[0] = T(0);
+      w.df[0] = dev ? static_cast<T>(kLn10) * R * ft : T(0);
+      w.dtf[0] = -w.tf * w.tf * s_l;
+    }
+    return w;
+  }
+};
+using BdfModel = CompositeModel<1>;
+using BdModel = CompositeModel<2>;
+
+// the sizes that follow from a model's extra columns
+template <typename M>
+struct Dims {
+  // the parameters one stamp sees: row, col, g1, g2, T, the extra
+  // columns, flux
+  static constexpr int kNP = 6 + M::kNX;
+  // the shape parameters that reach N and F: g1, g2, T and the extras
+  static constexpr int kNS = 3 + M::kNX;
+  // per gaussian in shared memory: q = (N, row, col, Fvv, Fvu, Fuu), then
+  // dN/dflux, then (dN, dFvv, dFvu, dFuu) / d each shape parameter
+  static constexpr int kGStride = 7 + 4 * kNS;
+  // one stamp's running sums: cost, Jtr [kNP], the upper triangle of
+  // JtJ
+  static constexpr int kNSum = 1 + kNP + kNP * (kNP + 1) / 2;
 };
 
 struct Conf {
@@ -226,23 +313,45 @@ __device__ __forceinline__ Shape<T> fill_shape(T g1, T g2) {
 }
 
 // the M::kNG gaussians of the convolved model at (row, col, shape, tsz,
-// flux) with the psf gaussian (pirr, pirc, picc), and their chain terms,
-// into gs [M::kNG * kGStride]: threads 0 to M::kNG - 1 of the warp
-// compute one gaussian each. Returns, on every thread, whether a
-// gaussian fails gmix_flags' rule (low determinant).
+// extra columns xe, flux) with the psf gaussian (pirr, pirc, picc), and
+// their chain terms, into gs [M::kNG * Dims<M>::kGStride]: threads 0 to
+// M::kNG - 1 of the warp compute one gaussian each. Returns, on every
+// thread, whether a gaussian fails gmix_flags' rule (low determinant).
 template <typename M, typename T>
 __device__ __forceinline__ bool model_gaussians(T* gs, int lid, T row, T col,
-                                                const Shape<T>& sh, T tsz, T flux,
+                                                const Shape<T>& sh, T tsz,
+                                                const Extra<T, M::kNX>& xe, T flux,
                                                 T pirr, T pirc, T picc) {
   static_assert(M::kNG >= 1 && M::kNG <= 32, "one thread a gaussian");
+  constexpr int NX = M::kNX;
+  constexpr int NS = Dims<M>::kNS;
+  constexpr int kStride = Dims<M>::kGStride;
   // every thread has read the previous point's gaussians
   __syncwarp();
   bool lowdet = false;
   if (lid < M::kNG) {
     const int g = lid;
-    const T fv = static_cast<T>(M::fval(g));
-    const T pv = static_cast<T>(M::pval(g));
-    const T h = T(0.5) * tsz * fv;
+    T pv, fv, h, dh_dT;
+    // d h / d (the extra columns), and d p / d them, for the composite
+    // models
+    T dh_x[NX > 0 ? NX : 1], dp_x[NX > 0 ? NX : 1];
+    if constexpr (NX == 0) {
+      fv = static_cast<T>(M::fval(g));
+      pv = static_cast<T>(M::pval(g));
+      h = T(0.5) * tsz * fv;
+      dh_dT = T(0.5) * fv;
+    } else {
+      const Weights<T, NX> w = M::template weights<T>(g, xe);
+      fv = w.f;
+      pv = w.p;
+      h = T(0.5) * (tsz * w.tf) * fv;
+      dh_dT = (T(0.5) * w.tf) * fv;
+#pragma unroll
+      for (int j = 0; j < NX; ++j) {
+        dh_x[j] = (T(0.5) * tsz) * (w.dtf[j] * fv + w.tf * w.df[j]);
+        dp_x[j] = w.dp[j];
+      }
+    }
     const T irr = h * (T(1) - sh.e1) + pirr;
     const T irc = h * sh.e2 + pirc;
     const T icc = h * (T(1) + sh.e1) + picc;
@@ -251,7 +360,7 @@ __device__ __forceinline__ bool model_gaussians(T* gs, int lid, T row, T col,
     // gmix_flags' rule, then gmix_reparam's
     lowdet = det < static_cast<T>(kLowDetval) || tc <= static_cast<T>(kLowDetval);
     const bool valid = det > static_cast<T>(kLowDetval) && tc > T(0);
-    T* q = gs + g * kGStride;
+    T* q = gs + g * kStride;
     q[1] = row;
     q[2] = col;
     if (valid) {
@@ -264,14 +373,30 @@ __device__ __forceinline__ bool model_gaussians(T* gs, int lid, T row, T col,
       q[4] = Fvu;
       q[5] = Fuu;
       q[6] = pv / denom;
-      // d (irr, irc, icc) / d (g1, g2, T)
-      const T d_rr[3] = {-h * sh.de1_g1, -h * sh.de1_g2, T(0.5) * fv * (T(1) - sh.e1)};
-      const T d_rc[3] = {h * sh.de1_g2, h * sh.de2_g2, T(0.5) * fv * sh.e2};
-      const T d_cc[3] = {h * sh.de1_g1, h * sh.de1_g2, T(0.5) * fv * (T(1) + sh.e1)};
+      // d (irr, irc, icc) / d (g1, g2, T, the extra columns)
+      T d_rr[NS], d_rc[NS], d_cc[NS];
+      d_rr[0] = -h * sh.de1_g1;
+      d_rc[0] = h * sh.de1_g2;
+      d_cc[0] = h * sh.de1_g1;
+      d_rr[1] = -h * sh.de1_g2;
+      d_rc[1] = h * sh.de2_g2;
+      d_cc[1] = h * sh.de1_g2;
+      d_rr[2] = dh_dT * (T(1) - sh.e1);
+      d_rc[2] = dh_dT * sh.e2;
+      d_cc[2] = dh_dT * (T(1) + sh.e1);
 #pragma unroll
-      for (int s = 0; s < 3; ++s) {
+      for (int j = 0; j < NX; ++j) {
+        d_rr[3 + j] = dh_x[j] * (T(1) - sh.e1);
+        d_rc[3 + j] = dh_x[j] * sh.e2;
+        d_cc[3 + j] = dh_x[j] * (T(1) + sh.e1);
+      }
+#pragma unroll
+      for (int s = 0; s < NS; ++s) {
         const T ddet = icc * d_rr[s] + irr * d_cc[s] - T(2) * irc * d_rc[s];
-        q[7 + 4 * s] = T(-0.5) * N * ddet * idet;
+        T dN = T(-0.5) * N * ddet * idet;
+        // the extra columns also reach N through p: flux dp / (2 pi sqrt det)
+        if (s >= 3) dN = dN + flux * dp_x[s >= 3 ? s - 3 : 0] / denom;
+        q[7 + 4 * s] = dN;
         q[8 + 4 * s] = (d_cc[s] - Fvv * ddet) * idet;
         q[9 + 4 * s] = (-d_rc[s] - Fvu * ddet) * idet;
         q[10 + 4 * s] = (d_rr[s] - Fuu * ddet) * idet;
@@ -283,7 +408,7 @@ __device__ __forceinline__ bool model_gaussians(T* gs, int lid, T row, T col,
       q[4] = T(0);
       q[5] = T(1);
 #pragma unroll
-      for (int i = 6; i < kGStride; ++i) q[i] = T(0);
+      for (int i = 6; i < kStride; ++i) q[i] = T(0);
     }
   }
   const bool bad = __any_sync(kFull, lowdet);
@@ -292,25 +417,30 @@ __device__ __forceinline__ bool model_gaussians(T* gs, int lid, T row, T col,
 }
 
 // K1's sums over one stamp's P pixels (planes v, u, ia, ve, in shared
-// or global memory) with the M::kNG gaussians gs: acc = (cost, Jtr [6],
-// JtJ upper triangle [21]) of the 6 effective parameters, the same bits
-// on every thread
+// or global memory) with the M::kNG gaussians gs: acc = (cost, Jtr
+// [NP], JtJ upper triangle) of the NP = 6 + M::kNX effective parameters
+// (row, col, g1, g2, T, the extra columns, flux), the same bits on every
+// thread
 template <typename M, typename T>
 __device__ __forceinline__ void pixel_pass(const T* gs, int lid, const T* v,
                                            const T* u, const T* ia, const T* ve,
-                                           int P, T (&acc)[kNSum]) {
+                                           int P, T (&acc)[Dims<M>::kNSum]) {
+  constexpr int NP = Dims<M>::kNP;
+  constexpr int NS = Dims<M>::kNS;
+  constexpr int kNSum = Dims<M>::kNSum;
+  constexpr int kStride = Dims<M>::kGStride;
 #pragma unroll
   for (int i = 0; i < kNSum; ++i) acc[i] = T(0);
   for (int p = lid; p < P; p += 32) {
     const T vv = v[p];
     const T uu = u[p];
     T f = T(0);
-    T J[kNPar];
+    T J[NP];
 #pragma unroll
-    for (int k = 0; k < kNPar; ++k) J[k] = T(0);
+    for (int k = 0; k < NP; ++k) J[k] = T(0);
 #pragma unroll
     for (int g = 0; g < M::kNG; ++g) {
-      const T* q = gs + g * kGStride;
+      const T* q = gs + g * kStride;
       const T dv = vv - q[1];
       const T du = uu - q[2];
       const T gv = q[3] * dv + q[4] * du;
@@ -340,24 +470,24 @@ __device__ __forceinline__ void pixel_pass(const T* gs, int lid, const T* v,
       J[0] += dq1;
       J[1] += dq2;
 #pragma unroll
-      for (int s = 0; s < 3; ++s) {
+      for (int s = 0; s < NS; ++s) {
         J[2 + s] += mw * q[7 + 4 * s] + dq3 * q[8 + 4 * s] +
                     dq4 * q[9 + 4 * s] + dq5 * q[10 + 4 * s];
       }
-      J[5] += mw * q[6];
+      J[NP - 1] += mw * q[6];
     }
     const T iap = ia[p];
     const T fd = f * iap - ve[p];
-    T Jw[kNPar];
+    T Jw[NP];
 #pragma unroll
-    for (int k = 0; k < kNPar; ++k) Jw[k] = J[k] * iap;
+    for (int k = 0; k < NP; ++k) Jw[k] = J[k] * iap;
     acc[0] += fd * fd;
 #pragma unroll
-    for (int k = 0; k < kNPar; ++k) acc[1 + k] += Jw[k] * fd;
+    for (int k = 0; k < NP; ++k) acc[1 + k] += Jw[k] * fd;
 #pragma unroll
-    for (int k = 0; k < kNPar; ++k) {
+    for (int k = 0; k < NP; ++k) {
 #pragma unroll
-      for (int m = k; m < kNPar; ++m) acc[1 + kNPar + tri<kNPar>(k, m)] += Jw[k] * Jw[m];
+      for (int m = k; m < NP; ++m) acc[1 + NP + tri<NP>(k, m)] += Jw[k] * Jw[m];
     }
   }
   // fixed-order shuffle tree, then lane 0's totals to every thread

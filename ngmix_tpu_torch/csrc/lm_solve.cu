@@ -1,267 +1,7 @@
-// K3: every lane's whole Levenberg-Marquardt solve of a simple model
-// (exp, gauss or dev), for Hopper (sm_90a).
-//
-// Replaces ngmix_tpu/ops/pallas_lm.py: gmix_normal_eqs_pallas (K1, the
-// normal equations) together with the loop around it,
-// ngmix_tpu/fitting/lm.py: run_lm_normal_batched (its while_loop body).
-// Per lane b, in the order of the port's fitting/lm.py _lm_step:
-//
-//   y = e2i(guess); (cost, Jtr, JtJ) = eval(y); nfev = 1
-//   while (!done && nfev < maxfev):
-//     pinned dims -> lam_eff; mask the pinned rows; damped Cholesky
-//     solve; clip; eval at the trial point; accept if cost drops;
-//     predicted reduction; ftol / xtol / stuck; damping update
-//
-// eval(y) is i2e, the model's fill (e = 2 g / (1 + |g|^2) with the clip
-// at |g| = 1; NG = 6, 1 or 10 gaussians of fixed (p, f) for exp, gauss
-// and dev), the convolution with the lane's one psf gaussian, the
-// reparametrization q = (N, row, col, Fvv, Fvu, Fuu) of each of the NG
-// gaussians, K1's pixel pass
-//
-//   cost = sum_p (f ia - ve)^2, Jtr = sum_p (J ia)(f ia - ve),
-//   JtJ = sum_p (J ia)(J ia)^T,  J_k = sum_g sum_j dq_j[g]/dpars_k dvalue/dq_j
-//
-// and the bounds chain rule. A point with |g| >= 1 or a low determinant
-// gets cost 1e30, Jtr 0 and JtJ = I, as batch._exp_normal_fn does.
-//
-// Layouts (contiguous, row-major): guess [B, 6]; lo, hi [6] (+-inf for
-// an open side); psf [B, 3] = (irr, irc, icc); v, u, ia = ierr * area,
-// ve = val * ierr [B, P]. Outputs: y, jtr [B, 6]; cost, lam [B]; jtj
-// [B, 6, 6]; nfev [B] int32; done, ier_small_step, ier_small_cost [B]
-// and pinned [B, 6] as bytes 0/1. counter: one int32, zeroed by the
-// caller.
-//
-// What bounds it on an H100: K1's arithmetic (about 80 floating
-// operations and one exponential per pixel and gaussian) times the
-// evaluations each lane needs, against the planes read from device
-// memory once. The design:
-// - one warp per lane, persistent: the grid fills the SMs, and each warp
-//   takes its next lane from the atomic counter, so a slow lane holds one
-//   warp and never the others, and there is no host round trip per
-//   iteration;
-// - the lane's four planes are copied into the warp's shared memory
-//   once (cp.async) when P <= kMaxP; every evaluation reads them there.
-//   A lane with more pixels reads its planes from global memory
-//   (through L1 and L2), and the block's shared memory holds only the
-//   gaussians. Where the planes live is a template argument of the
-//   kernel, so each instance's pixel pass knows the address space of
-//   its loads (a runtime choice made them generic loads, and the exp
-//   model's main-path solve ~16% slower on an H100);
-// - the chain is in closed form: row and col pass through, flux scales
-//   N, and (g1, g2, T) reach N and F through 4 coefficients each, so a
-//   (pixel, gaussian) pair costs 15 multiply-adds of chain, not 36.
-//   Lanes 0 to NG - 1 of the warp compute one gaussian each into shared
-//   memory, which the pixel pass reads as broadcasts;
-// - each thread keeps 28 running sums of its pixels; a fixed-order
-//   shuffle tree sums them and lane 0's totals are broadcast, so every
-//   thread holds the same bits and takes the same accept and stop
-//   decisions; the 6x6 algebra runs in registers on all 32 threads;
-// - nothing depends on which warp runs a lane or on the batch, so a
-//   lane's bits do not depend on either.
-//
-// The model is a template argument (lm_common.cuh's ExpModel,
-// GaussModel, DevModel): each model and type is its own instance and C
-// function. The gaussians, the pixel pass and the LM loop are
-// lm_common.cuh's, shared with K3-mb (lm_solve_mb.cuh).
-// exp is the full-precision libm routine: build without fast-math.
-#include "lm_common.cuh"
-
-namespace {
-
-constexpr int kNTri = kNPar * (kNPar + 1) / 2;  // 21
-constexpr double kBadCost = 1.0e30;
-
-template <typename T>
-struct Args {
-  const T* guess;
-  const T* lo;
-  const T* hi;
-  const T* psf;
-  const T* v;
-  const T* u;
-  const T* ia;
-  const T* ve;
-  Out<T> out;
-  int* counter;
-  int B;
-  int P;
-  Conf conf;
-};
-
-template <typename T>
-struct Warp {
-  const T* v;   // [P] planes of the warp's lane, shared or global memory
-  const T* u;
-  const T* ia;
-  const T* ve;
-  T* gs;        // [M::kNG * kGStride], shared memory
-  int P;
-  int lid;
-};
-
-// (cost, Jtr, JtJ) in internal coordinates at y; every thread of the
-// warp returns the same bits
-template <typename M, typename T>
-__device__ void evaluate(const Warp<T>& w, const T (&y)[kNPar],
-                         const T (&lo)[kNPar], const T (&hi)[kNPar],
-                         T pirr, T pirc, T picc, T& cost, T (&jtr)[kNPar],
-                         T (&jtj)[kNTri]) {
-  T x[kNPar];
-#pragma unroll
-  for (int k = 0; k < kNPar; ++k) x[k] = i2e(y[k], lo[k], hi[k]);
-  const Shape<T> sh = fill_shape(x[2], x[3]);
-  const bool lowdet = model_gaussians<M>(w.gs, w.lid, x[0], x[1], sh, x[4], x[5], pirr,
-                                         pirc, picc);
-  if (sh.gbad || lowdet) {
-    cost = static_cast<T>(kBadCost);
-#pragma unroll
-    for (int k = 0; k < kNPar; ++k) jtr[k] = T(0);
-#pragma unroll
-    for (int k = 0; k < kNPar; ++k) {
-#pragma unroll
-      for (int m = k; m < kNPar; ++m) jtj[tri<kNPar>(k, m)] = k == m ? T(1) : T(0);
-    }
-  } else {
-    T acc[kNSum];
-    pixel_pass<M>(w.gs, w.lid, w.v, w.u, w.ia, w.ve, w.P, acc);
-    cost = acc[0];
-#pragma unroll
-    for (int k = 0; k < kNPar; ++k) jtr[k] = acc[1 + k];
-#pragma unroll
-    for (int i = 0; i < kNTri; ++i) jtj[i] = acc[1 + kNPar + i];
-  }
-  bounds_chain<T, kNPar>(y, lo, hi, jtr, jtj);
-}
-
-// kSmemPlanes: the lane's planes are copied into shared memory (P <=
-// kMaxP), or read from global memory
-template <typename T, typename M, bool kSmemPlanes>
-__global__ void __launch_bounds__(kThreads) lm_solve_kernel(Args<T> a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int P = a.P;
-  const int lid = threadIdx.x & 31;
-  const size_t per_warp = (kSmemPlanes ? 4 * static_cast<size_t>(P) : 0) +
-                          M::kNG * kGStride;
-  T* base = reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(threadIdx.x >> 5) * per_warp;
-  T* gs = kSmemPlanes ? base + 4 * static_cast<size_t>(P) : base;
-  T lo[kNPar], hi[kNPar];
-#pragma unroll
-  for (int k = 0; k < kNPar; ++k) {
-    lo[k] = a.lo[k];
-    hi[k] = a.hi[k];
-  }
-  for (;;) {
-    int b = 0;
-    if (lid == 0) b = atomicAdd(a.counter, 1);
-    b = __shfl_sync(kFull, b, 0);
-    if (b >= a.B) break;
-    const size_t off = static_cast<size_t>(b) * P;
-    if (kSmemPlanes) {
-      // the lane's planes into shared memory, each thread the pixels it
-      // reads in the pixel pass
-      for (int p = lid; p < P; p += 32) {
-        cp_async<sizeof(T)>(base + p, a.v + off + p);
-        cp_async<sizeof(T)>(base + P + p, a.u + off + p);
-        cp_async<sizeof(T)>(base + 2 * P + p, a.ia + off + p);
-        cp_async<sizeof(T)>(base + 3 * P + p, a.ve + off + p);
-      }
-      cp_async_wait_all();
-      __syncwarp();
-    }
-    const Warp<T> w = kSmemPlanes
-        ? Warp<T>{base, base + P, base + 2 * P, base + 3 * P, gs, P, lid}
-        : Warp<T>{a.v + off, a.u + off, a.ia + off, a.ve + off, gs, P, lid};
-    const size_t lb = static_cast<size_t>(b);
-    const T pirr = a.psf[3 * lb], pirc = a.psf[3 * lb + 1], picc = a.psf[3 * lb + 2];
-    solve_lane<T, kNPar>(
-        a.conf, a.guess + kNPar * lb, lo, hi,
-        [&](const T (&y)[kNPar], T& cost, T (&jtr)[kNPar], T (&jtj)[kNTri]) {
-          evaluate<M>(w, y, lo, hi, pirr, pirc, picc, cost, jtr, jtj);
-        },
-        a.out, lb, lid);
-    // every thread is done with the planes before the next copy
-    __syncwarp();
-  }
-}
-
-// the block's dynamic shared memory: each warp's planes (if P <=
-// kMaxP, where they go into shared memory) and gaussians
-template <typename T, typename M>
-size_t smem_bytes(int64_t P) {
-  return static_cast<size_t>(kWarps) *
-         ((P <= kMaxP ? 4 * static_cast<size_t>(P) : 0) + M::kNG * kGStride) * sizeof(T);
-}
-
-template <typename T, typename M, bool kSmemPlanes>
-int launch_kernel(const Args<T>& a, void* stream) {
-  const size_t smem = smem_bytes<T, M>(a.P);
-  unsigned blocks = 0;
-  const int err = grid_size(lm_solve_kernel<T, M, kSmemPlanes>, smem, a.B, &blocks);
-  if (err != 0) return err;
-  lm_solve_kernel<T, M, kSmemPlanes>
-      <<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T, typename M>
-int launch(const void* guess, const void* lo, const void* hi, const void* psf,
-           const void* v, const void* u, const void* ia, const void* ve,
-           const Out<T>& out, void* counter, int64_t B, int64_t P, int64_t maxfev,
-           Conf conf, void* stream) {
-  if (B <= 0) return 0;
-  if (P < 1 || P > 2147483647LL || B > 2147483647LL || maxfev < 1 ||
-      maxfev > 2147483647LL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  conf.maxfev = static_cast<int>(maxfev);
-  const Args<T> a{static_cast<const T*>(guess), static_cast<const T*>(lo),
-                  static_cast<const T*>(hi), static_cast<const T*>(psf),
-                  static_cast<const T*>(v), static_cast<const T*>(u),
-                  static_cast<const T*>(ia), static_cast<const T*>(ve), out,
-                  static_cast<int*>(counter), static_cast<int>(B), static_cast<int>(P),
-                  conf};
-  return P <= kMaxP ? launch_kernel<T, M, true>(a, stream)
-                    : launch_kernel<T, M, false>(a, stream);
-}
-
-// kernel_attrs of the kernel at P pixels a lane, as launch() sets it up
-template <typename T, typename M>
-int attrs(int64_t P, int* out) {
-  if (P < 1 || P > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes<T, M>(P);
-  return P <= kMaxP ? kernel_attrs(lm_solve_kernel<T, M, true>, smem, out)
-                    : kernel_attrs(lm_solve_kernel<T, M, false>, smem, out);
-}
-
-}  // namespace
-
-// Plain C interface for ctypes. Each launches on `stream`, which must
-// belong to the calling thread's current CUDA device (the wrapper makes
-// the tensors' device current around the call), and returns the first
-// CUDA error of the set-up or the launch (0 on success); the launch is
-// asynchronous.
-#define NGMIX_LM_SOLVE(NAME, T, M)                                             \
-  extern "C" int NAME(                                                         \
-      const void* guess, const void* lo, const void* hi, const void* psf,      \
-      const void* v, const void* u, const void* ia, const void* ve, void* y,   \
-      void* cost, void* jtr, void* jtj, void* lam, void* nfev, void* done,     \
-      void* ier_small_step, void* ier_small_cost, void* pinned, void* counter, \
-      int64_t B, int64_t P, int64_t maxfev, double ftol, double xtol,          \
-      double lambda0, double lambda_up, double lambda_down, double lambda_min, \
-      double lambda_max, void* stream) {                                       \
-    const Conf conf{ftol, xtol, lambda0, lambda_up, lambda_down, lambda_min,   \
-                    lambda_max, 0};                                            \
-    const Out<T> out{static_cast<T*>(y), static_cast<T*>(cost),                \
-                     static_cast<T*>(jtr), static_cast<T*>(jtj),               \
-                     static_cast<T*>(lam), static_cast<int32_t*>(nfev),        \
-                     static_cast<uint8_t*>(done),                              \
-                     static_cast<uint8_t*>(ier_small_step),                    \
-                     static_cast<uint8_t*>(ier_small_cost),                    \
-                     static_cast<uint8_t*>(pinned)};                           \
-    return launch<T, M>(guess, lo, hi, psf, v, u, ia, ve, out, counter, B, P,  \
-                        maxfev, conf, stream);                                 \
-  }                                                                            \
-  extern "C" int NAME##_attrs(int64_t P, int* out) { return attrs<T, M>(P, out); }
+// K3 (lm_solve.cuh) for the simple models, exp, gauss and dev: their
+// float32 and float64 instances, one translation unit; the composite
+// models' are lm_solve_bdf.cu and lm_solve_bd.cu.
+#include "lm_solve.cuh"
 
 NGMIX_LM_SOLVE(ngmix_lm_solve_exp_f32, float, ExpModel)
 NGMIX_LM_SOLVE(ngmix_lm_solve_exp_f64, double, ExpModel)

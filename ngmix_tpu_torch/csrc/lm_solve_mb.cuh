@@ -1,21 +1,23 @@
 // K3-mb: every object's joint multi-band, multi-epoch
-// Levenberg-Marquardt solve of a simple model (exp, gauss or dev), for
+// Levenberg-Marquardt solve of a model (exp, gauss, dev, bdf or bd), for
 // Hopper (sm_90a).
 //
 // Replaces ngmix_tpu/ops/pallas_lm.py: gmix_normal_eqs_pallas (K1, the
 // normal equations) and the loop around it, ngmix_tpu/fitting/lm.py:
 // run_lm_normal_batched, under the multi-band objective of
 // ngmix_tpu/batch.py: _mb_epochwise_normal_fn_f. A lane is one object
-// over its E epochs, with NP = 5 + NB parameters (row, col, g1, g2, T and
-// one flux a band). Per evaluation, for each epoch e of the lane:
+// over its E epochs, with NP = NSH + NB parameters: the NSH = 5 + NX
+// shape columns (row, col, g1, g2, T and the model's NX extra columns:
+// none, bdf's fracdev, or bd's log10(Td/Te) and fracdev) and one flux a
+// band. Per evaluation, for each epoch e of the lane:
 //
-//   the epoch's 6 effective parameters (the shape and the flux of its
-//   band), K3's fill of the model, convolution with the epoch's own psf
-//   gaussian and closed-form chain, and K1's pixel pass over its P pixels into
-//   28 sums, reduced over the warp; then added into the lane's sums: the
-//   shape block, the shape-flux column of the epoch's band and that
-//   band's diagonal flux entry (the flux block is diagonal: an epoch
-//   sees one band)
+//   the epoch's NSH + 1 effective parameters (the shape and the flux of
+//   its band), K3's fill of the model, convolution with the epoch's own
+//   psf gaussian and closed-form chain, and K1's pixel pass over its P
+//   pixels into 28, 36 or 45 sums, reduced over the warp; then added
+//   into the lane's sums: the shape block, the shape-flux column of the
+//   epoch's band and that band's diagonal flux entry (the flux block is
+//   diagonal: an epoch sees one band)
 //
 // and then the LM step of lm_common.cuh over NP parameters, as K3. A bad
 // point in any epoch (|g| >= 1 or a low determinant) poisons the lane as
@@ -34,16 +36,17 @@
 //   E P <= kMaxP; a lane with more pixels reads its planes from global
 //   memory (through L1 and L2) with the same code from another base
 //   pointer;
-// - the 28 sums are reduced over the warp once an epoch and assembled in
-//   registers (21 + 7 NB values), in the reference's order: per epoch,
-//   then over epochs;
+// - an epoch's sums are reduced over the warp once an epoch and
+//   assembled in registers (the NP (NP + 3) / 2 values of cost, Jtr and
+//   JtJ), in the reference's order: per epoch, then over epochs;
 // - NB is a compile-time parameter, 1 to 6 (ugrizy); an epoch's band
 //   selects its flux column by unrolled comparisons, never a register
 //   index.
 // - the model M is a compile-time parameter too (lm_common.cuh), so a
-//   model and type hold 6 instances; each model's instances are their
-//   own translation unit (lm_solve_mb_<model>.cu, NGMIX_LM_SOLVE_MB
-//   below), which nvcc builds in parallel with the others.
+//   model and type hold 6 instances; each model's float32 and float64
+//   instances are their own translation units (lm_solve_mb_<model>.cu
+//   and lm_solve_mb_<model>_f64.cu, NGMIX_LM_SOLVE_MB below), which
+//   nvcc builds in parallel with the others.
 #pragma once
 
 #include "lm_common.cuh"
@@ -81,25 +84,31 @@ struct MbWarp {
   const T* ve;
   const T* psf;  // [E, 3]
   const int32_t* band;  // [E]
-  T* gs;        // [M::kNG * kGStride], shared memory
+  T* gs;        // [M::kNG * Dims<M>::kGStride], shared memory
   int E;
   int P;
   int lid;
 };
 
-// (cost, Jtr, JtJ) in internal coordinates at y; every thread of the
-// warp returns the same bits
-template <typename M, typename T, int NB>
-__device__ void evaluate_mb(const MbWarp<T>& w, const T (&y)[5 + NB],
-                            const T (&lo)[5 + NB], const T (&hi)[5 + NB], T& cost,
-                            T (&jtr)[5 + NB],
-                            T (&jtj)[(5 + NB) * (6 + NB) / 2]) {
-  constexpr int NP = 5 + NB;
+// (cost, Jtr, JtJ) in internal coordinates at y over the NP = NSH + NB
+// parameters (NSH = 5 + M::kNX shape columns, then one flux a band);
+// every thread of the warp returns the same bits
+template <typename M, typename T, int NB, int NP = 5 + M::kNX + NB>
+__device__ void evaluate_mb(const MbWarp<T>& w, const T (&y)[NP], const T (&lo)[NP],
+                            const T (&hi)[NP], T& cost, T (&jtr)[NP],
+                            T (&jtj)[NP * (NP + 1) / 2]) {
+  constexpr int NX = M::kNX;
+  constexpr int NSH = 5 + NX;
+  // an epoch's parameters: the shape columns and its band's flux
+  constexpr int NE = Dims<M>::kNP;
   constexpr int NT = NP * (NP + 1) / 2;
   T x[NP];
 #pragma unroll
   for (int k = 0; k < NP; ++k) x[k] = i2e(y[k], lo[k], hi[k]);
   const Shape<T> sh = fill_shape(x[2], x[3]);
+  Extra<T, NX> xe;
+#pragma unroll
+  for (int j = 0; j < NX; ++j) xe.v[j] = x[5 + j];
 
   cost = T(0);
 #pragma unroll
@@ -112,35 +121,35 @@ __device__ void evaluate_mb(const MbWarp<T>& w, const T (&y)[5 + NB],
     T flux = T(0);
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
-      if (i == be) flux = x[5 + i];
+      if (i == be) flux = x[NSH + i];
     }
-    bad = model_gaussians<M>(w.gs, w.lid, x[0], x[1], sh, x[4], flux, w.psf[3 * e],
+    bad = model_gaussians<M>(w.gs, w.lid, x[0], x[1], sh, x[4], xe, flux, w.psf[3 * e],
                              w.psf[3 * e + 1], w.psf[3 * e + 2]);
     if (bad) break;
     const size_t off = static_cast<size_t>(e) * w.P;
-    T acc[kNSum];
+    T acc[Dims<M>::kNSum];
     pixel_pass<M>(w.gs, w.lid, w.v + off, w.u + off, w.ia + off, w.ve + off, w.P, acc);
-    // acc holds (cost, Jtr [6], JtJ [21]) over (row, col, g1, g2, T, flux)
+    // acc holds (cost, Jtr [NE], JtJ) over (the shape columns, flux)
     cost = cost + acc[0];
 #pragma unroll
-    for (int k = 0; k < 5; ++k) jtr[k] = jtr[k] + acc[1 + k];
+    for (int k = 0; k < NSH; ++k) jtr[k] = jtr[k] + acc[1 + k];
 #pragma unroll
-    for (int k = 0; k < 5; ++k) {
+    for (int k = 0; k < NSH; ++k) {
 #pragma unroll
-      for (int m = k; m < 5; ++m) {
-        jtj[tri<NP>(k, m)] = jtj[tri<NP>(k, m)] + acc[1 + kNPar + tri<kNPar>(k, m)];
+      for (int m = k; m < NSH; ++m) {
+        jtj[tri<NP>(k, m)] = jtj[tri<NP>(k, m)] + acc[1 + NE + tri<NE>(k, m)];
       }
     }
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
       if (i != be) continue;
-      jtr[5 + i] = jtr[5 + i] + acc[1 + 5];
+      jtr[NSH + i] = jtr[NSH + i] + acc[1 + NSH];
 #pragma unroll
-      for (int k = 0; k < 5; ++k) {
-        jtj[tri<NP>(k, 5 + i)] = jtj[tri<NP>(k, 5 + i)] + acc[1 + kNPar + tri<kNPar>(k, 5)];
+      for (int k = 0; k < NSH; ++k) {
+        jtj[tri<NP>(k, NSH + i)] = jtj[tri<NP>(k, NSH + i)] + acc[1 + NE + tri<NE>(k, NSH)];
       }
-      jtj[tri<NP>(5 + i, 5 + i)] =
-          jtj[tri<NP>(5 + i, 5 + i)] + acc[1 + kNPar + tri<kNPar>(5, 5)];
+      jtj[tri<NP>(NSH + i, NSH + i)] =
+          jtj[tri<NP>(NSH + i, NSH + i)] + acc[1 + NE + tri<NE>(NSH, NSH)];
     }
   }
   if (bad) {
@@ -156,13 +165,13 @@ __device__ void evaluate_mb(const MbWarp<T>& w, const T (&y)[5 + NB],
 
 template <typename T, typename M, int NB>
 __global__ void __launch_bounds__(kThreads) lm_solve_mb_kernel(MbArgs<T> a) {
-  constexpr int NP = 5 + NB;
+  constexpr int NP = 5 + M::kNX + NB;
   constexpr int NT = NP * (NP + 1) / 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int EP = a.E * a.P;
   const int lid = threadIdx.x & 31;
   const size_t per_warp = (a.smem_planes ? 4 * static_cast<size_t>(EP) : 0) +
-                          M::kNG * kGStride;
+                          M::kNG * Dims<M>::kGStride;
   T* base = reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(threadIdx.x >> 5) * per_warp;
   T* gs = a.smem_planes ? base + 4 * static_cast<size_t>(EP) : base;
   T lo[NP], hi[NP];
@@ -213,8 +222,8 @@ template <typename T, typename M>
 size_t smem_bytes_mb(int64_t EP, bool* smem_planes) {
   *smem_planes = EP <= kMaxP;
   return static_cast<size_t>(kWarps) *
-         ((*smem_planes ? 4 * static_cast<size_t>(EP) : 0) + M::kNG * kGStride) *
-         sizeof(T);
+         ((*smem_planes ? 4 * static_cast<size_t>(EP) : 0) +
+          M::kNG * Dims<M>::kGStride) * sizeof(T);
 }
 
 template <typename T, typename M, int NB>
@@ -277,9 +286,9 @@ static_assert(kMaxBand == 6, "the dispatch covers nband 1 to 6");
 // Plain C interface for ctypes, as K3's: launches on `stream` (of the
 // calling thread's current device) and returns the first CUDA error of
 // the set-up or the launch, 0 on success; an nband outside 1-6 is
-// cudaErrorInvalidValue. NGMIX_LM_SOLVE_MB(model, M) defines
-// ngmix_lm_solve_mb_<model>_f32 and _f64 and their _attrs.
-#define NGMIX_LM_SOLVE_MB_T(NAME, T, M)                                        \
+// cudaErrorInvalidValue. NGMIX_LM_SOLVE_MB(NAME, T, M) defines NAME, the
+// solve of model M in type T, and NAME_attrs.
+#define NGMIX_LM_SOLVE_MB(NAME, T, M)                                          \
   extern "C" int NAME(                                                         \
       const void* guess, const void* lo, const void* hi, const void* psf,      \
       const void* band, const void* v, const void* u, const void* ia,          \
@@ -317,7 +326,3 @@ static_assert(kMaxBand == 6, "the dispatch covers nband 1 to 6");
   extern "C" int NAME##_attrs(int64_t nband, int64_t E, int64_t P, int* out) { \
     return attrs_mb<T, M>(nband, E, P, out);                                   \
   }
-
-#define NGMIX_LM_SOLVE_MB(MODEL, M)                                            \
-  NGMIX_LM_SOLVE_MB_T(ngmix_lm_solve_mb_##MODEL##_f32, float, M)               \
-  NGMIX_LM_SOLVE_MB_T(ngmix_lm_solve_mb_##MODEL##_f64, double, M)

@@ -1,0 +1,5 @@
+// K3-mb (lm_solve_mb.cuh) for the gauss model: its float64 instances at
+// nband 1-6 (the float32 ones are lm_solve_mb_gauss.cu).
+#include "lm_solve_mb.cuh"
+
+NGMIX_LM_SOLVE_MB(ngmix_lm_solve_mb_gauss_f64, double, GaussModel)

@@ -18,6 +18,11 @@ FDIFF_BAD = 1.0e10
 _FLUX_START = {"bd": 7, "bdf": 6}
 
 
+def shape_count(model):
+    """the shared shape columns of the model, before its flux column(s)"""
+    return _FLUX_START.get(model, 5)
+
+
 def get_band_pars_device(model, pars, band):
     """the shared parameters plus the flux of one band: pars [...,
     npars], band an int or an int tensor [...] -> [..., start + 1]"""

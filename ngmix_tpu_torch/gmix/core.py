@@ -257,6 +257,55 @@ def fill_gauss(pars):
     )
 
 
+# the composite (bulge + disk) models: the 6 exp gaussians of weight
+# 1 - fracdev and the 10 dev gaussians of weight fracdev, the dev sizes
+# scaled by Td/Te, all sizes by Tfactor = 1 / sum_g p_g f_g
+
+def _cm_pf(fracdev, TdByTe):
+    """16-component (p, f) [..., 16] of the composite models at fracdev
+    and TdByTe [...]"""
+    pe = _table(tables.PVALS_EXP, fracdev) * (1.0 - fracdev)[..., None]
+    pd = _table(tables.PVALS_DEV, fracdev) * fracdev[..., None]
+    fe = torch.broadcast_to(_table(tables.FVALS_EXP, fracdev), pe.shape)
+    fd = _table(tables.FVALS_DEV, fracdev) * TdByTe[..., None]
+    return torch.cat([pe, pd], dim=-1), torch.cat([fe, fd], dim=-1)
+
+
+def get_cm_Tfactor(fracdev, TdByTe):
+    """T normalization factor [...] of the composite models"""
+    p, f = _cm_pf(torch.as_tensor(fracdev), torch.as_tensor(TdByTe))
+    return 1.0 / torch.sum(p * f, dim=-1)
+
+
+def fill_cm(pars, fracdev, TdByTe):
+    """composite model [..., 16, 6] from pars [..., 6] = (row, col, g1,
+    g2, T, flux) and fracdev, TdByTe [...]"""
+    fracdev = torch.as_tensor(fracdev, dtype=pars.dtype, device=pars.device)
+    TdByTe = torch.as_tensor(TdByTe, dtype=pars.dtype, device=pars.device)
+    Tfactor = get_cm_Tfactor(fracdev, TdByTe)
+    p, f = _cm_pf(fracdev, TdByTe)
+    # the per-model values keep a trailing axis of 1, as in fill_simple
+    row, col, g1, g2, T, flux = pars.split(1, dim=-1)
+    e1, e2 = g1g2_to_e1e2(g1, g2)
+    gm = _fill_from_pf(row, col, e1, e2, T * Tfactor[..., None], flux, p, f)
+    return gm, _g_flags(g1[..., 0], g2[..., 0])
+
+
+def fill_bd(pars):
+    """bulge+disk, pars [..., 8] = (row, col, g1, g2, T, log10(Td/Te),
+    fracdev, flux)"""
+    return fill_cm(torch.cat([pars[..., :5], pars[..., 7:8]], dim=-1), pars[..., 6],
+                   10.0 ** pars[..., 5])
+
+
+def fill_bdf(pars):
+    """bdf, Td/Te = 1 and a free fracdev: pars [..., 7] = (row, col, g1,
+    g2, T, fracdev, flux)"""
+    fracdev = pars[..., 5]
+    return fill_cm(torch.cat([pars[..., :5], pars[..., 6:7]], dim=-1), fracdev,
+                   torch.ones_like(fracdev))
+
+
 # ----------------------------------------------------------------------
 # weighted moment sums
 

@@ -20,13 +20,14 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ngmix_tpu_torch"
-# the slowest sources, csrc/lm_solve_mb_<model>.cu with 12
-# instantiations each, take about a minute
+# the slowest sources, the float64 K3-mb units
+# (csrc/lm_solve_mb_<model>_f64.cu, 6 instantiations each), take about
+# a minute on an H100 host
 BUILD_TIMEOUT_S = 300
 
 # the models of K3 and K3-mb (ops/lm_solve.py), each with its own C
 # functions
-LM_MODELS = ("exp", "gauss", "dev")
+LM_MODELS = ("exp", "gauss", "dev", "bdf", "bd")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,5 +1,5 @@
-"""K3: every lane's whole Levenberg-Marquardt solve of a simple model
-(exp, gauss or dev) in one hand-written CUDA kernel.
+"""K3: every lane's whole Levenberg-Marquardt solve of a model (exp,
+gauss, dev, bdf or bd) in one hand-written CUDA kernel.
 
 K3 computes what ``fitting.lm.run_lm_normal_state`` computes over the
 model's normal equations (``batch._exp_normal_fn``, K1's pixel pass)
@@ -9,17 +9,21 @@ neither done nor at maxfev, the pinned dims, the masked and damped
 Cholesky solve, the clipped trial point and its evaluation, the accept
 test, the predicted reduction, the ftol / xtol / stuck rules and the
 damping update. An evaluation is the model's fill (6, 1 or 10
-gaussians for exp, gauss and dev), the convolution with the one psf
-gaussian, gmix_reparam, the chain in closed form (``batch.exp_chain``),
-K1's sums and the bounds chain rule; a bad point gets cost 1e30, Jtr 0
-and JtJ = I. The model is a template argument of the kernel: each model
-and type is its own instance, and a model the kernels do not hold
-raises.
+gaussians of fixed (p, f) for exp, gauss and dev; 16 for bdf and bd,
+whose (p, f) and size factor follow the lane's fracdev and, for bd,
+log10(Td/Te)), the convolution with the one psf gaussian,
+gmix_reparam, the chain in closed form (``batch.exp_chain``), K1's sums
+over the model's 6, 7 or 8 parameters and the bounds chain rule; a bad
+point gets cost 1e30, Jtr 0 and JtJ = I. The model is a template
+argument of the kernel: each model and type is its own instance, and a
+model the kernels do not hold raises.
 
 Replaces ``ngmix_tpu/ops/pallas_lm.py: gmix_normal_eqs_pallas`` together
 with the loop around it, ``ngmix_tpu/fitting/lm.py:
 run_lm_normal_batched`` (its ``while_loop`` body). The kernel is
-``ngmix_tpu_torch/csrc/lm_solve.cu``, built by ``ops/_build.py`` and
+``ngmix_tpu_torch/csrc/lm_solve.cuh``, instantiated by ``lm_solve.cu``
+(exp, gauss, dev) and ``lm_solve_<model>.cu`` (bdf, bd), built by
+``ops/_build.py`` and
 bound with ctypes; ``lm_solve_plain`` is its plain PyTorch version.
 
 What bounds it on an H100: the arithmetic of K1's pixel pass times the
@@ -34,12 +38,14 @@ lane of more than MAX_P pixels reads them from global memory.
 Sums reduce in a fixed shuffle order, so a lane's result does not
 depend on its batch or on the warp that ran it.
 
-K3-mb (``lm_solve_mb``, ``csrc/lm_solve_mb.cuh``, one translation unit
-``csrc/lm_solve_mb_<model>.cu`` a model) is the same solve for the
+K3-mb (``lm_solve_mb``, ``csrc/lm_solve_mb.cuh``, two translation
+units a model, ``csrc/lm_solve_mb_<model>.cu`` for float32 and
+``lm_solve_mb_<model>_f64.cu``) is the same solve for the
 joint multi-band, multi-epoch fit of ``batch.metacal_pipeline_mb``:
 a lane is one object over its E epochs, each epoch with its own psf
-gaussian and band, and 5 + nband parameters (the shape and one flux a
-band). Per evaluation each epoch's 6 effective parameters go through
+gaussian and band, and nshape + nband parameters (the model's nshape
+shape columns, 5, 6 for bdf or 7 for bd, and one flux a band). Per
+evaluation each epoch's nshape + 1 effective parameters go through
 K3's fill, chain and pixel pass, and the band one-hot sums assemble the
 global system, as ``batch._mb_exp_normal_fn`` does; a bad point in any
 epoch gives the reference's poisoned lane (cost E P FDIFF_BAD^2, Jtr 0,
@@ -55,16 +61,16 @@ import functools
 
 import torch
 
-from ..fitting import lm
+from ..fitting import fit_model, lm
 from . import _build
 
-NPARS = 6
 # the largest pixel count whose planes the kernels copy into shared
 # memory (4 warps x 4 planes x P float64 values per block); a lane with
 # more pixels reads its planes from global memory
 MAX_P = 1536
 
-# the models the kernels hold (batch._MODEL_FILLS: 6, 1 and 10 gaussians)
+# the models the kernels hold (batch._MODEL_FILLS: 6, 1 and 10
+# gaussians, and 16 for the composite bdf and bd)
 MODELS = _build.LM_MODELS
 
 # the bands K3-mb is built for (ugrizy)
@@ -85,8 +91,11 @@ def c_name(kernel, model, dtype):
 
 
 def _check_model(model):
+    """the model's shape columns (before the flux); raises for a model
+    the kernels do not hold"""
     if model not in MODELS:
         raise ValueError("K3 and K3-mb hold the models %s, not %r" % (MODELS, model))
+    return fit_model.shape_count(model)
 
 
 def lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp"):
@@ -147,16 +156,16 @@ def _conf_args(conf):
 
 def _check(guess, lo, hi, psf, planes, conf, model):
     lm.check_supported(conf)
-    _check_model(model)
-    if guess.dim() != 2 or guess.shape[1] != NPARS:
+    npars = _check_model(model) + 1
+    if guess.dim() != 2 or guess.shape[1] != npars:
         raise ValueError(
-            "K3 fits 6-parameter models: guess must be [B, 6], got %s"
-            % (tuple(guess.shape),)
+            "K3 fits the %s model's %d-parameter vector: guess must be [B, %d], got %s"
+            % (model, npars, npars, tuple(guess.shape))
         )
     B = guess.shape[0]
-    if tuple(lo.shape) != (NPARS,) or tuple(hi.shape) != (NPARS,):
-        raise ValueError("lo and hi must be [6], got %s and %s"
-                         % (tuple(lo.shape), tuple(hi.shape)))
+    if tuple(lo.shape) != (npars,) or tuple(hi.shape) != (npars,):
+        raise ValueError("lo and hi must be [%d], got %s and %s"
+                         % (npars, tuple(lo.shape), tuple(hi.shape)))
     if tuple(psf.shape) != (B, 3):
         raise ValueError(
             "K3 takes one psf gaussian per lane as psf [B, 3] = (irr, irc, "
@@ -175,10 +184,12 @@ def _check(guess, lo, hi, psf, planes, conf, model):
 
 
 def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp"):
-    """K3: the LM solve of the model (exp, gauss or dev) of every lane.
+    """K3: the LM solve of the model (exp, gauss, dev, bdf or bd) of
+    every lane.
 
-    guess [B, 6] external (row, col, g1, g2, T, flux); lo, hi [6] with
-    +-inf for unbounded sides; psf [B, 3] the (irr, irc, icc) of one
+    guess [B, npars] external (row, col, g1, g2, T, flux; bdf adds
+    fracdev and bd log10(Td/Te) and fracdev before the flux: npars 6, 7
+    or 8); lo, hi [npars] with +-inf for unbounded sides; psf [B, 3] the (irr, irc, icc) of one
     unit-flux psf gaussian; v, u, ia = ierr * area and ve = val * ierr
     [B, P]; conf an LMConf. Returns the finished solver state of
     fitting.lm.run_lm_normal_state: y, cost, Jtr, JtJ (internal
@@ -236,15 +247,16 @@ def lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp")
 
 def _check_mb(guess, lo, hi, psf, band, planes, conf, model):
     lm.check_supported(conf)
-    _check_model(model)
+    nshape = _check_model(model)
     if guess.dim() != 2:
-        raise ValueError("guess must be [B, 5 + nband], got %s" % (tuple(guess.shape),))
+        raise ValueError("guess must be [B, %d + nband], got %s"
+                         % (nshape, tuple(guess.shape)))
     B, npars = guess.shape
-    nband = npars - 5
+    nband = npars - nshape
     if not 1 <= nband <= MAX_NBAND:
         raise ValueError(
-            "K3-mb fits 1 to %d bands (5 + nband parameters), got guess %s"
-            % (MAX_NBAND, tuple(guess.shape))
+            "K3-mb fits 1 to %d bands (%d + nband parameters of the %s model), got "
+            "guess %s" % (MAX_NBAND, nshape, model, tuple(guess.shape))
         )
     if tuple(lo.shape) != (npars,) or tuple(hi.shape) != (npars,):
         raise ValueError("lo and hi must be [%d], got %s and %s"
@@ -271,17 +283,18 @@ def _check_mb(guess, lo, hi, psf, band, planes, conf, model):
 
 
 def lm_solve_mb(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp"):
-    """K3-mb: the joint multi-band LM solve of the model (exp, gauss or
-    dev) of every object.
+    """K3-mb: the joint multi-band LM solve of the model (exp, gauss,
+    dev, bdf or bd) of every object.
 
-    guess [B, 5 + nband] external (row, col, g1, g2, T, one flux a
-    band), 1 <= nband <= MAX_NBAND; lo, hi [5 + nband] with +-inf for
-    unbounded sides; psf [B, E, 3] the (irr, irc, icc) of each epoch's
+    guess [B, nshape + nband] external (row, col, g1, g2, T, bdf's
+    fracdev or bd's log10(Td/Te) and fracdev, one flux a band: nshape
+    5, 6 or 7), 1 <= nband <= MAX_NBAND; lo, hi [nshape + nband] with
+    +-inf for unbounded sides; psf [B, E, 3] the (irr, irc, icc) of each epoch's
     unit-flux psf gaussian; band int32 [E] (shared) or [B, E], the band
     of each epoch (a band outside [0, nband) gives that epoch no flux);
     v, u, ia = ierr * area and ve = val * ierr [B, E, P]; conf an
     LMConf. Returns the finished solver state, as lm_solve does, with
-    5 + nband parameters. CPU tensors go to lm_solve_mb_plain; CUDA
+    nshape + nband parameters. CPU tensors go to lm_solve_mb_plain; CUDA
     tensors launch the model's kernel.
     """
     global launches_mb
@@ -301,7 +314,7 @@ def lm_solve_mb(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp"):
             guess.data_ptr(), lo.data_ptr(), hi.data_ptr(), psf.data_ptr(),
             band.data_ptr(), v.data_ptr(), u.data_ptr(), ia.data_ptr(), ve.data_ptr(),
             *(x.data_ptr() for x in out.values()), counter.data_ptr(),
-            B, E, P, guess.shape[1] - 5, *_conf_args(conf),
+            B, E, P, guess.shape[1] - fit_model.shape_count(model), *_conf_args(conf),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

@@ -78,8 +78,12 @@ def gmix_reparam(gmix):
 
 def gmix_normal_eqs_plain(rp, chain, v, u, ia, ve):
     """plain PyTorch version of K1, with the TPU kernel body's
-    arithmetic; materializes the [B, n, P] terms. Returns cost [B],
-    Jtr [B, 6] and JtJ [B, 6, 6]."""
+    arithmetic; materializes the [B, n, P] terms. The parameter count
+    npars is the chain's last dimension: 6 as in the kernel, or more
+    for the composite models, whose solves (K3's plain version) reduce
+    through this function too. Returns cost [B], Jtr [B, npars] and
+    JtJ [B, npars, npars]."""
+    npars = chain.shape[-1]
     N, row, col, Fvv, Fvu, Fuu = (x[..., None] for x in rp.unbind(-1))
     dv = v[:, None, :] - row
     du = u[:, None, :] - col
@@ -104,10 +108,10 @@ def gmix_normal_eqs_plain(rp, chain, v, u, ia, ve):
           2.0 * c * dv * du, c * du * du)
     # sums over the gaussians in the body's order
     f = torch.zeros_like(v)
-    J = [torch.zeros_like(v) for _ in range(NPARS)]
+    J = [torch.zeros_like(v) for _ in range(npars)]
     for g in range(rp.shape[1]):
         f = f + N[:, g] * mw[:, g]
-        for k in range(NPARS):
+        for k in range(npars):
             acc = J[k]
             for j in range(6):
                 acc = acc + chain[:, g, j, k, None] * dq[j][:, g]
@@ -117,9 +121,9 @@ def gmix_normal_eqs_plain(rp, chain, v, u, ia, ve):
     Jw = [Jk * ia for Jk in J]
     cost = torch.sum(fd * fd, dim=-1)
     Jtr = torch.stack([torch.sum(Jk * fd, dim=-1) for Jk in Jw], dim=-1)
-    rows = [[None] * NPARS for _ in range(NPARS)]
-    for k in range(NPARS):
-        for m in range(k, NPARS):
+    rows = [[None] * npars for _ in range(npars)]
+    for k in range(npars):
+        for m in range(k, npars):
             rows[k][m] = rows[m][k] = torch.sum(Jw[k] * Jw[m], dim=-1)
     JtJ = torch.stack([torch.stack(r, dim=-1) for r in rows], dim=-2)
     return cost, Jtr, JtJ

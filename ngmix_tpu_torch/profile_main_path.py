@@ -2,12 +2,14 @@
 
     python -m ngmix_tpu_torch.profile_main_path [--measure MEASURE] [B]
 
-MEASURE is one of admom, em, exp-lm, exp-lm-mb, gaussmom, ksigma and
-pgauss. Runs the metacal pipeline with the given measure (default
-gaussmom) at its main-path configuration (bench.py's metacal_gaussmom
-and metacal_admom configurations for gaussmom and admom, and with the
-pre-psf kernel of FWHM 2.0 for pgauss and ksigma, its headline
-configuration for exp-lm, its multi-band workload for exp-lm-mb:
+MEASURE is one of admom, bd-lm, bdf-lm, dev-lm, em, exp-lm, exp-lm-mb,
+gauss-lm, gaussmom, ksigma and pgauss. Runs the metacal pipeline with
+the given measure (default gaussmom) at its main-path configuration
+(bench.py's metacal_gaussmom and metacal_admom configurations for
+gaussmom and admom, and with the pre-psf kernel of FWHM 2.0 for pgauss
+and ksigma, its headline configuration for the LM measures, bdf-lm and
+bd-lm inside sims.BDF_LM_BOUNDS and BD_LM_BOUNDS, its multi-band
+workload for exp-lm-mb:
 metacal_pipeline_mb on 3 epochs over 2 bands), or for em bench.py's
 em1 workload (em_batch of one gaussian on the sky-shifted stamps,
 default EMConf), in float32 on the port's homogeneous sims at B stamps
@@ -35,8 +37,10 @@ from . import (
     make_sim_batch,
     make_sim_batch_mb,
 )
-from .batch import GALSHEAR_TYPES
+from .batch import _LM_MEASURES as LM_MEASURES, GALSHEAR_TYPES
 from .sims import (
+    BD_LM_BOUNDS,
+    BDF_LM_BOUNDS,
     MB_BAND,
     MB_NBAND,
     METACAL_ADMOM_CONFIG,
@@ -47,9 +51,13 @@ from .sims import (
     em1_inputs,
 )
 
-CONFS = {"gaussmom": METACAL_GAUSSMOM_CONFIG, "admom": METACAL_ADMOM_CONFIG,
-         "exp-lm": METACAL_EXP_LM_CONFIG, "exp-lm-mb": METACAL_MB_CONFIG,
-         "pgauss": METACAL_GAUSSMOM_CONFIG, "ksigma": METACAL_GAUSSMOM_CONFIG}
+CONFS = dict({"gaussmom": METACAL_GAUSSMOM_CONFIG, "admom": METACAL_ADMOM_CONFIG,
+              "exp-lm-mb": METACAL_MB_CONFIG, "pgauss": METACAL_GAUSSMOM_CONFIG,
+              "ksigma": METACAL_GAUSSMOM_CONFIG},
+             **{m: METACAL_EXP_LM_CONFIG for m in LM_MEASURES})
+# the pipeline options of a measure beyond its configuration
+OPTIONS = {"pgauss": dict(measure_fwhm=PREPSF_FWHM), "ksigma": dict(measure_fwhm=PREPSF_FWHM),
+           "bdf-lm": dict(lm_bounds=BDF_LM_BOUNDS), "bd-lm": dict(lm_bounds=BD_LM_BOUNDS)}
 MEASURES = sorted(CONFS) + ["em"]
 
 # kernel-name fragments -> class, first match wins
@@ -106,8 +114,8 @@ def main(measure="gaussmom", B=None):
             return em_batch(*a, EMConf())
     else:
         B = B or 10240
-        kw = dict(measure_fwhm=PREPSF_FWHM) if measure in ("pgauss", "ksigma") else {}
-        fn = make_metacal_pipeline_fn(CONFS[measure], measure=measure, **kw)
+        fn = make_metacal_pipeline_fn(CONFS[measure], measure=measure,
+                                      **OPTIONS.get(measure, {}))
         args = make_sim_batch(gen, B, device="cuda")
     warm = fn(*args)
     torch.cuda.synchronize()
@@ -142,7 +150,7 @@ def main(measure="gaussmom", B=None):
              100 - 100 * _busy_us(kernels) / wall_us, len(kernels)))
     for cls, t in sorted(by_class.items(), key=lambda kv: -kv[1]):
         print("  %-26s %9.3f ms %5.1f%%" % (cls, t / 1e3, 100 * t / total))
-    if measure.startswith("exp-lm"):
+    if measure in LM_MEASURES or measure == "exp-lm-mb":
         nfev = torch.cat([warm[t]["nfev"] for t in GALSHEAR_TYPES]).double()
         print("LM evaluations a lane (nfev): mean %.3f, p50 %g, max %d, sum %d"
               % (nfev.mean(), nfev.median(), nfev.max(), nfev.sum()))

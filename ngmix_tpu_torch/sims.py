@@ -50,6 +50,15 @@ METACAL_MB_CONFIG = METACAL_GAUSSMOM_CONFIG
 MB_BAND = (0, 0, 1)
 MB_NBAND = 2
 
+# the bounds of the composite LM measures at the exp-LM configuration:
+# bdf's production bounds (tools/validate_scale.py:391-411: fracdev in
+# [0, 1] and the wide flux box [1e-3, 1e9]) and the reference's bd test
+# box (tests/test_batch_pipeline.py:366-367)
+BDF_LM_BOUNDS = ([-2.0, -2.0, -0.99, -0.99, 1e-3, 0.0, 1e-3],
+                 [2.0, 2.0, 0.99, 0.99, 20.0, 1.0, 1e9])
+BD_LM_BOUNDS = ([-2.0, -2.0, -0.99, -0.99, 0.01, -1.0, 0.0, 0.1],
+                [2.0, 2.0, 0.99, 0.99, 10.0, 1.0, 1.0, 1e6])
+
 # bench.py's pre-psf kernel FWHM (arcsec): its prepsfmom_batch call
 # (bench.py:319-333), and the main path on the card of the pgauss and
 # ksigma measures (the gaussmom configuration's fields)
@@ -141,11 +150,17 @@ def make_sim_batch(gen, B, dtype=torch.float32, device=None):
     return imgs, weights, cens, pimgs, pcens, noise_field
 
 
-def make_sim_batch_hetero(gen, B, dtype=torch.float32, device=None):
+def make_sim_batch_hetero(gen, B, dtype=torch.float32, device=None, gal_model="exp"):
     """heterogeneous batch: per-stamp size, flux and intrinsic shape,
     and per-stamp turb psf shape and size, in +-g_int pairs that share
     T, flux and psf (ring cancellation), sheared by (SHEAR_TRUE, 0).
-    B must be even. Same return layout as make_sim_batch."""
+    gal_model="bdf" renders bulge+disk galaxies (fill_bdf) with a
+    per-stamp fracdev drawn from [0.1, 0.9], paired like the others,
+    instead of pure exponentials: the matched-truth population of the
+    bdf-lm measure. B must be even. Same return layout as
+    make_sim_batch."""
+    if gal_model not in ("exp", "bdf"):
+        raise ValueError("gal_model must be 'exp' or 'bdf', got %r" % (gal_model,))
     if B % 2:
         raise ValueError("pairing needs an even batch, got B=%d" % B)
     dev = _sim_device(gen, device)
@@ -162,12 +177,12 @@ def make_sim_batch_hetero(gen, B, dtype=torch.float32, device=None):
     g1i = r * torch.cos(th)
     g2i = r * torch.sin(th)
     zeros = torch.zeros((B,), dtype=dtype, device=dev)
-    gal_pars = torch.stack(
-        [zeros, zeros, torch.cat([g1i, -g1i]), torch.cat([g2i, -g2i]),
-         pair(T), pair(flux)],
-        dim=-1,
-    )
-    gal, _ = gcore.fill_exp(gal_pars)
+    shape_cols = [zeros, zeros, torch.cat([g1i, -g1i]), torch.cat([g2i, -g2i]), pair(T)]
+    if gal_model == "bdf":
+        fracdev = _uniform(gen, (H,), dtype, 0.1, 0.9)
+        gal, _ = gcore.fill_bdf(torch.stack(shape_cols + [pair(fracdev), pair(flux)], dim=-1))
+    else:
+        gal, _ = gcore.fill_exp(torch.stack(shape_cols + [pair(flux)], dim=-1))
     gal = gcore.gmix_get_sheared(gal, SHEAR_TRUE, 0.0)
 
     # per-stamp turb psf (paired): shape +-0.03, T in [0.24, 0.30]
@@ -193,13 +208,21 @@ def make_sim_batch_hetero(gen, B, dtype=torch.float32, device=None):
     return imgs, weights, cens, pimgs, pcens, noise_field
 
 
-def make_sim_batch_mb(gen, B, dtype=torch.float32, device=None, hetero=False):
+def make_sim_batch_mb(gen, B, dtype=torch.float32, device=None, hetero=False,
+                      gal_model="exp"):
     """bench.py's multi-band batch: B objects of len(MB_BAND) epochs,
     each epoch a copy of the object's flat sim stamp (make_sim_batch, or
-    make_sim_batch_hetero with hetero=True), as bench.py tiles them.
-    Returns (images, weights, cens, psf_images, psf_cens, noise), each
-    [B, E, ...]; the epochs' bands are MB_BAND over MB_NBAND bands."""
-    flat = (make_sim_batch_hetero if hetero else make_sim_batch)(gen, B, dtype, device)
+    make_sim_batch_hetero with hetero=True and its gal_model), as
+    bench.py tiles them. Returns (images, weights, cens, psf_images,
+    psf_cens, noise), each [B, E, ...]; the epochs' bands are MB_BAND
+    over MB_NBAND bands."""
+    if hetero:
+        flat = make_sim_batch_hetero(gen, B, dtype, device, gal_model=gal_model)
+    elif gal_model != "exp":
+        raise ValueError("the homogeneous sims render exp galaxies; gal_model=%r needs "
+                         "hetero=True" % (gal_model,))
+    else:
+        flat = make_sim_batch(gen, B, dtype, device)
     E = len(MB_BAND)
     return tuple(
         a[:, None].expand((a.shape[0], E) + a.shape[1:]).contiguous() for a in flat

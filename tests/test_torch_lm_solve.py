@@ -317,7 +317,7 @@ def test_bad_inputs_raise():
     with pytest.raises(ValueError, match="pixels"):
         lm_solve.lm_solve(guess, lo, hi, psf, empty, empty, empty, empty, conf)
     with pytest.raises(ValueError, match="hold the models"):
-        lm_solve.lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, "bdf")
+        lm_solve.lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, "turb")
     with pytest.raises(TypeError):
         lm_solve.lm_solve(guess, lo, hi, psf, v.float(), u, ia, ve, conf)
     with pytest.raises(TypeError, match="float32 or float64"):

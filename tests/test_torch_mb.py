@@ -188,13 +188,13 @@ def test_inconsistent_measures_raise(mb_inputs):
 
 def test_unported_options_raise_mb():
     one = np.zeros(1, np.int32)
-    for measure in ("bdf-lm", "bd-lm"):
-        with pytest.raises(NotImplementedError, match="queue item 5b"):
-            nt.make_metacal_pipeline_mb_fn(CONF, one, 1, measure=measure, device="cpu")
-    for measure in ("gauss-lm", "dev-lm"):
+    for measure in ("gauss-lm", "dev-lm", "bdf-lm", "bd-lm"):
         with pytest.raises(NotImplementedError, match="queue item 5c"):
             nt.make_metacal_pipeline_mb_fn(CONF, one, 1, measure=measure, device="cpu",
                                            lm_prior=object())
+        with pytest.raises(NotImplementedError, match="queue item 10"):
+            nt.make_metacal_pipeline_mb_fn(CONF, one, 1, measure=measure, device="cpu",
+                                           lm_conf=nt.LMConf(flux_col=True))
     for kw, item in ((dict(lm_prior=object()), 5), (dict(lm_prior=object(),
                                                           lm_bounds=([0] * 7, [1] * 7)), 5),
                      (dict(lm_conf=nt.LMConf(varpro=True)), 10),

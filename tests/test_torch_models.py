@@ -209,10 +209,10 @@ def test_chain_matches_ad(model):
 def test_unsupported_models_raise():
     pars, psf = _chain_inputs()
     with pytest.raises(KeyError):
-        tbatch.exp_chain(torch.as_tensor(pars), torch.as_tensor(psf), "bdf")
+        tbatch.exp_chain(torch.as_tensor(pars), torch.as_tensor(psf), "turb")
     args = _small_args()
     with pytest.raises(ValueError, match="hold the models"):
-        lm_solve.lm_solve(*args, tlm.LMConf(), "bd")
+        lm_solve.lm_solve(*args, tlm.LMConf(), "coellip")
     mb = _small_mb()
     with pytest.raises(ValueError, match="hold the models"):
         lm_solve.lm_solve_mb(*mb, tlm.LMConf(), "turb")

@@ -347,20 +347,16 @@ def test_chunked_matches_single_batch(inputs):
 
 def test_unported_options_raise(inputs):
     conf = nt.MetacalConfig(dims=DIMS, psf_dims=PSF_DIMS, **CONFS["bench"])
-    for measure in ("bdf-lm", "bd-lm"):
-        with pytest.raises(NotImplementedError, match="queue item 5b"):
-            nt.metacal_pipeline(*inputs, conf, measure=measure, device="cpu")
-    with pytest.raises(NotImplementedError, match="queue item 5b"):
-        nt.metacal_pipeline(*inputs, conf._replace(psf_mode="dilate"), measure="bd-lm",
-                            device="cpu")
-    for measure in ("exp-lm", "gauss-lm", "dev-lm"):
+    for measure, npars in (("exp-lm", 6), ("gauss-lm", 6), ("dev-lm", 6), ("bdf-lm", 7),
+                           ("bd-lm", 8)):
         with pytest.raises(NotImplementedError, match="queue item 5c"):
             nt.make_metacal_pipeline_fn(conf, measure=measure, device="cpu",
-                                        lm_prior=object(), lm_bounds=([0] * 6, [1] * 6))
-    for kw, item in ((dict(lm_conf=nt.LMConf(varpro=True)), 10),
-                     (dict(lm_conf=nt.LMConf(flux_col=True)), 10)):
-        with pytest.raises(NotImplementedError, match="queue item %d" % item):
-            nt.make_metacal_pipeline_fn(conf, measure="exp-lm", device="cpu", **kw)
+                                        lm_prior=object(),
+                                        lm_bounds=([0] * npars, [1] * npars))
+        for kw, item in ((dict(lm_conf=nt.LMConf(varpro=True)), 10),
+                         (dict(lm_conf=nt.LMConf(flux_col=True)), 10)):
+            with pytest.raises(NotImplementedError, match="queue item %d" % item):
+                nt.make_metacal_pipeline_fn(conf, measure=measure, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="queue item 10"):
         nt.metacal_pipeline(*inputs, conf._replace(sheared_refine=2),
                             measure="exp-lm", device="cpu")
