@@ -7,8 +7,9 @@ workload, its exp-LM headline and its metacal_admom workload at the
 production chunk size, the azgauss, fitgauss and dilate psf modes, its
 multi-band workload, its pre-psf moments (standalone and as the pgauss
 and ksigma metacal measures), its single-gaussian EM, the gauss and
-dev LM models and the bdf and bd bulge+disk models; and holds the
-hand-written CUDA kernels K2 (mixture evaluation), K1 (LM normal
+dev LM models, the bdf and bd bulge+disk models and the
+prior-regularized exp and bdf fits; and holds the hand-written CUDA
+kernels K2 (mixture evaluation), K1 (LM normal
 equations), K3 (every lane's whole LM solve of the exp, gauss, dev, bdf
 or bd model) and K3-mb (every object's joint multi-band solve) against
 their plain PyTorch versions. The exp-LM path
@@ -239,8 +240,26 @@ printing one timed line as soon as it ends:
            bdf on phase 21's inputs (256 exp stamps, and 86 objects of 3
            epochs that are not copies with the per-object band map of
            phase 18) and bd, degenerate on exp truth, on the bdf-truth
-           sims (the same shapes).
-The float64 CPU sides of phases 18, 21 and 22 run in CPU_WORKERS
+           sims (the same shapes);
+23. priors: exp-lm with the reference test's PriorSimpleSep and box
+           (tests/test_batch_pipeline.py:389-397) on the exp sims, and
+           bdf-lm with the production PriorBDFSep (tests/_priors.py:
+           16-32) under sims.BDF_LM_BOUNDS on the exp and bdf-truth
+           sims, flat through K3 and mb (nband 2) through K3-mb, at
+           B = 10240 (mb 2048 x 3) in float32, gated (|m|, |hetero m| <
+           1e-3 for exp, < 3e-3 for bdf; flagged <= max(8, 0.5% B)),
+           one K3 or K3-mb launch a call; K3 and K3-mb with the prior
+           rows on every path's float32 solve inputs against their own
+           float64 solve (lanes beyond half a pars_err counted against
+           PRIOR_F32_LIMIT) and on 256 lanes in float64 against their
+           plain versions (flags equal, e1/e2/T/flux to rtol 1e-5 and
+           atol 1e-7, nfev within 2, at most PRIOR_F64_LIMIT lanes
+           outside), cost_pix checked against the rows; timed with and
+           without the prior beside their bounds (prior_ops counts the
+           rows' operations); card against CPU in float64 by f64_lanes
+           on 256 exp stamps, 256 bdf-truth stamps and 256 mb objects
+           of distinct bdf-truth epochs.
+The float64 CPU sides of phases 17-19 and 21-23 run in CPU_WORKERS
 spawned processes of one thread each from the end of phase 2, while the
 card runs the phases before them.
 Needs one CUDA card and exits nonzero, printing the reason, on any
@@ -257,6 +276,7 @@ from unittest import mock
 import torch
 
 import ngmix_tpu_torch as nt
+from ngmix_tpu_torch import joint_prior, priors as tpriors
 from ngmix_tpu_torch.fitting import fit_model, lm as tlm
 from ngmix_tpu_torch.gmix import core as gcore
 from ngmix_tpu_torch.gaussmom import make_weight_gmix
@@ -953,9 +973,9 @@ def capture_k3_inputs(args, device, conf=LM_CONF, measure="exp-lm", **kw):
     seen = {}
     k3 = lm_solve.lm_solve
 
-    def spy(*a):
+    def spy(*a, **kw):
         seen["k3"] = a[:8]  # guess, lo, hi, psf, v, u, ia, ve
-        return k3(*a)
+        return k3(*a, **kw)
 
     with mock.patch.object(lm_solve, "lm_solve", spy):
         res = nt.make_metacal_pipeline_fn(conf, measure=measure, device=device, **kw)(*args)
@@ -1011,14 +1031,16 @@ def f32_split(a, b, keys=("e1", "e2", "T", "flux")):
     return float(split.double().mean()), float((d / sig)[ok].max())
 
 
-def check_batch_independence(args, conf, solve=lm_solve.lm_solve, model="exp"):
-    """K3 (or K3-mb) of the model on a permuted third of the lanes gives
-    the bits of the same lanes in the full batch"""
-    full = solve(*args, conf, model)
+def check_batch_independence(args, conf, solve=lm_solve.lm_solve, model="exp", prior=None):
+    """K3 (or K3-mb) of the model (with the prior's rows) on a permuted
+    third of the lanes gives the bits of the same lanes in the full
+    batch"""
+    full = solve(*args, conf, model, prior)
     n = args[0].shape[0]
     perm = torch.randperm(n, generator=torch.Generator().manual_seed(5))[: n // 3]
     perm = perm.to(args[0].device)
-    sub = solve(*(a if a.dim() == 1 else a[perm].contiguous() for a in args), conf, model)
+    sub = solve(*(a if a.dim() == 1 else a[perm].contiguous() for a in args), conf, model,
+                prior)
     for k, x in sub.items():
         if not torch.equal(x, full[k][perm]):
             raise SmokeFailure("%s is not batch independent: %s differs" % (solve.__name__, k))
@@ -1145,30 +1167,33 @@ def model_rp(pars, psf_gmix, model):
     return rp
 
 
-def k3_bound(args, state, model="exp"):
+def k3_bound(args, state, model="exp", prior=None):
     """least time (ms) for K3's work on these inputs: the planes, guess,
-    bounds and psf read once and the state written once at the memory
-    rate, or K3's operations per evaluation (k3_ops over the model's
-    gaussians and parameters, the window counted at the lane's guess)
-    times each lane's nfev at the float peak, whichever is larger"""
+    bounds, psf and the prior's table read once and the state written
+    once at the memory rate, or K3's operations per evaluation (k3_ops
+    over the model's gaussians and parameters, the window counted at the
+    lane's guess, and prior_ops) times each lane's nfev at the float
+    peak, whichever is larger"""
     guess, lo, hi, psf, v, u, ia, ve = args
     rp = model_rp(guess, nt.batch._psf_gmix(psf), model)
-    ops = int((pixel_ops(rp, v, u, k3_ops(guess.shape[1])) * state["nfev"].long()).sum())
+    npars = guess.shape[1]
+    ops = int(((pixel_ops(rp, v, u, k3_ops(npars)) + prior_ops(prior, npars))
+               * state["nfev"].long()).sum())
     N, P = v.shape
     esize = v.element_size()
-    nbytes = (esize * (4 * N * P + guess.numel() + 12 + psf.numel())
+    nbytes = (esize * (4 * N * P + guess.numel() + 12 + psf.numel()) + prior_bytes(prior)
               + sum(x.numel() * x.element_size() for x in state.values()))
     return least_ms(nbytes, ops, v.dtype)
 
 
-def k3_timed_row(args, conf, model="exp"):
-    """K3 of the model on its captured float32 inputs against its plain
-    version (flags equal on every lane, and on every lane both leave
-    unflagged e1/e2/T/flux within half the lane's pars_err), bitwise
-    batch independent, and timed beside its bound and its plain
-    version"""
-    state = lm_solve.lm_solve(*args, conf, model)
-    plain, _, plain_ms = timed_call(lm_solve.lm_solve_plain, *args, conf, model)
+def k3_timed_row(args, conf, model="exp", prior=None):
+    """K3 of the model (with the prior's rows) on its captured float32
+    inputs against its plain version (flags equal on every lane, and on
+    every lane both leave unflagged e1/e2/T/flux within half the lane's
+    pars_err), bitwise batch independent, and timed beside its bound
+    and its plain version"""
+    state = lm_solve.lm_solve(*args, conf, model, prior)
+    plain, _, plain_ms = timed_call(lm_solve.lm_solve_plain, *args, conf, model, prior)
     a, b = solve_columns(state, args, conf), solve_columns(plain, args, conf)
     n = a["flags"].numel()
     flags_diff = int((a["flags"] != b["flags"]).sum())
@@ -1180,10 +1205,11 @@ def k3_timed_row(args, conf, model="exp"):
                            % (model, tuple(args[4].shape), flags_diff, in_err, finite))
     max_abs = max(float((a[k].double() - b[k].double()).abs().max())
                   for k in ("e1", "e2", "T", "flux"))
-    indep = check_batch_independence(args, conf, model=model)
-    ms = time_ms(lambda: lm_solve.lm_solve(*args, conf, model), 10)
-    b_ms, by = k3_bound(args, state, model)
-    return dict(shape="%s NG=%d [%dx%d]" % (model, NGAUSS[model], *args[4].shape), ms=ms,
+    indep = check_batch_independence(args, conf, model=model, prior=prior)
+    ms = time_ms(lambda: lm_solve.lm_solve(*args, conf, model, prior), 10)
+    b_ms, by = k3_bound(args, state, model, prior)
+    return dict(shape="%s NG=%d [%dx%d]%s" % (model, NGAUSS[model], *args[4].shape,
+                                             prior_text(prior)), ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, max_abs_err=max_abs,
                 split=split, max_in_err=in_err, indep=indep, lanes=n,
                 nfev_sum=int(state["nfev"].sum()))
@@ -1319,6 +1345,15 @@ def check_k3_dilate(k3_args):
                 max_abs_irc=float(psf[:, 1].abs().max()))
 
 
+TYPES9 = nt.batch.GALSHEAR_TYPES + nt.batch.PSFSHEAR_TYPES
+# phase 17's runs: (measure, configuration)
+PSF_MODE_RUNS = [("gaussmom", CONF._replace(psf_mode="fitgauss")),
+                 ("gaussmom", CONF._replace(psf_mode="azgauss")),
+                 ("gaussmom", CONF._replace(psf_mode="dilate", types=TYPES9)),
+                 ("admom", ADMOM_CONF._replace(psf_mode="dilate", types=TYPES9)),
+                 ("exp-lm", LM_CONF._replace(psf_mode="dilate", types=TYPES9))]
+
+
 def psf_mode_runs(device, hom, het):
     """the psf modes at B_MAIN in float32: gaussmom under fitgauss,
     azgauss and dilate (all 9 types), admom and exp-LM under dilate,
@@ -1326,12 +1361,8 @@ def psf_mode_runs(device, hom, het):
     fitgauss also on |m|, dilate on psf_shear_response; K3 against its
     plain version on the dilate exp-LM solve's own inputs; K2 on the
     psf-stamp admom weights of fitgauss and of the dilate exp-LM"""
-    types9 = nt.batch.GALSHEAR_TYPES + nt.batch.PSFSHEAR_TYPES
-    runs = [("gaussmom", CONF._replace(psf_mode="fitgauss")),
-            ("gaussmom", CONF._replace(psf_mode="azgauss")),
-            ("gaussmom", CONF._replace(psf_mode="dilate", types=types9)),
-            ("admom", ADMOM_CONF._replace(psf_mode="dilate", types=types9)),
-            ("exp-lm", LM_CONF._replace(psf_mode="dilate", types=types9))]
+    types9 = TYPES9
+    runs = PSF_MODE_RUNS
     out, k2_rows = [], []
     k3 = None
     psf_pixels = CONF.psf_dims[0] * CONF.psf_dims[1]
@@ -1397,19 +1428,24 @@ def moments_gate(res, het_res, B):
                 het_flagged=int((het_res["noshear"]["flags"] != 0).sum()))
 
 
-def psf_modes_card_cpu(hom, runs, n=256):
-    """the first n stamps of each psf-mode run in float64 on the card and
-    the CPU: psf_sigma and every result field to rtol 1e-8 (the moments
-    measures); the exp-LM card route (K3) against the CPU's plain
-    version by phase 12's criterion (flags equal, e1/e2/T/flux to rtol
-    1e-5 and atol 1e-7, nfev within 2). Returns the largest share of
-    the tolerance of the rtol 1e-8 comparisons"""
-    args = [a[:n].double() for a in hom]
+def pipeline_cpu_results(args, conf, measure):
+    """the pipeline's float64 results of the measure under conf on the
+    CPU for the stamps args"""
+    return nt.make_metacal_pipeline_fn(conf, measure=measure, device="cpu")(
+        *(a.cpu() for a in args))
+
+
+def psf_modes_card_cpu(cpu_side, runs):
+    """the first N_CPU stamps of each psf-mode run in float64 on the card
+    and the CPU (cpu_side's jobs): psf_sigma and every result field to
+    rtol 1e-8 (the moments measures); the exp-LM card route (K3) against
+    the CPU's plain version by phase 12's criterion (flags equal,
+    e1/e2/T/flux to rtol 1e-5 and atol 1e-7, nfev within 2). Returns the
+    largest share of the tolerance of the rtol 1e-8 comparisons"""
     worst = 0.0
     for measure, conf in runs:
+        (args, _, _), cpu = cpu_side.get("17 %s %s" % (measure, conf.psf_mode))
         card = nt.make_metacal_pipeline_fn(conf, measure=measure, device="cuda")(*args)
-        cpu = nt.make_metacal_pipeline_fn(conf, measure=measure, device="cpu")(
-            *(a.cpu() for a in args))
         what = "%s %s" % (measure, conf.psf_mode)
         worst = max(worst, compare_results({"s": card["psf_sigma"]},
                                            {"s": cpu["psf_sigma"]}, what + " psf_sigma"))
@@ -1421,7 +1457,7 @@ def psf_modes_card_cpu(hom, runs, n=256):
     return worst
 
 
-def admom_phases(device, t_all):
+def admom_phases(device, t_all, cpu_side):
     """phases 14-17: the admom main path and its checks, admom_batch at
     bench.py's standalone shape, and the psf modes. Returns K2's
     launches on the admom path, K2's rows at admom's shapes (the psf
@@ -1496,7 +1532,7 @@ def admom_phases(device, t_all):
           "plain version: flags equal, %.4f outside rtol 1e-4, largest difference %.3e "
           "pars_err" % (k3d["lanes"], k3d["max_abs_irc"], k3d["split"], k3d["max_in_err"]),
           flush=True)
-    modes_worst = psf_modes_card_cpu(hom, runs)
+    modes_worst = psf_modes_card_cpu(cpu_side, runs)
     del hom
     phase_line("17 psf-modes", t0, "256 stamps float64 card against CPU: psf_sigma and the "
                "moments results within rtol 1e-8 + atol 1e-10 (at most %.3e of it), exp-LM "
@@ -1535,9 +1571,9 @@ def capture_mb_inputs(fn, *args):
     seen = {"k2": []}
     k3mb, k2 = lm_solve.lm_solve_mb, gmix_eval.eval_gmix
 
-    def spy(*a):
+    def spy(*a, **kw):
         seen["k3mb"] = a[:9]
-        return k3mb(*a)
+        return k3mb(*a, **kw)
 
     def k2_spy(gm, v, u, area=1.0, fast=True):
         seen["k2"].append((gm, v, u, area, fast))
@@ -1589,15 +1625,16 @@ def mb_against_flat(res, flat):
     return max(share), worst
 
 
-def k3mb_against_plain(args, conf, model="exp"):
-    """K3-mb of the model against its plain version on the mb path's
-    float32 solve inputs by phase 13's criterion. Returns the share of
-    lanes outside rtol 1e-4, the largest difference in pars_err, the
-    largest absolute difference, the plain version's time (ms) and the
-    kernel's state"""
-    state = lm_solve.lm_solve_mb(*args, conf, model)
+def k3mb_against_plain(args, conf, model="exp", prior=None):
+    """K3-mb of the model (with the prior's rows) against its plain
+    version on the mb path's float32 solve inputs by phase 13's
+    criterion. Returns the share of lanes outside rtol 1e-4, the largest
+    difference in pars_err, the largest absolute difference, the plain
+    version's time (ms) and the kernel's state"""
+    state = lm_solve.lm_solve_mb(*args, conf, model, prior)
     a = mb_cols(_epilogue_mb(state, args, conf))
-    plain_state, _, plain_ms = timed_call(lm_solve.lm_solve_mb_plain, *args, conf, model)
+    plain_state, _, plain_ms = timed_call(lm_solve.lm_solve_mb_plain, *args, conf, model,
+                                          prior)
     b = mb_cols(_epilogue_mb(plain_state, args, conf))
     flags_diff = int((a["flags"] != b["flags"]).sum())
     split, in_err = f32_split(a, b, MB_KEYS)
@@ -1645,30 +1682,33 @@ def mb_k3_checks(args, conf):
                 plain_ms=plain_ms, indep=indep, e8=d8, e1=d1, lanes=state["nfev"].numel())
 
 
-def k3mb_bound(args, state, model="exp"):
+def k3mb_bound(args, state, model="exp", prior=None):
     """least time (ms) for K3-mb's work, counted as k3_bound counts K3's:
-    the planes, guess, bounds, psf and bands read once and the state
-    written once, or K3's operations per pixel and gaussian of every
-    epoch at the guess times each lane's nfev"""
+    the planes, guess, bounds, psf, bands and the prior's table read once
+    and the state written once, or K3's operations per pixel and
+    gaussian of every epoch at the guess, and prior_ops over all the
+    parameters, times each lane's nfev"""
     guess, lo, hi, psf, band, v, u, ia, ve = args
     B, E, P = v.shape
     npars = fit_model.shape_count(model) + 1
     bp = fit_model.epoch_band_pars(model, guess, band).reshape(B * E, npars)
     rp = model_rp(bp, nt.batch._psf_gmix(psf.reshape(B * E, 3)), model)
     per_row = pixel_ops(rp, v.reshape(B * E, P), u.reshape(B * E, P), k3_ops(npars))
-    ops = int((per_row.reshape(B, E).sum(-1) * state["nfev"].long()).sum())
+    per_lane = per_row.reshape(B, E).sum(-1) + prior_ops(prior, guess.shape[1])
+    ops = int((per_lane * state["nfev"].long()).sum())
     esize = v.element_size()
     nbytes = (esize * (4 * B * E * P + guess.numel() + lo.numel() + hi.numel() + psf.numel())
-              + band.numel() * band.element_size()
+              + band.numel() * band.element_size() + prior_bytes(prior)
               + sum(x.numel() * x.element_size() for x in state.values()))
     return least_ms(nbytes, ops, v.dtype)
 
 
-def mb_cpu_results(args, band, measure, bounds=None):
-    """the mb pipeline's float64 results of the LM measure on the CPU (its
-    plain version) for args [B, E, ...] and band"""
+def mb_cpu_results(args, band, measure, bounds=None, prior=None):
+    """the mb pipeline's float64 results of the LM measure (with the
+    prior) on the CPU (its plain version) for args [B, E, ...] and
+    band"""
     return nt.make_metacal_pipeline_mb_fn(MB_CONF, band, nt.sims.MB_NBAND, measure=measure,
-                                          lm_bounds=bounds, device="cpu")(
+                                          lm_bounds=bounds, lm_prior=prior, device="cpu")(
                                               *(a.cpu() for a in args))
 
 
@@ -1739,23 +1779,30 @@ class CpuSide:
 
 
 def start_cpu_side(device):
-    """a CpuSide with the CPU sides of phases 18, 21 and 22 submitted in
-    the order the phases read them, on the phases' sims made here from
-    their seeds: phase 18's mb exp-LM and phase 21's exp-LM in its box
+    """a CpuSide with the CPU sides of phases 17, 18, 19, 21, 22 and 23
+    submitted in the order the phases read them, on the phases' sims
+    made here from their seeds: phase 17's psf-mode runs, phase 18's mb
+    exp-LM, phase 19's pre-psf moments, phase 21's exp-LM in its box
     and mb gauss-lm and dev-lm; phase 22's bdf-lm on phase 21's inputs
     and bd-lm on the bdf-truth sims (bd is degenerate on exp truth:
     log10(Td/Te) has no information at fracdev 0, and its float64 CPU
-    run of 256 exp stamps took 450 s on one H100 host core)"""
+    run of 256 exp stamps took 450 s on one H100 host core); phase 23's
+    prior fits (submit_prior_cpu)"""
     side = CpuSide()
     gen = functools.partial(torch.Generator(device=device).manual_seed)
     nb = nt.sims.MB_NBAND
+    hom = nt.make_sim_batch(gen(314), B_MAIN, torch.float32, device=device)
+    flat = [a[:N_CPU].double() for a in hom]
+    for measure, conf in PSF_MODE_RUNS:
+        side.submit("17 %s %s" % (measure, conf.psf_mode), pipeline_cpu_results, flat, conf,
+                    measure)
     het_mb = nt.make_sim_batch_mb(gen(271), B_MB, torch.float32, device=device, hetero=True)
     side.submit("18 mb", mb_cpu_results, *distinct_epochs(het_mb, N_CPU_MB), "exp-lm", None)
     del het_mb
-    hom = nt.make_sim_batch(gen(314), B_MAIN, torch.float32, device=device)
+    for case in PREPSF_CPU_CASES:
+        side.submit("19 %s %s %s" % case, prepsf_cpu_results, prepsf_cpu_inputs(hom), *case)
     het = [x[:, None] for x in nt.make_sim_batch_hetero(gen(271), B_MAIN, torch.float32,
                                                           device=device)]
-    flat = [a[:N_CPU].double() for a in hom]
     side.submit("21 exp-lm", flat_cpu_results, flat, "exp-lm", BOX)
     mb = distinct_epochs(het, N_CPU_MB)
     for model in MODEL_GATES:
@@ -1769,6 +1816,7 @@ def start_cpu_side(device):
                     model + "-lm", box)
         side.submit("22 mb " + model, mb_cpu_results,
                     *distinct_epochs(sims, N_CPU_MB_COMPOSITE), model + "-lm", mb_box(box, nb))
+    submit_prior_cpu(side, hom, truth)
     return side
 
 
@@ -1949,33 +1997,51 @@ def run_prepsf_pipelines(device, hom):
     return out, row
 
 
-def prepsf_card_cpu(hom, n=256):
-    """the first n stamps in float64 on the card and the CPU, for pgauss
-    and ksigma, by both routes, with white noise and with the sims'
-    noise fields: flags equal, the sums and their covariance within
-    rtol 1e-10 and atol 1e-13 (tests/test_prepsfmom.py:226). Returns the
-    largest share of that tolerance"""
-    args = [a[:n].double() for a in prepsf_args(hom)]
-    noise = hom[5][:n].double()
+# phase 19's card-against-CPU cases: (kernel, partial_modes, with the
+# sims' noise fields)
+PREPSF_CPU_CASES = [(kernel, partial, noisy) for kernel in ("gauss", "ksigma")
+                    for partial in (True, False) for noisy in (False, True)]
+
+
+def prepsf_cpu_inputs(hom, n=N_CPU):
+    """the first n stamps' prepsfmom_batch inputs and noise fields in
+    float64"""
+    return [a[:n].double() for a in prepsf_args(hom)] + [hom[5][:n].double()]
+
+
+def prepsf_cpu_results(args, kernel, partial, noisy):
+    """prepsfmom_batch's float64 results on the CPU for prepsf_cpu_inputs
+    args"""
+    *args, noise = (a.cpu() for a in args)
+    return nt.prepsfmom_batch(*args, noise_images=noise if noisy else None, device="cpu",
+                              **dict(PREPSF_KW, kernel=kernel, partial_modes=partial))
+
+
+def prepsf_card_cpu(cpu_side):
+    """the first N_CPU stamps in float64 on the card and the CPU
+    (cpu_side's jobs), for pgauss and ksigma, by both routes, with white
+    noise and with the sims' noise fields: flags equal, the sums and
+    their covariance within rtol 1e-10 and atol 1e-13
+    (tests/test_prepsfmom.py:226). Returns the largest share of that
+    tolerance"""
     worst = 0.0
-    for kernel in ("gauss", "ksigma"):
-        for partial in (True, False):
-            for nz in (None, noise):
-                kw = dict(PREPSF_KW, kernel=kernel, partial_modes=partial)
-                card = nt.prepsfmom_batch(*args, noise_images=nz, device="cuda", **kw)
-                cpu = nt.prepsfmom_batch(*(a.cpu() for a in args), device="cpu",
-                                         noise_images=None if nz is None else nz.cpu(), **kw)
-                what = "prepsfmom %s partial=%s noise=%s" % (kernel, partial, nz is not None)
-                if not torch.equal(card["flags"].cpu(), cpu["flags"]):
-                    raise SmokeFailure("%s: flags differ between card and CPU" % what)
-                for k, sl in (("sums", slice(2, None)), ("sums_cov", slice(None))):
-                    a, b = card[k][:, sl].cpu(), cpu[k][:, sl]
-                    tol = 1e-13 + 1e-10 * b.abs()
-                    err = (a - b).abs()
-                    if not bool((err <= tol).all()):
-                        raise SmokeFailure("%s: %s differ between card and CPU: max %.3e"
-                                           % (what, k, float(err.max())))
-                    worst = max(worst, float((err / tol).max()))
+    for kernel, partial, noisy in PREPSF_CPU_CASES:
+        (args, *_), cpu = cpu_side.get("19 %s %s %s" % (kernel, partial, noisy))
+        *args, noise = args
+        kw = dict(PREPSF_KW, kernel=kernel, partial_modes=partial)
+        card = nt.prepsfmom_batch(*args, noise_images=noise if noisy else None, device="cuda",
+                                  **kw)
+        what = "prepsfmom %s partial=%s noise=%s" % (kernel, partial, noisy)
+        if not torch.equal(card["flags"].cpu(), cpu["flags"]):
+            raise SmokeFailure("%s: flags differ between card and CPU" % what)
+        for k, sl in (("sums", slice(2, None)), ("sums_cov", slice(None))):
+            a, b = card[k][:, sl].cpu(), cpu[k][:, sl]
+            tol = 1e-13 + 1e-10 * b.abs()
+            err = (a - b).abs()
+            if not bool((err <= tol).all()):
+                raise SmokeFailure("%s: %s differ between card and CPU: max %.3e"
+                                   % (what, k, float(err.max())))
+            worst = max(worst, float((err / tol).max()))
     return worst
 
 
@@ -1995,7 +2061,7 @@ def check_remap_large(device, N=520):
     return rel
 
 
-def prepsf_phase(device, t_all):
+def prepsf_phase(device, t_all, cpu_side):
     """phase 19: the pre-psf moments, standalone and as metacal
     measures, and their checks. Returns K2's psf-render row and the
     pipelines' results"""
@@ -2017,7 +2083,7 @@ def prepsf_phase(device, t_all):
         for k, g in pipes.items())), flush=True)
     print(k2_row_text(row), flush=True)
     t0 = time.perf_counter()
-    worst = prepsf_card_cpu(hom)
+    worst = prepsf_card_cpu(cpu_side)
     rel = check_remap_large(device)
     phase_line("19 prepsf-cpu", t0, "256 stamps float64 card against CPU, pgauss and ksigma "
                "by both routes, white and measured noise: flags equal, sums and covariance "
@@ -2116,24 +2182,26 @@ def run_model(device, model, hom, het):
                 nfev=nfev, row=row, d64=d64), fn
 
 
-def k3mb_model_row(args, conf, model):
-    """K3-mb of the model on the mb path's float32 solve inputs (its
-    guess is the moments guess of every model) against its plain
-    version by phase 13's criterion, and timed beside its bound"""
-    split, in_err, max_abs, plain_ms, state = k3mb_against_plain(args, conf, model)
-    ms = time_ms(lambda: lm_solve.lm_solve_mb(*args, conf, model), 10)
-    b_ms, by = k3mb_bound(args, state, model)
+def k3mb_model_row(args, conf, model, prior=None):
+    """K3-mb of the model (with the prior's rows) on the mb path's
+    float32 solve inputs (its guess is the moments guess of every model)
+    against its plain version by phase 13's criterion, and timed beside
+    its bound"""
+    split, in_err, max_abs, plain_ms, state = k3mb_against_plain(args, conf, model, prior)
+    ms = time_ms(lambda: lm_solve.lm_solve_mb(*args, conf, model, prior), 10)
+    b_ms, by = k3mb_bound(args, state, model, prior)
     B, E, P = args[5].shape
-    return dict(shape="%s NG=%d [%dx%dx%d]" % (model, NGAUSS[model], B, E, P), ms=ms,
+    return dict(shape="%s NG=%d [%dx%dx%d]%s" % (model, NGAUSS[model], B, E, P,
+                                                prior_text(prior)), ms=ms,
                 plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, max_abs_err=max_abs,
                 split=split, max_in_err=in_err, nfev_sum=int(state["nfev"].sum()))
 
 
-def flat_cpu_results(args, measure, box):
-    """the LM measure's float64 results inside the box on the CPU (its
-    plain version) for the stamps args"""
+def flat_cpu_results(args, measure, box, prior=None):
+    """the LM measure's float64 results inside the box (with the prior)
+    on the CPU (its plain version) for the stamps args"""
     return nt.make_metacal_pipeline_fn(LM_CONF, measure=measure, lm_bounds=box,
-                                       device="cpu")(*(a.cpu() for a in args))
+                                       lm_prior=prior, device="cpu")(*(a.cpu() for a in args))
 
 
 def bounded_card_cpu(args, cpu, measure="exp-lm", box=BOX):
@@ -2285,9 +2353,11 @@ def run_composite(device, model, hom, het):
 
 # ROADMAP fault 3.4: on the exp sims, where bdf's fracdev sits on its
 # bound and bd's log10(Td/Te) is then free, float32 LM solves stop early
-# on rare lanes, K3's and its plain version's alike, and float64 solves
-# by two routes part in nfev where the fracdev pin toggles at a
-# near-tie. The checks on those inputs count such lanes. In float32:
+# on rare lanes, K3's and its plain version's alike (and the JAX
+# package's float32 LM at the same rate, scripts/fault34_f32_stops.py:
+# the algorithm's), and float64 solves by two routes part in nfev where
+# the fracdev pin toggles at a near-tie. The checks on those inputs
+# count such lanes. In float32:
 # the lanes farther than half a pars_err from the float64 optimum (the
 # kernel's own float64 solve of the same inputs, held to its plain
 # version by f64_lanes), at most max(8, 1e-4 of the lanes) for bdf and
@@ -2299,20 +2369,20 @@ F32_LIMIT = {"bdf": lambda n: max(8, n // 10000), "bd": lambda n: n // 20}
 F32_MAX_ERR = 10.0
 
 
-def beyond_optimum(model, a, opt, keys, what):
-    """hold a float32 LM result a of the composite model to the float64
-    optimum opt (solve_cols or mb_cols of the same inputs, keys their
-    columns): flags equal on every lane; of the lanes unflagged, those
-    whose keys lie farther than half of opt's pars_err at most
-    F32_LIMIT, none farther than F32_MAX_ERR. Returns that count and the
-    largest distance in pars_err"""
+def beyond_optimum(kind, a, opt, keys, what, limits=F32_LIMIT):
+    """hold a float32 LM result a to the float64 optimum opt (solve_cols
+    or mb_cols of the same inputs, keys their columns): flags equal on
+    every lane; of the lanes unflagged, those whose keys lie farther
+    than half of opt's pars_err at most limits[kind] (F32_LIMIT: by
+    composite model), none farther than F32_MAX_ERR. Returns that count
+    and the largest distance in pars_err"""
     if not torch.equal(a["flags"], opt["flags"]):
         raise SmokeFailure("%s: flags differ from the float64 optimum on %d lanes"
                            % (what, int((a["flags"] != opt["flags"]).sum())))
     ok = opt["flags"] == 0
     d = torch.stack([(a[k].double() - opt[k]).abs() / opt["err"][:, i]
                      for i, k in enumerate(keys)], -1)[ok].max(-1).values
-    n, worst, limit = int((d > 0.5).sum()), float(d.max()), F32_LIMIT[model](ok.numel())
+    n, worst, limit = int((d > 0.5).sum()), float(d.max()), limits[kind](ok.numel())
     if n > limit or not worst <= F32_MAX_ERR:
         raise SmokeFailure("%s: %d lanes beyond half a pars_err of the float64 optimum "
                            "(limit %d), largest %.3f pars_err (limit %g)"
@@ -2606,6 +2676,399 @@ def composite_phase(device, t_all, cpu_side):
     )
 
 
+# ----------------------------------------------------------------------
+# prior-regularized fits (phase 23)
+
+# the prior table's arithmetic per row and evaluation, counted from
+# csrc/lm_common.cuh as k3_ops is: the row of its kind (at most 20, a
+# transcendental as 1) and its sqrt form (2); then, on every thread, the
+# row's square into the cost (2) and its Jacobian row into Jtr (2 npars)
+# and the JtJ triangle (npars (npars + 1))
+PRIOR_ROW_OPS = 22
+
+
+def prior_ops(prior, npars):
+    """the prior rows' operations per evaluation (0 without a prior)"""
+    if prior is None:
+        return 0
+    return prior.n_prior_pars * (PRIOR_ROW_OPS + 2 + 2 * npars + npars * (npars + 1))
+
+
+def prior_bytes(prior):
+    return 0 if prior is None else prior.n_prior_pars * joint_prior.TABLE_COLS * 8
+
+
+def prior_text(prior):
+    return "" if prior is None else " + %s (%d rows)" % (type(prior).__name__,
+                                                        prior.n_prior_pars)
+
+
+def exp_prior():
+    """the reference test's PriorSimpleSep (tests/test_batch_pipeline.py:389-397)"""
+    return joint_prior.PriorSimpleSep(tpriors.CenPrior(0.0, 0.0, 0.263, 0.263),
+                                      tpriors.GPriorBA(0.3), tpriors.FlatPrior(0.01, 10.0),
+                                      tpriors.FlatPrior(1e-4, 1e9))
+
+
+def bdf_prior(nband=1):
+    """the production PriorBDFSep of tests/_priors.py:16-32: GPriorBA(0.1),
+    CenPrior sigma 0.263, TwoSidedErf(-1, 0.1, 1e3, 1) for T, LogNormal(0.5,
+    0.1) for fracdev, TwoSidedErf(-100, 0.1, 1e9, 1) for each band's F"""
+    F = tpriors.TwoSidedErf(-100.0, 0.1, 1e9, 1.0)
+    return joint_prior.PriorBDFSep(tpriors.CenPrior(0.0, 0.0, 0.263, 0.263),
+                                   tpriors.GPriorBA(0.1), tpriors.TwoSidedErf(-1.0, 0.1, 1e3, 1.0),
+                                   tpriors.LogNormal(0.5, 0.1), F if nband == 1 else [F] * nband)
+
+
+# each prior fit: its prior, box and |m| limit (exp: bench.py's gate; bdf:
+# the fracdev prior is informative, and the reference recorded no m
+# for it)
+PRIOR_FITS = {"exp": (exp_prior, BOX, 1e-3),
+              "bdf": (bdf_prior, nt.sims.BDF_LM_BOUNDS, 3e-3)}
+# the float32 solves with the prior against their float64 optimum: lanes
+# beyond half a pars_err, at most max(8, 1e-4 of the lanes) (fault 3.4's
+# bdf limit), none beyond F32_MAX_ERR; on bdf's exp-truth paths, where
+# fracdev sits near its bound against the LogNormal prior, at most
+# max(8, 0.5% of the lanes) (measured on an H100: K3-mb 20 of 10,240, up
+# to 0.613 pars_err; ROADMAP fault 3.4). The float64 solves against the
+# plain versions on 256 lanes a path by phase 13's float64 criterion
+# (flags equal, e1/e2/T/flux to rtol 1e-5 and atol 1e-7, nfev within 2),
+# at most PRIOR_F64_LIMIT lanes outside it
+PRIOR_F32_LIMIT = {"exp": lambda n: max(8, n // 10000),
+                   "bdf-truth": lambda n: max(8, n // 10000),
+                   "bdf exp": lambda n: max(8, n // 200)}
+PRIOR_F64_LIMIT = 2
+
+
+def capture_solve(fn, *args, mb=False):
+    """the inputs of the K3 (or K3-mb) call of fn(*args) but the LMConf,
+    the model and the prior, the prior, and fn's result"""
+    seen = {}
+    name = "lm_solve_mb" if mb else "lm_solve"
+    solve = getattr(lm_solve, name)
+
+    def spy(*a, **kw):
+        seen["args"], seen["prior"] = a[:9 if mb else 8], a[11 if mb else 10]
+        return solve(*a, **kw)
+
+    with mock.patch.object(lm_solve, name, spy):
+        res = fn(*args)
+    return seen["args"], seen["prior"], res
+
+
+def run_prior_fit(device, model, hom, het, mb=False):
+    """the model's LM main path with its prior and box, through K3 on the
+    flat sims (mb: K3-mb on the mb sims, the prior of nband flux slots and
+    the box extended to the bands), gated, with its launches and the
+    wall time of the hom call. Returns the gate values and the solve
+    inputs and prior of the hom and het calls"""
+    make, box, limit = PRIOR_FITS[model]
+    measure = model + "-lm"
+    if mb:
+        nb = nt.sims.MB_NBAND
+        fn = nt.make_metacal_pipeline_mb_fn(MB_CONF, nt.sims.MB_BAND, nb, measure=measure,
+                                            lm_prior=make(nb), lm_bounds=mb_box(box, nb),
+                                            device=device)
+    else:
+        fn = nt.make_metacal_pipeline_fn(LM_CONF, measure=measure, lm_prior=make(),
+                                         lm_bounds=box, device=device)
+    _sync(device)
+    reset_launches()
+    (hom_args, prior, res), sec, _ = timed_call(functools.partial(capture_solve, fn, mb=mb),
+                                                *hom)
+    het_args, _, het_res = capture_solve(fn, *het, mb=mb)
+    _sync(device)
+    launches = read_launches()
+    B = B_MB if mb else B_MAIN
+    what = "%s%s-lm with its prior" % ("mb " if mb else "", model)
+    g = (mb_gate(res, het_res, B, nshape=len(box[0]) - 1) if mb
+         else exp_lm_gate(res, het_res, B, npars=len(box[0])))
+    if not (abs(g["m"]) < limit and abs(g["het_m"]) < limit):
+        raise SmokeFailure("%s m gate failed: m=%.3e hetero m=%.3e > %g"
+                           % (what, g["m"], g["het_m"], limit))
+    check_flagged(g, B, what)
+    k3, other = ("k3mb", "k3") if mb else ("k3", "k3mb")
+    if launches[k3] != 2 or launches["k2"] <= 0 or launches[other] or launches["k1"]:
+        raise SmokeFailure("the %s path launched %s" % (what, launches))
+    types = nt.batch.GALSHEAR_TYPES
+    nfev = numiter_stats(*(r[t]["nfev"] for r in (res, het_res) for t in types))
+    out = dict(g, launches=launches, per_s=B / sec, nfev=nfev)
+    if model == "bdf":
+        out["fracdev"] = [float(torch.cat([r[t]["fracdev"][r[t]["flags"] == 0]
+                                           for t in types]).mean()) for r in (res, het_res)]
+    return out, (hom_args, het_args), prior
+
+
+def check_cost_pix(state, args, prior, what, mb=False):
+    """the state's cost_pix is its cost without the prior rows: equal
+    where every row at its parameters is 0, below it where the rows'
+    squares exceed 4 ulp of the cost, never above it"""
+    lo, hi = args[1], args[2]
+    x = tlm.i2e(state["y"], lo, hi)
+    rows = prior.fill_fdiff_device(x.double())
+    s = (rows * rows).sum(-1)
+    cost, cost_pix = state["cost"].double(), state["cost_pix"].double()
+    ok = torch.isfinite(cost) & torch.isfinite(s)
+    eps = torch.finfo(state["cost"].dtype).eps
+    bad = ok & ((cost_pix > cost) | ((s == 0) & (cost_pix != cost))
+                | ((s > 4 * eps * cost) & ~(cost_pix < cost)))
+    if bool(bad.any()):
+        raise SmokeFailure("%s: cost_pix is not the cost without the prior rows on %d lanes"
+                           % (what, int(bad.sum())))
+    return int((ok & (s > 4 * eps * cost)).sum())
+
+
+def prior_f64_lanes(a, b, what, keys):
+    """two float64 solves of the same lanes (solve_cols or mb_cols; b the
+    plain version's) by phase 13's float64 criterion: flags equal on
+    every lane; lanes whose keys differ by more than rtol 1e-5 + atol
+    1e-7, or whose nfev by more than 2, at most PRIOR_F64_LIMIT. Returns
+    that count and the largest relative difference"""
+    if not torch.equal(a["flags"], b["flags"]):
+        raise SmokeFailure("%s: flags differ on %d lanes"
+                           % (what, int((a["flags"] != b["flags"]).sum())))
+    far = (a["nfev"] - b["nfev"]).abs() > 2
+    rel = torch.zeros_like(a[keys[0]], dtype=torch.float64)
+    for k in keys:
+        x, y = a[k].double(), b[k].double()
+        err = (x - y).abs()
+        far |= ~torch.isfinite(x) | (err > 1e-7 + 1e-5 * y.abs())
+        rel = torch.maximum(rel, err / y.abs().clamp_min(1e-300))
+    n = int(far.sum())
+    if n > PRIOR_F64_LIMIT:
+        raise SmokeFailure("%s: %d of %d lanes outside rtol 1e-5 or nfev within 2 (limit %d)"
+                           % (what, n, far.numel(), PRIOR_F64_LIMIT))
+    return n, float(rel[~far].max()) if bool((~far).any()) else 0.0
+
+
+def prior_kernel_checks(model, paths, prior, mb=False):
+    """K3 (mb: K3-mb) with the prior's rows on each path's float32 solve
+    inputs (paths: name -> inputs): against its own float64 solve of
+    every lane (beyond_optimum with PRIOR_F32_LIMIT), on the first 256
+    lanes in float64 against its plain version (prior_f64_lanes), and
+    cost_pix in both states (check_cost_pix). Returns, by path, the
+    lanes beyond half a pars_err and the largest distance, the float64
+    lanes outside and the largest relative difference, and the lanes
+    whose prior rows count in the cost"""
+    conf = nt.LMConf()
+    solve = lm_solve.lm_solve_mb if mb else lm_solve.lm_solve
+    plain = lm_solve.lm_solve_mb_plain if mb else lm_solve.lm_solve_plain
+    keys = MB_KEYS if mb else ("e1", "e2", "T", "flux")
+
+    def cols(state, a):
+        return mb_cols(_epilogue_mb(state, a, conf)) if mb else solve_columns(state, a, conf)
+
+    kernel = "K3-mb" if mb else "K3"
+    out = {}
+    for name, args in paths.items():
+        what = "%s (%s) with the prior on the %s path" % (kernel, model, name)
+        s32 = solve(*args, conf, model, prior)
+        a64 = float64(args)
+        s64 = solve(*a64, conf, model, prior)
+        limit = "bdf exp" if (model, name) == ("bdf", "exp") else name
+        f32 = beyond_optimum(limit, cols(s32, args), cols(s64, a64), keys,
+                             what + " in float32", limits=PRIOR_F32_LIMIT)
+        nrow = check_cost_pix(s32, args, prior, what) + check_cost_pix(s64, a64, prior, what)
+        f = first_lanes(args)
+        f64 = prior_f64_lanes(cols(solve(*f, conf, model, prior), f),
+                              cols(plain(*f, conf, model, prior), f),
+                              what + " in float64 against its plain version", keys)
+        out[name] = (f32, f64, nrow)
+    return out
+
+
+def prior_timed_rows(model, args, prior, mb=False):
+    """K3 (mb: K3-mb) on the path's float32 solve inputs with the prior's
+    rows against its plain version by phase 13's criterion and timed
+    beside its bound, with its registers and local memory; and timed on
+    the same inputs without the prior, beside that solve's bound"""
+    conf = nt.LMConf()
+    if mb:
+        row = k3mb_model_row(args, conf, model, prior)
+        E, P = args[5].shape[1:]
+        row["attrs"] = lm_solve.kernel_attrs_mb(torch.float32, nt.sims.MB_NBAND, E, P, model)
+        state = lm_solve.lm_solve_mb(*args, conf, model)
+        row["ms_no_prior"] = time_ms(lambda: lm_solve.lm_solve_mb(*args, conf, model), 10)
+        row["bound_no_prior"] = k3mb_bound(args, state, model)[0]
+    else:
+        row = k3_timed_row(args, conf, model, prior)
+        row["attrs"] = lm_solve.kernel_attrs(torch.float32, args[4].shape[1], model)
+        state = lm_solve.lm_solve(*args, conf, model)
+        row["ms_no_prior"] = time_ms(lambda: lm_solve.lm_solve(*args, conf, model), 10)
+        row["bound_no_prior"] = k3_bound(args, state, model)[0]
+    row["nfev_sum_no_prior"] = int(state["nfev"].sum())
+    # the prior rows' share of an evaluation's operations, at the guess
+    p = prior_ops(prior, args[0].shape[1])
+    row["prior_ops"] = p
+    row["prior_share"] = p / (p + eval_ops(args, model, mb))
+    return row
+
+
+def eval_ops(args, model, mb=False):
+    """K3's (mb: K3-mb's) mean operations of one evaluation of a lane
+    without the prior rows, at the guess (k3_ops)"""
+    if not mb:
+        rp = model_rp(args[0], nt.batch._psf_gmix(args[3]), model)
+        return float(pixel_ops(rp, args[4], args[5], k3_ops(args[0].shape[1])).double().mean())
+    guess, psf, band, v, u = args[0], args[3], args[4], args[5], args[6]
+    B, E, P = v.shape
+    npars = fit_model.shape_count(model) + 1
+    bp = fit_model.epoch_band_pars(model, guess, band).reshape(B * E, npars)
+    rp = model_rp(bp, nt.batch._psf_gmix(psf.reshape(B * E, 3)), model)
+    per_row = pixel_ops(rp, v.reshape(B * E, P), u.reshape(B * E, P), k3_ops(npars))
+    return float(per_row.reshape(B, E).sum(-1).double().mean())
+
+
+def prior_card_cpu(cpu_side, key, box, prior, mb=False):
+    """the prior fit in float64 on the card (K3, mb: K3-mb) against the
+    CPU (its plain version, from cpu_side's job key) on the same inputs
+    by f64_lanes over the five types' lanes with pars_err: flags equal;
+    pars and pars_err within rtol 1e-8 + atol 1e-10 and nfev within 2,
+    except on max(4, 1%) of the lanes (ROADMAP fault 3.4: at the fracdev
+    prior's near-ties float64 solves by two routes part in nfev, 4 apart
+    on an H100), whose pars lie within 1e-3 pars_err; unflagged pars
+    inside the box. Returns f64_lanes' numbers, the card call's launches
+    and the stamps or objects"""
+    inputs, cpu = get_chunks(cpu_side, key) if mb else cpu_side.get(key)
+    reset_launches()
+    if mb:
+        args, band = inputs[:2]
+        card = nt.make_metacal_pipeline_mb_fn(MB_CONF, band, nt.sims.MB_NBAND,
+                                              measure=inputs[2], lm_bounds=box, lm_prior=prior,
+                                              device="cuda")(*args)
+    else:
+        args = inputs[0]
+        card = nt.make_metacal_pipeline_fn(LM_CONF, measure=inputs[1], lm_bounds=box,
+                                           lm_prior=prior, device="cuda")(*args)
+    _sync("cuda")
+    launches = read_launches()["k3mb" if mb else "k3"]
+    keys = ("flags", "nfev", "pars_err", "pars")
+    a = cat_types(card, keys)
+    out = f64_lanes(a, cat_types(cpu, keys), "%s with its prior, card against CPU" % key,
+                    ("pars", "pars_err"))
+    lo, hi = (torch.tensor(x, dtype=torch.float64) for x in box)
+    pars = a["pars"][a["flags"] == 0].cpu()
+    if not bool(((pars > lo) & (pars < hi)).all()):
+        raise SmokeFailure("%s with its prior: pars outside the box" % key)
+    return out, launches, args[0].shape[0]
+
+
+# the objects of each of the mb bdf-lm CPU side's jobs: its 256 objects
+# take ~200 s of one core, so they run as jobs of this many on the pool
+PRIOR_MB_CHUNK = 32
+
+
+def submit_prior_cpu(side, hom, truth):
+    """phase 23's CPU sides: exp-lm with its prior on the first N_CPU exp
+    stamps, bdf-lm with its prior on the first N_CPU bdf-truth stamps and
+    the mb bdf-lm on N_CPU_MB objects of distinct bdf-truth epochs, in
+    jobs of PRIOR_MB_CHUNK objects"""
+    side.submit("23 flat exp", flat_cpu_results, [a[:N_CPU].double() for a in hom], "exp-lm",
+                BOX, exp_prior())
+    side.submit("23 flat bdf", flat_cpu_results, [a[:N_CPU, 0].double() for a in truth],
+                "bdf-lm", nt.sims.BDF_LM_BOUNDS, bdf_prior())
+    nb = nt.sims.MB_NBAND
+    args, band = distinct_epochs(truth, N_CPU_MB)
+    for i in range(0, N_CPU_MB, PRIOR_MB_CHUNK):
+        j = slice(i, i + PRIOR_MB_CHUNK)
+        side.submit("23 mb bdf %d" % i, mb_cpu_results, [a[j] for a in args], band[j],
+                    "bdf-lm", mb_box(nt.sims.BDF_LM_BOUNDS, nb), bdf_prior(nb))
+
+
+def get_chunks(cpu_side, prefix):
+    """the inputs and results of cpu_side's jobs named prefix + a start
+    index, joined in that order"""
+    keys = sorted((k for k in cpu_side.jobs if k.startswith(prefix + " ")),
+                  key=lambda k: int(k.rsplit(" ", 1)[1]))
+    parts = [cpu_side.get(k) for k in keys]
+    args = [torch.cat([p[0][0][i] for p in parts]) for i in range(len(parts[0][0][0]))]
+    band = torch.cat([p[0][1] for p in parts])
+    return (args, band) + parts[0][0][2:], nt.batch._concat_results([p[1] for p in parts])
+
+
+def prior_phase(device, t_all, cpu_side):
+    """phase 23: exp-lm (the reference test's prior and box) and bdf-lm
+    (the production PriorBDFSep and box) through K3, and the mb bdf-lm
+    through K3-mb, with their priors, gated; K3 and K3-mb with the prior
+    rows against their float64 optimum and plain versions
+    (prior_kernel_checks) and timed with and without the prior
+    (prior_timed_rows); card against CPU in float64 (prior_card_cpu).
+    Returns K3's and K3-mb's rows, launches by path and largest
+    absolute errors, and K2's launches"""
+    t0 = time.perf_counter()
+    gen = functools.partial(torch.Generator(device=device).manual_seed)
+    hom = nt.make_sim_batch(gen(314), B_MAIN, torch.float32, device=device)
+    truth = nt.make_sim_batch_hetero(gen(271), B_MAIN, torch.float32, device=device,
+                                     gal_model="bdf")
+    hom_mb = nt.make_sim_batch_mb(gen(314), B_MB, torch.float32, device=device)
+    truth_mb = nt.make_sim_batch_mb(gen(271), B_MB, torch.float32, device=device,
+                                    hetero=True, gal_model="bdf")
+    exp_run, exp_args, eprior = run_prior_fit(device, "exp", hom, nt.make_sim_batch_hetero(
+        gen(271), B_MAIN, torch.float32, device=device))
+    bdf_run, bdf_args, bprior = run_prior_fit(device, "bdf", hom, truth)
+    mb_run, mb_args, mprior = run_prior_fit(device, "bdf", hom_mb, truth_mb, mb=True)
+    del hom, truth, hom_mb, truth_mb
+    t_fits = time.perf_counter()
+    checks = {
+        "exp": prior_kernel_checks("exp", {"exp": exp_args[0]}, eprior),
+        "bdf": prior_kernel_checks("bdf", {"exp": bdf_args[0], "bdf-truth": bdf_args[1]},
+                                   bprior),
+        "mb bdf": prior_kernel_checks("bdf", {"exp": mb_args[0], "bdf-truth": mb_args[1]},
+                                      mprior, mb=True),
+    }
+    t_checks = time.perf_counter()
+    rows = {"exp": prior_timed_rows("exp", exp_args[0], eprior),
+            "bdf": prior_timed_rows("bdf", bdf_args[1], bprior),
+            "mb bdf": prior_timed_rows("bdf", mb_args[1], mprior, mb=True)}
+    t_rows = time.perf_counter()
+    cc = {"flat exp": prior_card_cpu(cpu_side, "23 flat exp", BOX, eprior),
+          "flat bdf": prior_card_cpu(cpu_side, "23 flat bdf", nt.sims.BDF_LM_BOUNDS, bprior),
+          "mb bdf": prior_card_cpu(cpu_side, "23 mb bdf",
+                                   mb_box(nt.sims.BDF_LM_BOUNDS, nt.sims.MB_NBAND), mprior,
+                                   mb=True)}
+    if any(x[1] != 1 for x in cc.values()):
+        raise SmokeFailure("card against CPU: the prior calls launched K3 or K3-mb %s times"
+                           % [x[1] for x in cc.values()])
+    t_cc = time.perf_counter()
+    runs = {"exp-lm": exp_run, "bdf-lm": bdf_run, "mb bdf-lm": mb_run}
+    phase_line("23 priors", t0, "B=%d float32 (mb %dx%d), exp sims and %s: %s; %s; card "
+               "against CPU float64: %s; total %.1f s" % (
+                   B_MAIN, B_MB, len(nt.sims.MB_BAND), "het sims (exp) / bdf-truth sims", "; ".join(
+                       "%s m=%.3e hetero_m=%.3e R11=%.4f flagged=%d hetero_flagged=%d%s "
+                       "launches k3=%d k3mb=%d k2=%d %s/s=%.1f (one call) nfev (%.3f, %g, %d)"
+                       % (k, r["m"], r["het_m"], r["R11"], r["flagged"], r["het_flagged"],
+                          " fracdev %.4f and %.4f" % tuple(r["fracdev"]) if "fracdev" in r
+                          else "", r["launches"]["k3"], r["launches"]["k3mb"],
+                          r["launches"]["k2"], "objects" if k.startswith("mb") else "stamps",
+                          r["per_s"], *r["nfev"]) for k, r in runs.items()),
+                   "; ".join("%s %s: float32 %d lanes beyond 0.5 pars_err of float64 (max "
+                             "%.3f), float64 256 lanes %d outside rtol 1e-5 (max rel %.2e), "
+                             "%d lanes' rows in the cost" % (k, p, *f32, *f64, nrow)
+                             for k, c in checks.items() for p, (f32, f64, nrow) in c.items()),
+                   "; ".join("%s %d: %s" % (k, n, f64_text(r)) for k, (r, _, n) in cc.items()),
+                   time.perf_counter() - t_all))
+    print("    %s" % "; ".join(
+        "%s %s: %.4f ms (no prior %.4f), plain %.4f ms, bound %.4f ms (%s; no prior %.4f), sum "
+        "nfev %d (no prior %d), within %.3e pars_err of plain, %s, prior %d operations an "
+        "evaluation (%.3f%%)"
+        % (("K3-mb" if k.startswith("mb") else "K3"), r["shape"], r["ms"], r["ms_no_prior"],
+           r["plain_ms"], r["bound_ms"], r["bound_by"], r["bound_no_prior"], r["nfev_sum"],
+           r["nfev_sum_no_prior"], r["max_in_err"], attrs_text(r["attrs"]),
+           r["prior_ops"], 100 * r["prior_share"]) for k, r in rows.items())
+        + "; fits %.1f s, checks %.1f s, timed rows %.1f s, card against CPU %.1f s"
+        % (t_fits - t0, t_checks - t_fits, t_rows - t_checks, t_cc - t_rows), flush=True)
+    return dict(
+        k3_rows=[rows["exp"], rows["bdf"]],
+        k3_launches={"%s prior" % k: r["launches"]["k3"] for k, r in runs.items()
+                     if not k.startswith("mb")},
+        k3mb_rows=[rows["mb bdf"]],
+        k3mb_launches={"mb bdf-lm prior": mb_run["launches"]["k3mb"]},
+        k2_launches={"%s prior" % k: r["launches"]["k2"] for k, r in runs.items()},
+        max_abs_err=max(rows["exp"]["max_abs_err"], rows["bdf"]["max_abs_err"]),
+        mb_max_abs_err=rows["mb bdf"]["max_abs_err"],
+    )
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -2633,8 +3096,8 @@ def main():
 
 
 def phases(device, t_all, kind, cpu_side):
-    """phases 3-22 and the kernels line, with the CPU sides of phases
-    18, 21 and 22 from cpu_side"""
+    """phases 3-23 and the kernels line, with the CPU sides of phases
+    17-19 and 21-23 from cpu_side"""
     t0 = time.perf_counter()
     max_abs, ncase, worst = check_kernel(device)
     indep = check_k2_batch_independence(device)
@@ -2770,12 +3233,13 @@ def phases(device, t_all, kind, cpu_side):
                  c["busy_ms"], c["span_ms"], 100 * c["idle"]), flush=True)
     phase_line("13 k3-times", t0, "total %.1f s" % (time.perf_counter() - t_all))
 
-    admom_launches, admom_rows, modes = admom_phases(device, t_all)
+    admom_launches, admom_rows, modes = admom_phases(device, t_all, cpu_side)
     k3mb_row, mb_k2_rows, mb_launches, mb_args = mb_phase(device, t_all, cpu_side)
-    prepsf_row, prepsf = prepsf_phase(device, t_all)
+    prepsf_row, prepsf = prepsf_phase(device, t_all, cpu_side)
     em_phase(device, t_all)
     models = models_phase(device, t_all, mb_args, cpu_side)
     comp = composite_phase(device, t_all, cpu_side)
+    pri = prior_phase(device, t_all, cpu_side)
     prepsf_launches = {k: g["launches"] for k, g in prepsf.items() if "dilate" not in k}
 
     top = rows[0]
@@ -2788,11 +3252,12 @@ def phases(device, t_all, kind, cpu_side):
         "replaces": "ngmix_tpu/ops/pallas_gmix.py:88",
         "launches": (launches + k2_lm_launches + admom_launches + sum(k2_modes.values())
                      + mb_launches["k2"] + sum(prepsf_launches.values())
-                     + sum(models["k2_launches"].values()) + sum(comp["k2_launches"].values())),
+                     + sum(models["k2_launches"].values()) + sum(comp["k2_launches"].values())
+                     + sum(pri["k2_launches"].values())),
         "launches_by_path": dict({"gaussmom": launches, "exp-lm": k2_lm_launches,
                                   "admom": admom_launches, "mb exp-lm": mb_launches["k2"]},
                                  **k2_modes, **prepsf_launches, **models["k2_launches"],
-                                 **comp["k2_launches"]),
+                                 **comp["k2_launches"], **pri["k2_launches"]),
         "max_abs_err": max(max_abs, *(r["max_abs_err"] for r in rows + admom_rows + mb_k2_rows
                                       + [prepsf_row, models["k2_row"], comp["k2_row"]]),
                            lm_rows[1]["max_abs_err"]),
@@ -2827,20 +3292,23 @@ def phases(device, t_all, kind, cpu_side):
         "replaces": "ngmix_tpu/ops/pallas_lm.py:149",
         "replaces_loop": "ngmix_tpu/fitting/lm.py:539-790",
         "launches": (k3_launches + modes[-1]["launches"]["k3"]
-                     + sum(models["k3_launches"].values()) + sum(comp["k3_launches"].values())),
+                     + sum(models["k3_launches"].values()) + sum(comp["k3_launches"].values())
+                     + sum(pri["k3_launches"].values())),
         "launches_by_path": dict({"exp-lm": k3_launches, "exp-lm host loop": hl["k3"],
                                   "exp-lm dilate": modes[-1]["launches"]["k3"]},
-                                 **models["k3_launches"], **comp["k3_launches"]),
+                                 **models["k3_launches"], **comp["k3_launches"],
+                                 **pri["k3_launches"]),
         "max_abs_err": max(k3c["plain64"][0], k3c["full64"][0], k3_row["max_abs_err"],
                            k3c["full32"]["max_abs_err"], models["max_abs_err"],
-                           comp["max_abs_err"]),
+                           comp["max_abs_err"], pri["max_abs_err"]),
         "ms": k3_row["ms"],
         "plain_ms": k3_row["plain_ms"],
         "bound_ms": k3_row["bound_ms"],
         "bound_by": k3_row["bound_by"],
         "library_ms": None,
         "attrs": k3_attrs,
-        "shapes": [k3_row, k3c["full32"]] + models["k3_rows"] + comp["k3_rows"],
+        "shapes": [k3_row, k3c["full32"]] + models["k3_rows"] + comp["k3_rows"]
+        + pri["k3_rows"],
         "exp_lm_calls": calls,
     }, {
         "name": "lm_solve_mb",
@@ -2849,18 +3317,20 @@ def phases(device, t_all, kind, cpu_side):
         "replaces": "ngmix_tpu/ops/pallas_lm.py:149",
         "replaces_loop": "ngmix_tpu/fitting/lm.py:539-790 under ngmix_tpu/batch.py:1795-1866",
         "launches": (mb_launches["k3mb"] + sum(models["k3mb_launches"].values())
-                     + sum(comp["k3mb_launches"].values())),
+                     + sum(comp["k3mb_launches"].values())
+                     + sum(pri["k3mb_launches"].values())),
         "launches_by_path": dict({"mb exp-lm": mb_launches["k3mb"]},
-                                 **models["k3mb_launches"], **comp["k3mb_launches"]),
+                                 **models["k3mb_launches"], **comp["k3mb_launches"],
+                                 **pri["k3mb_launches"]),
         "max_abs_err": max(k3mb_row["max_abs_err"], models["mb_max_abs_err"],
-                           comp["mb_max_abs_err"]),
+                           comp["mb_max_abs_err"], pri["mb_max_abs_err"]),
         "ms": k3mb_row["ms"],
         "plain_ms": k3mb_row["plain_ms"],
         "bound_ms": k3mb_row["bound_ms"],
         "bound_by": k3mb_row["bound_by"],
         "library_ms": None,
         "attrs": k3mb_row.pop("attrs"),
-        "shapes": [k3mb_row] + models["k3mb_rows"] + comp["k3mb_rows"],
+        "shapes": [k3mb_row] + models["k3mb_rows"] + comp["k3mb_rows"] + pri["k3mb_rows"],
     }]}, allow_nan=False), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

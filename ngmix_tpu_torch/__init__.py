@@ -1,7 +1,8 @@
 """ngmix_tpu_torch: the PyTorch/CUDA port of ngmix_tpu.
 
 Runs the batched metacal pipeline with the gaussmom, admom, LM (exp,
-gauss, dev, bdf and bd models, optionally bounded) and pre-psf (pgauss, ksigma)
+gauss, dev, bdf and bd models, optionally bounded and regularized by the
+joint priors of joint_prior.py over priors/) and pre-psf (pgauss, ksigma)
 measures and the gauss, azgauss, fitgauss and dilate psf modes on an
 NVIDIA H100, and its multi-band, multi-epoch form (metacal_pipeline_mb:
 a joint LM fit of every object over its epochs and bands, or pooled

@@ -40,6 +40,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from . import joint_prior
 from .admom import AdmomConf, admom_batch
 from .defaults import BIGVAL, GMIX_LOW_DETVAL
 from .fitting import fit_model, lm
@@ -370,22 +371,32 @@ def _as_inputs(args, device):
     return [a.to(dtype) for a in out]
 
 
-def _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds):
-    """raise for a measure or LM option this port has not taken over"""
+def _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds, nband=1):
+    """raise for a measure or LM option this port has not taken over;
+    returns the LM measure's prior as one of the port's joint priors
+    (another package's prior is converted by convert.prior_from_object,
+    which raises TypeError for a class the port does not have), or None.
+    A prior whose parameter slots are not the model's shape columns and
+    nband fluxes raises ValueError."""
     if measure not in _MEASURES:
         raise ValueError("bad measure: %s" % measure)
     if measure not in _LM_MEASURES:
-        return
-    if lm_prior is not None:
-        raise NotImplementedError(
-            "lm_prior is not ported yet: ROADMAP queue item 5c (priors)"
-        )
+        return None
     if conf.sheared_refine:
         raise NotImplementedError(
             "sheared_refine > 0 is not ported yet: ROADMAP queue item 10"
         )
     if lm_conf is not None:
         lm.check_supported(lm_conf)
+    if lm_prior is None:
+        return None
+    if not isinstance(lm_prior, joint_prior.PRIORS):
+        # convert imports this module
+        from .convert import prior_from_object
+        lm_prior = prior_from_object(lm_prior)
+    model = measure[:-3]
+    lm_solve._check_prior(lm_prior, _MODEL_NSHAPE[model] + nband, nband, model)
+    return lm_prior
 
 
 def metacal_pipeline(images, weights, cens, psf_images, psf_cens, noise,
@@ -406,11 +417,15 @@ def metacal_pipeline(images, weights, cens, psf_images, psf_cens, noise,
     with +-inf for an open side, or unbounded), or "pgauss" / "ksigma"
     (pre-psf moments of FWHM measure_fwhm on the full stamps,
     deconvolving the round target psf, or under dilate each type's
-    rendered target). lm_prior and a nonzero conf.sheared_refine are
-    not ported yet and raise NotImplementedError. Returns dict type ->
-    result dict of [B, ...] tensors, plus "psf_sigma" [B].
+    rendered target). lm_prior regularizes the LM fits: a joint prior of
+    the port (joint_prior.PriorSimpleSep for the simple models,
+    PriorBDFSep, PriorBDSep) or another package's of the same class,
+    converted by convert.prior_from_object. A nonzero
+    conf.sheared_refine is not ported yet and raises
+    NotImplementedError. Returns dict type -> result dict of [B, ...]
+    tensors, plus "psf_sigma" [B].
     """
-    _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds)
+    lm_prior = _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds)
     full_precision_matmuls()
     images, weights, cens, psf_images, psf_cens, noise = _as_inputs(
         (images, weights, cens, psf_images, psf_cens, noise), device
@@ -430,7 +445,8 @@ def metacal_pipeline(images, weights, cens, psf_images, psf_cens, noise,
         if measure in _LM_MEASURES:
             psf_moms = _lm_psf_moms(conf, sigma, psfdict)
             res_all = _exp_lm_measure(pixels, psf_moms, lm_conf or lm.LMConf(),
-                                      model=measure[:-3], bounds=lm_bounds)
+                                      model=measure[:-3], bounds=lm_bounds,
+                                      prior=lm_prior)
         else:
             res_all = _moments_measure(pixels, conf, measure, measure_fwhm)
     return _split_types(res_all, conf.types, images.shape[0], sigma)
@@ -619,10 +635,10 @@ def make_metacal_pipeline_fn(conf: MetacalConfig, measure="gaussmom",
     (the LM's compaction levels scale with the chunk, which never
     changes per-lane results). None disables chunking.
     """
-    _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds)
+    lm_prior = _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds)
     dev = resolve_device(device)
     kw = dict(measure=measure, measure_fwhm=measure_fwhm, lm_conf=lm_conf,
-              lm_bounds=lm_bounds, device=dev)
+              lm_prior=lm_prior, lm_bounds=lm_bounds, device=dev)
 
     def fn(images, weights, cens, psf_images, psf_cens, noise):
         args = (images, weights, cens, psf_images, psf_cens, noise)
@@ -976,7 +992,8 @@ def _extra_guess(model, guess5):
 
 
 def _exp_lm_measure(pixels, psf_sigma, lm_conf, host_loop=False,
-                    compact_capacity="auto", model="exp", bounds=None, guess=None):
+                    compact_capacity="auto", model="exp", bounds=None, guess=None,
+                    prior=None):
     """batched LM fit of the model (exp, gauss, dev, bdf or bd) to
     every lane; the psf is the analytic round target gaussian, psf_sigma
     a scalar or [B] (round sigma) or [B, 3] (irr, irc, icc).
@@ -986,14 +1003,17 @@ def _exp_lm_measure(pixels, psf_sigma, lm_conf, host_loop=False,
     and 0.5), or from guess [B, npars] (a warm start) on the lanes where
     all its entries are finite and below 1e9. bounds = (lo, hi), [npars]
     each with +-inf for an open side, bound the fit, the guess clamped
-    inside them. The solve runs in K3 (ops/lm_solve.py), one kernel
+    inside them. prior, a joint prior of the model's parameter vector
+    (joint_prior), adds its rows to every lane's objective; the
+    covariance scales by the pixels' chi^2 alone. The solve runs in K3
+    (ops/lm_solve.py), one kernel
     launch for every lane's whole solve; CPU tensors take its plain
     version. host_loop=True runs run_lm_normal_batched instead, the host
     loop with K1 and, by default ("auto"), the geometric compaction
     cascade (compact_capacity takes its values too); the card checks and
     timings compare the two routes. K1 fits 6 parameters, as the TPU
-    kernel does, so bdf and bd raise ValueError there. Priors and
-    refinement are not ported yet (ROADMAP queue items 5c and 10).
+    kernel does, so bdf and bd raise ValueError there. Refinement is not
+    ported yet (ROADMAP queue item 10).
     """
     lm.check_supported(lm_conf)
     if host_loop and _MODEL_NSHAPE[model] + 1 != normal_eqs.NPARS:
@@ -1030,9 +1050,10 @@ def _exp_lm_measure(pixels, psf_sigma, lm_conf, host_loop=False,
         out = lm.run_lm_normal_batched(
             functools.partial(_normal_fn, model=model), (planes, psf_gmix), guess, lo,
             hi, lm_conf, nres=nres, compact_capacity=compact_capacity,
+            prior_fn=lm_solve._prior_fn(prior),
         )
     else:
-        state = lm_solve.lm_solve(guess, lo, hi, psf_moms, *planes, lm_conf, model)
+        state = lm_solve.lm_solve(guess, lo, hi, psf_moms, *planes, lm_conf, model, prior)
         out = lm._normal_epilogue(state, lo, hi, lm_conf, nres)
     _lm_result_columns(
         out, _model_s2n_sums(out["pars"], out["flags"], psf_gmix, pixels, model),
@@ -1054,7 +1075,8 @@ def _check_measure_mb(conf, measure, nband, objective, lm_conf, lm_prior,
                       lm_bounds):
     """raise for what the multi-band pipeline cannot measure (the
     reference's ValueErrors) and, through _check_measure, for what this
-    port has not taken over"""
+    port has not taken over; returns the prior as _check_measure does,
+    for nband flux slots"""
     if measure in ("pgauss", "ksigma"):
         raise ValueError(
             "pre-psf moments (%s) need a per-epoch psf deconvolution and "
@@ -1072,7 +1094,7 @@ def _check_measure_mb(conf, measure, nband, objective, lm_conf, lm_prior,
             "objective must be 'auto', 'epoch', 'epoch-be', 'epoch-t' or "
             "'fused'; got %r" % (objective,)
         )
-    _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds)
+    return _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds, nband)
 
 
 def _mb_exp_normal_fn(pars, data, plain=False, model="exp"):
@@ -1154,7 +1176,7 @@ def _mb_s2n_sums(pars, flags, band, psf_gmix, pixels, model="exp"):
 
 
 def _mb_exp_lm_measure(pixels, psf_moms, band, nband, lm_conf, model="exp",
-                       bounds=None):
+                       bounds=None, prior=None):
     """the joint LM fit of the model (exp, gauss, dev, bdf or bd) of
     every object-lane over its epochs and bands: pixels [Bc E, P] and
     psf_moms [Bc E, 3] = (irr, irc, icc) with each lane's E epochs in
@@ -1166,7 +1188,7 @@ def _mb_exp_lm_measure(pixels, psf_moms, band, nband, lm_conf, model="exp",
     epochs (those with an ierr > 0 pixel), the extra shape columns of
     bdf and bd at the flat fit's starting values, and each band's flux
     the mean masked pixel sum of its real epochs, so a pad epoch changes
-    nothing.
+    nothing. prior: a joint prior with nband flux slots, or None.
     On CUDA tensors the solve is one launch of K3-mb
     (ops.lm_solve.lm_solve_mb); CPU tensors take its plain version.
     """
@@ -1195,7 +1217,7 @@ def _mb_exp_lm_measure(pixels, psf_moms, band, nband, lm_conf, model="exp",
     nres = torch.sum(pix_e.ierr > 0, dim=(-2, -1))
     planes = [x.reshape(Bc, E, P) for x in _lm_planes(pixels)]
     state = lm_solve.lm_solve_mb(guess.contiguous(), lo, hi, pm, band, *planes, lm_conf,
-                                 model)
+                                 model, prior)
     out = lm._normal_epilogue(state, lo, hi, lm_conf, nres)
     _lm_result_columns(out, _mb_s2n_sums(out["pars"], out["flags"], band,
                                          _psf_gmix(psf_moms), pixels, model),
@@ -1230,12 +1252,15 @@ def metacal_pipeline_mb(images, weights, cens, psf_images, psf_cens, noise,
     "epoch", "fused", "epoch-be", "epoch-t") are one objective laid out
     differently on a TPU, each with the same per-lane result; this port
     computes every one of them with the same solve (K3-mb on the card).
-    lm_prior, a nonzero conf.sheared_refine and the LMConf options
-    flux_col and varpro raise NotImplementedError. Returns dict
+    lm_prior regularizes the LM fits as in metacal_pipeline, built for
+    nband flux slots (a list of nband F priors). A nonzero
+    conf.sheared_refine and the LMConf options flux_col and varpro raise
+    NotImplementedError. Returns dict
     type -> result dict of [B, ...] tensors (flux [B, nband] when
     nband > 1), plus "psf_sigma" [B, E].
     """
-    _check_measure_mb(conf, measure, nband, objective, lm_conf, lm_prior, lm_bounds)
+    lm_prior = _check_measure_mb(conf, measure, nband, objective, lm_conf, lm_prior,
+                                 lm_bounds)
     full_precision_matmuls()
     images, weights, cens, psf_images, psf_cens, noise = _as_inputs(
         (images, weights, cens, psf_images, psf_cens, noise), device
@@ -1255,7 +1280,7 @@ def metacal_pipeline_mb(images, weights, cens, psf_images, psf_cens, noise,
         band_st = torch.broadcast_to(band, (B, E)).repeat(T, 1)
         res_all = _mb_exp_lm_measure(pixels, _lm_psf_moms(conf, sigma, psfdict), band_st,
                                      nband, lm_conf or lm.LMConf(), model=measure[:-3],
-                                     bounds=lm_bounds)
+                                     bounds=lm_bounds, prior=lm_prior)
     else:
         # the epochs of a lane pooled into one moments measurement
         pooled = Pixels(*(x.reshape(T * B, -1) for x in pixels))
@@ -1274,11 +1299,12 @@ def make_metacal_pipeline_mb_fn(conf: MetacalConfig, band, nband, measure="exp-l
     per-lane results are concatenated; they equal a single-batch run.
     None disables chunking.
     """
-    _check_measure_mb(conf, measure, nband, objective, lm_conf, lm_prior, lm_bounds)
+    lm_prior = _check_measure_mb(conf, measure, nband, objective, lm_conf, lm_prior,
+                                 lm_bounds)
     dev = resolve_device(device)
     band = torch.as_tensor(band).to(torch.int32)
     kw = dict(measure=measure, measure_fwhm=measure_fwhm, lm_conf=lm_conf,
-              lm_bounds=lm_bounds, objective=objective, device=dev)
+              lm_prior=lm_prior, lm_bounds=lm_bounds, objective=objective, device=dev)
 
     def fn(images, weights, cens, psf_images, psf_cens, noise):
         args = (images, weights, cens, psf_images, psf_cens, noise)

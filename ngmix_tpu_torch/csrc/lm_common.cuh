@@ -174,13 +174,14 @@ struct Conf {
 };
 
 // a lane's finished solver state, as fitting.lm.run_lm_normal_state
-// returns it: y, jtr [B, n]; cost, lam [B]; jtj [B, n, n]; nfev [B]
-// int32; done, ier_small_step, ier_small_cost [B] and pinned [B, n] as
-// bytes 0/1
+// returns it: y, jtr [B, n]; cost, cost_pix (without the prior rows),
+// lam [B]; jtj [B, n, n]; nfev [B] int32; done, ier_small_step,
+// ier_small_cost [B] and pinned [B, n] as bytes 0/1
 template <typename T>
 struct Out {
   T* y;
   T* cost;
+  T* cost_pix;
   T* jtr;
   T* jtj;
   T* lam;
@@ -502,6 +503,254 @@ __device__ __forceinline__ void pixel_pass(const T* gs, int lid, const T* v,
   for (int i = 0; i < kNSum; ++i) acc[i] = __shfl_sync(kFull, acc[i], 0);
 }
 
+// ----------------------------------------------------------------------
+// prior rows (joint_prior.py): a table of nrows rows of kPriorCols
+// float64 values, (kind, form, i0, i1, c0, c1, c2, c3): the row's kind
+// of prior, its form, the parameter it depends on (and the second one
+// of a 2-d prior, else -1) and its constants. Each kind gives ln p and
+// d ln p / dx (form kPriorLnp, the row sqrt(max(-2 ln p, 0))) or a
+// signed fdiff f and df / dx (kPriorFdiff), with the formulas of
+// priors/*.py. Outside a prior's support ln p = -inf (and a signed row
+// is inf), with derivative 0, so Jtr turns nan there (0 inf) as in the
+// reference, and the trial point is rejected.
+
+enum PriorKind {
+  kPriorFlat = 0,       // FlatPrior (min, max)
+  kPriorNormal = 1,     // Normal (mean, sigma)
+  kPriorCen = 2,        // CenPrior, one dimension (cen, sinv, s2inv)
+  kPriorErf = 3,        // TwoSidedErf (min, width_at_min, max, width_at_max)
+  kPriorLogNormal = 4,  // LogNormal (shift, logmean, -logivar / 2, lnprob_max)
+  kPriorSinh = 5,       // Sinh (mean, scale)
+  kPriorTrunc = 6,      // TruncatedGaussian (mean, sinv, min, max)
+  kPriorGBA = 7,        // GPriorBA, 2-d (sig2inv)
+  kPriorZDisk = 8,      // ZDisk2D, 2-d (radius^2)
+};
+constexpr int kPriorLnp = 0;
+constexpr int kPriorFdiff = 1;
+constexpr int kPriorCols = 8;
+// the most rows a table holds (ops/lm_solve.py: MAX_PRIOR_ROWS)
+constexpr int kMaxPriorRows = 16;
+// a warp's shared scratch for the prior rows of np parameters
+// (add_prior): each row's (row, d/dx_i0, d/dx_i1, i0, i1), the internal
+// parameters and their bounds (y, lo, hi), and the sums of the cost, Jtr
+// and the JtJ triangle. It reuses the warp's gaussian records, free
+// after the pixel pass, where they are large enough
+__host__ __device__ constexpr int prior_scratch(int np) {
+  return 5 * kMaxPriorRows + 3 * np + 1 + np + np * (np + 1) / 2;
+}
+__host__ __device__ constexpr int max_of(int a, int b) { return a > b ? a : b; }
+constexpr double kTwoOverSqrtPi = 1.1283791670955126;
+
+__device__ __forceinline__ float derf(float x) { return erff(x); }
+__device__ __forceinline__ double derf(double x) { return erf(x); }
+__device__ __forceinline__ float dsinh(float x) { return sinhf(x); }
+__device__ __forceinline__ double dsinh(double x) { return sinh(x); }
+__device__ __forceinline__ float dcosh(float x) { return coshf(x); }
+__device__ __forceinline__ double dcosh(double x) { return cosh(x); }
+
+// one row of the table, r, at the parameters yl = (y, lo, hi) [3 np]
+// (shared memory): (the row, its derivatives in x_i0 and x_i1, i0, i1)
+// into q
+template <typename T>
+__device__ __forceinline__ void prior_row(const double* r, const T* yl, int np, T* q) {
+  const int kind = static_cast<int>(r[0]);
+  const bool lnp_form = static_cast<int>(r[1]) == kPriorLnp;
+  const int i0 = static_cast<int>(r[2]), i1 = static_cast<int>(r[3]);
+  const T x0 = i2e(yl[i0], yl[np + i0], yl[2 * np + i0]);
+  const T x1 = i1 >= 0 ? i2e(yl[i1], yl[np + i1], yl[2 * np + i1]) : T(0);
+  T row, d0, d1;
+  const T c0 = static_cast<T>(r[4]), c1 = static_cast<T>(r[5]);
+  const T c2 = static_cast<T>(r[6]), c3 = static_cast<T>(r[7]);
+  const T ninf = -inf_of<T>();
+  // lnp_form: v = ln p, d0 / d1 its derivatives; else v = fdiff
+  T v = T(0);
+  d0 = T(0);
+  d1 = T(0);
+  switch (kind) {
+    case kPriorFlat: {
+      const bool out = x0 < c0 || x0 > c1;
+      v = out ? (lnp_form ? ninf : inf_of<T>()) : T(0);
+      break;
+    }
+    case kPriorNormal: {
+      const T z = (x0 - c0) / c1;
+      const T dz = T(1) / c1;
+      v = lnp_form ? (T(-0.5) * z) * z : z;
+      d0 = lnp_form ? -(z * dz) : dz;
+      break;
+    }
+    case kPriorCen: {
+      if (lnp_form) {
+        const T d = c0 - x0;
+        v = ((T(-0.5) * d) * d) * c2;
+        d0 = d * c2;
+      } else {
+        v = (x0 - c0) * c1;
+        d0 = c1;
+      }
+      break;
+    }
+    case kPriorErf: {
+      const T a = (x0 - c0) / c1;
+      const T b = (c2 - x0) / c3;
+      const T p = T(0.5) * (derf(a) + derf(b));
+      const T k = static_cast<T>(kTwoOverSqrtPi);
+      const T dp = T(0.5) * (k * ((T(1) / c1) * dexp(-(a * a))) +
+                             k * ((T(-1) / c3) * dexp(-(b * b))));
+      const bool ok = p > T(0);
+      v = ok ? dlog(p) : ninf;
+      d0 = ok ? dp / p : T(0);
+      break;
+    }
+    case kPriorLogNormal: {
+      const T val = x0 - c0;
+      const bool ok = val > T(0);
+      const T w = ok ? val : T(1);
+      const T t = dlog(w);
+      const T d = t - c1;
+      const T dt = T(1) / w;
+      v = ok ? (c2 * (d * d) - t) - c3 : ninf;
+      d0 = ok ? c2 * (dt * (T(2) * d)) - dt : T(0);
+      break;
+    }
+    case kPriorSinh: {
+      const T u = (x0 - c0) / c1;
+      const T f = dsinh(u);
+      const T df = dcosh(u) * (T(1) / c1);
+      v = lnp_form ? (T(-0.5) * f) * f : f;
+      d0 = lnp_form ? -(f * df) : df;
+      break;
+    }
+    case kPriorTrunc: {
+      const bool out = x0 < c2 || x0 > c3;
+      const T z = (x0 - c0) * c1;
+      if (lnp_form) {
+        v = out ? ninf : (T(-0.5) * z) * z;
+        d0 = out ? T(0) : -(z * c1);
+      } else {
+        v = out ? inf_of<T>() : z;
+        d0 = out ? T(0) : c1;
+      }
+      break;
+    }
+    case kPriorGBA: {
+      const T gsq = x0 * x0 + x1 * x1;
+      const T omgsq = T(1) - gsq;
+      const bool ok = omgsq > T(0);
+      const T om = ok ? omgsq : T(1);
+      const T g1 = T(2) * x0, g2 = T(2) * x1;
+      v = ok ? T(2) * dlog(om) - (T(0.5) * gsq) * c0 : ninf;
+      d0 = ok ? T(2) * (-g1 / om) - (T(0.5) * g1) * c0 : T(0);
+      d1 = ok ? T(2) * (-g2 / om) - (T(0.5) * g2) * c0 : T(0);
+      break;
+    }
+    case kPriorZDisk: {
+      v = x0 * x0 + x1 * x1 >= c0 ? ninf : T(0);
+      break;
+    }
+    default:  // not a kind: nan
+      v = T(0) * inf_of<T>();
+  }
+  if (lnp_form) {
+    // sqrt(max(-2 ln p, 0)), 0 (and no derivative) where that is not
+    // positive, a nan ln p included
+    const T chi2 = clamp_min(T(-2) * v, T(0));
+    const bool pos = chi2 > T(0);
+    row = pos ? dsqrt(chi2) : T(0);
+    const T half = T(0.5) / (pos ? row : T(1));
+    d0 = pos ? (T(-2) * d0) * half : T(0);
+    d1 = pos ? (T(-2) * d1) * half : T(0);
+  } else {
+    row = v;
+  }
+  q[0] = row;
+  q[1] = d0;
+  q[2] = d1;
+  q[3] = static_cast<T>(i0);
+  q[4] = static_cast<T>(i1);
+}
+
+// the prior rows' sums of np parameters into the scratch ps, from the
+// table's nrows rows and yl = (y, lo, hi) at ps + 5 kMaxPriorRows:
+// thread i < nrows computes row i and its derivatives, then thread t
+// the sums t, t + 32, ... of the 1 + np + np (np + 1) / 2 outputs (the
+// cost, Jtr[k], JtJ[k][m] in triangle order), each over the rows in
+// their order, into ps + 5 kMaxPriorRows + 3 np. Called by every thread
+// of the warp.
+template <typename T>
+__device__ __forceinline__ void prior_sums(const double* tab, int nrows, int np, T* ps,
+                                           int lid) {
+  const T* yl = ps + 5 * kMaxPriorRows;
+  T* pout = ps + 5 * kMaxPriorRows + 3 * np;
+  if (lid < nrows) prior_row<T>(tab + kPriorCols * lid, yl, np, ps + 5 * lid);
+  __syncwarp();
+  for (int e = lid; e < 1 + np + np * (np + 1) / 2; e += 32) {
+    // Jp[i][k] is row i's derivative in parameter k; k = m = -1 is the
+    // row itself
+    int k = -1, m = -1;
+    if (e > np) {
+      int q = e - 1 - np;
+      k = 0;
+      while (q >= np - k) {
+        q -= np - k;
+        ++k;
+      }
+      m = k + q;
+    } else if (e > 0) {
+      k = e - 1;
+    }
+    T s = T(0);
+    for (int i = 0; i < nrows; ++i) {
+      const T* q = ps + 5 * i;
+      const T jk = k < 0 ? q[0]
+                         : (q[3] == static_cast<T>(k) ? q[1]
+                                                      : (q[4] == static_cast<T>(k) ? q[2]
+                                                                                   : T(0)));
+      const T jm = m < 0 ? q[0]
+                         : (q[3] == static_cast<T>(m) ? q[1]
+                                                      : (q[4] == static_cast<T>(m) ? q[2]
+                                                                                   : T(0)));
+      s = s + jk * jm;
+    }
+    pout[e] = s;
+  }
+}
+
+// add the table's nrows prior rows at the external parameters i2e(y)
+// to (cost, Jtr, JtJ) in external coordinates, as fitting/lm.py does:
+// cost += sum rows^2, Jtr += Jp^T rows, JtJ += Jp^T Jp, each sum over
+// the rows first, in the rows' order (prior_sums), then every thread
+// adds them, so all hold the same bits. ps: the warp's scratch of
+// prior_scratch(NP) values, the gaussian records after the pixel pass.
+template <typename T, int NP>
+__device__ __forceinline__ void add_prior(const double* tab, int nrows, T* ps, int lid,
+                                          const T (&y)[NP], const T (&lo)[NP],
+                                          const T (&hi)[NP], T& cost, T (&jtr)[NP],
+                                          T (&jtj)[NP * (NP + 1) / 2]) {
+  constexpr int NT = NP * (NP + 1) / 2;
+  if (nrows == 0) return;
+  T* yl = ps + 5 * kMaxPriorRows;
+  // every thread is done with the gaussian records this reuses
+  __syncwarp();
+  if (lid == 0) {
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      yl[k] = y[k];
+      yl[NP + k] = lo[k];
+      yl[2 * NP + k] = hi[k];
+    }
+  }
+  __syncwarp();
+  prior_sums<T>(tab, nrows, NP, ps, lid);
+  __syncwarp();
+  const T* pout = yl + 3 * NP;
+  cost = cost + pout[0];
+#pragma unroll
+  for (int k = 0; k < NP; ++k) jtr[k] = jtr[k] + pout[1 + k];
+#pragma unroll
+  for (int i = 0; i < NT; ++i) jtj[i] = jtj[i] + pout[1 + NP + i];
+}
+
 // the bounds chain rule J_int = J_ext diag(g), in place
 template <typename T, int NP>
 __device__ __forceinline__ void bounds_chain(const T (&y)[NP], const T (&lo)[NP],
@@ -520,8 +769,9 @@ __device__ __forceinline__ void bounds_chain(const T (&y)[NP], const T (&lo)[NP]
 
 // ----------------------------------------------------------------------
 // one lane's solve, in the order of fitting/lm.py _lm_step, over NP
-// parameters: evaluate(y, cost, jtr, jtj) gives (cost, Jtr, JtJ) in
-// internal coordinates at y, JtJ as its upper triangle
+// parameters: evaluate(y, cost, cost_pix, jtr, jtj) gives (cost, Jtr,
+// JtJ) in internal coordinates at y, JtJ as its upper triangle, and the
+// cost without the prior rows
 
 template <typename T, int NP, typename Eval>
 __device__ void solve_lane(const Conf& cf, const T* guess,
@@ -536,8 +786,11 @@ __device__ void solve_lane(const Conf& cf, const T* guess,
   T y[NP];
 #pragma unroll
   for (int k = 0; k < NP; ++k) y[k] = e2i(guess[k], lo[k], hi[k]);
-  T cost, jtr[NP], jtj[NT];
-  evaluate(y, cost, jtr, jtj);
+  T cost, cost_pix, jtr[NP], jtj[NT];
+  evaluate(y, cost, cost_pix, jtr, jtj);
+  // cost_pix goes to the output as it is taken, so it is not carried
+  // in a register through the loop
+  if (lid == 0) o.cost_pix[b] = cost_pix;
 
   T lam = lambda0;
   int nfev = 1;
@@ -629,8 +882,8 @@ __device__ void solve_lane(const Conf& cf, const T* guess,
       y_try[k] = t;
       dy[k] = t - y[k];
     }
-    T cost_try, jtr_try[NP], jtj_try[NT];
-    evaluate(y_try, cost_try, jtr_try, jtj_try);
+    T cost_try, cost_pix_try, jtr_try[NP], jtj_try[NT];
+    evaluate(y_try, cost_try, cost_pix_try, jtr_try, jtj_try);
     if (!finite(cost_try)) cost_try = inf_of<T>();
     const bool accept = step_ok && cost_try < cost;
 
@@ -668,6 +921,7 @@ __device__ void solve_lane(const Conf& cf, const T* guess,
                           static_cast<T>(cf.lambda_max * 10.0));
     if (accept) {
       cost = cost_try;
+      if (lid == 0) o.cost_pix[b] = cost_pix_try;
 #pragma unroll
       for (int k = 0; k < NP; ++k) {
         y[k] = y_try[k];

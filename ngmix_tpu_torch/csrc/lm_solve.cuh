@@ -91,8 +91,10 @@ struct Args {
   const T* ve;
   Out<T> out;
   int* counter;
+  const double* prior;  // [nprior, kPriorCols], or null
   int B;
   int P;
+  int nprior;
   Conf conf;
 };
 
@@ -103,15 +105,19 @@ struct Warp {
   const T* ia;
   const T* ve;
   T* gs;        // [M::kNG * Dims<M>::kGStride], shared memory
+  T* ps;        // prior scratch: gs, of prior_scratch(NP) values or more
+  const double* prior;
+  int nprior;
   int P;
   int lid;
 };
 
 // (cost, Jtr, JtJ) in internal coordinates at y over the model's NP
-// parameters; every thread of the warp returns the same bits
+// parameters, with the prior rows, and the pixels' cost alone; every
+// thread of the warp returns the same bits
 template <typename M, typename T, int NP = Dims<M>::kNP>
 __device__ void evaluate(const Warp<T>& w, const T (&y)[NP], const T (&lo)[NP],
-                         const T (&hi)[NP], T pirr, T pirc, T picc, T& cost,
+                         const T (&hi)[NP], T pirr, T pirc, T picc, T& cost, T& cost_pix,
                          T (&jtr)[NP], T (&jtj)[NP * (NP + 1) / 2]) {
   constexpr int NX = M::kNX;
   constexpr int NT = NP * (NP + 1) / 2;
@@ -142,7 +148,16 @@ __device__ void evaluate(const Warp<T>& w, const T (&y)[NP], const T (&lo)[NP],
 #pragma unroll
     for (int i = 0; i < NT; ++i) jtj[i] = acc[1 + NP + i];
   }
+  cost_pix = cost;
+  add_prior<T, NP>(w.prior, w.nprior, w.ps, w.lid, y, lo, hi, cost, jtr, jtj);
   bounds_chain<T, NP>(y, lo, hi, jtr, jtj);
+}
+
+// a warp's records in shared memory: the model's gaussians, whose room
+// the prior rows' scratch takes after the pixel pass
+template <typename M>
+__host__ __device__ constexpr int records() {
+  return max_of(M::kNG * Dims<M>::kGStride, prior_scratch(Dims<M>::kNP));
 }
 
 // kSmemPlanes: the lane's planes are copied into shared memory (P <=
@@ -154,10 +169,10 @@ __global__ void __launch_bounds__(kThreads) lm_solve_kernel(Args<T> a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int P = a.P;
   const int lid = threadIdx.x & 31;
-  const size_t per_warp = (kSmemPlanes ? 4 * static_cast<size_t>(P) : 0) +
-                          M::kNG * Dims<M>::kGStride;
+  const size_t per_warp = (kSmemPlanes ? 4 * static_cast<size_t>(P) : 0) + records<M>();
   T* base = reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(threadIdx.x >> 5) * per_warp;
   T* gs = kSmemPlanes ? base + 4 * static_cast<size_t>(P) : base;
+  T* ps = gs;
   T lo[NP], hi[NP];
 #pragma unroll
   for (int k = 0; k < NP; ++k) {
@@ -183,14 +198,16 @@ __global__ void __launch_bounds__(kThreads) lm_solve_kernel(Args<T> a) {
       __syncwarp();
     }
     const Warp<T> w = kSmemPlanes
-        ? Warp<T>{base, base + P, base + 2 * P, base + 3 * P, gs, P, lid}
-        : Warp<T>{a.v + off, a.u + off, a.ia + off, a.ve + off, gs, P, lid};
+        ? Warp<T>{base, base + P, base + 2 * P, base + 3 * P, gs, ps, a.prior, a.nprior, P,
+                  lid}
+        : Warp<T>{a.v + off, a.u + off, a.ia + off, a.ve + off, gs, ps, a.prior, a.nprior,
+                  P, lid};
     const size_t lb = static_cast<size_t>(b);
     const T pirr = a.psf[3 * lb], pirc = a.psf[3 * lb + 1], picc = a.psf[3 * lb + 2];
     solve_lane<T, NP>(
         a.conf, a.guess + NP * lb, lo, hi,
-        [&](const T (&y)[NP], T& cost, T (&jtr)[NP], T (&jtj)[NT]) {
-          evaluate<M>(w, y, lo, hi, pirr, pirc, picc, cost, jtr, jtj);
+        [&](const T (&y)[NP], T& cost, T& cost_pix, T (&jtr)[NP], T (&jtj)[NT]) {
+          evaluate<M>(w, y, lo, hi, pirr, pirc, picc, cost, cost_pix, jtr, jtj);
         },
         a.out, lb, lid);
     // every thread is done with the planes before the next copy
@@ -199,12 +216,12 @@ __global__ void __launch_bounds__(kThreads) lm_solve_kernel(Args<T> a) {
 }
 
 // the block's dynamic shared memory: each warp's planes (if P <=
-// kMaxP, where they go into shared memory) and gaussians
+// kMaxP, where they go into shared memory) and records (gaussians, then
+// the prior rows' scratch)
 template <typename T, typename M>
 size_t smem_bytes(int64_t P) {
   return static_cast<size_t>(kWarps) *
-         ((P <= kMaxP ? 4 * static_cast<size_t>(P) : 0) + M::kNG * Dims<M>::kGStride) *
-         sizeof(T);
+         ((P <= kMaxP ? 4 * static_cast<size_t>(P) : 0) + records<M>()) * sizeof(T);
 }
 
 template <typename T, typename M, bool kSmemPlanes>
@@ -221,11 +238,12 @@ int launch_kernel(const Args<T>& a, void* stream) {
 template <typename T, typename M>
 int launch(const void* guess, const void* lo, const void* hi, const void* psf,
            const void* v, const void* u, const void* ia, const void* ve,
-           const Out<T>& out, void* counter, int64_t B, int64_t P, int64_t maxfev,
-           Conf conf, void* stream) {
+           const Out<T>& out, void* counter, const void* prior, int64_t B, int64_t P,
+           int64_t nprior, int64_t maxfev, Conf conf, void* stream) {
   if (B <= 0) return 0;
   if (P < 1 || P > 2147483647LL || B > 2147483647LL || maxfev < 1 ||
-      maxfev > 2147483647LL) {
+      maxfev > 2147483647LL || nprior < 0 || nprior > kMaxPriorRows ||
+      (nprior > 0 && prior == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   conf.maxfev = static_cast<int>(maxfev);
@@ -233,7 +251,8 @@ int launch(const void* guess, const void* lo, const void* hi, const void* psf,
                   static_cast<const T*>(hi), static_cast<const T*>(psf),
                   static_cast<const T*>(v), static_cast<const T*>(u),
                   static_cast<const T*>(ia), static_cast<const T*>(ve), out,
-                  static_cast<int*>(counter), static_cast<int>(B), static_cast<int>(P),
+                  static_cast<int*>(counter), static_cast<const double*>(prior),
+                  static_cast<int>(B), static_cast<int>(P), static_cast<int>(nprior),
                   conf};
   return P <= kMaxP ? launch_kernel<T, M, true>(a, stream)
                     : launch_kernel<T, M, false>(a, stream);
@@ -259,21 +278,23 @@ int attrs(int64_t P, int* out) {
   extern "C" int NAME(                                                         \
       const void* guess, const void* lo, const void* hi, const void* psf,      \
       const void* v, const void* u, const void* ia, const void* ve, void* y,   \
-      void* cost, void* jtr, void* jtj, void* lam, void* nfev, void* done,     \
-      void* ier_small_step, void* ier_small_cost, void* pinned, void* counter, \
-      int64_t B, int64_t P, int64_t maxfev, double ftol, double xtol,          \
-      double lambda0, double lambda_up, double lambda_down, double lambda_min, \
+      void* cost, void* cost_pix, void* jtr, void* jtj, void* lam, void* nfev, \
+      void* done, void* ier_small_step, void* ier_small_cost, void* pinned,    \
+      void* counter, const void* prior, int64_t B, int64_t P, int64_t nprior,  \
+      int64_t maxfev, double ftol, double xtol, double lambda0,                \
+      double lambda_up, double lambda_down, double lambda_min,                 \
       double lambda_max, void* stream) {                                       \
     const Conf conf{ftol, xtol, lambda0, lambda_up, lambda_down, lambda_min,   \
                     lambda_max, 0};                                            \
     const Out<T> out{static_cast<T*>(y), static_cast<T*>(cost),                \
-                     static_cast<T*>(jtr), static_cast<T*>(jtj),               \
+                     static_cast<T*>(cost_pix), static_cast<T*>(jtr),          \
+                     static_cast<T*>(jtj),                                     \
                      static_cast<T*>(lam), static_cast<int32_t*>(nfev),        \
                      static_cast<uint8_t*>(done),                              \
                      static_cast<uint8_t*>(ier_small_step),                    \
                      static_cast<uint8_t*>(ier_small_cost),                    \
                      static_cast<uint8_t*>(pinned)};                           \
-    return launch<T, M>(guess, lo, hi, psf, v, u, ia, ve, out, counter, B, P,  \
-                        maxfev, conf, stream);                                 \
+    return launch<T, M>(guess, lo, hi, psf, v, u, ia, ve, out, counter, prior, \
+                        B, P, nprior, maxfev, conf, stream);                   \
   }                                                                            \
   extern "C" int NAME##_attrs(int64_t P, int* out) { return attrs<T, M>(P, out); }

@@ -69,9 +69,11 @@ struct MbArgs {
   const T* ve;
   Out<T> out;
   int* counter;
+  const double* prior;  // [nprior, kPriorCols], or null
   int B;
   int E;
   int P;
+  int nprior;
   bool smem_planes;
   Conf conf;
 };
@@ -85,17 +87,21 @@ struct MbWarp {
   const T* psf;  // [E, 3]
   const int32_t* band;  // [E]
   T* gs;        // [M::kNG * Dims<M>::kGStride], shared memory
+  T* ps;        // prior scratch: gs, of prior_scratch(NP) values or more
+  const double* prior;
+  int nprior;
   int E;
   int P;
   int lid;
 };
 
 // (cost, Jtr, JtJ) in internal coordinates at y over the NP = NSH + NB
-// parameters (NSH = 5 + M::kNX shape columns, then one flux a band);
-// every thread of the warp returns the same bits
+// parameters (NSH = 5 + M::kNX shape columns, then one flux a band),
+// with the prior rows, and the pixels' cost alone; every thread of the
+// warp returns the same bits
 template <typename M, typename T, int NB, int NP = 5 + M::kNX + NB>
 __device__ void evaluate_mb(const MbWarp<T>& w, const T (&y)[NP], const T (&lo)[NP],
-                            const T (&hi)[NP], T& cost, T (&jtr)[NP],
+                            const T (&hi)[NP], T& cost, T& cost_pix, T (&jtr)[NP],
                             T (&jtj)[NP * (NP + 1) / 2]) {
   constexpr int NX = M::kNX;
   constexpr int NSH = 5 + NX;
@@ -160,7 +166,17 @@ __device__ void evaluate_mb(const MbWarp<T>& w, const T (&y)[NP], const T (&lo)[
 #pragma unroll
     for (int i = 0; i < NT; ++i) jtj[i] = T(0);
   }
+  cost_pix = cost;
+  add_prior<T, NP>(w.prior, w.nprior, w.ps, w.lid, y, lo, hi, cost, jtr, jtj);
   bounds_chain<T, NP>(y, lo, hi, jtr, jtj);
+}
+
+// a warp's records in shared memory: the model's gaussians, whose room
+// the prior rows' scratch of the NP = 5 + NX + NB parameters takes after
+// the pixel passes
+template <typename M, int NB>
+__host__ __device__ constexpr int records_mb() {
+  return max_of(M::kNG * Dims<M>::kGStride, prior_scratch(5 + M::kNX + NB));
 }
 
 template <typename T, typename M, int NB>
@@ -171,9 +187,10 @@ __global__ void __launch_bounds__(kThreads) lm_solve_mb_kernel(MbArgs<T> a) {
   const int EP = a.E * a.P;
   const int lid = threadIdx.x & 31;
   const size_t per_warp = (a.smem_planes ? 4 * static_cast<size_t>(EP) : 0) +
-                          M::kNG * Dims<M>::kGStride;
+                          records_mb<M, NB>();
   T* base = reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(threadIdx.x >> 5) * per_warp;
   T* gs = a.smem_planes ? base + 4 * static_cast<size_t>(EP) : base;
+  T* ps = gs;
   T lo[NP], hi[NP];
 #pragma unroll
   for (int k = 0; k < NP; ++k) {
@@ -188,7 +205,7 @@ __global__ void __launch_bounds__(kThreads) lm_solve_mb_kernel(MbArgs<T> a) {
     const size_t lb = static_cast<size_t>(b);
     const size_t off = lb * EP;
     MbWarp<T> w{a.v + off, a.u + off, a.ia + off, a.ve + off, a.psf + 3 * a.E * lb,
-                a.band + a.E * lb, gs, a.E, a.P, lid};
+                a.band + a.E * lb, gs, ps, a.prior, a.nprior, a.E, a.P, lid};
     if (a.smem_planes) {
       // the lane's planes into shared memory, each thread the pixels it
       // reads in the pixel passes
@@ -207,8 +224,8 @@ __global__ void __launch_bounds__(kThreads) lm_solve_mb_kernel(MbArgs<T> a) {
     }
     solve_lane<T, NP>(
         a.conf, a.guess + NP * lb, lo, hi,
-        [&](const T (&yy)[NP], T& cost, T (&jtr)[NP], T (&jtj)[NT]) {
-          evaluate_mb<M, T, NB>(w, yy, lo, hi, cost, jtr, jtj);
+        [&](const T (&yy)[NP], T& cost, T& cost_pix, T (&jtr)[NP], T (&jtj)[NT]) {
+          evaluate_mb<M, T, NB>(w, yy, lo, hi, cost, cost_pix, jtr, jtj);
         },
         a.out, lb, lid);
     // every thread is done with the planes before the next copy
@@ -217,28 +234,30 @@ __global__ void __launch_bounds__(kThreads) lm_solve_mb_kernel(MbArgs<T> a) {
 }
 
 // whether a lane's E P pixels go into shared memory, and the block's
-// dynamic shared memory: each warp's planes (if they do) and gaussians
-template <typename T, typename M>
+// dynamic shared memory: each warp's planes (if they do) and records
+// (gaussians, then the prior rows' scratch)
+template <typename T, typename M, int NB>
 size_t smem_bytes_mb(int64_t EP, bool* smem_planes) {
   *smem_planes = EP <= kMaxP;
   return static_cast<size_t>(kWarps) *
-         ((*smem_planes ? 4 * static_cast<size_t>(EP) : 0) +
-          M::kNG * Dims<M>::kGStride) * sizeof(T);
+         ((*smem_planes ? 4 * static_cast<size_t>(EP) : 0) + records_mb<M, NB>()) * sizeof(T);
 }
 
 template <typename T, typename M, int NB>
-int launch_mb(MbArgs<T> a, int64_t B, int64_t E, int64_t P, int64_t maxfev,
-              void* stream) {
+int launch_mb(MbArgs<T> a, int64_t B, int64_t E, int64_t P, int64_t nprior,
+              int64_t maxfev, void* stream) {
   if (B <= 0) return 0;
   if (E < 1 || P < 1 || B > 2147483647LL || E * P > 2147483647LL / 4 || maxfev < 1 ||
-      maxfev > 2147483647LL) {
+      maxfev > 2147483647LL || nprior < 0 || nprior > kMaxPriorRows ||
+      (nprior > 0 && a.prior == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  a.nprior = static_cast<int>(nprior);
   a.conf.maxfev = static_cast<int>(maxfev);
   a.B = static_cast<int>(B);
   a.E = static_cast<int>(E);
   a.P = static_cast<int>(P);
-  const size_t smem = smem_bytes_mb<T, M>(E * P, &a.smem_planes);
+  const size_t smem = smem_bytes_mb<T, M, NB>(E * P, &a.smem_planes);
   unsigned blocks = 0;
   const int err = grid_size(lm_solve_mb_kernel<T, M, NB>, smem, B, &blocks);
   if (err != 0) return err;
@@ -249,16 +268,23 @@ int launch_mb(MbArgs<T> a, int64_t B, int64_t E, int64_t P, int64_t maxfev,
 
 template <typename T, typename M>
 int launch_nb(const MbArgs<T>& a, int64_t nband, int64_t B, int64_t E, int64_t P,
-              int64_t maxfev, void* stream) {
+              int64_t nprior, int64_t maxfev, void* stream) {
   switch (nband) {
-    case 1: return launch_mb<T, M, 1>(a, B, E, P, maxfev, stream);
-    case 2: return launch_mb<T, M, 2>(a, B, E, P, maxfev, stream);
-    case 3: return launch_mb<T, M, 3>(a, B, E, P, maxfev, stream);
-    case 4: return launch_mb<T, M, 4>(a, B, E, P, maxfev, stream);
-    case 5: return launch_mb<T, M, 5>(a, B, E, P, maxfev, stream);
-    case 6: return launch_mb<T, M, 6>(a, B, E, P, maxfev, stream);
+    case 1: return launch_mb<T, M, 1>(a, B, E, P, nprior, maxfev, stream);
+    case 2: return launch_mb<T, M, 2>(a, B, E, P, nprior, maxfev, stream);
+    case 3: return launch_mb<T, M, 3>(a, B, E, P, nprior, maxfev, stream);
+    case 4: return launch_mb<T, M, 4>(a, B, E, P, nprior, maxfev, stream);
+    case 5: return launch_mb<T, M, 5>(a, B, E, P, nprior, maxfev, stream);
+    case 6: return launch_mb<T, M, 6>(a, B, E, P, nprior, maxfev, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+template <typename T, typename M, int NB>
+int attrs_nb(int64_t EP, int* out) {
+  bool smem_planes = false;
+  return kernel_attrs(lm_solve_mb_kernel<T, M, NB>, smem_bytes_mb<T, M, NB>(EP, &smem_planes),
+                      out);
 }
 
 // kernel_attrs of the kernel at nband bands and E epochs of P pixels a
@@ -266,15 +292,13 @@ int launch_nb(const MbArgs<T>& a, int64_t nband, int64_t B, int64_t E, int64_t P
 template <typename T, typename M>
 int attrs_mb(int64_t nband, int64_t E, int64_t P, int* out) {
   if (E < 1 || P < 1) return static_cast<int>(cudaErrorInvalidValue);
-  bool smem_planes = false;
-  const size_t smem = smem_bytes_mb<T, M>(E * P, &smem_planes);
   switch (nband) {
-    case 1: return kernel_attrs(lm_solve_mb_kernel<T, M, 1>, smem, out);
-    case 2: return kernel_attrs(lm_solve_mb_kernel<T, M, 2>, smem, out);
-    case 3: return kernel_attrs(lm_solve_mb_kernel<T, M, 3>, smem, out);
-    case 4: return kernel_attrs(lm_solve_mb_kernel<T, M, 4>, smem, out);
-    case 5: return kernel_attrs(lm_solve_mb_kernel<T, M, 5>, smem, out);
-    case 6: return kernel_attrs(lm_solve_mb_kernel<T, M, 6>, smem, out);
+    case 1: return attrs_nb<T, M, 1>(E * P, out);
+    case 2: return attrs_nb<T, M, 2>(E * P, out);
+    case 3: return attrs_nb<T, M, 3>(E * P, out);
+    case 4: return attrs_nb<T, M, 4>(E * P, out);
+    case 5: return attrs_nb<T, M, 5>(E * P, out);
+    case 6: return attrs_nb<T, M, 6>(E * P, out);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -292,10 +316,11 @@ static_assert(kMaxBand == 6, "the dispatch covers nband 1 to 6");
   extern "C" int NAME(                                                         \
       const void* guess, const void* lo, const void* hi, const void* psf,      \
       const void* band, const void* v, const void* u, const void* ia,          \
-      const void* ve, void* y, void* cost, void* jtr, void* jtj, void* lam,    \
-      void* nfev, void* done, void* ier_small_step, void* ier_small_cost,      \
-      void* pinned, void* counter, int64_t B, int64_t E, int64_t P,            \
-      int64_t nband, int64_t maxfev, double ftol, double xtol, double lambda0, \
+      const void* ve, void* y, void* cost, void* cost_pix, void* jtr,          \
+      void* jtj, void* lam, void* nfev, void* done, void* ier_small_step,      \
+      void* ier_small_cost, void* pinned, void* counter, const void* prior,    \
+      int64_t B, int64_t E, int64_t P, int64_t nband, int64_t nprior,          \
+      int64_t maxfev, double ftol, double xtol, double lambda0,                \
       double lambda_up, double lambda_down, double lambda_min,                 \
       double lambda_max, void* stream) {                                       \
     MbArgs<T> a{static_cast<const T*>(guess),                                  \
@@ -308,20 +333,23 @@ static_assert(kMaxBand == 6, "the dispatch covers nband 1 to 6");
                 static_cast<const T*>(ia),                                     \
                 static_cast<const T*>(ve),                                     \
                 Out<T>{static_cast<T*>(y), static_cast<T*>(cost),              \
-                       static_cast<T*>(jtr), static_cast<T*>(jtj),             \
+                       static_cast<T*>(cost_pix), static_cast<T*>(jtr),        \
+                       static_cast<T*>(jtj),                                   \
                        static_cast<T*>(lam), static_cast<int32_t*>(nfev),      \
                        static_cast<uint8_t*>(done),                            \
                        static_cast<uint8_t*>(ier_small_step),                  \
                        static_cast<uint8_t*>(ier_small_cost),                  \
                        static_cast<uint8_t*>(pinned)},                         \
                 static_cast<int*>(counter),                                    \
+                static_cast<const double*>(prior),                             \
+                0,                                                             \
                 0,                                                             \
                 0,                                                             \
                 0,                                                             \
                 false,                                                         \
                 Conf{ftol, xtol, lambda0, lambda_up, lambda_down, lambda_min,  \
                      lambda_max, 0}};                                          \
-    return launch_nb<T, M>(a, nband, B, E, P, maxfev, stream);                 \
+    return launch_nb<T, M>(a, nband, B, E, P, nprior, maxfev, stream);         \
   }                                                                            \
   extern "C" int NAME##_attrs(int64_t nband, int64_t E, int64_t P, int* out) { \
     return attrs_mb<T, M>(nband, E, P, out);                                   \

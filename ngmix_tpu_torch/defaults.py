@@ -20,3 +20,6 @@ FASTEXP_APOD_CHI2 = 20.0
 # underflows to 0, which still behaves correctly as a floor (det <= 0
 # is invalid).
 GMIX_LOW_DETVAL = 1.0e-200
+
+# ln(prob) of a point outside a prior's support
+LOWVAL = float("-inf")

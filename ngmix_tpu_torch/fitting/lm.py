@@ -147,6 +147,15 @@ def _lane_sum(x):
     return s
 
 
+def _row_sum(x):
+    """sum over the prior rows, axis 1 of [B, R, ...], unrolled in a
+    fixed order as _lane_sum"""
+    s = x[:, 0]
+    for i in range(1, x.shape[1]):
+        s = s + x[:, i]
+    return s
+
+
 def _solve_damped(JtJ, Jtr, lam):
     """solve (JtJ + lam diag(JtJ)) dx = -Jtr (Marquardt scaling) for
     JtJ [..., n, n], Jtr [..., n] and lam a scalar or [...]; nan where
@@ -238,7 +247,7 @@ def _lm_step(s, data, eval_normal, lo, hi, conf):
 
     y_try = clip_internal(s["y"] + dy, lo, hi)
     dy = y_try - s["y"]
-    cost_try, Jtr_try, JtJ_try = eval_normal(y_try, data)
+    cost_try, cost_pix_try, Jtr_try, JtJ_try = eval_normal(y_try, data)
     cost_try = torch.where(torch.isfinite(cost_try), cost_try, torch.inf)
 
     accept = step_ok & (cost_try < s["cost"])
@@ -270,6 +279,7 @@ def _lm_step(s, data, eval_normal, lo, hi, conf):
     return {
         "y": torch.where(upd[:, None], y_try, s["y"]),
         "cost": torch.where(upd, cost_try, s["cost"]),
+        "cost_pix": torch.where(upd, cost_pix_try, s["cost_pix"]),
         "Jtr": torch.where(upd[:, None], Jtr_try, s["Jtr"]),
         "JtJ": torch.where(upd[:, None, None], JtJ_try, s["JtJ"]),
         "lam": torch.where(active, new_lam, s["lam"]),
@@ -321,7 +331,7 @@ def compaction_levels(nfev, compact_capacity):
 
 
 def run_lm_normal_batched(normal_fn, data, guess, lo, hi, conf: LMConf,
-                          nres, compact_capacity=None, gather_fn=None):
+                          nres, compact_capacity=None, gather_fn=None, prior_fn=None):
     """Batched LM driven by normal-equation reductions: the finished
     solver state of run_lm_normal_state through _normal_epilogue.
 
@@ -343,40 +353,59 @@ def run_lm_normal_batched(normal_fn, data, guess, lo, hi, conf: LMConf,
     axis of every tensor (the multi-band fit's epoch rows, E a lane);
     the default takes idx on the leading axis of every tensor.
 
-    The reference's prior rows (prior_fn) and k-space residuals
-    (k_space) are not ported yet (ROADMAP queue items 5 and 13).
+    prior_fn(x_ext [B, npars]) -> (rows [B, R], Jp [B, R, npars]) adds
+    a prior's pseudo-residual rows to the objective (a joint prior's
+    fill_fdiff_jacobian), in external coordinates before the bounds
+    chain rule: cost += sum rows^2, Jtr += Jp^T rows, JtJ += Jp^T Jp.
+    The covariance scales by the pixel cost alone (cost_pix / dof).
+
+    The reference's k-space residuals (k_space) are not ported yet
+    (ROADMAP queue item 13).
     """
     lo = torch.as_tensor(lo, dtype=guess.dtype, device=guess.device)
     hi = torch.as_tensor(hi, dtype=guess.dtype, device=guess.device)
     state = run_lm_normal_state(normal_fn, data, guess, lo, hi, conf,
                                 compact_capacity=compact_capacity,
-                                gather_fn=gather_fn)
+                                gather_fn=gather_fn, prior_fn=prior_fn)
     return _normal_epilogue(state, lo, hi, conf, nres)
 
 
 def run_lm_normal_state(normal_fn, data, guess, lo, hi, conf: LMConf,
-                        compact_capacity=None, gather_fn=None):
+                        compact_capacity=None, gather_fn=None, prior_fn=None):
     """the solver loop of run_lm_normal_batched (same arguments but
-    nres): the finished per-lane state y, cost, Jtr, JtJ (internal
-    coordinates), lam, nfev, done, ier_small_step, ier_small_cost and
-    pinned, which _normal_epilogue turns into the result"""
+    nres): the finished per-lane state y, cost (with the prior rows),
+    cost_pix (the pixels' alone), Jtr, JtJ (internal coordinates), lam,
+    nfev, done, ier_small_step, ier_small_cost and pinned, which
+    _normal_epilogue turns into the result"""
     B, npars = guess.shape
     dtype, dev = guess.dtype, guess.device
     lo = torch.as_tensor(lo, dtype=dtype, device=dev)
     hi = torch.as_tensor(hi, dtype=dtype, device=dev)
 
     def eval_normal(y, d):
-        """(cost, Jtr, JtJ) in internal coordinates: the bounds chain
-        rule J_int = J_ext diag(g)"""
-        cost, Jtr, JtJ = normal_fn(i2e(y, lo, hi), d)
+        """(cost, cost_pix, Jtr, JtJ) in internal coordinates: the prior
+        rows added in external coordinates, then the bounds chain rule
+        J_int = J_ext diag(g)"""
+        x = i2e(y, lo, hi)
+        cost_pix, Jtr, JtJ = normal_fn(x, d)
+        cost = cost_pix
+        if prior_fn is not None:
+            rows, Jp = prior_fn(x)
+            # sums over the rows first, unrolled, then into the pixels'
+            # (an inf row makes Jtr nan: Jp is 0 there, as in the
+            # reference)
+            cost = cost_pix + _lane_sum(rows * rows)
+            Jtr = Jtr + _row_sum(Jp * rows[..., None])
+            JtJ = JtJ + _row_sum(Jp[..., :, None] * Jp[..., None, :])
         g = i2e_grad(y, lo, hi)
-        return cost, Jtr * g, JtJ * g[..., :, None] * g[..., None, :]
+        return cost, cost_pix, Jtr * g, JtJ * g[..., :, None] * g[..., None, :]
 
     y0 = e2i(guess, lo, hi)
-    cost0, Jtr0, JtJ0 = eval_normal(y0, data)
+    cost0, cost_pix0, Jtr0, JtJ0 = eval_normal(y0, data)
     state = {
         "y": y0,
         "cost": cost0,
+        "cost_pix": cost_pix0,
         "Jtr": Jtr0,
         "JtJ": JtJ0,
         "lam": torch.full((B,), conf.lambda0, dtype=dtype, device=dev),
@@ -419,8 +448,9 @@ def run_lm_normal_state(normal_fn, data, guess, lo, hi, conf: LMConf,
 
 def _normal_epilogue(out, lo, hi, conf, nres):
     """pars, covariance and flags from a finished solver state: the
-    chi^2/dof-scaled covariance through the unrolled Cholesky, with the
-    reference's flag semantics and order"""
+    covariance through the unrolled Cholesky scaled by the pixels'
+    chi^2/dof (cost_pix / (nres - npars); prior rows never enter it),
+    with the reference's flag semantics and order"""
     B, npars = out["y"].shape
     dtype, dev = out["y"].dtype, out["y"].device
     y = out["y"]
@@ -441,7 +471,7 @@ def _normal_epilogue(out, lo, hi, conf, nres):
     dof = nres - npars
     zero_dof = torch.broadcast_to(dof == 0, (B,))
     dof_safe = torch.clamp(dof, min=1)
-    s_sq = out["cost"] / dof_safe
+    s_sq = out["cost_pix"] / dof_safe
     pcov = pcov0 * s_sq[:, None, None]
 
     # positive definiteness through the Cholesky pivots (Sylvester)

@@ -151,19 +151,20 @@ def load():
             fn.restype = ctypes.c_int
         for name in lm_names:
             fn = getattr(lib, "ngmix_lm_solve_" + name)
-            # guess, lo, hi, psf, v, u, ia, ve, y, cost, jtr, jtj, lam,
-            # nfev, done, ier_small_step, ier_small_cost, pinned, counter,
-            # B, P, maxfev, ftol, xtol, lambda0, lambda_up, lambda_down,
-            # lambda_min, lambda_max, stream
-            fn.argtypes = [p] * 19 + [i64] * 3 + [ctypes.c_double] * 7 + [p]
+            # guess, lo, hi, psf, v, u, ia, ve, y, cost, cost_pix, jtr,
+            # jtj, lam, nfev, done, ier_small_step, ier_small_cost, pinned,
+            # counter, prior, B, P, nprior, maxfev, ftol, xtol, lambda0,
+            # lambda_up, lambda_down, lambda_min, lambda_max, stream
+            fn.argtypes = [p] * 21 + [i64] * 4 + [ctypes.c_double] * 7 + [p]
             fn.restype = ctypes.c_int
         for name in lm_names:
             fn = getattr(lib, "ngmix_lm_solve_mb_" + name)
-            # guess, lo, hi, psf, band, v, u, ia, ve, y, cost, jtr, jtj,
-            # lam, nfev, done, ier_small_step, ier_small_cost, pinned,
-            # counter, B, E, P, nband, maxfev, ftol, xtol, lambda0,
-            # lambda_up, lambda_down, lambda_min, lambda_max, stream
-            fn.argtypes = [p] * 20 + [i64] * 5 + [ctypes.c_double] * 7 + [p]
+            # guess, lo, hi, psf, band, v, u, ia, ve, y, cost, cost_pix,
+            # jtr, jtj, lam, nfev, done, ier_small_step, ier_small_cost,
+            # pinned, counter, prior, B, E, P, nband, nprior, maxfev, ftol,
+            # xtol, lambda0, lambda_up, lambda_down, lambda_min,
+            # lambda_max, stream
+            fn.argtypes = [p] * 22 + [i64] * 6 + [ctypes.c_double] * 7 + [p]
             fn.restype = ctypes.c_int
         for name in lm_names:
             fn = getattr(lib, "ngmix_lm_solve_mb_%s_attrs" % name)

@@ -53,6 +53,17 @@ JtJ 0). ``lm_solve_mb_plain`` is its plain version. It replaces the same
 TPU kernel and loop, under the multi-band objective
 (``ngmix_tpu/batch.py: _mb_epochwise_normal_fn_f``).
 
+Both take a joint prior (``joint_prior.PriorSimpleSep``,
+``PriorBDFSep``, ``PriorBDSep``) whose rows regularize every lane's fit
+as ``ngmix_tpu/fitting/lm.py:611-632`` adds them: in external
+coordinates before the bounds chain rule, cost += sum rows^2, Jtr +=
+Jp^T rows, JtJ += Jp^T Jp. The kernels read the prior as a small table
+(``prior.table()``, [nrows, 8] float64 in device memory) and evaluate
+each row and its derivatives in closed form, each row on a thread of
+the warp; the plain versions take ``prior.fill_fdiff_jacobian``. The
+state carries the pixels' cost beside the total as cost_pix, which
+scales the covariance.
+
 The wrapper takes the plain version only for tensors on the CPU. For a
 CUDA tensor it launches the kernel or raises; it never falls back.
 """
@@ -61,6 +72,7 @@ import functools
 
 import torch
 
+from .. import joint_prior
 from ..fitting import fit_model, lm
 from . import _build
 
@@ -75,6 +87,10 @@ MODELS = _build.LM_MODELS
 
 # the bands K3-mb is built for (ugrizy)
 MAX_NBAND = 6
+
+# the most prior rows a lane's table may hold (csrc/lm_common.cuh:
+# kMaxPriorRows)
+MAX_PRIOR_ROWS = 16
 
 # launches of the CUDA kernels since the last reset (set them to 0 to
 # reset): K3 and K3-mb
@@ -98,11 +114,15 @@ def _check_model(model):
     return fit_model.shape_count(model)
 
 
-def lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp"):
+def _prior_fn(prior):
+    return None if prior is None else prior.fill_fdiff_jacobian
+
+
+def lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp", prior=None):
     """plain PyTorch version of K3: the host loop of
     fitting.lm.run_lm_normal_state without compaction, over the model's
-    normal equations with K1's plain version. Same arguments and result
-    as lm_solve."""
+    normal equations with K1's plain version and the prior's rows. Same
+    arguments and result as lm_solve."""
     # batch imports this module, so its models are imported here
     from .. import batch
 
@@ -112,7 +132,7 @@ def lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp"):
 
     return lm.run_lm_normal_state(
         normal_fn, ((v, u, ia, ve), batch._psf_gmix(psf)), guess, lo, hi,
-        conf, compact_capacity=None,
+        conf, compact_capacity=None, prior_fn=_prior_fn(prior),
     )
 
 
@@ -138,6 +158,7 @@ def _empty_state(guess):
     return {
         "y": guess.new_empty((B, npars)),
         "cost": guess.new_empty((B,)),
+        "cost_pix": guess.new_empty((B,)),
         "Jtr": guess.new_empty((B, npars)),
         "JtJ": guess.new_empty((B, npars, npars)),
         "lam": guess.new_empty((B,)),
@@ -154,9 +175,39 @@ def _conf_args(conf):
             conf.lambda_down, conf.lambda_min, conf.lambda_max)
 
 
-def _check(guess, lo, hi, psf, planes, conf, model):
+def _check_prior(prior, npars, nband, model):
+    """raise for a prior that is not a joint prior of the port, or
+    whose parameter slots are not the fit's"""
+    if prior is None:
+        return
+    if not isinstance(prior, joint_prior.PRIORS):
+        raise TypeError("prior must be one of the port's joint priors %s, got %s"
+                        % (tuple(c.__name__ for c in joint_prior.PRIORS),
+                           type(prior).__name__))
+    if prior.npars != npars:
+        raise ValueError(
+            "the %s prior has %d parameter slots (%d shape columns and %d flux slots); "
+            "the %s fit has %d (%d bands)" % (type(prior).__name__, prior.npars,
+                                              prior.nshape, prior.nband, model, npars, nband))
+    if prior.n_prior_pars > MAX_PRIOR_ROWS:
+        raise ValueError("the kernels take at most %d prior rows, got %d"
+                         % (MAX_PRIOR_ROWS, prior.n_prior_pars))
+
+
+def _prior_table(prior, device):
+    """(the prior's table on the device, or None, and its rows)"""
+    if prior is None:
+        return None, 0
+    tab = prior.table()
+    if tab.device != device:
+        tab = tab.to(device)
+    return tab.contiguous(), tab.shape[0]
+
+
+def _check(guess, lo, hi, psf, planes, conf, model, prior=None):
     lm.check_supported(conf)
     npars = _check_model(model) + 1
+    _check_prior(prior, npars, 1, model)
     if guess.dim() != 2 or guess.shape[1] != npars:
         raise ValueError(
             "K3 fits the %s model's %d-parameter vector: guess must be [B, %d], got %s"
@@ -183,7 +234,7 @@ def _check(guess, lo, hi, psf, planes, conf, model):
     _check_common(guess, (guess, lo, hi, psf) + tuple(planes), conf)
 
 
-def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp"):
+def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp", prior=None):
     """K3: the LM solve of the model (exp, gauss, dev, bdf or bd) of
     every lane.
 
@@ -194,14 +245,16 @@ def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp"):
     [B, P]; conf an LMConf. Returns the finished solver state of
     fitting.lm.run_lm_normal_state: y, cost, Jtr, JtJ (internal
     coordinates), lam, nfev (int32), done, ier_small_step,
-    ier_small_cost and pinned (bool). Any P >= 1: past MAX_P the kernel
+    ier_small_cost and pinned (bool), and cost_pix, the cost without the
+    prior rows. prior: a joint prior of the model's parameter vector
+    (one flux slot), or None. Any P >= 1: past MAX_P the kernel
     reads the planes from global memory. CPU tensors go to
     lm_solve_plain; CUDA tensors launch the model's kernel.
     """
     global launches
-    _check(guess, lo, hi, psf, (v, u, ia, ve), conf, model)
+    _check(guess, lo, hi, psf, (v, u, ia, ve), conf, model, prior)
     if guess.device.type == "cpu":
-        return lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf, model)
+        return lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf, model, prior)
     if guess.device.type != "cuda":
         raise RuntimeError("K3 runs on CUDA or CPU tensors, not %s" % guess.device)
 
@@ -212,6 +265,7 @@ def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp"):
         return out
     # the lane counter the kernel's warps take their lanes from
     counter = guess.new_zeros((1,), dtype=torch.int32)
+    tab, nprior = _prior_table(prior, guess.device)
     # the tensors' device is current only for the launch, so the caller's
     # current device is left as it was
     with torch.cuda.device(guess.device):
@@ -219,7 +273,8 @@ def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp"):
             guess.data_ptr(), lo.data_ptr(), hi.data_ptr(), psf.data_ptr(),
             v.data_ptr(), u.data_ptr(), ia.data_ptr(), ve.data_ptr(),
             *(x.data_ptr() for x in out.values()), counter.data_ptr(),
-            B, P, *_conf_args(conf), torch.cuda.current_stream().cuda_stream,
+            None if tab is None else tab.data_ptr(), B, P, nprior, *_conf_args(conf),
+            torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
         raise RuntimeError("K3 lm_solve launch failed: CUDA error %d" % err)
@@ -227,12 +282,13 @@ def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp"):
     return out
 
 
-def lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp"):
+def lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp",
+                      prior=None):
     """plain PyTorch version of K3-mb: the host loop of
     fitting.lm.run_lm_normal_state without compaction, over the joint
     multi-band normal equations of the model (batch._mb_exp_normal_fn
-    with K1's plain version). Same arguments and result as
-    lm_solve_mb."""
+    with K1's plain version) and the prior's rows. Same arguments and
+    result as lm_solve_mb."""
     from .. import batch
 
     B, E, P = v.shape
@@ -242,10 +298,11 @@ def lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp")
     return lm.run_lm_normal_state(
         functools.partial(batch._mb_exp_normal_fn, plain=True, model=model),
         (planes, psf_gmix, band), guess, lo, hi, conf, compact_capacity=None,
+        prior_fn=_prior_fn(prior),
     )
 
 
-def _check_mb(guess, lo, hi, psf, band, planes, conf, model):
+def _check_mb(guess, lo, hi, psf, band, planes, conf, model, prior=None):
     lm.check_supported(conf)
     nshape = _check_model(model)
     if guess.dim() != 2:
@@ -258,6 +315,7 @@ def _check_mb(guess, lo, hi, psf, band, planes, conf, model):
             "K3-mb fits 1 to %d bands (%d + nband parameters of the %s model), got "
             "guess %s" % (MAX_NBAND, nshape, model, tuple(guess.shape))
         )
+    _check_prior(prior, npars, nband, model)
     if tuple(lo.shape) != (npars,) or tuple(hi.shape) != (npars,):
         raise ValueError("lo and hi must be [%d], got %s and %s"
                          % (npars, tuple(lo.shape), tuple(hi.shape)))
@@ -282,7 +340,7 @@ def _check_mb(guess, lo, hi, psf, band, planes, conf, model):
     _check_common(guess, (guess, lo, hi, psf) + tuple(planes), conf)
 
 
-def lm_solve_mb(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp"):
+def lm_solve_mb(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp", prior=None):
     """K3-mb: the joint multi-band LM solve of the model (exp, gauss,
     dev, bdf or bd) of every object.
 
@@ -293,14 +351,16 @@ def lm_solve_mb(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp"):
     unit-flux psf gaussian; band int32 [E] (shared) or [B, E], the band
     of each epoch (a band outside [0, nband) gives that epoch no flux);
     v, u, ia = ierr * area and ve = val * ierr [B, E, P]; conf an
-    LMConf. Returns the finished solver state, as lm_solve does, with
-    nshape + nband parameters. CPU tensors go to lm_solve_mb_plain; CUDA
-    tensors launch the model's kernel.
+    LMConf; prior a joint prior with nband flux slots, or None. Returns
+    the finished solver state, as lm_solve does, with nshape + nband
+    parameters. CPU tensors go to lm_solve_mb_plain; CUDA tensors launch
+    the model's kernel.
     """
     global launches_mb
-    _check_mb(guess, lo, hi, psf, band, (v, u, ia, ve), conf, model)
+    _check_mb(guess, lo, hi, psf, band, (v, u, ia, ve), conf, model, prior)
     if guess.device.type == "cpu":
-        return lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf, model)
+        return lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf, model,
+                                 prior)
     if guess.device.type != "cuda":
         raise RuntimeError("K3-mb runs on CUDA or CPU tensors, not %s" % guess.device)
 
@@ -309,12 +369,14 @@ def lm_solve_mb(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp"):
     band = torch.broadcast_to(band, (B, E)).contiguous()
     out = _empty_state(guess)
     counter = guess.new_zeros((1,), dtype=torch.int32)
+    tab, nprior = _prior_table(prior, guess.device)
     with torch.cuda.device(guess.device):
         err = fn(
             guess.data_ptr(), lo.data_ptr(), hi.data_ptr(), psf.data_ptr(),
             band.data_ptr(), v.data_ptr(), u.data_ptr(), ia.data_ptr(), ve.data_ptr(),
             *(x.data_ptr() for x in out.values()), counter.data_ptr(),
-            B, E, P, guess.shape[1] - fit_model.shape_count(model), *_conf_args(conf),
+            None if tab is None else tab.data_ptr(), B, E, P,
+            guess.shape[1] - fit_model.shape_count(model), nprior, *_conf_args(conf),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

@@ -312,7 +312,7 @@ def test_cuda_tensors_launch_the_composite_kernels(monkeypatch, model):
     args = [_fake_cuda(x) for x in _composite_solve_args(model)]
     out = lm_solve.lm_solve(*args, tlm.LMConf(), model)
     name, c = calls[-1]
-    assert name == "ngmix_lm_solve_%s_f32" % model and c[19:21] == (3, 50)
+    assert name == "ngmix_lm_solve_%s_f32" % model and c[21:23] == (3, 50)
     npars = args[0].shape[1]
     assert out["JtJ"].shape == (3, npars, npars) and out["pinned"].shape == (3, npars)
     # K3-mb: 2 epochs, 2 bands after the model's shape columns
@@ -328,7 +328,7 @@ def test_cuda_tensors_launch_the_composite_kernels(monkeypatch, model):
                          model)
     name, c = calls[-1]
     assert name == "ngmix_lm_solve_mb_%s_f32" % model
-    assert c[20:24] == (3, 2, 50, 2)
+    assert c[22:26] == (3, 2, 50, 2)
     assert lm_solve.launches == 1 and lm_solve.launches_mb == 1
     with pytest.raises(ValueError, match="exp model.s 6-parameter"):
         lm_solve.lm_solve(*args, tlm.LMConf(), "exp")

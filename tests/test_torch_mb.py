@@ -24,7 +24,7 @@ from ngmix_tpu import batch as jbatch
 import ngmix_tpu_torch as nt
 from ngmix_tpu_torch import convert
 
-from test_torch_pipeline import DIMS, PSF_DIMS, SCALE, _inputs
+from test_torch_pipeline import DIMS, PSF_DIMS, SCALE, _inputs, _prior_of
 
 # one intra-op thread: the suite's workers share the cores, and
 # torch's default pool per worker oversubscribes them
@@ -189,17 +189,26 @@ def test_inconsistent_measures_raise(mb_inputs):
 def test_unported_options_raise_mb():
     one = np.zeros(1, np.int32)
     for measure in ("gauss-lm", "dev-lm", "bdf-lm", "bd-lm"):
-        with pytest.raises(NotImplementedError, match="queue item 5c"):
+        # lm_prior is ported: a non-prior raises TypeError naming the
+        # ported priors, a prior of two flux slots ValueError at nband 1
+        with pytest.raises(TypeError, match="PriorBDFSep.*PriorSimpleSep"):
             nt.make_metacal_pipeline_mb_fn(CONF, one, 1, measure=measure, device="cpu",
                                            lm_prior=object())
+        with pytest.raises(ValueError, match="parameter slots"):
+            nt.make_metacal_pipeline_mb_fn(CONF, one, 1, measure=measure, device="cpu",
+                                           lm_prior=_prior_of(measure, 2))
         with pytest.raises(NotImplementedError, match="queue item 10"):
             nt.make_metacal_pipeline_mb_fn(CONF, one, 1, measure=measure, device="cpu",
                                            lm_conf=nt.LMConf(flux_col=True))
-    for kw, item in ((dict(lm_prior=object()), 5), (dict(lm_prior=object(),
-                                                          lm_bounds=([0] * 7, [1] * 7)), 5),
-                     (dict(lm_conf=nt.LMConf(varpro=True)), 10),
-                     (dict(lm_conf=nt.LMConf(flux_col=True)), 10)):
-        with pytest.raises(NotImplementedError, match="queue item %d" % item):
+    for kw in (dict(lm_prior=object()), dict(lm_prior=object(), lm_bounds=([0] * 7, [1] * 7))):
+        with pytest.raises(TypeError, match="PriorBDFSep.*PriorSimpleSep"):
+            nt.make_metacal_pipeline_mb_fn(CONF, one, 2, device="cpu", **kw)
+    # a prior of one flux slot at nband 2
+    with pytest.raises(ValueError, match="parameter slots"):
+        nt.make_metacal_pipeline_mb_fn(CONF, one, 2, device="cpu",
+                                       lm_prior=_prior_of("exp-lm", 1))
+    for kw in (dict(lm_conf=nt.LMConf(varpro=True)), dict(lm_conf=nt.LMConf(flux_col=True))):
+        with pytest.raises(NotImplementedError, match="queue item 10"):
             nt.make_metacal_pipeline_mb_fn(CONF, one, 2, device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="queue item 10"):
         nt.make_metacal_pipeline_mb_fn(CONF._replace(sheared_refine=2), one, 1, device="cpu")

@@ -221,11 +221,12 @@ def test_cuda_tensor_launches_k3_mb_never_plain(monkeypatch):
     assert dev == args[0].device
     assert c[:4] == tuple(x.data_ptr() for x in args[:4])
     assert c[5:9] == tuple(x.data_ptr() for x in args[5:])
-    assert c[9:19] == tuple(x.data_ptr() for x in out.values())
-    assert c[20:] == (3, 2, 50, 2, 77, 2e-5, conf.xtol, conf.lambda0, conf.lambda_up,
-                      conf.lambda_down, conf.lambda_min, conf.lambda_max, 4321)
+    assert c[9:20] == tuple(x.data_ptr() for x in out.values())
+    # no prior: a null table of 0 rows
+    assert c[21:] == (None, 3, 2, 50, 2, 0, 77, 2e-5, conf.xtol, conf.lambda0,
+                      conf.lambda_up, conf.lambda_down, conf.lambda_min, conf.lambda_max, 4321)
     assert [tuple(x.shape) for x in out.values()] == [
-        (3, 7), (3,), (3, 7), (3, 7, 7), (3,), (3,), (3,), (3,), (3,), (3, 7)]
+        (3, 7), (3,), (3,), (3, 7), (3, 7, 7), (3,), (3,), (3,), (3,), (3,), (3, 7)]
 
 
 def test_cuda_launch_error_raises_mb(monkeypatch):

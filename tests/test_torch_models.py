@@ -246,7 +246,7 @@ def test_cuda_tensors_launch_the_models_kernel(monkeypatch, model):
         lm_solve.lm_solve(*args, tlm.LMConf(), model)
         name, c = calls[-1]
         assert name == "ngmix_lm_solve_%s_f32" % model
-        assert c[19:21] == (3, P)
+        assert c[21:23] == (3, P)
     lm_solve.lm_solve_mb(*(_fake_cuda(x) for x in _small_mb()), tlm.LMConf(), model)
     assert calls[-1][0] == "ngmix_lm_solve_mb_%s_f64" % model
     assert lm_solve.launches == 2 and lm_solve.launches_mb == 1
@@ -265,7 +265,8 @@ def test_measure_calls_k3_once_with_the_model(monkeypatch, model):
     monkeypatch.setattr(lm_solve, "lm_solve", spy)
     k3 = tbatch._exp_lm_measure(tpix, sig, tlm.LMConf(), model=model)
     host = tbatch._exp_lm_measure(tpix, sig, tlm.LMConf(), host_loop=True, model=model)
-    assert calls == [(model,)]
+    # the LMConf's successors: the model, and no prior
+    assert calls == [(model, None)]
     for k in ("pars", "flags", "nfev", "s2n"):
         torch.testing.assert_close(k3[k], host[k], rtol=0, atol=0, msg=k)
 

@@ -74,7 +74,8 @@ def test_library_lands_in_ignored_build_dir():
 
 
 def test_constants_match_jax_package():
-    for name in ("FASTEXP_MAX_CHI2", "FASTEXP_APOD_CHI2", "GMIX_LOW_DETVAL", "PDEF", "CDEF"):
+    for name in ("FASTEXP_MAX_CHI2", "FASTEXP_APOD_CHI2", "GMIX_LOW_DETVAL", "PDEF", "CDEF",
+                 "LOWVAL"):
         assert getattr(defaults, name) == getattr(jdefaults, name), name
     for name, val in vars(jflags).items():
         if name.isupper() and isinstance(val, int):

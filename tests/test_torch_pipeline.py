@@ -345,13 +345,34 @@ def test_chunked_matches_single_batch(inputs):
             )
 
 
+def _prior_of(measure, nband):
+    """a joint prior of the measure's model built for nband flux slots"""
+    from ngmix_tpu_torch import joint_prior, priors
+
+    F = priors.FlatPrior(0, 1e9)
+    parts = dict(cen_prior=priors.CenPrior(0, 0, 1, 1), g_prior=priors.GPriorBA(0.3),
+                 T_prior=priors.FlatPrior(0, 10), F_prior=F if nband == 1 else [F] * nband)
+    if measure == "bdf-lm":
+        return joint_prior.PriorBDFSep(fracdev_prior=priors.FlatPrior(0, 1), **parts)
+    if measure == "bd-lm":
+        return joint_prior.PriorBDSep(logTratio_prior=priors.FlatPrior(-1, 1),
+                                      fracdev_prior=priors.FlatPrior(0, 1), **parts)
+    return joint_prior.PriorSimpleSep(**parts)
+
+
 def test_unported_options_raise(inputs):
     conf = nt.MetacalConfig(dims=DIMS, psf_dims=PSF_DIMS, **CONFS["bench"])
     for measure, npars in (("exp-lm", 6), ("gauss-lm", 6), ("dev-lm", 6), ("bdf-lm", 7),
                            ("bd-lm", 8)):
-        with pytest.raises(NotImplementedError, match="queue item 5c"):
+        # lm_prior is ported: a non-prior raises TypeError naming the
+        # ported priors, a prior of two flux slots ValueError
+        with pytest.raises(TypeError, match="PriorBDFSep.*PriorSimpleSep"):
             nt.make_metacal_pipeline_fn(conf, measure=measure, device="cpu",
                                         lm_prior=object(),
+                                        lm_bounds=([0] * npars, [1] * npars))
+        with pytest.raises(ValueError, match="parameter slots"):
+            nt.make_metacal_pipeline_fn(conf, measure=measure, device="cpu",
+                                        lm_prior=_prior_of(measure, 2),
                                         lm_bounds=([0] * npars, [1] * npars))
         for kw, item in ((dict(lm_conf=nt.LMConf(varpro=True)), 10),
                          (dict(lm_conf=nt.LMConf(flux_col=True)), 10)):
