@@ -7,19 +7,24 @@ workload, its exp-LM headline and its metacal_admom workload at the
 production chunk size, the azgauss, fitgauss and dilate psf modes, its
 multi-band workload, its pre-psf moments (standalone and as the pgauss
 and ksigma metacal measures), its single-gaussian EM, the gauss and
-dev LM models, the bdf and bd bulge+disk models and the
-prior-regularized exp and bdf fits; and holds the hand-written CUDA
+dev LM models, the bdf and bd bulge+disk models, the
+prior-regularized exp and bdf fits, the LM options (variable
+projection, sheared-type refinement) and the scale-out path (ragged
+catalogs, checkpoints, a process group); and holds the hand-written CUDA
 kernels K2 (mixture evaluation), K1 (LM normal
 equations), K3 (every lane's whole LM solve of the exp, gauss, dev, bdf
-or bd model) and K3-mb (every object's joint multi-band solve) against
-their plain PyTorch versions. The exp-LM path
+or bd model, and its refine and varpro modes) and K3-mb (every object's
+joint multi-band solve) against their plain PyTorch versions. The exp-LM path
 runs through K3; its host-loop route (run_lm_normal_batched with K1,
 reached through _exp_lm_measure's host_loop argument) is driven for the
 phases that hold K1 and for the comparison. Phases, in order, each
 printing one timed line as soon as it ends:
 
 1. card:   the card's name and power limit (nvidia-smi);
-2. build:  nvcc builds K2 into build/ngmix_tpu_torch/ (first use);
+2. build:  nvcc builds every kernel (K1, K2, K3 with its modes, K3-mb)
+           into build/ngmix_tpu_torch/ (first use), one process a
+           source, all started together; prints the slowest units and
+           nvcc's CPU seconds;
 3. kernel: K2 against its plain version on the same CUDA inputs over
            n in {1, 6} (compile-time) and {3, 18} (any n), both modes,
            float32 and float64, B in {1, 3, 10243} (10243 leaves a
@@ -43,7 +48,7 @@ printing one timed line as soon as it ends:
            tolerances, and timed beside its bound, with the kernel's
            registers a thread, shared memory, blocks an SM and grid;
 7. k1:     K1 against its plain version on the same CUDA inputs over
-           n in {1, 6, 10}, float32 and float64, B in {1, 3, 51200}
+           n in {1, 6, 10}, float32 and float64, B in {1, 3, 10240}
            and P in {361, 1000, 1089}, with an invalid gaussian in one
            lane: in float64 cost to rtol 1e-10, Jtr and JtJ to rtol
            1e-8 with an atol of 1e-8 times the largest |value|
@@ -208,7 +213,8 @@ printing one timed line as soon as it ends:
            stamps: exp-LM in the reference's bounds box
            (tests/test_batch_pipeline.py:394-395; flags equal, nfev
            within 2, pars to rtol 1e-8 and atol 1e-10, inside the box)
-           and the mb pipeline with gauss-lm and dev-lm as in phase 18;
+           and the mb pipeline with gauss-lm and dev-lm as in phase 18
+           (N_CPU_MB_MODELS objects);
 22. composite: bdf-lm inside its production bounds
            (tools/validate_scale.py:391-411, fracdev in [0, 1], flux in
            [1e-3, 1e9]) and bd-lm inside the reference's box
@@ -237,10 +243,10 @@ printing one timed line as soon as it ends:
            every path in float64 against their plain versions; K2 at
            bdf's s/n sums (n = 16, fast, [5 B, 361]) against its plain
            version and timed; card against CPU in float64 by f64_lanes,
-           bdf on phase 21's inputs (256 exp stamps, and 86 objects of 3
-           epochs that are not copies with the per-object band map of
-           phase 18) and bd, degenerate on exp truth, on the bdf-truth
-           sims (the same shapes);
+           bdf on phase 21's inputs (the first N_CPU_COMPOSITE exp
+           stamps, and 86 objects of 3 epochs that are not copies with
+           the per-object band map of phase 18) and bd, degenerate on
+           exp truth, on the bdf-truth sims (the same shapes);
 23. priors: exp-lm with the reference test's PriorSimpleSep and box
            (tests/test_batch_pipeline.py:389-397) on the exp sims, and
            bdf-lm with the production PriorBDFSep (tests/_priors.py:
@@ -258,13 +264,41 @@ printing one timed line as soon as it ends:
            without the prior beside their bounds (prior_ops counts the
            rows' operations); card against CPU in float64 by f64_lanes
            on 256 exp stamps, 256 bdf-truth stamps and 256 mb objects
-           of distinct bdf-truth epochs.
-The float64 CPU sides of phases 17-19 and 21-23 run in CPU_WORKERS
+           of distinct bdf-truth epochs;
+24. options: the LM options at B = 10240 in float32 on the exp sims:
+           exp-lm with LMConf(varpro=True) (K3's varpro mode), exp-lm and
+           bdf-lm in sims.BDF_LM_BOUNDS (fracdev on its bound) with
+           sheared_refine=3 (K3 on the noshear lanes, then K3's refine
+           mode), each gated like phase 8 (|m|, |hetero m| < 1e-3,
+           flagged <= max(8, 0.5% B)) with its launches (one K3 mode
+           launch a call), its largest |g1| difference from the full-LM
+           call and its time beside the full-LM call's (median of 3);
+           exp-lm with flux_col=True bitwise equal to the default; each
+           mode against its plain version on the first 256 lanes of its
+           solve inputs in float64 (flags equal, e1/e2/T/flux to rtol
+           1e-5 and atol 1e-7, nfev within 2), and in float32 on the
+           first PLAIN_LANES lanes (flags equal; unflagged e1/e2/T/flux
+           within half a pars_err, on bdf but on at most fault 3.4's
+           lanes, OPTION_F32_LIMIT), and timed at the full shape
+           beside its bound (VALUE_OPS and k3_ops a value pass and an
+           evaluation) and its plain version, with its registers; the
+           three option pipelines card against CPU in float64 on 256
+           stamps by f64_lanes;
+25. scale-out: metacal_pipeline_ragged (exp-lm, float32) on a catalog
+           of 512 single-epoch 49x49 stamps and 512 objects of 41x41
+           crops with one or two epochs (a pad epoch): each bucket's rows
+           equal to its direct pipeline call; the results written as two
+           checkpoint shards, resumed at index 1 and read back equal;
+           a one-process NCCL group: the sharded flat (512 stamps) and mb
+           (128 objects) pipelines' rows and calibration equal to the
+           unsharded calls'.
+The float64 CPU sides of phases 5, 9, 15, 17-24 run in CPU_WORKERS
 spawned processes of one thread each from the end of phase 2, while the
 card runs the phases before them.
 Needs one CUDA card and exits nonzero, printing the reason, on any
 failure or without a card. The last line is the JSON result.
 """
+import concurrent.futures
 import functools
 import json
 import subprocess
@@ -273,6 +307,7 @@ import sys
 import time
 from unittest import mock
 
+import numpy as np
 import torch
 
 import ngmix_tpu_torch as nt
@@ -298,12 +333,24 @@ B_MB = 2048
 MB_CONF = nt.sims.METACAL_MB_CONFIG
 # the float64 card-against-CPU checks of the LM measures (phases 18,
 # 21 and 22): 256 flat stamps, 256 mb objects of 3 epochs, and 86 (258
-# epoch stamps) for the composite models; their CPU sides run in
+# epoch stamps) for the mb composite models (N_CPU_MB_MODELS and
+# N_CPU_COMPOSITE below for phases 21 and 22); their CPU sides run in
 # CPU_WORKERS processes of one thread each while the card works
 N_CPU = 256
 N_CPU_MB = 256
+# the lanes of phases 21-24's float32 solve inputs on which K3 (and its
+# modes) and K3-mb are held against their plain versions, whose time is
+# taken there: the first B_MAIN (mb: B_MB object-lanes), the noshear
+# type's; phases 13 and 18 hold every lane (the kernels line's rows)
+PLAIN_LANES = B_MAIN
+PLAIN_LANES_MB = B_MB
 N_CPU_MB_COMPOSITE = 86
-CPU_WORKERS = 5
+# the CPU sides costliest a lane, at half depth: phase 21's mb gauss-lm
+# and dev-lm (objects) and phase 22's flat bdf-lm and bd-lm (stamps)
+N_CPU_MB_MODELS = 128
+N_CPU_COMPOSITE = 128
+# with the main process, every core of an H100 host's 8
+CPU_WORKERS = 7
 
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit)
 PEAK_BYTES_PER_S = 3.35e12
@@ -711,7 +758,8 @@ def check_k1(device):
     worst = {torch.float32: 0.0, torch.float64: 0.0}
     for dtype in (torch.float32, torch.float64):
         for n in (1, 6, 10):
-            for B in (1, 3, NTYPES * B_MAIN):
+            # phase 11 holds K1 at the main path's 5 B lanes
+            for B in (1, 3, B_MAIN):
                 for P in (361, 1000, 1089):
                     args = _k1_case(gen, B, n, P, dtype)
                     err, rel = compare_k1(
@@ -736,11 +784,15 @@ def host_loop_route(**kw):
 
 def reset_launches():
     gmix_eval.launches = normal_eqs.launches = lm_solve.launches = lm_solve.launches_mb = 0
+    lm_solve.launches_refine = lm_solve.launches_varpro = 0
 
 
 def read_launches():
+    """the kernels' launches since reset_launches: K3, K1, K2, K3-mb, and
+    K3's refine (k3r) and varpro (k3v) modes"""
     return dict(k3=lm_solve.launches, k1=normal_eqs.launches, k2=gmix_eval.launches,
-                k3mb=lm_solve.launches_mb)
+                k3mb=lm_solve.launches_mb, k3r=lm_solve.launches_refine,
+                k3v=lm_solve.launches_varpro)
 
 
 def exp_lm_gate(res, het_res, B, npars=6):
@@ -837,14 +889,20 @@ def run_exp_lm(device, B):
     ), hom, het, res
 
 
-def compare_lm_card_cpu(hom, n=256):
-    """per-lane float64 exp-LM run of the first n stamps by the
-    host-loop route on the card and the CPU"""
-    args = [a[:n].double() for a in hom]
+def host_loop_cpu_results(args):
+    """the exp-LM pipeline's float64 results by the host-loop route on the
+    CPU for the stamps args"""
+    with host_loop_route():
+        return nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device="cpu")(
+            *(a.cpu() for a in args))
+
+
+def compare_lm_card_cpu(cpu_side):
+    """per-lane float64 exp-LM run of the first N_CPU stamps by the
+    host-loop route on the card and the CPU (cpu_side's job)"""
+    (args,), cpu = cpu_side.get("9 host-loop")
     with host_loop_route():
         card = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device="cuda")(*args)
-        cpu = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device="cpu")(
-            *(a.cpu() for a in args))
     worst, dnfev = 0.0, 0
     for t in nt.batch.GALSHEAR_TYPES:
         if not torch.equal(card[t]["flags"].cpu(), cpu[t]["flags"]):
@@ -1186,15 +1244,23 @@ def k3_bound(args, state, model="exp", prior=None):
     return least_ms(nbytes, ops, v.dtype)
 
 
-def k3_timed_row(args, conf, model="exp", prior=None):
+def lanes(args, n):
+    """the first n lanes of a kernel's inputs (all for n None)"""
+    return args if n is None else tuple(x if x.dim() == 1 else x[:n] for x in args)
+
+
+def k3_timed_row(args, conf, model="exp", prior=None, plain_lanes=None):
     """K3 of the model (with the prior's rows) on its captured float32
     inputs against its plain version (flags equal on every lane, and on
     every lane both leave unflagged e1/e2/T/flux within half the lane's
-    pars_err), bitwise batch independent, and timed beside its bound
-    and its plain version"""
+    pars_err; on the first plain_lanes lanes where given, the plain
+    version's time there), bitwise batch independent, and timed beside
+    its bound and its plain version"""
     state = lm_solve.lm_solve(*args, conf, model, prior)
-    plain, _, plain_ms = timed_call(lm_solve.lm_solve_plain, *args, conf, model, prior)
-    a, b = solve_columns(state, args, conf), solve_columns(plain, args, conf)
+    pa = lanes(args, plain_lanes)
+    plain, _, plain_ms = timed_call(lm_solve.lm_solve_plain, *pa, conf, model, prior)
+    a = {k: v[:len(pa[0])] for k, v in solve_columns(state, args, conf).items()}
+    b = solve_columns(plain, pa, conf)
     n = a["flags"].numel()
     flags_diff = int((a["flags"] != b["flags"]).sum())
     split, in_err = f32_split(a, b)
@@ -1210,8 +1276,8 @@ def k3_timed_row(args, conf, model="exp", prior=None):
     b_ms, by = k3_bound(args, state, model, prior)
     return dict(shape="%s NG=%d [%dx%d]%s" % (model, NGAUSS[model], *args[4].shape,
                                              prior_text(prior)), ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, max_abs_err=max_abs,
-                split=split, max_in_err=in_err, indep=indep, lanes=n,
+                plain_ms=plain_ms, plain_lanes=len(pa[0]), bound_ms=b_ms, bound_by=by,
+                max_abs_err=max_abs, split=split, max_in_err=in_err, indep=indep, lanes=n,
                 nfev_sum=int(state["nfev"].sum()))
 
 
@@ -1251,12 +1317,14 @@ def time_k3(device, hom, het, res_k3):
     host["split32"] = (sum(x[0] for x in splits) / NTYPES, max(x[1] for x in splits))
     calls = {}
     for r, f in routes.items():
+        t_prof = time.perf_counter()
         nops, busy_ms = device_profile(f, *hom)
+        t_prof = time.perf_counter() - t_prof
         w = sorted(walls[r])
         span = sorted(spans[r])[N_TIMED // 2]
         calls[r] = dict(stamps_per_s=B_MAIN / w[N_TIMED // 2], sec=w[N_TIMED // 2],
                         sec_range=(w[0], w[-1]), ops=nops, busy_ms=busy_ms,
-                        span_ms=span, idle=1.0 - busy_ms / span)
+                        span_ms=span, idle=1.0 - busy_ms / span, profile_s=t_prof)
     return row, calls, host
 
 
@@ -1474,14 +1542,13 @@ def admom_phases(device, t_all, cpu_side):
     phase_line(
         "14 admom", t0,
         "B=%d m=%.3e hetero_m=%.3e R11=%.4f flagged=%d hetero_flagged=%d k2_launches=%d "
-        "stamps/s=%.1f (median %.4f s/call of 3, range %.4f-%.4f)"
+        "stamps/s=%.1f (median %.4f s/call of 3, range %.4f-%.4f); numiter (mean, p50, max): "
+        "hom (%.3f, %g, %d) het (%.3f, %g, %d); host-loop iterations a call: hom %d het %d; %d "
+        "device operations a call, busy %.3f ms, event span %.3f ms, idle %.1f%%"
         % (B_MAIN, ap["m"], ap["het_m"], ap["R11"], ap["flagged"], ap["het_flagged"],
-           admom_launches, ap["stamps_per_s"], ap["sec"], *ap["sec_range"]))
-    print("    numiter (mean, p50, max): hom (%.3f, %g, %d) het (%.3f, %g, %d); host-loop "
-          "iterations a call: hom %d het %d; %d device operations a call, busy %.3f ms, "
-          "event span %.3f ms, idle %.1f%%"
-          % (*it_hom, *it_het, it_hom[2], it_het[2], admom_ops, admom_busy, ap["span_ms"],
-             100 * (1 - admom_busy / ap["span_ms"])), flush=True)
+           admom_launches, ap["stamps_per_s"], ap["sec"], *ap["sec_range"], *it_hom, *it_het,
+           it_hom[2], it_het[2], admom_ops, admom_busy, ap["span_ms"],
+           100 * (1 - admom_busy / ap["span_ms"])))
     check_gate(ap, B_MAIN, "admom")
     if admom_launches <= 0:
         raise SmokeFailure("the admom path did not launch K2")
@@ -1494,10 +1561,8 @@ def admom_phases(device, t_all, cpu_side):
                            "once more" % read_launches()["k2"])
 
     t0 = time.perf_counter()
-    args = [a[:256].double() for a in hom]
+    (args, *_), cpu = cpu_side.get("15 admom")
     card = fn_admom(*args)
-    cpu = nt.make_metacal_pipeline_fn(ADMOM_CONF, measure="admom", device="cpu")(
-        *(a.cpu() for a in args))
     admom_worst = max(compare_results(card[t], cpu[t], "admom " + t)
                       for t in nt.batch.GALSHEAR_TYPES)
     phase_line("15 admom-cpu", t0, "256 stamps float64: flags and numiter equal, every field "
@@ -1625,17 +1690,19 @@ def mb_against_flat(res, flat):
     return max(share), worst
 
 
-def k3mb_against_plain(args, conf, model="exp", prior=None):
+def k3mb_against_plain(args, conf, model="exp", prior=None, plain_lanes=None):
     """K3-mb of the model (with the prior's rows) against its plain
     version on the mb path's float32 solve inputs by phase 13's
-    criterion. Returns the share of lanes outside rtol 1e-4, the largest
-    difference in pars_err, the largest absolute difference, the plain
-    version's time (ms) and the kernel's state"""
+    criterion (on the first plain_lanes object-lanes where given).
+    Returns the share of lanes outside rtol 1e-4, the largest difference
+    in pars_err, the largest absolute difference, the plain version's
+    time (ms) and the kernel's state"""
     state = lm_solve.lm_solve_mb(*args, conf, model, prior)
-    a = mb_cols(_epilogue_mb(state, args, conf))
-    plain_state, _, plain_ms = timed_call(lm_solve.lm_solve_mb_plain, *args, conf, model,
+    pa = lanes(args, plain_lanes)
+    a = {k: v[:len(pa[0])] for k, v in mb_cols(_epilogue_mb(state, args, conf)).items()}
+    plain_state, _, plain_ms = timed_call(lm_solve.lm_solve_mb_plain, *pa, conf, model,
                                           prior)
-    b = mb_cols(_epilogue_mb(plain_state, args, conf))
+    b = mb_cols(_epilogue_mb(plain_state, pa, conf))
     flags_diff = int((a["flags"] != b["flags"]).sum())
     split, in_err = f32_split(a, b, MB_KEYS)
     finite = all(bool(torch.isfinite(a[k]).all()) for k in MB_KEYS)
@@ -1753,6 +1820,13 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
+def _timed_job(fn, args, rest):
+    """fn(args, *rest) and its CPU seconds, in a CpuSide worker"""
+    t0 = time.process_time()
+    out = fn(args, *rest)
+    return out, time.process_time() - t0
+
+
 class CpuSide:
     """the float64 CPU sides of the card-against-CPU checks, each
     fn(args on the CPU, *rest) in a spawned worker process of one
@@ -1763,15 +1837,28 @@ class CpuSide:
         ctx = multiprocessing.get_context("spawn")
         self.pool = ctx.Pool(CPU_WORKERS, initializer=_one_thread)
         self.inputs, self.jobs = {}, {}
+        # the seconds the phases waited for results, and each job's CPU
+        # seconds in its worker
+        self.waited = 0.0
+        self.cpu = {}
 
     def submit(self, key, fn, args, *rest):
         self.inputs[key] = (args,) + rest
-        self.jobs[key] = self.pool.apply_async(fn, ([a.cpu() for a in args],) + rest)
+        self.jobs[key] = self.pool.apply_async(_timed_job, (fn, [a.cpu() for a in args], rest))
 
     def get(self, key):
         """the job's inputs (args on the card, *rest) and its result,
         waiting for it"""
-        return self.inputs.pop(key), self.jobs.pop(key).get()
+        t0 = time.perf_counter()
+        out, self.cpu[key] = self.jobs.pop(key).get()
+        self.waited += time.perf_counter() - t0
+        return self.inputs.pop(key), out
+
+    def cpu_text(self, n=5):
+        """the jobs' CPU seconds: their sum and the n costliest"""
+        top = sorted(self.cpu.items(), key=lambda x: -x[1])[:n]
+        return "%.1f s (%s)" % (sum(self.cpu.values()),
+                                ", ".join("%s %.1f" % x for x in top))
 
     def close(self):
         self.pool.terminate()
@@ -1779,20 +1866,27 @@ class CpuSide:
 
 
 def start_cpu_side(device):
-    """a CpuSide with the CPU sides of phases 17, 18, 19, 21, 22 and 23
-    submitted in the order the phases read them, on the phases' sims
-    made here from their seeds: phase 17's psf-mode runs, phase 18's mb
+    """a CpuSide with the CPU sides of phases 5, 9, 15, 17-24 submitted
+    in the order the phases read them, on the phases' sims made here
+    from their seeds: the gaussmom, host-loop exp-LM, admom and em
+    checks of phases 5, 9, 15 and 20 on the first N_CPU stamps of the exp
+    sims (seed 314), phase 17's psf-mode runs, phase 18's mb
     exp-LM, phase 19's pre-psf moments, phase 21's exp-LM in its box
     and mb gauss-lm and dev-lm; phase 22's bdf-lm on phase 21's inputs
     and bd-lm on the bdf-truth sims (bd is degenerate on exp truth:
     log10(Td/Te) has no information at fracdev 0, and its float64 CPU
     run of 256 exp stamps took 450 s on one H100 host core); phase 23's
-    prior fits (submit_prior_cpu)"""
+    prior fits (submit_prior_cpu); phase 24's option pipelines on phase
+    21's exp inputs"""
     side = CpuSide()
     gen = functools.partial(torch.Generator(device=device).manual_seed)
     nb = nt.sims.MB_NBAND
     hom = nt.make_sim_batch(gen(314), B_MAIN, torch.float32, device=device)
     flat = [a[:N_CPU].double() for a in hom]
+    side.submit("5 gaussmom", pipeline_cpu_results, flat, CONF, "gaussmom")
+    side.submit("9 host-loop", host_loop_cpu_results, flat)
+    side.submit("15 admom", pipeline_cpu_results, flat, ADMOM_CONF, "admom")
+    side.submit("20 em", em_cpu_results, flat[:3], nt.EMConf())
     for measure, conf in PSF_MODE_RUNS:
         side.submit("17 %s %s" % (measure, conf.psf_mode), pipeline_cpu_results, flat, conf,
                     measure)
@@ -1804,7 +1898,7 @@ def start_cpu_side(device):
     het = [x[:, None] for x in nt.make_sim_batch_hetero(gen(271), B_MAIN, torch.float32,
                                                           device=device)]
     side.submit("21 exp-lm", flat_cpu_results, flat, "exp-lm", BOX)
-    mb = distinct_epochs(het, N_CPU_MB)
+    mb = distinct_epochs(het, N_CPU_MB_MODELS)
     for model in MODEL_GATES:
         side.submit("21 mb " + model, mb_cpu_results, *mb, model + "-lm", None)
     truth = [x[:, None] for x in nt.make_sim_batch_hetero(
@@ -1812,11 +1906,13 @@ def start_cpu_side(device):
     for model, sims in (("bdf", het), ("bd", truth)):
         box = COMPOSITE[model][0]
         side.submit("22 flat " + model, flat_cpu_results,
-                    flat if model == "bdf" else [a[:N_CPU, 0].double() for a in truth],
-                    model + "-lm", box)
+                    [a[:N_CPU_COMPOSITE] for a in flat] if model == "bdf"
+                    else [a[:N_CPU_COMPOSITE, 0].double() for a in truth], model + "-lm", box)
         side.submit("22 mb " + model, mb_cpu_results,
                     *distinct_epochs(sims, N_CPU_MB_COMPOSITE), model + "-lm", mb_box(box, nb))
     submit_prior_cpu(side, hom, truth)
+    for name, (measure, box, conf, lm_conf) in OPTION_RUNS.items():
+        side.submit("24 " + name, option_cpu_results, flat, measure, box, conf, lm_conf)
     return side
 
 
@@ -2092,10 +2188,16 @@ def prepsf_phase(device, t_all, cpu_side):
     return row, pipes
 
 
-def em_phase(device, t_all):
+def em_cpu_results(args, conf):
+    """em_batch's float64 results on the CPU for the em1 inputs of the
+    stamps args (images, weights, cens)"""
+    return nt.em_batch(*nt.sims.em1_inputs(*(a.cpu() for a in args)), conf, device="cpu")
+
+
+def em_phase(device, t_all, cpu_side):
     """phase 20: bench.py's em1 workload (em_batch of one gaussian on
     the sky-shifted 49x49 stamps, default EMConf) in float32, and 256
-    stamps in float64 card against CPU"""
+    stamps in float64 card against CPU (the CPU side from cpu_side)"""
     t0 = time.perf_counter()
     hom = nt.make_sim_batch(torch.Generator(device=device).manual_seed(314), B_MAIN,
                             torch.float32, device=device)
@@ -2112,18 +2214,15 @@ def em_phase(device, t_all):
     it = res["numiter"].double()
     q = [float(torch.quantile(it, x)) for x in (0.5, 0.9, 0.99)]
     phase_line("20 em", t0, "em_batch B=%d 49x49 float32: flagged=%d (maxiter %d) "
-               "stamps/s=%.1f (median %.4f s/call of 3, range %.4f-%.4f)"
+               "stamps/s=%.1f (median %.4f s/call of 3, range %.4f-%.4f); numiter (mean, p50, "
+               "p90, p99, max): %.3f, %g, %g, %g, %d (the host loop's iterations a call); %d "
+               "device operations a call, busy %.3f ms, event span %.3f ms, idle %.1f%%"
                % (B_MAIN, int((~ok).sum()), int((res["numiter"] >= conf.maxiter).sum()),
-                  B_MAIN / sec, sec, *rng))
-    print("    numiter (mean, p50, p90, p99, max): %.3f, %g, %g, %g, %d (the host loop's "
-          "iterations a call); %d device operations a call, busy %.3f ms, event span %.3f "
-          "ms, idle %.1f%%" % (float(it.mean()), *q, int(it.max()), nops, busy, span,
-                                100 * (1 - busy / span)), flush=True)
+                  B_MAIN / sec, sec, *rng, float(it.mean()), *q, int(it.max()), nops, busy,
+                  span, 100 * (1 - busy / span)))
     t0 = time.perf_counter()
-    a64 = nt.sims.em1_inputs(*(a[:256].double() for a in hom[:3]))
-    card = nt.em_batch(*a64, conf, device="cuda")
-    cpu = nt.em_batch(tuple(x.cpu() for x in a64[0]), *(x.cpu() for x in a64[1:]), conf,
-                      device="cpu")
+    (args64, _), cpu = cpu_side.get("20 em")
+    card = nt.em_batch(*nt.sims.em1_inputs(*args64), conf, device="cuda")
     worst = compare_results({k: card[k] for k in ("gmix", "gmix_conv", "sky", "numiter",
                                                   "flags")},
                             {k: cpu[k] for k in ("gmix", "gmix_conv", "sky", "numiter",
@@ -2173,7 +2272,7 @@ def run_model(device, model, hom, het):
     nfev = numiter_stats(*(r[t]["nfev"] for r in (res, het_res) for t in types))
     conf = nt.LMConf()
     args, _ = capture_k3_inputs(hom, device, measure=model + "-lm")
-    row = k3_timed_row(args, conf, model)
+    row = k3_timed_row(args, conf, model, plain_lanes=PLAIN_LANES)
     a64 = tuple((x if x.dim() == 1 else x[:256]).double().contiguous() for x in args)
     d64 = per_lane_diff(solve_columns(lm_solve.lm_solve(*a64, conf, model), a64, conf),
                         solve_columns(lm_solve.lm_solve_plain(*a64, conf, model), a64, conf),
@@ -2185,16 +2284,18 @@ def run_model(device, model, hom, het):
 def k3mb_model_row(args, conf, model, prior=None):
     """K3-mb of the model (with the prior's rows) on the mb path's
     float32 solve inputs (its guess is the moments guess of every model)
-    against its plain version by phase 13's criterion, and timed beside
-    its bound"""
-    split, in_err, max_abs, plain_ms, state = k3mb_against_plain(args, conf, model, prior)
+    against its plain version by phase 13's criterion on the first
+    PLAIN_LANES_MB object-lanes, and timed beside its bound"""
+    split, in_err, max_abs, plain_ms, state = k3mb_against_plain(args, conf, model, prior,
+                                                                 PLAIN_LANES_MB)
     ms = time_ms(lambda: lm_solve.lm_solve_mb(*args, conf, model, prior), 10)
     b_ms, by = k3mb_bound(args, state, model, prior)
     B, E, P = args[5].shape
     return dict(shape="%s NG=%d [%dx%dx%d]%s" % (model, NGAUSS[model], B, E, P,
                                                 prior_text(prior)), ms=ms,
-                plain_ms=plain_ms, bound_ms=b_ms, bound_by=by, max_abs_err=max_abs,
-                split=split, max_in_err=in_err, nfev_sum=int(state["nfev"].sum()))
+                plain_ms=plain_ms, plain_lanes=min(PLAIN_LANES_MB, B), bound_ms=b_ms,
+                bound_by=by, max_abs_err=max_abs, split=split, max_in_err=in_err,
+                nfev_sum=int(state["nfev"].sum()))
 
 
 def flat_cpu_results(args, measure, box, prior=None):
@@ -2273,18 +2374,21 @@ def models_phase(device, t_all, mb_args, cpu_side):
           "flags equal, nfev within %d, pars within rtol 1e-8 + atol 1e-10 (at most %.3e "
           "of it); mb %d objects x 3 epochs %s; %.1f s, total %.1f s"
           % ("; ".join(
-              "K3 %s: %.4f ms, plain %.4f ms, bound %.4f ms (%s), sum nfev %d, %.4f outside "
-              "rtol 1e-4, within %.3e pars_err, float64 256 lanes max rel %.3e nfev diff %d"
-              % (r["row"]["shape"], r["row"]["ms"], r["row"]["plain_ms"],
+              "K3 %s: %.4f ms, plain %.4f ms (%d lanes), bound %.4f ms (%s), sum nfev %d, "
+              "%.4f outside rtol 1e-4, within %.3e pars_err, float64 256 lanes max rel %.3e "
+              "nfev diff %d"
+              % (r["row"]["shape"], r["row"]["ms"], r["row"]["plain_ms"], r["row"]["plain_lanes"],
                  r["row"]["bound_ms"], r["row"]["bound_by"], r["row"]["nfev_sum"],
                  r["row"]["split"], r["row"]["max_in_err"], r["d64"][1], r["d64"][2])
               for r in runs.values()) + "; " + "; ".join(
-              "K3-mb %s: %.4f ms, plain %.4f ms, bound %.4f ms (%s), sum nfev %d, within "
-              "%.3e pars_err" % (r["shape"], r["ms"], r["plain_ms"], r["bound_ms"],
-                                 r["bound_by"], r["nfev_sum"], r["max_in_err"])
+              "K3-mb %s: %.4f ms, plain %.4f ms (%d object-lanes), bound %.4f ms (%s), sum "
+              "nfev %d, within %.3e pars_err" % (r["shape"], r["ms"], r["plain_ms"],
+                                                  r["plain_lanes"], r["bound_ms"],
+                                                  r["bound_by"], r["nfev_sum"], r["max_in_err"])
               for r in mb_rows.values()),
              k2_row["shape"], k2_row["ms"], k2_row["plain_ms"], k2_row["bound_ms"],
-             k2_row["bound_by"], k2_row["launches_a_call"], b_k3, b_dnfev, b_worst, N_CPU_MB,
+             k2_row["bound_by"], k2_row["launches_a_call"], b_k3, b_dnfev, b_worst,
+             N_CPU_MB_MODELS,
              ", ".join("%s-lm (k3mb=%d) flags equal, nfev within %d, pars and s2n at most "
                        "%.3e of rtol 1e-8 + atol 1e-10" % (m, mb_launches[m], d, w)
                        for m, (w, d) in mb_cpu.items()),
@@ -2369,24 +2473,25 @@ F32_LIMIT = {"bdf": lambda n: max(8, n // 10000), "bd": lambda n: n // 20}
 F32_MAX_ERR = 10.0
 
 
-def beyond_optimum(kind, a, opt, keys, what, limits=F32_LIMIT):
+def beyond_optimum(kind, a, opt, keys, what, limits=F32_LIMIT, ref="the float64 optimum"):
     """hold a float32 LM result a to the float64 optimum opt (solve_cols
-    or mb_cols of the same inputs, keys their columns): flags equal on
-    every lane; of the lanes unflagged, those whose keys lie farther
-    than half of opt's pars_err at most limits[kind] (F32_LIMIT: by
-    composite model), none farther than F32_MAX_ERR. Returns that count
-    and the largest distance in pars_err"""
+    or mb_cols of the same inputs, keys their columns; or to another
+    reference, named by ref): flags equal on every lane; of the lanes
+    unflagged, those whose keys lie farther than half of opt's pars_err
+    at most limits[kind] (F32_LIMIT: by composite model), none farther
+    than F32_MAX_ERR. Returns that count and the largest distance in
+    pars_err"""
     if not torch.equal(a["flags"], opt["flags"]):
-        raise SmokeFailure("%s: flags differ from the float64 optimum on %d lanes"
-                           % (what, int((a["flags"] != opt["flags"]).sum())))
+        raise SmokeFailure("%s: flags differ from %s on %d lanes"
+                           % (what, ref, int((a["flags"] != opt["flags"]).sum())))
     ok = opt["flags"] == 0
     d = torch.stack([(a[k].double() - opt[k]).abs() / opt["err"][:, i]
                      for i, k in enumerate(keys)], -1)[ok].max(-1).values
     n, worst, limit = int((d > 0.5).sum()), float(d.max()), limits[kind](ok.numel())
     if n > limit or not worst <= F32_MAX_ERR:
-        raise SmokeFailure("%s: %d lanes beyond half a pars_err of the float64 optimum "
-                           "(limit %d), largest %.3f pars_err (limit %g)"
-                           % (what, n, limit, worst, F32_MAX_ERR))
+        raise SmokeFailure("%s: %d lanes beyond half a pars_err of %s (limit %d), "
+                           "largest %.3f pars_err (limit %g)"
+                           % (what, n, ref, limit, worst, F32_MAX_ERR))
     return n, worst
 
 
@@ -2471,7 +2576,7 @@ def composite_k3_checks(model, args, exp_args):
     plain version (f64_lanes). Returns the row and the two checks'
     numbers"""
     conf = nt.LMConf()
-    row = k3_timed_row(args, conf, model)
+    row = k3_timed_row(args, conf, model, plain_lanes=PLAIN_LANES)
     row["attrs"] = lm_solve.kernel_attrs(args[0].dtype, args[4].shape[1], model)
     e64 = float64(exp_args)
     f32 = beyond_optimum(
@@ -2628,19 +2733,21 @@ def composite_phase(device, t_all, cpu_side):
     k3mb = {model: composite_k3mb_checks(model, *mb_args[model]) for model in COMPOSITE}
     print("    %s; %s; K2 %s: %.4f ms, plain %.4f ms, bound %.4f ms (%s), %d launches a call; "
           "%.1f s" % ("; ".join(
-              "K3 %s (bdf-truth inputs): %.4f ms, plain %.4f ms, bound %.4f ms (%s), sum nfev "
-              "%d, %.4f outside rtol 1e-4, within %.3e pars_err; %s; exp path float32: %d "
-              "lanes beyond 0.5 pars_err of the float64 optimum (largest %.3f); float64 "
+              "K3 %s (bdf-truth inputs): %.4f ms, plain %.4f ms (%d lanes), bound %.4f ms (%s), "
+              "sum nfev %d, %.4f outside rtol 1e-4, within %.3e pars_err; %s; exp path float32: "
+              "%d lanes beyond 0.5 pars_err of the float64 optimum (largest %.3f); float64 "
               "against plain, 256 lanes a path: %s"
-              % (row["shape"], row["ms"], row["plain_ms"], row["bound_ms"], row["bound_by"],
+              % (row["shape"], row["ms"], row["plain_ms"], row["plain_lanes"], row["bound_ms"],
+                 row["bound_by"],
                  row["nfev_sum"], row["split"], row["max_in_err"], attrs_text(row["attrs"]),
                  *f32, "; ".join(f64_text(r) for r in f64))
               for row, f32, f64 in k3.values()),
               "; ".join(
-              "K3-mb %s: %.4f ms, plain %.4f ms, bound %.4f ms (%s), sum nfev %d, within "
-              "%.3e pars_err; %s, local bytes at nband 1-6 %s; mb exp path float32: %d "
-              "lanes beyond 0.5 pars_err (largest %.3f); float64 against plain: %s"
-              % (row["shape"], row["ms"], row["plain_ms"], row["bound_ms"], row["bound_by"],
+              "K3-mb %s: %.4f ms, plain %.4f ms (%d object-lanes), bound %.4f ms (%s), sum nfev "
+              "%d, within %.3e pars_err; %s, local bytes at nband 1-6 %s; mb exp path float32: "
+              "%d lanes beyond 0.5 pars_err (largest %.3f); float64 against plain: %s"
+              % (row["shape"], row["ms"], row["plain_ms"], row["plain_lanes"], row["bound_ms"],
+                 row["bound_by"],
                  row["nfev_sum"], row["max_in_err"], attrs_text(row["attrs"]),
                  row["local_nband"], *f32, "; ".join(f64_text(r) for r in f64))
               for row, f32, f64 in k3mb.values()),
@@ -2891,7 +2998,7 @@ def prior_timed_rows(model, args, prior, mb=False):
         row["ms_no_prior"] = time_ms(lambda: lm_solve.lm_solve_mb(*args, conf, model), 10)
         row["bound_no_prior"] = k3mb_bound(args, state, model)[0]
     else:
-        row = k3_timed_row(args, conf, model, prior)
+        row = k3_timed_row(args, conf, model, prior, plain_lanes=PLAIN_LANES)
         row["attrs"] = lm_solve.kernel_attrs(torch.float32, args[4].shape[1], model)
         state = lm_solve.lm_solve(*args, conf, model)
         row["ms_no_prior"] = time_ms(lambda: lm_solve.lm_solve(*args, conf, model), 10)
@@ -3048,11 +3155,12 @@ def prior_phase(device, t_all, cpu_side):
                    "; ".join("%s %d: %s" % (k, n, f64_text(r)) for k, (r, _, n) in cc.items()),
                    time.perf_counter() - t_all))
     print("    %s" % "; ".join(
-        "%s %s: %.4f ms (no prior %.4f), plain %.4f ms, bound %.4f ms (%s; no prior %.4f), sum "
-        "nfev %d (no prior %d), within %.3e pars_err of plain, %s, prior %d operations an "
-        "evaluation (%.3f%%)"
+        "%s %s: %.4f ms (no prior %.4f), plain %.4f ms (%d lanes), bound %.4f ms (%s; no prior "
+        "%.4f), sum nfev %d (no prior %d), within %.3e pars_err of plain, %s, prior %d "
+        "operations an evaluation (%.3f%%)"
         % (("K3-mb" if k.startswith("mb") else "K3"), r["shape"], r["ms"], r["ms_no_prior"],
-           r["plain_ms"], r["bound_ms"], r["bound_by"], r["bound_no_prior"], r["nfev_sum"],
+           r["plain_ms"], r["plain_lanes"], r["bound_ms"], r["bound_by"], r["bound_no_prior"],
+           r["nfev_sum"],
            r["nfev_sum_no_prior"], r["max_in_err"], attrs_text(r["attrs"]),
            r["prior_ops"], 100 * r["prior_share"]) for k, r in rows.items())
         + "; fits %.1f s, checks %.1f s, timed rows %.1f s, card against CPU %.1f s"
@@ -3067,6 +3175,332 @@ def prior_phase(device, t_all, cpu_side):
         max_abs_err=max(rows["exp"]["max_abs_err"], rows["bdf"]["max_abs_err"]),
         mb_max_abs_err=rows["mb bdf"]["max_abs_err"],
     )
+
+
+# ----------------------------------------------------------------------
+# the LM options (phase 24) and scale-out (phase 25)
+
+# the option calls of phase 24: name -> (measure, box, MetacalConfig,
+# LMConf): exp-lm with variable projection, exp-lm with the sheared types
+# refined by 3 Gauss-Newton steps, and bdf-lm in its production box
+# (fracdev on its bound on the exp sims, the reference test's case) the
+# same
+OPTION_RUNS = {
+    "exp-lm varpro": ("exp-lm", None, LM_CONF, tlm.LMConf(varpro=True)),
+    "exp-lm refine": ("exp-lm", None, LM_CONF._replace(sheared_refine=3), None),
+    "bdf-lm refine": ("bdf-lm", nt.sims.BDF_LM_BOUNDS, LM_CONF._replace(sheared_refine=3), None),
+}
+# the value pass of K3's varpro mode (csrc/lm_common.cuh: value_pass),
+# counted as K1_OPS: per (pixel, gaussian) the offsets and chi2 (11); per
+# pair inside the window the exponential and its argument, the windowed
+# value and its sum (5); per pair in the apodized band the window (8);
+# per pixel the weighted model and the two sums (5)
+VALUE_OPS = (11, 5, 8, 5)
+# the float32 modes against their plain versions on the same lanes: the
+# lanes beyond half a pars_err, none on exp; on bdf, whose fracdev sits
+# on its bound on the exp sims, fault 3.4's bdf limit (F32_LIMIT)
+OPTION_F32_LIMIT = {"exp": lambda n: 0, "bdf": F32_LIMIT["bdf"]}
+
+
+def option_cpu_results(args, measure, box, conf, lm_conf):
+    """an option call's float64 results on the CPU (the plain versions)"""
+    return nt.make_metacal_pipeline_fn(conf, measure=measure, lm_bounds=box, lm_conf=lm_conf,
+                                       device="cpu")(*(a.cpu() for a in args))
+
+
+def capture_option_solve(fn, *args):
+    """the arguments but the LMConf, model and prior, and the keywords
+    (the mode), of the last K3 call of fn(*args)"""
+    seen = {}
+    solve = lm_solve.lm_solve
+
+    def spy(*a, **kw):
+        seen["call"] = (a[:8], kw)
+        return solve(*a, **kw)
+
+    with mock.patch.object(lm_solve, "lm_solve", spy):
+        fn(*args)
+    return seen["call"]
+
+
+def option_result(state, args, conf, model, varpro):
+    """the LM result of a K3 options state on K3's inputs args"""
+    nres = torch.sum(args[6] > 0, dim=-1)
+    if varpro:
+        return nt.batch.varpro_result(state, args[1], args[2], conf, nres,
+                                      nt.batch._MODEL_NSHAPE[model])
+    return tlm._normal_epilogue(state, args[1], args[2], conf, nres)
+
+
+def option_bound(args, state, model, varpro):
+    """least time (ms) of an options launch on these inputs: the planes,
+    guess, bounds and psf read once and the state (and varpro's
+    full-width evaluation) written once, or the operations: refine's
+    niter + 1 evaluations a lane (k3_ops), varpro's nfev + 1 evaluations
+    of a value pass (VALUE_OPS) and K1's pass (k3_ops) each"""
+    if not varpro:
+        return k3_bound(args, state, model)
+    guess, lo, hi, psf, v, u, ia, ve = args
+    rp = model_rp(guess, nt.batch._psf_gmix(psf), model)
+    per_eval = pixel_ops(rp, v, u, k3_ops(guess.shape[1])) + pixel_ops(rp, v, u, VALUE_OPS)
+    ops = int((per_eval * (state["nfev"].long() + 1)).sum())
+    N, P = v.shape
+    out = [x for k, x in state.items() if k != "full"] + list(state["full"].values())
+    nbytes = (v.element_size() * (4 * N * P + guess.numel() + 12 + psf.numel())
+              + sum(x.numel() * x.element_size() for x in out))
+    return least_ms(nbytes, ops, v.dtype)
+
+
+def option_kernel_row(name, args, kw, conf, model):
+    """K3's mode (kw: refine or varpro) on an option call's captured
+    float32 solve inputs: on the first 256 lanes in float64 against its
+    plain version (flags equal, e1/e2/T/flux to rtol 1e-5 and atol 1e-7,
+    nfev within 2); in float32 at the full shape, on the first
+    PLAIN_LANES lanes against its plain version there, timed in that
+    call (flags equal on every lane, and unflagged e1/e2/T/flux within
+    half the lane's pars_err but on OPTION_F32_LIMIT lanes); then timed
+    at the full shape beside its bound"""
+    varpro = bool(kw.get("varpro"))
+    a64 = first_lanes(args)
+    card = option_result(lm_solve.lm_solve(*a64, conf, model, None, **kw), a64, conf, model,
+                         varpro)
+    plain = option_result(lm_solve.lm_solve_plain(*a64, conf, model, None, **kw), a64, conf,
+                          model, varpro)
+    max_abs, max_rel, dnfev = per_lane_diff(solve_cols(card), solve_cols(plain),
+                                            "K3 %s float64 against its plain version" % name)
+    state = lm_solve.lm_solve(*args, conf, model, None, **kw)
+    pa = lanes(args, PLAIN_LANES)
+    plain, _, plain_ms = timed_call(lambda: lm_solve.lm_solve_plain(*pa, conf, model, None,
+                                                                    **kw))
+    n = len(pa[0])
+    f32 = {k: v[:n] for k, v in solve_cols(option_result(state, args, conf, model,
+                                                         varpro)).items()}
+    f32_far, f32_worst = beyond_optimum(
+        model, f32, solve_cols(option_result(plain, pa, conf, model, varpro)),
+        ("e1", "e2", "T", "flux"), "K3 %s in float32 against its plain version" % name,
+        limits=OPTION_F32_LIMIT, ref="its plain version")
+    ms = time_ms(lambda: lm_solve.lm_solve(*args, conf, model, None, **kw), 10)
+    b_ms, by = option_bound(args, state, model, varpro)
+    nfev = state["nfev"]
+    return dict(shape="%s %s NG=%d [%dx%d]" % (model, "varpro" if varpro else
+                                               "refine=%d" % kw["refine"], NGAUSS[model],
+                                               *args[4].shape),
+                ms=ms, plain_ms=plain_ms, plain_lanes=len(pa[0]), bound_ms=b_ms, bound_by=by,
+                max_abs_err=max_abs, max_rel_err=max_rel, dnfev=dnfev, nfev_sum=int(nfev.sum()),
+                f32_lanes=n, f32_far=f32_far, f32_worst=f32_worst,
+                attrs=lm_solve.kernel_attrs_opt(torch.float32, args[4].shape[1], model))
+
+
+def options_phase(device, t_all, cpu_side):
+    """phase 24: the LM options at B = 10240 in float32 on the exp sims,
+    each gated like phase 8 against the full-LM call's g1 and time;
+    flux_col bitwise equal to the default; K3's refine and varpro modes
+    against their plain versions and timed (option_kernel_row); the
+    option pipelines card against CPU in float64. Returns the modes'
+    rows and launches by path, K3's launches by path and K2's"""
+    t0 = time.perf_counter()
+    gen = functools.partial(torch.Generator(device=device).manual_seed)
+    hom = nt.make_sim_batch(gen(314), B_MAIN, torch.float32, device=device)
+    het = nt.make_sim_batch_hetero(gen(271), B_MAIN, torch.float32, device=device)
+    base = {}
+    for measure, box in (("exp-lm", None), ("bdf-lm", nt.sims.BDF_LM_BOUNDS)):
+        fn = nt.make_metacal_pipeline_fn(LM_CONF, measure=measure, lm_bounds=box,
+                                         device=device)
+        base[measure] = (fn(*hom), timed3(fn, *hom)[0])
+    flux_col = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm",
+                                           lm_conf=tlm.LMConf(flux_col=True), device=device)(*hom)
+    for t in nt.batch.GALSHEAR_TYPES:
+        for k, v in base["exp-lm"][0][t].items():
+            if not torch.equal(flux_col[t][k], v):
+                raise SmokeFailure("exp-lm with flux_col=True differs from the default in "
+                                   "%s %s" % (t, k))
+    runs, solves = {}, {}
+    for name, (measure, box, conf, lm_conf) in OPTION_RUNS.items():
+        fn = nt.make_metacal_pipeline_fn(conf, measure=measure, lm_bounds=box, lm_conf=lm_conf,
+                                         device=device)
+        _sync(device)
+        reset_launches()
+        res = fn(*hom)
+        het_res = fn(*het)
+        _sync(device)
+        launches = read_launches()
+        g = exp_lm_gate(res, het_res, B_MAIN, npars=6 if box is None else len(box[0]))
+        check_gate(g, B_MAIN, name)
+        want = dict(k3=0, k3v=2, k3r=0) if "varpro" in name else dict(k3=2, k3v=0, k3r=2)
+        if any(launches[k] != n for k, n in want.items()) or launches["k2"] <= 0:
+            raise SmokeFailure("%s launched %s in two calls, not %s and K2" % (
+                name, {k: launches[k] for k in want}, want))
+        ref = base[measure][0]
+        dg1 = max(float((res[t]["e1"] - ref[t]["e1"])[(res[t]["flags"] == 0)
+                                                       & (ref[t]["flags"] == 0)].abs().max())
+                  for t in nt.batch.GALSHEAR_TYPES)
+        nfev = numiter_stats(*(r[t]["nfev"] for r in (res, het_res)
+                               for t in nt.batch.GALSHEAR_TYPES))
+        runs[name] = dict(g, launches=launches, dg1=dg1, sec=timed3(fn, *hom)[0], nfev=nfev)
+        solves[name] = capture_option_solve(fn, *hom)
+    del het
+    t_runs = time.perf_counter()
+    rows = {name: option_kernel_row(name, args, kw, tlm.LMConf(), OPTION_RUNS[name][0][:-3])
+            for name, (args, kw) in solves.items()}
+    t_rows = time.perf_counter()
+    cc = {}
+    for name, (measure, box, conf, lm_conf) in OPTION_RUNS.items():
+        (args, *_), cpu = cpu_side.get("24 " + name)
+        card = nt.make_metacal_pipeline_fn(conf, measure=measure, lm_bounds=box,
+                                           lm_conf=lm_conf, device="cuda")(*args)
+        keys = ("flags", "nfev", "pars_err", "pars", "s2n")
+        cc[name] = f64_lanes(cat_types(card, keys), cat_types(cpu, keys),
+                             "%s card against CPU" % name, ("pars", "s2n"))
+    phase_line("24 options", t0, "B=%d float32, exp sims: %s; exp-lm flux_col=True bitwise "
+               "the default; full LM exp-lm %.4f s a call, bdf-lm %.4f s; K3 modes against "
+               "plain (float64 on 256 lanes): %s; card against CPU float64, 256 stamps: %s; "
+               "calls %.1f s, kernel rows %.1f s, card against CPU %.1f s; phases 5-24 "
+               "waited %.1f s for the CPU sides, %d jobs of %s CPU; total %.1f s" % (
+                   B_MAIN, "; ".join(
+                       "%s m=%.3e hetero_m=%.3e flagged=%d hetero_flagged=%d launches k3=%d "
+                       "k3r=%d k3v=%d |dg1| from the full LM %.3e, %.4f s a call (median of "
+                       "3), nfev (%.3f, %g, %d)"
+                       % (k, r["m"], r["het_m"], r["flagged"], r["het_flagged"],
+                          r["launches"]["k3"], r["launches"]["k3r"], r["launches"]["k3v"],
+                          r["dg1"], r["sec"], *r["nfev"]) for k, r in runs.items()),
+                   base["exp-lm"][1], base["bdf-lm"][1],
+                   "; ".join("%s max rel %.2e nfev diff %d, float32 %d lanes %d beyond 0.5 "
+                             "pars_err (max %.3f)" % (k, r["max_rel_err"], r["dnfev"],
+                                                      r["f32_lanes"], r["f32_far"],
+                                                      r["f32_worst"])
+                             for k, r in rows.items()),
+                   "; ".join("%s %s" % (k, f64_text(r)) for k, r in cc.items()),
+                   t_runs - t0, t_rows - t_runs, time.perf_counter() - t_rows,
+                   cpu_side.waited, len(cpu_side.cpu), cpu_side.cpu_text(),
+                   time.perf_counter() - t_all))
+    print("    %s" % "; ".join(
+        "K3 %s: %.4f ms, plain %.4f ms (%d lanes), bound %.4f ms (%s), sum nfev %d, %s"
+        % (r["shape"], r["ms"], r["plain_ms"], r["plain_lanes"], r["bound_ms"], r["bound_by"],
+           r["nfev_sum"], attrs_text(r["attrs"])) for r in rows.values()), flush=True)
+    return dict(
+        refine_rows=[r for k, r in rows.items() if "refine" in k],
+        varpro_rows=[r for k, r in rows.items() if "varpro" in k],
+        refine_launches={k: r["launches"]["k3r"] for k, r in runs.items() if "refine" in k},
+        varpro_launches={k: r["launches"]["k3v"] for k, r in runs.items() if "varpro" in k},
+        k3_launches={k: r["launches"]["k3"] for k, r in runs.items() if r["launches"]["k3"]},
+        k2_launches={k: r["launches"]["k2"] for k, r in runs.items()},
+        refine_max_abs_err=max(max(r["max_abs_err"], cc[k]["max_abs"])
+                               for k, r in rows.items() if "refine" in k),
+        varpro_max_abs_err=max(max(r["max_abs_err"], cc[k]["max_abs"])
+                               for k, r in rows.items() if "varpro" in k),
+    )
+
+
+def ragged_catalog(hom, n):
+    """a catalog of 2 n objects from the sims' stamps as numpy: n
+    single-epoch 49x49 stamps (the flat bucket), n / 2 objects of two
+    epochs and n / 2 of one as 41x41 central crops (the mb bucket, with a
+    pad epoch)"""
+    ims, wts, cens, pims, pcens, noise = (x.cpu().numpy() for x in hom)
+    crop = slice(4, nt.sims.DIMS[0] - 4)
+
+    def obj(idx, c=slice(None), off=0.0):
+        return dict(image=[ims[i][c, c] for i in idx], weight=[wts[i][c, c] for i in idx],
+                    cen=cens[idx] - off, psf_image=[pims[i] for i in idx], psf_cen=pcens[idx],
+                    noise=[noise[i][c, c] for i in idx])
+
+    cat = [obj([i]) for i in range(n)]
+    cat += [obj([n + i, 2 * n + i] if i % 2 == 0 else [n + i], crop, 4.0) for i in range(n)]
+    return cat
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def scaleout_phase(device, t_all, n=512):
+    """phase 25: metacal_pipeline_ragged (exp-lm, float32) on a catalog of
+    two stamp sizes with single- and multi-epoch objects, each bucket's
+    rows equal to a direct call of its pipeline; a checkpoint written in
+    two shards, resumed and read back; and a one-process NCCL group: the
+    sharded flat and mb pipelines' rows and calibration equal to the
+    unsharded calls'"""
+    import tempfile
+
+    from ngmix_tpu_torch import checkpoint, ragged
+    from ngmix_tpu_torch.parallel import distributed, mesh
+
+    t0 = time.perf_counter()
+    gen = functools.partial(torch.Generator(device=device).manual_seed)
+    hom = nt.make_sim_batch(gen(17), 3 * n, torch.float32, device=device)
+    cat = ragged_catalog(hom, n)
+    conf = LM_CONF._replace(dims=(0, 0))
+    res = ragged.metacal_pipeline_ragged(cat, conf, measure="exp-lm", dtype=torch.float32,
+                                         device=device)
+    keys = ("images", "weights", "cens", "psf_images", "psf_cens", "noises")
+    buckets = ragged.pack_ragged(cat)
+    for b in buckets:
+        conf_b = conf._replace(dims=b["dims"], psf_dims=b["psf_dims"])
+        arrays = [torch.as_tensor(b[k], dtype=torch.float32) for k in keys]
+        if b["nepoch"] == 1:
+            direct = nt.metacal_pipeline(*(a[:, 0] for a in arrays), conf_b, measure="exp-lm",
+                                         device=device)
+        else:
+            direct = nt.metacal_pipeline_mb(*arrays, b["band"], 1, conf_b, measure="exp-lm",
+                                            device=device)
+        for t in nt.batch.GALSHEAR_TYPES:
+            for k, v in direct[t].items():
+                if not np.array_equal(res[t][k][b["indices"]], v.cpu().numpy()):
+                    raise SmokeFailure("ragged: %s %s of the %s bucket differs from the direct "
+                                       "call" % (t, k, b["dims"]))
+    flagged = int((res["noshear"]["flags"] != 0).sum())
+    with tempfile.TemporaryDirectory() as tmp:
+        half = len(cat) // 2
+        rows = {t: res[t] for t in nt.batch.GALSHEAR_TYPES}
+        w = checkpoint.ResultWriter(tmp)
+        w.write(0, {t: {k: v[:half] for k, v in r.items()} for t, r in rows.items()})
+        resume = checkpoint.ResultWriter(tmp).next_index()
+        checkpoint.ResultWriter(tmp).write(1, {t: {k: v[half:] for k, v in r.items()}
+                                               for t, r in rows.items()})
+        back = checkpoint.load_results(tmp)
+        if resume != 1 or checkpoint.ResultWriter(tmp).next_index() != 2 or any(
+                not np.array_equal(back["%s/%s" % (t, k)], v)
+                for t, r in rows.items() for k, v in r.items()):
+            raise SmokeFailure("checkpoint round trip failed (resume index %d)" % resume)
+    distributed.initialize(init_method="tcp://localhost:%d" % free_port(), world_size=1,
+                           rank=0)
+    try:
+        backend = torch.distributed.get_backend()
+        args = [a[:n] for a in hom]
+        sharded, calib = mesh.make_sharded_pipeline_fn(LM_CONF, measure="exp-lm")(
+            *distributed.global_batch_from_local(*args))
+        direct = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device=device)(*args)
+        mb_args = nt.make_sim_batch_mb(gen(18), n // 4, torch.float32, device=device)
+        mb_sharded, mb_calib = mesh.make_sharded_mb_pipeline_fn(
+            MB_CONF, nt.sims.MB_BAND, nt.sims.MB_NBAND)(*mb_args)
+        mb_direct = nt.make_metacal_pipeline_mb_fn(MB_CONF, nt.sims.MB_BAND, nt.sims.MB_NBAND,
+                                                   device=device)(*mb_args)
+        for what, a, b in (("flat", sharded, direct), ("mb", mb_sharded, mb_direct),
+                           ("calibration", {"c": calib}, {"c": nt.shear_response(direct)}),
+                           ("mb calibration", {"c": mb_calib},
+                            {"c": nt.shear_response(mb_direct)})):
+            for t, r in b.items():
+                if not isinstance(r, dict):
+                    continue
+                for k, v in r.items():
+                    if not torch.equal(a[t][k], v):
+                        raise SmokeFailure("sharded %s: %s %s differs from the unsharded call"
+                                           % (what, t, k))
+    finally:
+        torch.distributed.destroy_process_group()
+    phase_line("25 scale-out", t0, "ragged exp-lm float32, %d objects in buckets %s: rows equal "
+               "to each bucket's direct call, flagged=%d; checkpoint of 2 shards resumed at 1 "
+               "and read back equal; one-process %s group: sharded flat (%d stamps) and mb (%d "
+               "objects) rows and calibration equal to the unsharded calls' (m=%.3e)" % (
+                   len(cat), ["%dx%d, E=%d, %d objects" % (*b["dims"], b["nepoch"],
+                                                          len(b["indices"])) for b in buckets],
+                   flagged, backend, n, n // 4, m_of(calib)) + "; total %.1f s"
+               % (time.perf_counter() - t_all))
+
 
 
 def main():
@@ -3084,9 +3518,18 @@ def main():
     phase_line("1 card", t0, "%s, %d device(s)" % (kind, torch.cuda.device_count()))
 
     t0 = time.perf_counter()
-    path = _build.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        built = pool.submit(_build.build)
+        # torch.profiler's one-time start-up (seconds) while nvcc runs,
+        # not in the first profiled call of phase 13
+        device_profile(lambda: torch.ones(1, device=device).add_(1))
+        path = built.result()
     _build.load()
-    phase_line("2 build", t0, str(path.relative_to(path.parents[2])))
+    units = sorted(_build.UNIT_SECONDS.items(), key=lambda x: -x[1])
+    phase_line("2 build", t0, "%s, %d units on %d cores, the costliest first; nvcc CPU %.1f s "
+               "(%s)" % (path.relative_to(path.parents[2]), len(_build.sources()),
+                         _build._slots(), sum(_build.UNIT_SECONDS.values()),
+                         ", ".join("%s %.1f" % (k[:-3], v) for k, v in units)))
 
     cpu_side = start_cpu_side(device)
     try:
@@ -3096,8 +3539,8 @@ def main():
 
 
 def phases(device, t_all, kind, cpu_side):
-    """phases 3-23 and the kernels line, with the CPU sides of phases
-    17-19 and 21-23 from cpu_side"""
+    """phases 3-25 and the kernels line, with the CPU sides of phases 5,
+    9, 15 and 17-24 from cpu_side"""
     t0 = time.perf_counter()
     max_abs, ncase, worst = check_kernel(device)
     indep = check_k2_batch_independence(device)
@@ -3129,9 +3572,8 @@ def phases(device, t_all, kind, cpu_side):
                            % (mp["flagged"], mp["het_flagged"], limit))
 
     t0 = time.perf_counter()
-    args = [a[:256].double() for a in hom]
+    (args, *_), cpu_res = cpu_side.get("5 gaussmom")
     card_res = nt.make_metacal_pipeline_fn(CONF, device="cuda")(*args)
-    cpu_res = nt.make_metacal_pipeline_fn(CONF, device="cpu")(*(a.cpu() for a in args))
     worst = max(compare_results(card_res[t], cpu_res[t], "gaussmom " + t)
                 for t in nt.batch.GALSHEAR_TYPES)
     phase_line("5 cpu", t0, "256 stamps float64: flags equal, every field within rtol "
@@ -3158,19 +3600,19 @@ def phases(device, t_all, kind, cpu_side):
         "8 exp-lm", t0,
         "B=%d m=%.3e hetero_m=%.3e R11=%.4f flagged=%d hetero_flagged=%d frozen=%.4f "
         "launches of the hom and het calls: k3=%d k1=%d k2=%d; both selection estimators "
-        "(s2n > -1): R_sel 0, shear within rtol 1e-10 of shear_response's (max rel %.3e)"
+        "(s2n > -1): R_sel 0, shear within rtol 1e-10 of shear_response's (max rel %.3e); "
+        "nfev (mean, p50, p99, max): hom %s het %s"
         % (B_MAIN, lp["m"], lp["het_m"], lp["R11"], lp["flagged"], lp["het_flagged"],
-           lp["frozen"], k3_launches, lp["launches"]["k1"], k2_lm_launches, lp["select"]),
+           lp["frozen"], k3_launches, lp["launches"]["k1"], k2_lm_launches, lp["select"],
+           *("(%.3f, %g, %g, %d)" % x for x in lp["nfev"])),
     )
-    print("    nfev (mean, p50, p99, max): hom %s het %s" % tuple(
-        "(%.3f, %g, %g, %d)" % x for x in lp["nfev"]), flush=True)
     if k3_launches <= 0 or k2_lm_launches <= 0:
         raise SmokeFailure("the exp-LM path did not launch K3 and K2: %d, %d"
                            % (k3_launches, k2_lm_launches))
     check_gate(lp, B_MAIN, "exp-LM")
 
     t0 = time.perf_counter()
-    lm_worst, dnfev = compare_lm_card_cpu(hom)
+    lm_worst, dnfev = compare_lm_card_cpu(cpu_side)
     phase_line("9 lm-cpu", t0, "256 stamps float64: flags equal, e1/e2/T/flux max "
                "rel diff %.3e, max nfev diff %d" % (lm_worst, dnfev))
 
@@ -3190,8 +3632,8 @@ def phases(device, t_all, kind, cpu_side):
                  if r["kernel"] == "K2" else ""), flush=True)
     fit_p = LM_CONF.fit_dims[0] * LM_CONF.fit_dims[1]
     k3_attrs = lm_solve.kernel_attrs(torch.float32, fit_p)
-    print("    K3 float32 at %d pixels a lane: %s" % (fit_p, attrs_text(k3_attrs)), flush=True)
-    phase_line("11 k-times", t0, "total %.1f s" % (time.perf_counter() - t_all))
+    phase_line("11 k-times", t0, "K3 float32 at %d pixels a lane: %s; total %.1f s"
+               % (fit_p, attrs_text(k3_attrs), time.perf_counter() - t_all))
 
     t0 = time.perf_counter()
     k3c = check_k3(device, hom)
@@ -3228,18 +3670,21 @@ def phases(device, t_all, kind, cpu_side):
              k3_row["max_in_err"], k3_row["max_abs_err"], k3_row["indep"]), flush=True)
     for r, c in calls.items():
         print("    exp-LM call, %s route: %.1f stamps/s (median %.4f s of %d, range %.4f-%.4f); "
-              "%d device operations, busy %.3f ms, event span %.3f ms, idle %.1f%%"
+              "%d device operations, busy %.3f ms, event span %.3f ms, idle %.1f%% (the "
+              "profiled call %.1f s)"
               % (r, c["stamps_per_s"], c["sec"], N_TIMED, *c["sec_range"], c["ops"],
-                 c["busy_ms"], c["span_ms"], 100 * c["idle"]), flush=True)
+                 c["busy_ms"], c["span_ms"], 100 * c["idle"], c["profile_s"]), flush=True)
     phase_line("13 k3-times", t0, "total %.1f s" % (time.perf_counter() - t_all))
 
     admom_launches, admom_rows, modes = admom_phases(device, t_all, cpu_side)
     k3mb_row, mb_k2_rows, mb_launches, mb_args = mb_phase(device, t_all, cpu_side)
     prepsf_row, prepsf = prepsf_phase(device, t_all, cpu_side)
-    em_phase(device, t_all)
+    em_phase(device, t_all, cpu_side)
     models = models_phase(device, t_all, mb_args, cpu_side)
     comp = composite_phase(device, t_all, cpu_side)
     pri = prior_phase(device, t_all, cpu_side)
+    opt = options_phase(device, t_all, cpu_side)
+    scaleout_phase(device, t_all)
     prepsf_launches = {k: g["launches"] for k, g in prepsf.items() if "dilate" not in k}
 
     top = rows[0]
@@ -3253,11 +3698,12 @@ def phases(device, t_all, kind, cpu_side):
         "launches": (launches + k2_lm_launches + admom_launches + sum(k2_modes.values())
                      + mb_launches["k2"] + sum(prepsf_launches.values())
                      + sum(models["k2_launches"].values()) + sum(comp["k2_launches"].values())
-                     + sum(pri["k2_launches"].values())),
+                     + sum(pri["k2_launches"].values()) + sum(opt["k2_launches"].values())),
         "launches_by_path": dict({"gaussmom": launches, "exp-lm": k2_lm_launches,
                                   "admom": admom_launches, "mb exp-lm": mb_launches["k2"]},
                                  **k2_modes, **prepsf_launches, **models["k2_launches"],
-                                 **comp["k2_launches"], **pri["k2_launches"]),
+                                 **comp["k2_launches"], **pri["k2_launches"],
+                                 **opt["k2_launches"]),
         "max_abs_err": max(max_abs, *(r["max_abs_err"] for r in rows + admom_rows + mb_k2_rows
                                       + [prepsf_row, models["k2_row"], comp["k2_row"]]),
                            lm_rows[1]["max_abs_err"]),
@@ -3293,11 +3739,11 @@ def phases(device, t_all, kind, cpu_side):
         "replaces_loop": "ngmix_tpu/fitting/lm.py:539-790",
         "launches": (k3_launches + modes[-1]["launches"]["k3"]
                      + sum(models["k3_launches"].values()) + sum(comp["k3_launches"].values())
-                     + sum(pri["k3_launches"].values())),
+                     + sum(pri["k3_launches"].values()) + sum(opt["k3_launches"].values())),
         "launches_by_path": dict({"exp-lm": k3_launches, "exp-lm host loop": hl["k3"],
                                   "exp-lm dilate": modes[-1]["launches"]["k3"]},
                                  **models["k3_launches"], **comp["k3_launches"],
-                                 **pri["k3_launches"]),
+                                 **pri["k3_launches"], **opt["k3_launches"]),
         "max_abs_err": max(k3c["plain64"][0], k3c["full64"][0], k3_row["max_abs_err"],
                            k3c["full32"]["max_abs_err"], models["max_abs_err"],
                            comp["max_abs_err"], pri["max_abs_err"]),
@@ -3331,7 +3777,25 @@ def phases(device, t_all, kind, cpu_side):
         "library_ms": None,
         "attrs": k3mb_row.pop("attrs"),
         "shapes": [k3mb_row] + models["k3mb_rows"] + comp["k3mb_rows"] + pri["k3mb_rows"],
-    }]}, allow_nan=False), flush=True)
+    }] + [{
+        "name": "lm_solve_" + mode,
+        "route": "cuda",
+        "source": "ngmix_tpu_torch/csrc/lm_solve_opt.cuh",
+        "replaces": "ngmix_tpu/ops/pallas_lm.py:149",
+        "replaces_loop": loop,
+        "launches": sum(opt[mode + "_launches"].values()),
+        "launches_by_path": opt[mode + "_launches"],
+        "max_abs_err": opt[mode + "_max_abs_err"],
+        "ms": opt[mode + "_rows"][0]["ms"],
+        "plain_ms": opt[mode + "_rows"][0]["plain_ms"],
+        "bound_ms": opt[mode + "_rows"][0]["bound_ms"],
+        "bound_by": opt[mode + "_rows"][0]["bound_by"],
+        "library_ms": None,
+        "attrs": opt[mode + "_rows"][0]["attrs"],
+        "shapes": opt[mode + "_rows"],
+    } for mode, loop in (("refine", "ngmix_tpu/fitting/lm.py:903-976"),
+                         ("varpro", "ngmix_tpu/batch.py:831-871"))]}, allow_nan=False),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)

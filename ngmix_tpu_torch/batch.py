@@ -42,8 +42,9 @@ import torch
 
 from . import joint_prior
 from .admom import AdmomConf, admom_batch
-from .defaults import BIGVAL, GMIX_LOW_DETVAL
+from .defaults import BIGVAL, GMIX_LOW_DETVAL, PDEF
 from .fitting import fit_model, lm
+from .flags import LM_FUNC_NOTFINITE, MAXITER, SOLVER_INCOMPLETE
 from .gaussmom import gaussmom_measure
 from .gmix import core as gcore, tables
 from .jacobian import Jacobian
@@ -371,23 +372,20 @@ def _as_inputs(args, device):
     return [a.to(dtype) for a in out]
 
 
-def _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds, nband=1):
-    """raise for a measure or LM option this port has not taken over;
-    returns the LM measure's prior as one of the port's joint priors
-    (another package's prior is converted by convert.prior_from_object,
-    which raises TypeError for a class the port does not have), or None.
-    A prior whose parameter slots are not the model's shape columns and
-    nband fluxes raises ValueError."""
+def _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds, nband=1, mb=False):
+    """raise for a bad measure or LM option; returns the LM measure's
+    prior as one of the port's joint priors (another package's prior is
+    converted by convert.prior_from_object, which raises TypeError for a
+    class the port does not have), or None. A prior whose parameter
+    slots are not the model's shape columns and nband fluxes raises
+    ValueError, and so does LMConf.varpro with a prior or a bounded flux
+    in the flat pipeline (the multi-band fit ignores varpro)."""
     if measure not in _MEASURES:
         raise ValueError("bad measure: %s" % measure)
     if measure not in _LM_MEASURES:
         return None
-    if conf.sheared_refine:
-        raise NotImplementedError(
-            "sheared_refine > 0 is not ported yet: ROADMAP queue item 10"
-        )
-    if lm_conf is not None:
-        lm.check_supported(lm_conf)
+    if not mb and lm_conf is not None and lm_conf.varpro:
+        _check_varpro(lm_prior, lm_bounds)
     if lm_prior is None:
         return None
     if not isinstance(lm_prior, joint_prior.PRIORS):
@@ -420,10 +418,14 @@ def metacal_pipeline(images, weights, cens, psf_images, psf_cens, noise,
     rendered target). lm_prior regularizes the LM fits: a joint prior of
     the port (joint_prior.PriorSimpleSep for the simple models,
     PriorBDFSep, PriorBDSep) or another package's of the same class,
-    converted by convert.prior_from_object. A nonzero
-    conf.sheared_refine is not ported yet and raises
-    NotImplementedError. Returns dict type -> result dict of [B, ...]
-    tensors, plus "psf_sigma" [B].
+    converted by convert.prior_from_object. LMConf.varpro solves the
+    flux exactly at every evaluation (no prior, an unbounded flux, else
+    ValueError); LMConf.flux_col changes nothing (the reference's AD
+    flux column; the port's normal equations are in closed form). With
+    conf.sheared_refine = n > 0 and "noshear" among several types, the
+    LM solves the noshear lanes and the other types take n damped
+    Gauss-Newton steps from the noshear optimum. Returns dict type ->
+    result dict of [B, ...] tensors, plus "psf_sigma" [B].
     """
     lm_prior = _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds)
     full_precision_matmuls()
@@ -444,9 +446,14 @@ def metacal_pipeline(images, weights, cens, psf_images, psf_cens, noise,
         )
         if measure in _LM_MEASURES:
             psf_moms = _lm_psf_moms(conf, sigma, psfdict)
-            res_all = _exp_lm_measure(pixels, psf_moms, lm_conf or lm.LMConf(),
-                                      model=measure[:-3], bounds=lm_bounds,
-                                      prior=lm_prior)
+            kw = dict(model=measure[:-3], bounds=lm_bounds, prior=lm_prior)
+            types = tuple(conf.types)
+            if conf.sheared_refine and "noshear" in types and len(types) > 1:
+                res_all = _lm_with_sheared_refine(pixels, psf_moms, lm_conf or lm.LMConf(),
+                                                  types, images.shape[0],
+                                                  conf.sheared_refine, **kw)
+            else:
+                res_all = _exp_lm_measure(pixels, psf_moms, lm_conf or lm.LMConf(), **kw)
         else:
             res_all = _moments_measure(pixels, conf, measure, measure_fwhm)
     return _split_types(res_all, conf.types, images.shape[0], sigma)
@@ -628,7 +635,7 @@ def make_metacal_pipeline_fn(conf: MetacalConfig, measure="gaussmom",
     """pipeline closure over a fixed configuration and device.
 
     lm_conf, lm_prior and lm_bounds pass through to the LM measure (see
-    metacal_pipeline); unported options raise here, before any work.
+    metacal_pipeline); options that cannot run raise here, before any work.
     Batches larger than max_chunk run as successive chunks of at most
     max_chunk stamps, and the per-lane results are concatenated; the
     pipeline is lane-independent, so they equal a single-batch run
@@ -867,17 +874,138 @@ def _exp_normal_sums(pars, planes, psf_gmix, plain=False, model="exp"):
     return cost, Jtr, JtJ, bad
 
 
-def _exp_normal_fn(pars, planes, psf_gmix, plain=False, model="exp"):
+def _exp_normal_fn(pars, planes, psf_gmix, plain=False, model="exp", ad_bad=False):
     """normal-equation reductions (cost, Jtr, JtJ) of a batched fit of
     the model (_exp_normal_sums). A bad parameter point gets cost 1e30,
-    Jtr 0 and JtJ = I, so the LM rejects the step.
+    Jtr 0 and JtJ = I, so the LM rejects the step; with ad_bad, the
+    reference's AD convention instead (every pixel row FDIFF_BAD: cost
+    P FDIFF_BAD^2, Jtr 0, JtJ 0), as its variable projection's last
+    evaluation has it.
     """
     cost, Jtr, JtJ, bad = _exp_normal_sums(pars, planes, psf_gmix, plain, model)
-    eye = torch.eye(pars.shape[-1], dtype=cost.dtype, device=cost.device)
-    cost = torch.where(bad, 1.0e30, cost)
+    if ad_bad:
+        cost = torch.where(bad, fit_model.FDIFF_BAD**2 * planes[0].shape[-1], cost)
+        JtJ = torch.where(bad[:, None, None], 0.0, JtJ)
+    else:
+        eye = torch.eye(pars.shape[-1], dtype=cost.dtype, device=cost.device)
+        cost = torch.where(bad, 1.0e30, cost)
+        JtJ = torch.where(bad[:, None, None], eye, JtJ)
     Jtr = torch.where(bad[:, None], 0.0, Jtr)
-    JtJ = torch.where(bad[:, None, None], eye, JtJ)
     return cost, Jtr, JtJ
+
+
+# ----------------------------------------------------------------------
+# variable projection of the flux (LMConf.varpro)
+
+def _vp_flux(q, planes, psf_gmix, model="exp"):
+    """(F [B], good [B]): the optimal flux F = sum(m y) / sum(m^2) of
+    each lane at its shape columns q [B, nshape], m the unit-flux
+    weighted model (K1's value at flux 1, times ia) and y = ve; F is 0
+    where the point is bad (fill flags, gmix_flags, or sum(m^2) not
+    above the dtype's tiny)"""
+    v, u, ia, ve = planes
+    rp, gm, gflags = _exp_reparam(torch.cat([q, torch.ones_like(q[:, :1])], dim=-1),
+                                  psf_gmix, model)
+    mh = normal_eqs.gmix_model_plain(rp, v, u) * ia
+    smy = torch.sum(mh * ve, dim=-1)
+    smm = torch.sum(mh * mh, dim=-1)
+    good = (gflags == 0) & (gcore.gmix_flags(gm) == 0) & (smm > torch.finfo(q.dtype).tiny)
+    return torch.where(good, smy / torch.where(good, smm, 1.0), 0.0), good
+
+
+def _vp_normal_fn(q, data, model="exp"):
+    """the variable-projection normal equations (cost, Jtr, JtJ) over
+    the nshape shape columns q [B, nshape]: the flux solved exactly,
+    F(q) (_vp_flux), then K1's sums at (q, F) with the residuals F m - y
+    formed pixel by pixel, and the reduced Jacobian J_k + dF_k J_F
+    folded in with
+
+        dF_k = (sum dm_k y - 2 F sum dm_k m) / sum m^2
+             = -(JtJ_kF + Jtr_k / F) / JtJ_FF,
+
+    (the reference differentiates through F(q) by AD; the reduced cost
+    is never formed as a difference of full sums, which cancels). A bad
+    point has the reference's convention: cost P FDIFF_BAD^2, Jtr 0,
+    JtJ 0."""
+    planes, psf_gmix = data
+    ns = q.shape[-1]
+    F, good = _vp_flux(q, planes, psf_gmix, model)
+    cost, Jtr, JtJ, _ = _exp_normal_sums(torch.cat([q, F[:, None]], dim=-1), planes,
+                                         psf_gmix, plain=True, model=model)
+    jf = JtJ[:, :ns, ns]
+    D = JtJ[:, ns, ns]
+    dF = -(jf + Jtr[:, :ns] / F[:, None]) / D[:, None]
+    Jtr_r = Jtr[:, :ns] + dF * Jtr[:, ns:]
+    JtJ_r = (JtJ[:, :ns, :ns] + dF[:, :, None] * jf[:, None, :] + jf[:, :, None] * dF[:, None, :]
+             + dF[:, :, None] * dF[:, None, :] * D[:, None, None])
+    cost = torch.where(good, cost, fit_model.FDIFF_BAD**2 * planes[0].shape[-1])
+    return (cost, torch.where(good[:, None], Jtr_r, 0.0),
+            torch.where(good[:, None, None], JtJ_r, 0.0))
+
+
+def varpro_state(data, guess, lo, hi, conf, model="exp"):
+    """the variable-projection solve (the reference's _run_varpro up to
+    its epilogues), over data = (planes, psf_gmix) as _normal_fn takes:
+    the LM over the nshape shape columns of guess inside lo[:nshape],
+    hi[:nshape] with _vp_normal_fn (run_lm_normal_state), then, at q* (or
+    the benign point where q* is not finite or reaches 1e9) and its
+    flux F(q*), one full-width evaluation with the reference's
+    bad-point convention (run_gn_refine_state at niter = 0). Returns the
+    reduced solve's state with the full-width one under "full";
+    varpro_result turns it into the result."""
+    ns = _MODEL_NSHAPE[model]
+    planes, psf_gmix = data
+    lo_s, hi_s = lo[:ns], hi[:ns]
+    state = lm.run_lm_normal_state(functools.partial(_vp_normal_fn, model=model), data,
+                                   guess[:, :ns].contiguous(), lo_s, hi_s, conf)
+    q = lm.i2e(state["y"], lo_s, hi_s)
+    ok = torch.isfinite(state["cost"]) & torch.all(torch.isfinite(q) & (torch.abs(q) < 1.0e9),
+                                                   dim=-1)
+    # the benign round point of unit T where the reduced fit failed
+    benign = torch.zeros(ns, dtype=q.dtype, device=q.device)
+    benign[4] = 1.0
+    q = torch.where(ok[:, None], q, benign)
+    F, _ = _vp_flux(q, planes, psf_gmix, model)
+    state["full"] = lm.run_gn_refine_state(
+        functools.partial(_full_normal_fn, model=model), data,
+        torch.cat([q, F[:, None]], dim=-1), lo, hi, conf, niter=0)
+    return state
+
+
+def _full_normal_fn(pars, data, model="exp"):
+    planes, psf_gmix = data
+    return _exp_normal_fn(pars, planes, psf_gmix, plain=True, model=model, ad_bad=True)
+
+
+def varpro_result(state, lo, hi, conf, nres, nshape):
+    """the reference's varpro result from varpro_state's state: the
+    full-width evaluation's epilogue, its flags ORed with the reduced
+    loop's MAXITER, LM_FUNC_NOTFINITE and SOLVER_INCOMPLETE, pars PDEF
+    where the reduced fit's pars are not finite or reach 1e9, nfev and
+    ier from the reduced solve"""
+    out5 = lm._normal_epilogue({k: v for k, v in state.items() if k != "full"},
+                               lo[:nshape], hi[:nshape], conf, nres)
+    out = lm._normal_epilogue(state["full"], lo, hi, conf, nres)
+    out["flags"] = out["flags"] | (out5["flags"] & (MAXITER | LM_FUNC_NOTFINITE
+                                                    | SOLVER_INCOMPLETE))
+    ok = torch.all(torch.isfinite(out5["pars"]) & (torch.abs(out5["pars"]) < 1.0e9), dim=-1)
+    out["pars"] = torch.where(ok[:, None], out["pars"], PDEF)
+    out["nfev"] = out5["nfev"]
+    out["ier"] = out5["ier"]
+    return out
+
+
+def _check_varpro(prior, bounds):
+    """the reference's guards of variable projection: the flux is solved
+    exactly, so it takes no prior and no bound"""
+    if prior is not None:
+        raise ValueError(
+            "varpro solves the flux exactly per evaluation; it cannot honor a prior "
+            "(which couples all pars). Use the standard path.")
+    if bounds is not None and not (np.isinf(float(bounds[0][-1]))
+                                   and np.isinf(float(bounds[1][-1]))):
+        raise ValueError("varpro requires an unbounded flux (it is solved exactly, "
+                         "not iterated)")
 
 
 def _normal_fn(pars, data, model="exp"):
@@ -993,7 +1121,7 @@ def _extra_guess(model, guess5):
 
 def _exp_lm_measure(pixels, psf_sigma, lm_conf, host_loop=False,
                     compact_capacity="auto", model="exp", bounds=None, guess=None,
-                    prior=None):
+                    prior=None, refine=0):
     """batched LM fit of the model (exp, gauss, dev, bdf or bd) to
     every lane; the psf is the analytic round target gaussian, psf_sigma
     a scalar or [B] (round sigma) or [B, 3] (irr, irc, icc).
@@ -1012,10 +1140,20 @@ def _exp_lm_measure(pixels, psf_sigma, lm_conf, host_loop=False,
     loop with K1 and, by default ("auto"), the geometric compaction
     cascade (compact_capacity takes its values too); the card checks and
     timings compare the two routes. K1 fits 6 parameters, as the TPU
-    kernel does, so bdf and bd raise ValueError there. Refinement is not
-    ported yet (ROADMAP queue item 10).
+    kernel does, so bdf and bd raise ValueError there.
+
+    refine = n > 0 takes n damped Gauss-Newton steps from the guess
+    (lm.run_gn_refine_batched; K3's refine mode) in place of the LM.
+    Otherwise lm_conf.varpro solves the flux exactly at every
+    evaluation and iterates the shape columns (varpro_state; K3's varpro
+    mode), which raises ValueError with a prior or a bounded flux, and
+    on the host-loop route; lm_conf.flux_col changes nothing.
     """
-    lm.check_supported(lm_conf)
+    varpro = lm_conf.varpro and not refine
+    if varpro:
+        _check_varpro(prior, bounds)
+        if host_loop:
+            raise ValueError("the host-loop route runs K1's LM; varpro runs in K3")
     if host_loop and _MODEL_NSHAPE[model] + 1 != normal_eqs.NPARS:
         raise ValueError("the host-loop route runs K1, which fits %d parameters; "
                          "model %r has %d" % (normal_eqs.NPARS, model,
@@ -1044,7 +1182,11 @@ def _exp_lm_measure(pixels, psf_sigma, lm_conf, host_loop=False,
     # per-stamp unmasked row count for the chi2/dof covariance scale
     nres = torch.sum(pixels.ierr > 0, dim=-1)
     planes = _lm_planes(pixels)
-    if host_loop:
+    if host_loop and refine:
+        out = lm.run_gn_refine_batched(
+            functools.partial(_normal_fn, model=model), (planes, psf_gmix), guess, lo, hi,
+            lm_conf, nres, niter=refine, prior_fn=lm_solve._prior_fn(prior))
+    elif host_loop:
         if compact_capacity == "auto":
             compact_capacity = _auto_cascade(B)
         out = lm.run_lm_normal_batched(
@@ -1053,12 +1195,43 @@ def _exp_lm_measure(pixels, psf_sigma, lm_conf, host_loop=False,
             prior_fn=lm_solve._prior_fn(prior),
         )
     else:
-        state = lm_solve.lm_solve(guess, lo, hi, psf_moms, *planes, lm_conf, model, prior)
-        out = lm._normal_epilogue(state, lo, hi, lm_conf, nres)
+        mode = dict(refine=refine) if refine else dict(varpro=True) if varpro else {}
+        state = lm_solve.lm_solve(guess, lo, hi, psf_moms, *planes, lm_conf, model, prior,
+                                  **mode)
+        out = (varpro_result(state, lo, hi, lm_conf, nres, _MODEL_NSHAPE[model]) if varpro
+               else lm._normal_epilogue(state, lo, hi, lm_conf, nres))
     _lm_result_columns(
         out, _model_s2n_sums(out["pars"], out["flags"], psf_gmix, pixels, model),
         model=model,
     )
+    return out
+
+
+def _lm_with_sheared_refine(pixels, psf_moms, lm_conf, types, B, niter, model="exp",
+                            bounds=None, prior=None):
+    """the LM on the noshear lanes, then niter damped Gauss-Newton steps
+    (_exp_lm_measure(refine=niter)) for the other types' lanes from the
+    noshear optimum, tiled (a failed noshear lane's PDEF pars fall back
+    to the default guess); the results reassemble in type order with
+    the same keys as one stacked solve. pixels and psf_moms [T B, ...]
+    hold the types stacked in the order of types."""
+    i_ns = types.index("noshear")
+    others = [i for i in range(len(types)) if i != i_ns]
+    ns = torch.arange(i_ns * B, (i_ns + 1) * B, device=pixels.val.device)
+    idx = torch.cat([torch.arange(i * B, (i + 1) * B, device=ns.device) for i in others])
+    res_ns = _exp_lm_measure(Pixels(*(x[ns] for x in pixels)), psf_moms[ns], lm_conf,
+                             model=model, bounds=bounds, prior=prior)
+    res_o = _exp_lm_measure(Pixels(*(x[idx] for x in pixels)), psf_moms[idx], lm_conf,
+                            model=model, bounds=bounds, prior=prior,
+                            guess=res_ns["pars"].repeat(len(others), 1), refine=niter)
+    out = {}
+    for key, v_ns in res_ns.items():
+        if not (isinstance(v_ns, torch.Tensor) and v_ns.dim() >= 1 and v_ns.shape[0] == B):
+            out[key] = v_ns
+            continue
+        blocks = list(res_o[key].split(B))
+        blocks.insert(i_ns, v_ns)
+        out[key] = torch.cat(blocks)
     return out
 
 
@@ -1094,7 +1267,7 @@ def _check_measure_mb(conf, measure, nband, objective, lm_conf, lm_prior,
             "objective must be 'auto', 'epoch', 'epoch-be', 'epoch-t' or "
             "'fused'; got %r" % (objective,)
         )
-    return _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds, nband)
+    return _check_measure(conf, measure, lm_conf, lm_prior, lm_bounds, nband, mb=True)
 
 
 def _mb_exp_normal_fn(pars, data, plain=False, model="exp"):
@@ -1191,8 +1364,8 @@ def _mb_exp_lm_measure(pixels, psf_moms, band, nband, lm_conf, model="exp",
     nothing. prior: a joint prior with nband flux slots, or None.
     On CUDA tensors the solve is one launch of K3-mb
     (ops.lm_solve.lm_solve_mb); CPU tensors take its plain version.
+    lm_conf.varpro and flux_col change nothing here, as in the reference.
     """
-    lm.check_supported(lm_conf)
     Bc, E = band.shape
     P = pixels.val.shape[-1]
     dtype, dev = pixels.val.dtype, pixels.val.device
@@ -1253,9 +1426,10 @@ def metacal_pipeline_mb(images, weights, cens, psf_images, psf_cens, noise,
     differently on a TPU, each with the same per-lane result; this port
     computes every one of them with the same solve (K3-mb on the card).
     lm_prior regularizes the LM fits as in metacal_pipeline, built for
-    nband flux slots (a list of nband F priors). A nonzero
-    conf.sheared_refine and the LMConf options flux_col and varpro raise
-    NotImplementedError. Returns dict
+    nband flux slots (a list of nband F priors). conf.sheared_refine and
+    the LMConf options flux_col and varpro are accepted and change
+    nothing, as in the reference (its flat pipeline alone reads them).
+    Returns dict
     type -> result dict of [B, ...] tensors (flux [B, nband] when
     nband > 1), plus "psf_sigma" [B, E].
     """

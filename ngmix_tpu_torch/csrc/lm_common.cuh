@@ -503,6 +503,49 @@ __device__ __forceinline__ void pixel_pass(const T* gs, int lid, const T* v,
   for (int i = 0; i < kNSum; ++i) acc[i] = __shfl_sync(kFull, acc[i], 0);
 }
 
+// the unit-flux model's sums over one stamp's P pixels with the gaussians
+// gs (model_gaussians at flux 1): smy = sum m ve and smm = sum m^2, m =
+// f ia the weighted model, f summed over the gaussians as pixel_pass
+// sums it; the same bits on every thread
+template <typename M, typename T>
+__device__ __forceinline__ void value_pass(const T* gs, int lid, const T* v, const T* u,
+                                           const T* ia, const T* ve, int P, T& smy,
+                                           T& smm) {
+  constexpr int kStride = Dims<M>::kGStride;
+  T a = T(0), b = T(0);
+  for (int p = lid; p < P; p += 32) {
+    const T vv = v[p];
+    const T uu = u[p];
+    T f = T(0);
+#pragma unroll
+    for (int g = 0; g < M::kNG; ++g) {
+      const T* q = gs + g * kStride;
+      const T dv = vv - q[1];
+      const T du = uu - q[2];
+      const T gv = q[3] * dv + q[4] * du;
+      const T gu = q[4] * dv + q[5] * du;
+      const T chi2 = gv * dv + gu * du;
+      if (!(chi2 >= T(0) && chi2 < static_cast<T>(kMaxChi2))) continue;
+      T win = T(1);
+      if (chi2 > static_cast<T>(kApodChi2)) {
+        const T t = (static_cast<T>(kMaxChi2) - chi2) * static_cast<T>(kApodIWidth);
+        win = t * t * t * (T(10) + t * (T(-15) + T(6) * t));
+      }
+      f += q[0] * (dexp(T(-0.5) * chi2) * win);
+    }
+    const T mh = f * ia[p];
+    a += mh * ve[p];
+    b += mh * mh;
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    a += __shfl_down_sync(kFull, a, off);
+    b += __shfl_down_sync(kFull, b, off);
+  }
+  smy = __shfl_sync(kFull, a, 0);
+  smm = __shfl_sync(kFull, b, 0);
+}
+
 // ----------------------------------------------------------------------
 // prior rows (joint_prior.py): a table of nrows rows of kPriorCols
 // float64 values, (kind, form, i0, i1, c0, c1, c2, c3): the row's kind
@@ -773,6 +816,130 @@ __device__ __forceinline__ void bounds_chain(const T (&y)[NP], const T (&lo)[NP]
 // JtJ) in internal coordinates at y, JtJ as its upper triangle, and the
 // cost without the prior rows
 
+// the pinned dims as a bit mask: dims on a finite bound whose gradient
+// points outward and whose whole remaining improvement is below the ftol
+// resolution (fitting/lm.py _pinned_dims)
+template <typename T, int NP>
+__device__ __forceinline__ unsigned pin_mask(const T (&y)[NP], const T (&jtr)[NP], T cost,
+                                             T ftol, const T (&lo)[NP], const T (&hi)[NP]) {
+  unsigned pin = 0;
+#pragma unroll
+  for (int k = 0; k < NP; ++k) {
+    const bool hl = finite(lo[k]), hh = finite(hi[k]);
+    const T g = i2e_grad(y[k], lo[k], hi[k]);
+    const T xk = i2e(y[k], lo[k], hi[k]);
+    const bool near = (hl && hh) ? dabs(y[k]) >= static_cast<T>(kNearBoth)
+                                 : dabs(y[k]) <= static_cast<T>(kNearOne);
+    const bool to_lo = (jtr[k] * g > T(0)) && hl;
+    const bool to_hi = (jtr[k] * g < T(0)) && hh;
+    const T d_out = to_lo ? xk - lo[k] : (to_hi ? hi[k] - xk : inf_of<T>());
+    const T g_safe = clamp_min(dabs(g), tiny_of<T>());
+    const T available = T(2) * dabs(jtr[k]) * d_out / g_safe;
+    if (near && (to_lo || to_hi) && available < ftol * cost) pin |= 1u << k;
+  }
+  return pin;
+}
+
+// the damped step dy of the masked normal equations (fitting/lm.py
+// _mask_normal and _solve_damped, Marquardt scaling) and free_, 0 on the
+// pinned dims and 1 elsewhere; returns whether every dy is finite
+template <typename T, int NP>
+__device__ __forceinline__ bool damped_step(const T (&jtj)[NP * (NP + 1) / 2],
+                                            const T (&jtr)[NP], unsigned pin, T lam_eff,
+                                            T (&free_)[NP], T (&dy)[NP]) {
+  // the masked normal equations, damped, as the lower triangle of A,
+  // and b = -Jtr over the free dims
+#pragma unroll
+  for (int k = 0; k < NP; ++k) free_[k] = (pin >> k) & 1u ? T(0) : T(1);
+  T A[NP][NP];
+  T rhs[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+#pragma unroll
+    for (int j = 0; j <= i; ++j) A[i][j] = jtj[tri<NP>(j, i)] * free_[i] * free_[j];
+    if ((pin >> i) & 1u) A[i][i] = A[i][i] + T(1);
+    const T d = A[i][i] > T(0) ? A[i][i] : T(1);
+    A[i][i] = A[i][i] + lam_eff * d;
+    rhs[i] = -(jtr[i] * free_[i]);
+  }
+  // unrolled Cholesky (ops/small_linalg.py's order); nan where A is
+  // not positive definite
+  T L[NP][NP];
+#pragma unroll
+  for (int j = 0; j < NP; ++j) {
+    T s = A[j][j];
+#pragma unroll
+    for (int k = 0; k < j; ++k) s = s - L[j][k] * L[j][k];
+    const T d = dsqrt(s);
+    L[j][j] = d;
+    const T inv_d = T(1) / d;
+#pragma unroll
+    for (int i = j + 1; i < NP; ++i) {
+      T t = A[i][j];
+#pragma unroll
+      for (int k = 0; k < j; ++k) t = t - L[i][k] * L[j][k];
+      L[i][j] = t * inv_d;
+    }
+  }
+  T z[NP];
+#pragma unroll
+  for (int i = 0; i < NP; ++i) {
+    T s = rhs[i];
+#pragma unroll
+    for (int k = 0; k < i; ++k) s = s - L[i][k] * z[k];
+    z[i] = s / L[i][i];
+  }
+#pragma unroll
+  for (int i = NP - 1; i >= 0; --i) {
+    T s = z[i];
+#pragma unroll
+    for (int k = i + 1; k < NP; ++k) s = s - L[k][i] * dy[k];
+    dy[i] = s / L[i][i];
+  }
+  bool step_ok = true;
+#pragma unroll
+  for (int k = 0; k < NP; ++k) step_ok = step_ok && finite(dy[k]);
+  return step_ok;
+}
+
+// y + dy with the two-sided dims clipped to the e2i range
+// (fitting/lm.py clip_internal)
+template <typename T>
+__device__ __forceinline__ T clip_step(T y, T dy, T lo, T hi) {
+  T t = y + dy;
+  if (finite(lo) && finite(hi)) {
+    t = clamp_max(clamp_min(t, static_cast<T>(-kYClip)), static_cast<T>(kYClip));
+  }
+  return t;
+}
+
+// lane b's state into the outputs (thread 0 of the warp writes)
+template <typename T, int NP>
+__device__ __forceinline__ void write_state(const Out<T>& o, size_t b, int lid,
+                                            const T (&y)[NP], T cost, const T (&jtr)[NP],
+                                            const T (&jtj)[NP * (NP + 1) / 2], T lam,
+                                            int nfev, bool done, bool ier_step,
+                                            bool ier_cost, unsigned pinned) {
+  if (lid == 0) {
+    o.cost[b] = cost;
+    o.lam[b] = lam;
+    o.nfev[b] = nfev;
+    o.done[b] = done;
+    o.ier_small_step[b] = ier_step;
+    o.ier_small_cost[b] = ier_cost;
+#pragma unroll
+    for (int k = 0; k < NP; ++k) {
+      o.y[NP * b + k] = y[k];
+      o.jtr[NP * b + k] = jtr[k];
+      o.pinned[NP * b + k] = (pinned >> k) & 1u;
+#pragma unroll
+      for (int m = 0; m < NP; ++m) {
+        o.jtj[(NP * b + k) * NP + m] = jtj[tri<NP>(k, m)];
+      }
+    }
+  }
+}
+
 template <typename T, int NP, typename Eval>
 __device__ void solve_lane(const Conf& cf, const T* guess,
                                            const T (&lo)[NP], const T (&hi)[NP],
@@ -797,90 +964,17 @@ __device__ void solve_lane(const Conf& cf, const T* guess,
   bool done = false, ier_step = false, ier_cost = false;
   unsigned pinned = 0;
   while (!done && nfev < cf.maxfev) {
-    // dims on a finite bound whose gradient points outward and whose
-    // whole remaining improvement is below the ftol resolution
-    unsigned pin = 0;
-#pragma unroll
-    for (int k = 0; k < NP; ++k) {
-      const bool hl = finite(lo[k]), hh = finite(hi[k]);
-      const T g = i2e_grad(y[k], lo[k], hi[k]);
-      const T xk = i2e(y[k], lo[k], hi[k]);
-      const bool near = (hl && hh) ? dabs(y[k]) >= static_cast<T>(kNearBoth)
-                                   : dabs(y[k]) <= static_cast<T>(kNearOne);
-      const bool to_lo = (jtr[k] * g > T(0)) && hl;
-      const bool to_hi = (jtr[k] * g < T(0)) && hh;
-      const T d_out = to_lo ? xk - lo[k] : (to_hi ? hi[k] - xk : inf_of<T>());
-      const T g_safe = clamp_min(dabs(g), tiny_of<T>());
-      const T available = T(2) * dabs(jtr[k]) * d_out / g_safe;
-      if (near && (to_lo || to_hi) && available < ftol * cost) pin |= 1u << k;
-    }
+    const unsigned pin = pin_mask<T, NP>(y, jtr, cost, ftol, lo, hi);
     const bool pin_changed = pin != pinned;
     const T lam_eff = pin_changed ? lambda0 : lam;
-
-    // the masked normal equations, damped (Marquardt scaling), as the
-    // lower triangle of A, and b = -Jtr over the free dims
-    T free_[NP];
-#pragma unroll
-    for (int k = 0; k < NP; ++k) free_[k] = (pin >> k) & 1u ? T(0) : T(1);
-    T A[NP][NP];
-    T rhs[NP];
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-#pragma unroll
-      for (int j = 0; j <= i; ++j) A[i][j] = jtj[tri<NP>(j, i)] * free_[i] * free_[j];
-      if ((pin >> i) & 1u) A[i][i] = A[i][i] + T(1);
-      const T d = A[i][i] > T(0) ? A[i][i] : T(1);
-      A[i][i] = A[i][i] + lam_eff * d;
-      rhs[i] = -(jtr[i] * free_[i]);
-    }
-    // unrolled Cholesky (ops/small_linalg.py's order); nan where A is
-    // not positive definite
-    T L[NP][NP];
-#pragma unroll
-    for (int j = 0; j < NP; ++j) {
-      T s = A[j][j];
-#pragma unroll
-      for (int k = 0; k < j; ++k) s = s - L[j][k] * L[j][k];
-      const T d = dsqrt(s);
-      L[j][j] = d;
-      const T inv_d = T(1) / d;
-#pragma unroll
-      for (int i = j + 1; i < NP; ++i) {
-        T t = A[i][j];
-#pragma unroll
-        for (int k = 0; k < j; ++k) t = t - L[i][k] * L[j][k];
-        L[i][j] = t * inv_d;
-      }
-    }
-    T z[NP];
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      T s = rhs[i];
-#pragma unroll
-      for (int k = 0; k < i; ++k) s = s - L[i][k] * z[k];
-      z[i] = s / L[i][i];
-    }
-    T dy[NP];
-#pragma unroll
-    for (int i = NP - 1; i >= 0; --i) {
-      T s = z[i];
-#pragma unroll
-      for (int k = i + 1; k < NP; ++k) s = s - L[k][i] * dy[k];
-      dy[i] = s / L[i][i];
-    }
-    bool step_ok = true;
-#pragma unroll
-    for (int k = 0; k < NP; ++k) step_ok = step_ok && finite(dy[k]);
+    T free_[NP], dy[NP];
+    const bool step_ok = damped_step<T, NP>(jtj, jtr, pin, lam_eff, free_, dy);
 
     T y_try[NP];
 #pragma unroll
     for (int k = 0; k < NP; ++k) {
-      T t = y[k] + (step_ok ? dy[k] : T(0));
-      if (finite(lo[k]) && finite(hi[k])) {
-        t = clamp_max(clamp_min(t, static_cast<T>(-kYClip)), static_cast<T>(kYClip));
-      }
-      y_try[k] = t;
-      dy[k] = t - y[k];
+      y_try[k] = clip_step(y[k], step_ok ? dy[k] : T(0), lo[k], hi[k]);
+      dy[k] = y_try[k] - y[k];
     }
     T cost_try, cost_pix_try, jtr_try[NP], jtj_try[NT];
     evaluate(y_try, cost_try, cost_pix_try, jtr_try, jtj_try);
@@ -936,25 +1030,38 @@ __device__ void solve_lane(const Conf& cf, const T* guess,
     ier_cost = small_cost;
     pinned = pin;
   }
+  write_state<T, NP>(o, b, lid, y, cost, jtr, jtj, lam, nfev, done, ier_step, ier_cost,
+                     pinned);
+}
 
-  if (lid == 0) {
-    o.cost[b] = cost;
-    o.lam[b] = lam;
-    o.nfev[b] = nfev;
-    o.done[b] = done;
-    o.ier_small_step[b] = ier_step;
-    o.ier_small_cost[b] = ier_cost;
+// one lane's fixed-iteration damped Gauss-Newton refinement
+// (fitting/lm.py run_gn_refine_state): niter steps at the damping lam,
+// each at the current point with the LM's pin test and damped step and
+// no trial evaluation (a step that is not finite is dropped), then one
+// evaluation at the final point, whose state goes to the outputs with
+// nfev = niter + 1, done and ier_small_step set
+template <typename T, int NP, typename Eval>
+__device__ void refine_lane(const Conf& cf, int niter, T lam, const T* guess,
+                            const T (&lo)[NP], const T (&hi)[NP], Eval&& evaluate,
+                            const Out<T>& o, size_t b, int lid) {
+  constexpr int NT = NP * (NP + 1) / 2;
+  const T ftol = static_cast<T>(cf.ftol);
+  T y[NP];
 #pragma unroll
-    for (int k = 0; k < NP; ++k) {
-      o.y[NP * b + k] = y[k];
-      o.jtr[NP * b + k] = jtr[k];
-      o.pinned[NP * b + k] = (pinned >> k) & 1u;
+  for (int k = 0; k < NP; ++k) y[k] = e2i(guess[k], lo[k], hi[k]);
+  T cost, cost_pix, jtr[NP], jtj[NT];
+  unsigned pin = 0;
+  for (int it = 0; it < niter; ++it) {
+    evaluate(y, cost, cost_pix, jtr, jtj);
+    pin = pin_mask<T, NP>(y, jtr, cost, ftol, lo, hi);
+    T free_[NP], dy[NP];
+    const bool ok = damped_step<T, NP>(jtj, jtr, pin, lam, free_, dy);
 #pragma unroll
-      for (int m = 0; m < NP; ++m) {
-        o.jtj[(NP * b + k) * NP + m] = jtj[tri<NP>(k, m)];
-      }
-    }
+    for (int k = 0; k < NP; ++k) y[k] = clip_step(y[k], ok ? dy[k] : T(0), lo[k], hi[k]);
   }
+  evaluate(y, cost, cost_pix, jtr, jtj);
+  if (lid == 0) o.cost_pix[b] = cost_pix;
+  write_state<T, NP>(o, b, lid, y, cost, jtr, jtj, lam, niter + 1, true, true, false, pin);
 }
 
 template <int N>

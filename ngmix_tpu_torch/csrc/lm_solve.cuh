@@ -78,6 +78,8 @@
 namespace {
 
 constexpr double kBadCost = 1.0e30;
+// the reference's bad-point residual squared, FDIFF_BAD^2
+constexpr double kFdiffBad2 = 1.0e20;
 
 template <typename T>
 struct Args {
@@ -114,8 +116,10 @@ struct Warp {
 
 // (cost, Jtr, JtJ) in internal coordinates at y over the model's NP
 // parameters, with the prior rows, and the pixels' cost alone; every
-// thread of the warp returns the same bits
-template <typename M, typename T, int NP = Dims<M>::kNP>
+// thread of the warp returns the same bits. A bad point gets cost 1e30,
+// Jtr 0 and JtJ = I, or with kAdBad the reference's AD convention (every
+// pixel row FDIFF_BAD = 1e10: cost P 1e20, Jtr 0, JtJ 0)
+template <typename M, bool kAdBad = false, typename T, int NP = Dims<M>::kNP>
 __device__ void evaluate(const Warp<T>& w, const T (&y)[NP], const T (&lo)[NP],
                          const T (&hi)[NP], T pirr, T pirc, T picc, T& cost, T& cost_pix,
                          T (&jtr)[NP], T (&jtj)[NP * (NP + 1) / 2]) {
@@ -131,13 +135,13 @@ __device__ void evaluate(const Warp<T>& w, const T (&y)[NP], const T (&lo)[NP],
   const bool lowdet = model_gaussians<M>(w.gs, w.lid, x[0], x[1], sh, x[4], xe, x[5 + NX],
                                          pirr, pirc, picc);
   if (sh.gbad || lowdet) {
-    cost = static_cast<T>(kBadCost);
+    cost = static_cast<T>(kAdBad ? kFdiffBad2 * static_cast<double>(w.P) : kBadCost);
 #pragma unroll
     for (int k = 0; k < NP; ++k) jtr[k] = T(0);
 #pragma unroll
     for (int k = 0; k < NP; ++k) {
 #pragma unroll
-      for (int m = k; m < NP; ++m) jtj[tri<NP>(k, m)] = k == m ? T(1) : T(0);
+      for (int m = k; m < NP; ++m) jtj[tri<NP>(k, m)] = k == m && !kAdBad ? T(1) : T(0);
     }
   } else {
     T acc[Dims<M>::kNSum];

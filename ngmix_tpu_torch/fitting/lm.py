@@ -16,6 +16,11 @@ axis are unrolled in a fixed order), and the normal equations come from
 a kernel whose per-lane result does not depend on the batch, so a lane
 computes the same bits whichever lanes share its level: compaction
 changes the schedule, never the results.
+
+``run_gn_refine_batched`` is the reference's fixed-iteration damped
+Gauss-Newton refiner from a near-optimal start (the sheared metacal
+types from the noshear optimum, and the full-width evaluation that ends
+a variable-projection solve).
 """
 from typing import NamedTuple
 
@@ -34,6 +39,7 @@ from ..flags import (
 )
 from ..ops.small_linalg import chol_inverse, chol_is_spd, chol_solve
 
+
 class LMConf(NamedTuple):
     """static LM configuration"""
 
@@ -45,22 +51,15 @@ class LMConf(NamedTuple):
     lambda_down: float = 10.0
     lambda_min: float = 1.0e-12
     lambda_max: float = 1.0e12
-    # the analytic flux column of the reference's AD normal equations;
-    # not ported yet (ROADMAP queue item 10)
+    # the reference's analytic flux column of its AD normal equations;
+    # the port's normal equations are in closed form already, so the
+    # option leaves the solve unchanged
     flux_col: bool = False
-    # variable projection of the flux; not ported yet (ROADMAP queue
-    # item 10)
+    # variable projection of the flux (batch._exp_lm_measure): the flux
+    # is solved exactly at every evaluation and the LM iterates the shape
+    # columns only; needs an unbounded flux and no prior. The
+    # multi-band fit ignores it, as the reference's does
     varpro: bool = False
-
-
-def check_supported(conf: LMConf):
-    """raise for the LMConf options this port has not taken over"""
-    for name in ("flux_col", "varpro"):
-        if getattr(conf, name):
-            raise NotImplementedError(
-                "LMConf.%s=True is not ported yet: ROADMAP queue item 10 "
-                "(LM options)" % name
-            )
 
 
 # ----------------------------------------------------------------------
@@ -370,22 +369,13 @@ def run_lm_normal_batched(normal_fn, data, guess, lo, hi, conf: LMConf,
     return _normal_epilogue(state, lo, hi, conf, nres)
 
 
-def run_lm_normal_state(normal_fn, data, guess, lo, hi, conf: LMConf,
-                        compact_capacity=None, gather_fn=None, prior_fn=None):
-    """the solver loop of run_lm_normal_batched (same arguments but
-    nres): the finished per-lane state y, cost (with the prior rows),
-    cost_pix (the pixels' alone), Jtr, JtJ (internal coordinates), lam,
-    nfev, done, ier_small_step, ier_small_cost and pinned, which
-    _normal_epilogue turns into the result"""
-    B, npars = guess.shape
-    dtype, dev = guess.dtype, guess.device
-    lo = torch.as_tensor(lo, dtype=dtype, device=dev)
-    hi = torch.as_tensor(hi, dtype=dtype, device=dev)
+def _internal_normal_fn(normal_fn, lo, hi, prior_fn=None):
+    """eval_normal(y, data) -> (cost, cost_pix, Jtr, JtJ) in internal
+    coordinates: the pixels' normal equations at i2e(y), the prior rows
+    added in external coordinates, then the bounds chain rule J_int =
+    J_ext diag(g)"""
 
     def eval_normal(y, d):
-        """(cost, cost_pix, Jtr, JtJ) in internal coordinates: the prior
-        rows added in external coordinates, then the bounds chain rule
-        J_int = J_ext diag(g)"""
         x = i2e(y, lo, hi)
         cost_pix, Jtr, JtJ = normal_fn(x, d)
         cost = cost_pix
@@ -399,6 +389,23 @@ def run_lm_normal_state(normal_fn, data, guess, lo, hi, conf: LMConf,
             JtJ = JtJ + _row_sum(Jp[..., :, None] * Jp[..., None, :])
         g = i2e_grad(y, lo, hi)
         return cost, cost_pix, Jtr * g, JtJ * g[..., :, None] * g[..., None, :]
+
+    return eval_normal
+
+
+def run_lm_normal_state(normal_fn, data, guess, lo, hi, conf: LMConf,
+                        compact_capacity=None, gather_fn=None, prior_fn=None):
+    """the solver loop of run_lm_normal_batched (same arguments but
+    nres): the finished per-lane state y, cost (with the prior rows),
+    cost_pix (the pixels' alone), Jtr, JtJ (internal coordinates), lam,
+    nfev, done, ier_small_step, ier_small_cost and pinned, which
+    _normal_epilogue turns into the result"""
+    B, npars = guess.shape
+    dtype, dev = guess.dtype, guess.device
+    lo = torch.as_tensor(lo, dtype=dtype, device=dev)
+    hi = torch.as_tensor(hi, dtype=dtype, device=dev)
+
+    eval_normal = _internal_normal_fn(normal_fn, lo, hi, prior_fn)
 
     y0 = e2i(guess, lo, hi)
     cost0, cost_pix0, Jtr0, JtJ0 = eval_normal(y0, data)
@@ -522,3 +529,68 @@ def _normal_epilogue(out, lo, hi, conf, nres):
         "cost": out["cost"],
         "s_sq": s_sq,
     }
+
+
+def run_gn_refine_state(normal_fn, data, guess, lo, hi, conf: LMConf, niter=3,
+                        lam=1.0e-6, prior_fn=None):
+    """the solver state of run_gn_refine_batched (same arguments but nres
+    and k_space): niter unconditional damped Gauss-Newton steps from
+    e2i(guess) at the fixed damping lam, each with the LM step's pinned
+    dims and clip, a step that is not finite dropped, then one more
+    evaluation at the final point. The state holds y, cost, cost_pix,
+    Jtr and JtJ of that evaluation, lam, nfev = niter + 1, done and
+    ier_small_step true, ier_small_cost false, and the last step's
+    pinned dims (none at niter = 0)."""
+    B, npars = guess.shape
+    dtype, dev = guess.dtype, guess.device
+    lo = torch.as_tensor(lo, dtype=dtype, device=dev)
+    hi = torch.as_tensor(hi, dtype=dtype, device=dev)
+    eval_normal = _internal_normal_fn(normal_fn, lo, hi, prior_fn)
+    y = e2i(guess, lo, hi)
+    pinned = torch.zeros((B, npars), dtype=torch.bool, device=dev)
+    for _ in range(niter):
+        cost, _, Jtr, JtJ = eval_normal(y, data)
+        # the LM step's saturated-bound handling: pin the dims on a bound
+        # with an outward, unresolvable gradient, and clip
+        pinned = _pinned_dims(y, Jtr, cost, conf.ftol, lo, hi)
+        JtJ_m, Jtr_m = _mask_normal(JtJ, Jtr, pinned)
+        dy = _solve_damped(JtJ_m, Jtr_m, lam)
+        ok = torch.all(torch.isfinite(dy), dim=-1)
+        y = clip_internal(y + torch.where(ok[:, None], dy, 0.0), lo, hi)
+    cost, cost_pix, Jtr, JtJ = eval_normal(y, data)
+    ones = torch.ones((B,), dtype=torch.bool, device=dev)
+    return {
+        "y": y,
+        "cost": cost,
+        "cost_pix": cost_pix,
+        "Jtr": Jtr,
+        "JtJ": JtJ,
+        "lam": torch.full((B,), lam, dtype=dtype, device=dev),
+        "nfev": torch.full((B,), niter + 1, dtype=torch.int32, device=dev),
+        "done": ones,
+        "ier_small_step": ones,
+        "ier_small_cost": torch.zeros_like(ones),
+        "pinned": pinned,
+    }
+
+
+def run_gn_refine_batched(normal_fn, data, guess, lo, hi, conf: LMConf, nres, niter=3,
+                          lam=1.0e-6, k_space=False, prior_fn=None):
+    """fixed-iteration damped Gauss-Newton refinement from a near-optimal
+    start (ngmix_tpu/fitting/lm.py: run_gn_refine_batched): the state of
+    run_gn_refine_state through _normal_epilogue. For the sheared
+    metacal types the target differs from the solved noshear fit by an
+    O(step) perturbation, so a few unconditional steps from the noshear
+    optimum converge quadratically with no accept or reject and no
+    straggler tail; niter = 0 is one evaluation at the guess. Arguments
+    as run_lm_normal_batched's. The reference's k-space residuals
+    (k_space) are not ported yet (ROADMAP queue item 13)."""
+    if k_space:
+        raise NotImplementedError(
+            "k_space=True is not ported yet: ROADMAP queue item 13 (the host "
+            "single-object API)")
+    lo = torch.as_tensor(lo, dtype=guess.dtype, device=guess.device)
+    hi = torch.as_tensor(hi, dtype=guess.dtype, device=guess.device)
+    state = run_gn_refine_state(normal_fn, data, guess, lo, hi, conf, niter=niter, lam=lam,
+                                prior_fn=prior_fn)
+    return _normal_epilogue(state, lo, hi, conf, nres)

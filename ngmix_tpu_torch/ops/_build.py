@@ -1,12 +1,13 @@
 """Build the package's CUDA sources into one shared library, at first use.
 
 Every ``csrc/*.cu`` is compiled for Hopper (sm_90a) by its own ``nvcc``
-process, all started together, and the objects are linked into one
-shared library with a plain C interface: no PyTorch headers and no
-ninja, so the build takes as long as its slowest source. The library
-is named by a hash of the sources, their headers and the flags, lives
-in ``build/ngmix_tpu_torch/`` at the root of the checkout, and is
-loaded with ctypes.
+process, one a core, the costliest first (``UNIT_CPU_SECONDS``), and the
+objects are linked into one shared library with a plain C interface:
+no PyTorch headers and no ninja, so the build takes as long as its
+slowest source, or as the host's cores take for all of them. The
+library is named by a hash of the sources, their headers and the
+flags, lives in ``build/ngmix_tpu_torch/`` at the root of the checkout,
+and is loaded with ctypes.
 """
 import ctypes
 import hashlib
@@ -21,8 +22,8 @@ _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ngmix_tpu_torch"
 # the slowest sources, the float64 K3-mb units
-# (csrc/lm_solve_mb_<model>_f64.cu, 6 instantiations each), take about
-# a minute on an H100 host
+# (csrc/lm_solve_mb_<model>_f64.cu, 6 instantiations each), take one to
+# two minutes on an H100 host
 BUILD_TIMEOUT_S = 300
 
 # the models of K3 and K3-mb (ops/lm_solve.py), each with its own C
@@ -35,6 +36,22 @@ NVCC_FLAGS = (
 )
 
 _lib = None
+# each unit's nvcc CPU seconds (user + system) on an H100 host
+# (chip_smoke.py phase 2, 777.1 s in all): the build starts the
+# costliest first, one process a core, so that the longest units never
+# wait behind short ones for a core. A unit not listed counts as the
+# costliest.
+UNIT_CPU_SECONDS = {
+    "lm_solve_mb_bd_f64.cu": 85.3, "lm_solve_mb_bdf_f64.cu": 69.7, "lm_solve_opt_bd.cu": 64.6,
+    "lm_solve_mb_dev_f64.cu": 50.8, "lm_solve_mb_bd.cu": 50.6, "lm_solve_opt_bdf.cu": 50.0,
+    "lm_solve.cu": 45.8, "lm_solve_mb_exp_f64.cu": 43.2, "lm_solve_mb_bdf.cu": 41.6,
+    "lm_solve_mb_gauss_f64.cu": 37.8, "lm_solve_opt_dev.cu": 35.4, "lm_solve_bd.cu": 32.8,
+    "lm_solve_opt.cu": 30.8, "lm_solve_mb_dev.cu": 27.2, "lm_solve_bdf.cu": 27.1,
+    "lm_solve_mb_exp.cu": 25.4, "lm_solve_opt_gauss.cu": 25.0, "lm_solve_mb_gauss.cu": 22.0,
+    "gmix_eval.cu": 8.9, "normal_eqs.cu": 2.9,
+}
+# this process's build, where it made one: each unit's nvcc CPU seconds
+UNIT_SECONDS = {}
 
 
 def sources():
@@ -68,26 +85,53 @@ def library_path():
     return BUILD_DIR / ("libngmix_tpu_torch_%s.so" % h.hexdigest()[:16])
 
 
-def _run_all(cmds, deadline):
-    """run the commands at once; raises with the first failure's output,
-    or when the deadline (time.monotonic()) passes, stopping the rest"""
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                              text=True) for c in cmds]
+def _slots():
+    """the cores this process may run on"""
     try:
-        for cmd, proc in zip(cmds, procs):
-            try:
-                out = proc.communicate(timeout=max(deadline - time.monotonic(), 0.0))[0]
-            except subprocess.TimeoutExpired as exc:
-                raise RuntimeError("nvcc did not finish in %d s: %s"
-                                   % (BUILD_TIMEOUT_S, " ".join(cmd))) from exc
-            if proc.returncode != 0:
-                raise RuntimeError("nvcc failed (%d): %s\n%s"
-                                   % (proc.returncode, " ".join(cmd), out))
+        return len(os.sched_getaffinity(0))
+    except AttributeError:
+        return os.cpu_count() or 1
+
+
+def _run_all(cmds, deadline, slots=None):
+    """run the commands in their order, at most ``slots`` at a time (all
+    at once for None), each one's output to a temporary file; raises
+    with the first failure's output, or when the deadline
+    (time.monotonic()) passes, stopping the rest. Returns each command's
+    CPU seconds (its process's and its children's user + system time)"""
+    pending = list(range(len(cmds)))
+    running = {}
+    cpu = [None] * len(cmds)
+    try:
+        while pending or running:
+            while pending and (slots is None or len(running) < slots):
+                i = pending.pop(0)
+                log = tempfile.TemporaryFile("w+")
+                running[i] = (subprocess.Popen(cmds[i], stdout=log, stderr=subprocess.STDOUT,
+                                               text=True), log)
+            for i, (proc, log) in list(running.items()):
+                pid, status, usage = os.wait4(proc.pid, os.WNOHANG)
+                if pid == 0:
+                    continue
+                del running[i]
+                proc.returncode = os.waitstatus_to_exitcode(status)
+                cpu[i] = usage.ru_utime + usage.ru_stime
+                log.seek(0)
+                out = log.read()
+                log.close()
+                if proc.returncode != 0:
+                    raise RuntimeError("nvcc failed (%d): %s\n%s"
+                                       % (proc.returncode, " ".join(cmds[i]), out))
+            if running and time.monotonic() > deadline:
+                raise RuntimeError("nvcc did not finish in %d s: %s" % (
+                    BUILD_TIMEOUT_S, " ".join(cmds[min(running)])))
+            time.sleep(0.1)
     finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        for proc, log in running.values():
+            proc.kill()
+            proc.wait()
+            log.close()
+    return cpu
 
 
 def build():
@@ -105,8 +149,11 @@ def build():
     try:
         tmp = os.path.join(tmpdir, path.name)
         compiles, link = nvcc_commands(tmp, nvcc=find_nvcc())
+        names = [s.name for s in sources()]
+        order = sorted(range(len(names)), key=lambda i: -UNIT_CPU_SECONDS.get(names[i], 1e9))
         deadline = time.monotonic() + BUILD_TIMEOUT_S
-        _run_all(compiles, deadline)
+        cpu = _run_all([compiles[i] for i in order], deadline, _slots())
+        UNIT_SECONDS.update((names[i], c) for i, c in zip(order, cpu))
         _run_all([link], deadline)
         os.replace(tmp, path)
     finally:
@@ -170,6 +217,17 @@ def load():
             fn = getattr(lib, "ngmix_lm_solve_mb_%s_attrs" % name)
             # nband, E, P, out[5] as for K3
             fn.argtypes = [i64, i64, i64, ip]
+            fn.restype = ctypes.c_int
+        for name in lm_names:
+            fn = getattr(lib, "ngmix_lm_solve_opt_" + name)
+            # K3's arguments through the table pointer, the full-width
+            # outputs fy, fcost, fcost_pix, fjtr, fjtj, B, P, nprior,
+            # maxfev, mode, niter, ftol, xtol, lambda0, lambda_up,
+            # lambda_down, lambda_min, lambda_max, lam_gn, stream
+            fn.argtypes = [p] * 26 + [i64] * 6 + [ctypes.c_double] * 8 + [p]
+            fn.restype = ctypes.c_int
+            fn = getattr(lib, "ngmix_lm_solve_opt_%s_attrs" % name)
+            fn.argtypes = [i64, ip]
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -64,6 +64,31 @@ the warp; the plain versions take ``prior.fill_fdiff_jacobian``. The
 state carries the pixels' cost beside the total as cost_pix, which
 scales the covariance.
 
+K3 has two more modes, each one launch of an instance of its own
+(``csrc/lm_solve_opt.cuh``; ``lm_solve_opt.cu`` for exp,
+``lm_solve_opt_<model>.cu`` for each other model; the planes' placement
+a runtime choice there),
+selected by ``lm_solve``'s arguments:
+
+- ``refine=n``: n unconditional damped Gauss-Newton steps at a fixed
+  damping (``ngmix_tpu/fitting/lm.py: run_gn_refine_batched``, the
+  sheared metacal types refined from the noshear optimum): the LM
+  step's pin test and damped Cholesky step without the trial
+  evaluation or the accept test, a step that is not finite dropped,
+  then one evaluation at the final point; plain version
+  ``fitting.lm.run_gn_refine_state``.
+- ``varpro=True``: variable projection of the flux
+  (``ngmix_tpu/batch.py: _run_varpro``). Each evaluation takes one
+  value-only pass over the pixels for the optimal flux F = sum(m y) /
+  sum(m^2) of the unit-flux model, then K1's pass at flux F, whose
+  residuals F m - y are formed pixel by pixel, and folds dF/dq into the
+  shape block. The LM runs over the first NP - 1 dims of the NP-wide
+  loop, the flux dim held at 0 with its row and column zeroed, so its
+  step is exactly 0 and the stopping tests are the reduced solve's. The
+  launch ends with the full-width evaluation at (q*, F(q*)) in the
+  reference's bad-point convention; plain version
+  ``batch.varpro_state``.
+
 The wrapper takes the plain version only for tensors on the CPU. For a
 CUDA tensor it launches the kernel or raises; it never falls back.
 """
@@ -93,9 +118,19 @@ MAX_NBAND = 6
 MAX_PRIOR_ROWS = 16
 
 # launches of the CUDA kernels since the last reset (set them to 0 to
-# reset): K3 and K3-mb
+# reset): K3, K3-mb, and K3 in its refine and varpro modes
 launches = 0
 launches_mb = 0
+launches_refine = 0
+launches_varpro = 0
+
+# the modes of K3's options kernel (csrc/lm_solve_opt.cuh: kModeRefine,
+# kModeVarpro)
+MODE_REFINE = 1
+MODE_VARPRO = 2
+
+# the damping of the refine mode's Gauss-Newton steps
+GN_LAMBDA = 1.0e-6
 
 _DTYPES = {torch.float32: "f32", torch.float64: "f64"}
 
@@ -118,11 +153,13 @@ def _prior_fn(prior):
     return None if prior is None else prior.fill_fdiff_jacobian
 
 
-def lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp", prior=None):
+def lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp", prior=None,
+                   refine=0, varpro=False):
     """plain PyTorch version of K3: the host loop of
     fitting.lm.run_lm_normal_state without compaction, over the model's
-    normal equations with K1's plain version and the prior's rows. Same
-    arguments and result as lm_solve."""
+    normal equations with K1's plain version and the prior's rows; with
+    refine, fitting.lm.run_gn_refine_state over the same; with varpro,
+    batch.varpro_state. Same arguments and result as lm_solve."""
     # batch imports this module, so its models are imported here
     from .. import batch
 
@@ -130,8 +167,14 @@ def lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp", prior=No
         planes, psf_gmix = data
         return batch._exp_normal_fn(pars, planes, psf_gmix, plain=True, model=model)
 
+    data = ((v, u, ia, ve), batch._psf_gmix(psf))
+    if refine:
+        return lm.run_gn_refine_state(normal_fn, data, guess, lo, hi, conf, niter=refine,
+                                      lam=GN_LAMBDA, prior_fn=_prior_fn(prior))
+    if varpro:
+        return batch.varpro_state(data, guess, lo, hi, conf, model)
     return lm.run_lm_normal_state(
-        normal_fn, ((v, u, ia, ve), batch._psf_gmix(psf)), guess, lo, hi,
+        normal_fn, data, guess, lo, hi,
         conf, compact_capacity=None, prior_fn=_prior_fn(prior),
     )
 
@@ -204,8 +247,7 @@ def _prior_table(prior, device):
     return tab.contiguous(), tab.shape[0]
 
 
-def _check(guess, lo, hi, psf, planes, conf, model, prior=None):
-    lm.check_supported(conf)
+def _check(guess, lo, hi, psf, planes, conf, model, prior=None, refine=0, varpro=False):
     npars = _check_model(model) + 1
     _check_prior(prior, npars, 1, model)
     if guess.dim() != 2 or guess.shape[1] != npars:
@@ -232,9 +274,17 @@ def _check(guess, lo, hi, psf, planes, conf, model, prior=None):
     if P < 1:
         raise ValueError("K3 needs P >= 1 pixels a lane, got %d" % P)
     _check_common(guess, (guess, lo, hi, psf) + tuple(planes), conf)
+    if not (isinstance(refine, int) and 0 <= refine < 2**31):
+        raise ValueError("refine must be an int >= 0, got %r" % (refine,))
+    if refine and varpro:
+        raise ValueError("refine and varpro are two modes; pass one")
+    if varpro and (prior is not None or bool(torch.isfinite(lo[-1]) | torch.isfinite(hi[-1]))):
+        raise ValueError("varpro solves the flux exactly: it takes no prior and an "
+                         "unbounded flux")
 
 
-def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp", prior=None):
+def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp", prior=None, refine=0,
+             varpro=False):
     """K3: the LM solve of the model (exp, gauss, dev, bdf or bd) of
     every lane.
 
@@ -250,13 +300,24 @@ def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp", prior=None):
     (one flux slot), or None. Any P >= 1: past MAX_P the kernel
     reads the planes from global memory. CPU tensors go to
     lm_solve_plain; CUDA tensors launch the model's kernel.
+
+    refine = n > 0: n damped Gauss-Newton steps from the guess at the
+    damping GN_LAMBDA, then one evaluation (fitting.lm.run_gn_refine_state's
+    state). varpro=True (no prior, lo[-1] and hi[-1] infinite): the
+    variable-projection solve of batch.varpro_state, whose state holds
+    the reduced solve over the nshape shape columns and, under "full",
+    the full-width evaluation at its optimum. Each is one launch of
+    K3's options kernel on CUDA tensors.
     """
     global launches
-    _check(guess, lo, hi, psf, (v, u, ia, ve), conf, model, prior)
+    _check(guess, lo, hi, psf, (v, u, ia, ve), conf, model, prior, refine, varpro)
     if guess.device.type == "cpu":
-        return lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf, model, prior)
+        return lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf, model, prior,
+                              refine=refine, varpro=varpro)
     if guess.device.type != "cuda":
         raise RuntimeError("K3 runs on CUDA or CPU tensors, not %s" % guess.device)
+    if refine or varpro:
+        return _lm_solve_opt(guess, lo, hi, psf, (v, u, ia, ve), conf, model, prior, refine)
 
     fn = getattr(_build.load(), c_name("lm_solve", model, guess.dtype))
     B, P = v.shape
@@ -282,6 +343,51 @@ def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp", prior=None):
     return out
 
 
+def _lm_solve_opt(guess, lo, hi, psf, planes, conf, model, prior, refine):
+    """one launch of K3's options kernel: refine mode for refine > 0,
+    else varpro mode"""
+    global launches_refine, launches_varpro
+    fn = getattr(_build.load(), c_name("lm_solve_opt", model, guess.dtype))
+    B, P = planes[0].shape
+    npars = guess.shape[1]
+    out = _empty_state(guess)
+    full = {k: out[k].new_empty(out[k].shape) for k in ("y", "cost", "cost_pix", "Jtr", "JtJ")}
+    if refine == 0:
+        # the reduced solve starts with the flux dim at internal 0
+        guess = guess.clone()
+        guess[:, -1] = 0.0
+    if B > 0:
+        counter = guess.new_zeros((1,), dtype=torch.int32)
+        tab, nprior = _prior_table(prior, guess.device)
+        with torch.cuda.device(guess.device):
+            err = fn(
+                guess.data_ptr(), lo.data_ptr(), hi.data_ptr(), psf.data_ptr(),
+                *(x.data_ptr() for x in planes), *(x.data_ptr() for x in out.values()),
+                counter.data_ptr(), None if tab is None else tab.data_ptr(),
+                *(x.data_ptr() for x in full.values()), B, P, nprior, conf.maxfev,
+                MODE_REFINE if refine else MODE_VARPRO, refine, *_conf_args(conf)[1:],
+                GN_LAMBDA, torch.cuda.current_stream().cuda_stream,
+            )
+        if err != 0:
+            raise RuntimeError("K3 lm_solve (%s mode) launch failed: CUDA error %d"
+                               % ("refine" if refine else "varpro", err))
+    if refine:
+        launches_refine += 1
+        return out
+    launches_varpro += 1
+    ns = npars - 1
+    state = {k: (v[:, :ns] if k in ("y", "Jtr", "pinned") else v[:, :ns, :ns] if k == "JtJ"
+                 else v) for k, v in out.items()}
+    # the constant fields of the full-width evaluation's state
+    # (fitting.lm.run_gn_refine_state at niter = 0)
+    ones = out["done"].new_ones((B,))
+    state["full"] = dict(full, lam=full["cost"].new_full((B,), GN_LAMBDA),
+                         nfev=out["nfev"].new_ones((B,)), done=ones, ier_small_step=ones,
+                         ier_small_cost=ones.new_zeros((B,)),
+                         pinned=out["pinned"].new_zeros((B, npars)))
+    return state
+
+
 def lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp",
                       prior=None):
     """plain PyTorch version of K3-mb: the host loop of
@@ -303,7 +409,6 @@ def lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp",
 
 
 def _check_mb(guess, lo, hi, psf, band, planes, conf, model, prior=None):
-    lm.check_supported(conf)
     nshape = _check_model(model)
     if guess.dim() != 2:
         raise ValueError("guess must be [B, %d + nband], got %s"
@@ -400,6 +505,17 @@ def kernel_attrs(dtype, P, model="exp"):
     err = getattr(_build.load(), c_name("lm_solve", model, dtype) + "_attrs")(P, out)
     if err != 0:
         raise RuntimeError("K3 lm_solve attributes failed: CUDA error %d" % err)
+    return _attrs(out)
+
+
+def kernel_attrs_opt(dtype, P, model="exp"):
+    """kernel_attrs of K3's options kernel (refine and varpro modes) for
+    the model at P pixels a lane"""
+    _check_model(model)
+    out = (ctypes.c_int * 5)()
+    err = getattr(_build.load(), c_name("lm_solve_opt", model, dtype) + "_attrs")(P, out)
+    if err != 0:
+        raise RuntimeError("K3 options kernel attributes failed: CUDA error %d" % err)
     return _attrs(out)
 
 

@@ -76,14 +76,10 @@ def gmix_reparam(gmix):
     return torch.stack([N, row, col, Fvv, Fvu, Fuu], dim=-1)
 
 
-def gmix_normal_eqs_plain(rp, chain, v, u, ia, ve):
-    """plain PyTorch version of K1, with the TPU kernel body's
-    arithmetic; materializes the [B, n, P] terms. The parameter count
-    npars is the chain's last dimension: 6 as in the kernel, or more
-    for the composite models, whose solves (K3's plain version) reduce
-    through this function too. Returns cost [B], Jtr [B, npars] and
-    JtJ [B, npars, npars]."""
-    npars = chain.shape[-1]
+def _pixel_terms(rp, v, u):
+    """the per-(gaussian, pixel) terms [B, n, P] of the apodized model,
+    with the TPU kernel body's arithmetic: N, dv, du, gv, gu, e, win and
+    dwin (the C2 window and its derivative) and mw = e win"""
     N, row, col, Fvv, Fvu, Fuu = (x[..., None] for x in rp.unbind(-1))
     dv = v[:, None, :] - row
     du = u[:, None, :] - col
@@ -101,7 +97,30 @@ def gmix_normal_eqs_plain(rp, chain, v, u, ia, ve):
     dwin = torch.where(hot & inwin, dwin, 0.0)
 
     e = torch.exp(-0.5 * torch.clamp(chi2, 0.0, FASTEXP_MAX_CHI2))
-    mw = e * win
+    return N, dv, du, gv, gu, e, win, dwin, e * win
+
+
+def gmix_model_plain(rp, v, u):
+    """the apodized model [B, P] of the reparametrized mixture rp [B, n,
+    6] at the pixels v, u [B, P] (without the pixel area), summed over
+    the gaussians in the order of K1's body: the value whose residuals
+    gmix_normal_eqs_plain reduces"""
+    N, *_, mw = _pixel_terms(rp, v, u)
+    f = torch.zeros_like(v)
+    for g in range(rp.shape[1]):
+        f = f + N[:, g] * mw[:, g]
+    return f
+
+
+def gmix_normal_eqs_plain(rp, chain, v, u, ia, ve):
+    """plain PyTorch version of K1, with the TPU kernel body's
+    arithmetic; materializes the [B, n, P] terms. The parameter count
+    npars is the chain's last dimension: 6 as in the kernel, or more
+    for the composite models, whose solves (K3's plain version) reduce
+    through this function too. Returns cost [B], Jtr [B, npars] and
+    JtJ [B, npars, npars]."""
+    npars = chain.shape[-1]
+    N, dv, du, gv, gu, e, win, dwin, mw = _pixel_terms(rp, v, u)
     # d(N e(chi2) w(chi2)) / d chi2
     c = N * e * (dwin - 0.5 * win)
     dq = (mw, -2.0 * c * gv, -2.0 * c * gu, c * dv * dv,

@@ -267,8 +267,17 @@ def test_measure_compaction_is_bitwise_exact(measure_inputs, port_measure):
         np.testing.assert_array_equal(port_measure[k], full[k].numpy(), err_msg=k)
 
 
-def test_measure_unported_options_raise(measure_inputs):
+def test_measure_unported_options_raise(measure_inputs, port_measure):
+    """the LM options are ported: flux_col leaves the measure's bits as
+    they are, varpro reaches the standard solve's optimum (the reference
+    test's tolerance) and raises its ValueError for a bounded flux"""
     _, tpix, sig = measure_inputs
-    for field in ("flux_col", "varpro"):
-        with pytest.raises(NotImplementedError, match="queue item 10"):
-            tbatch._exp_lm_measure(tpix, sig, tlm.LMConf(**{field: True}))
+    out = tbatch._exp_lm_measure(tpix, sig, tlm.LMConf(flux_col=True))
+    for k, v in port_measure.items():
+        np.testing.assert_array_equal(out[k].numpy(), v, err_msg=k)
+    vp = tbatch._exp_lm_measure(tpix, sig, tlm.LMConf(varpro=True))
+    np.testing.assert_array_equal(vp["flags"].numpy(), port_measure["flags"])
+    np.testing.assert_allclose(vp["pars"].numpy(), port_measure["pars"], rtol=1e-6, atol=1e-8)
+    box = ([-np.inf] * 5 + [0.0], [np.inf] * 6)
+    with pytest.raises(ValueError, match="unbounded flux"):
+        tbatch._exp_lm_measure(tpix, sig, tlm.LMConf(varpro=True), bounds=box)

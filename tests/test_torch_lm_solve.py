@@ -244,7 +244,8 @@ def _mock_card(monkeypatch, ret):
         calls.append(args)
         return ret
 
-    lib = types.SimpleNamespace(**{lm_solve.c_name("lm_solve", m, dt): fake_kernel
+    lib = types.SimpleNamespace(**{lm_solve.c_name(k, m, dt): fake_kernel
+                                   for k in ("lm_solve", "lm_solve_opt")
                                    for m in lm_solve.MODELS
                                    for dt in (torch.float32, torch.float64)})
     monkeypatch.setattr(_build, "load", lambda: lib)
@@ -328,8 +329,19 @@ def test_bad_inputs_raise():
                                                 for x in (v, u, ia, ve)), conf)
     with pytest.raises(ValueError, match="maxfev"):
         lm_solve.lm_solve(guess, lo, hi, psf, v, u, ia, ve, tlm.LMConf(maxfev=0))
-    with pytest.raises(NotImplementedError, match="queue item 10"):
-        lm_solve.lm_solve(guess, lo, hi, psf, v, u, ia, ve, tlm.LMConf(varpro=True))
+    # the LMConf options do not change K3's solve; its modes are arguments
+    a = lm_solve.lm_solve(guess, lo, hi, psf, v, u, ia, ve, tlm.LMConf(varpro=True,
+                                                                      flux_col=True))
+    b = lm_solve.lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf)
+    for k in b:
+        torch.testing.assert_close(a[k], b[k], rtol=0, atol=0, msg=k)
+    with pytest.raises(ValueError, match="two modes"):
+        lm_solve.lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, refine=2, varpro=True)
+    with pytest.raises(ValueError, match="refine"):
+        lm_solve.lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, refine=-1)
+    with pytest.raises(ValueError, match="unbounded flux"):
+        lm_solve.lm_solve(guess, lo, torch.cat([hi[:-1], hi.new_ones(1)]), psf, v, u, ia, ve,
+                          conf, varpro=True)
     with pytest.raises(RuntimeError):
         lm_solve.lm_solve(*(x.to("meta") for x in (guess, lo, hi, psf, v, u, ia, ve)),
                           conf)

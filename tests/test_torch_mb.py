@@ -197,9 +197,11 @@ def test_unported_options_raise_mb():
         with pytest.raises(ValueError, match="parameter slots"):
             nt.make_metacal_pipeline_mb_fn(CONF, one, 1, measure=measure, device="cpu",
                                            lm_prior=_prior_of(measure, 2))
-        with pytest.raises(NotImplementedError, match="queue item 10"):
-            nt.make_metacal_pipeline_mb_fn(CONF, one, 1, measure=measure, device="cpu",
-                                           lm_conf=nt.LMConf(flux_col=True))
+        # the LM options are accepted and change nothing in the mb fit,
+        # as in the reference: varpro's guards do not apply
+        nt.make_metacal_pipeline_mb_fn(CONF, one, 1, measure=measure, device="cpu",
+                                       lm_conf=nt.LMConf(flux_col=True, varpro=True),
+                                       lm_prior=_prior_of(measure, 1))
     for kw in (dict(lm_prior=object()), dict(lm_prior=object(), lm_bounds=([0] * 7, [1] * 7))):
         with pytest.raises(TypeError, match="PriorBDFSep.*PriorSimpleSep"):
             nt.make_metacal_pipeline_mb_fn(CONF, one, 2, device="cpu", **kw)
@@ -207,11 +209,25 @@ def test_unported_options_raise_mb():
     with pytest.raises(ValueError, match="parameter slots"):
         nt.make_metacal_pipeline_mb_fn(CONF, one, 2, device="cpu",
                                        lm_prior=_prior_of("exp-lm", 1))
-    for kw in (dict(lm_conf=nt.LMConf(varpro=True)), dict(lm_conf=nt.LMConf(flux_col=True))):
-        with pytest.raises(NotImplementedError, match="queue item 10"):
-            nt.make_metacal_pipeline_mb_fn(CONF, one, 2, device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="queue item 10"):
-        nt.make_metacal_pipeline_mb_fn(CONF._replace(sheared_refine=2), one, 1, device="cpu")
+    for kw in (dict(lm_conf=nt.LMConf(varpro=True), lm_bounds=([0] * 7, [1] * 7)),
+               dict(lm_conf=nt.LMConf(flux_col=True))):
+        nt.make_metacal_pipeline_mb_fn(CONF, one, 2, device="cpu", **kw)
+    nt.make_metacal_pipeline_mb_fn(CONF._replace(sheared_refine=2), one, 1, device="cpu")
+
+
+def test_lm_options_change_nothing_mb(mb_inputs, port_runs):
+    """conf.sheared_refine, LMConf.flux_col and LMConf.varpro in the mb
+    pipeline: the reference's mb path reads none of them, so its result is
+    its result without them (held against the port's in
+    test_exp_lm_mb_matches_jax), and the port's is its own without them,
+    bit for bit"""
+    out = _port_mb(mb_inputs, BAND, NBAND, conf=CONF._replace(sheared_refine=3),
+                   lm_conf=nt.LMConf(flux_col=True, varpro=True))
+    ref = port_runs["shared"]
+    for t in jbatch.GALSHEAR_TYPES:
+        assert set(out[t]) == set(ref[t])
+        for k, v in ref[t].items():
+            np.testing.assert_array_equal(out[t][k], v, err_msg=(t, k))
 
 
 def test_mb_sims_tile_the_flat_sims():

@@ -266,10 +266,13 @@ def test_bad_inputs_raise_mb():
                              .transpose(0, 1), u, ia, ve, conf)
     with pytest.raises(ValueError, match="maxfev"):
         lm_solve.lm_solve_mb(guess, lo, hi, psf, band, *planes, tlm.LMConf(maxfev=0))
-    with pytest.raises(NotImplementedError, match="queue item 10"):
-        lm_solve.lm_solve_mb(guess, lo, hi, psf, band, *planes, tlm.LMConf(varpro=True))
-    # a [B, E] band map and an [E] one give the same solve
+    # a [B, E] band map and an [E] one give the same solve, and the
+    # LMConf options change nothing in the mb fit, as in the reference
     a = lm_solve.lm_solve_mb(guess, lo, hi, psf, band, *planes, conf)
+    c = lm_solve.lm_solve_mb(guess, lo, hi, psf, band, *planes,
+                             conf._replace(varpro=True, flux_col=True))
+    for k in a:
+        torch.testing.assert_close(c[k], a[k], rtol=0, atol=0, msg=k)
     b = lm_solve.lm_solve_mb(guess, lo, hi, psf, band.expand(3, 2).contiguous(), *planes, conf)
     for k in a:
         torch.testing.assert_close(a[k], b[k], rtol=0, atol=0, msg=k)
