@@ -9,8 +9,10 @@ multi-band workload, its pre-psf moments (standalone and as the pgauss
 and ksigma metacal measures), its single-gaussian EM, the gauss and
 dev LM models, the bdf and bd bulge+disk models, the
 prior-regularized exp and bdf fits, the LM options (variable
-projection, sheared-type refinement) and the scale-out path (ragged
-catalogs, checkpoints, a process group); and holds the hand-written CUDA
+projection, sheared-type refinement), the scale-out path (ragged
+catalogs, checkpoints, a process group) and the single-object host
+API (the admom, gaussmom, pre-psf and EM fitters, GMix.make_image);
+and holds the hand-written CUDA
 kernels K2 (mixture evaluation), K1 (LM normal
 equations), K3 (every lane's whole LM solve of the exp, gauss, dev, bdf
 or bd model, and its refine and varpro modes) and K3-mb (every object's
@@ -291,10 +293,27 @@ printing one timed line as soon as it ends:
            checkpoint shards, resumed at index 1 and read back equal;
            a one-process NCCL group: the sharded flat (512 stamps) and mb
            (128 objects) pipelines' rows and calibration equal to the
-           unsharded calls'.
-The float64 CPU sides of phases 5, 9, 15, 17-24 run in CPU_WORKERS
-spawned processes of one thread each from the end of phase 2, while the
-card runs the phases before them.
+           unsharded calls';
+26. host:  the single-object host API in float64 on the card, on the
+           first stamps of the sims (seed HOST_SEED) as Observations with
+           their psf stamps: AdmomFitter.go on 64 objects from guesses
+           drawn in numpy, GaussMom.go on 64, PGaussMom and KSigmaMom
+           (FWHM 2.0) on 16 and EMFitter.go (one round gaussian, the delta
+           psf) on 8, each object held to its row of one admom_batch,
+           gaussmom_measure, prepsfmom_batch or em_batch call on the same
+           stamps and guesses (flags and numiter equal, rtol 1e-10 and
+           atol 1e-12; pre-psf rtol 1e-10, atol 1e-13,
+           tests/test_prepsfmom.py:226), with K2 launched
+           2 numiter + 1 times an admom object and once a gaussmom object,
+           counted from 0 over the host run; GMix.make_image of an exp
+           mixture (n = 6), exact and fast, against its CPU render at rtol
+           1e-12 with an atol of 1e-12 of the peak; K2 at the host shapes
+           (one lane of 2401 pixels, n = 1 and 6) against its plain
+           version and timed; each fitter's ms an object, beside the
+           card's name and power limit.
+The float64 CPU sides of phases 5, 9, 15, 17-24 and 26 run in
+CPU_WORKERS spawned processes of one thread each from the end of phase
+2, while the card runs the phases before them.
 Needs one CUDA card and exits nonzero, printing the reason, on any
 failure or without a card. The last line is the JSON result.
 """
@@ -1913,6 +1932,7 @@ def start_cpu_side(device):
     submit_prior_cpu(side, hom, truth)
     for name, (measure, box, conf, lm_conf) in OPTION_RUNS.items():
         side.submit("24 " + name, option_cpu_results, flat, measure, box, conf, lm_conf)
+    side.submit("26 render", host_render, [torch.tensor(HOST_RENDER_PARS)], "cpu")
     return side
 
 
@@ -3503,6 +3523,197 @@ def scaleout_phase(device, t_all, n=512):
 
 
 
+# ----------------------------------------------------------------------
+# the host single-object API
+
+# objects a host fitter takes in phase 26, and the seed of its sims
+HOST_N = {"admom": 64, "gaussmom": 64, "prepsf": 16, "em": 8}
+HOST_SEED = 26
+# the exp mixture (n = 6) that GMix.make_image renders, card and CPU
+HOST_RENDER_PARS = (0.1, -0.05, 0.2, -0.1, 0.5, 100.0)
+# the host fitters against their batched counterparts: rtol 1e-10 and
+# gaussmom's atol (tests/test_torch_gaussmom.py), pre-psf's
+# (tests/test_prepsfmom.py:226)
+HOST_RTOL, HOST_ATOL = 1e-10, 1e-12
+PREPSF_RTOL, PREPSF_ATOL = 1e-10, 1e-13
+
+
+def host_render(args, device):
+    """GMix.make_image of the exp mixture of pars args[0] on a 49x49
+    stamp under the sims' WCS, exact and fast, on device"""
+    gm = nt.GMixModel(args[0].tolist(), "exp")
+    jac = nt.DiagonalJacobian(row=24.3, col=23.8, scale=nt.sims.SCALE)
+    return [gm.make_image(nt.sims.DIMS, jacobian=jac, fast_exp=fast, device=device)
+            for fast in (False, True)]
+
+
+def host_observations(sims, n, device):
+    """the first n sim stamps as Observations on device, each with its
+    psf stamp as its psf Observation, under the sims' WCS centered on
+    the stamp's center"""
+    imgs, wts, cens, pimgs, pcens, _ = (a[:n].cpu().numpy() for a in sims)
+
+    def jac(c):
+        return nt.DiagonalJacobian(row=c[0], col=c[1], scale=nt.sims.SCALE)
+
+    return [nt.Observation(imgs[i], weight=wts[i], jacobian=jac(cens[i]), device=device,
+                           psf=nt.Observation(pimgs[i], jacobian=jac(pcens[i]), device=device))
+            for i in range(n)]
+
+
+def stacked_pixels(obs):
+    """the observations' pixel structs stacked into one [n, P] struct"""
+    return nt.pixels.Pixels(*(torch.stack([o.pixels[k] for o in obs]) for k in range(5)))
+
+
+def hold_rows(host, batch, what, rtol=HOST_RTOL, atol=HOST_ATOL):
+    """each host result (a dict of numbers and arrays) against its row
+    of the batched result (a dict of tensors): integer fields equal,
+    the others within rtol and atol with NaNs in the same places.
+    Returns the largest share of the tolerance a difference takes"""
+    worst = 0.0
+    for k, col in batch.items():
+        if k not in host[0]:
+            continue
+        b = col.detach().cpu().double().reshape(len(host), -1)
+        a = torch.stack([torch.as_tensor(np.asarray(h[k], dtype=np.float64)).reshape(-1)
+                         for h in host])
+        if not col.is_floating_point():
+            if not torch.equal(a, b):
+                raise SmokeFailure("%s: %s differs from the batched call" % (what, k))
+            continue
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            raise SmokeFailure("%s: the NaNs of %s differ from the batched call" % (what, k))
+        a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+        tol = rtol * b.abs() + atol
+        err = (a - b).abs()
+        if bool((err > tol).any()):
+            raise SmokeFailure("%s: %s differs from the batched call by %.3e"
+                               % (what, k, float(err.max())))
+        worst = max(worst, float((err / tol).max()))
+    return worst
+
+
+def host_phase(device, t_all, cpu_side):
+    """phase 26: the single-object host API on the card in float64 on
+    the sims' 49x49 stamps, each fitter held object by object to its
+    batched counterpart on the same stamps and guesses; GMix.make_image
+    against its CPU render (the CPU side from cpu_side); K2 at the host
+    shapes"""
+    t0 = time.perf_counter()
+    dtype = torch.float64
+    sims = nt.make_sim_batch(torch.Generator(device=device).manual_seed(HOST_SEED),
+                             max(HOST_N.values()), dtype, device=device)
+    obs = host_observations(sims, max(HOST_N.values()), device)
+    scale = nt.sims.SCALE
+    rng = np.random.RandomState(HOST_SEED)
+    guesses = [nt.GMixModel([*rng.uniform(-scale / 2, scale / 2, 2), *rng.uniform(-0.3, 0.3, 2),
+                             0.6 * (1 + rng.uniform(-0.1, 0.1)), 1.0], "gauss")
+               for _ in range(HOST_N["admom"])]
+    em_guess = nt.GMixModel([0.0, 0.0, 0.0, 0.0, 0.6, 1.0], "gauss")
+    prepsf = {"pgauss": nt.PGaussMom(PREPSF_FWHM), "ksigma": nt.KSigmaMom(PREPSF_FWHM)}
+
+    # the host API's run: K2's launches counted from 0, each fitter timed
+    host, ms, k2 = {}, {}, {}
+
+    def run(name, n, fn):
+        _sync(device)
+        gmix_eval.launches = 0
+        t = time.perf_counter()
+        host[name] = [fn(i) for i in range(n)]
+        _sync(device)
+        ms[name] = (time.perf_counter() - t) * 1e3 / n
+        k2[name] = gmix_eval.launches
+
+    fitter = nt.admom.AdmomFitter()
+    run("admom", HOST_N["admom"], lambda i: fitter.go(obs[i], guesses[i]))
+    gmom = nt.GaussMom(1.2)
+    run("gaussmom", HOST_N["gaussmom"], lambda i: gmom.go(obs[i]))
+    for name, m in prepsf.items():
+        run(name, HOST_N["prepsf"], lambda i: m.go(obs[i]))
+    em = nt.EMFitter()
+    run("em", HOST_N["em"], lambda i: em.go(obs[i], em_guess))
+    run("make_image", 1, lambda i: host_render([torch.tensor(HOST_RENDER_PARS)], device))
+    want = {"admom": sum(2 * r["numiter"] + 1 for r in host["admom"]),
+            "gaussmom": HOST_N["gaussmom"], "pgauss": 0, "ksigma": 0, "em": 0, "make_image": 2}
+    if k2 != want:
+        raise SmokeFailure("host API: K2 launches %s, expected %s" % (k2, want))
+
+    # the batched counterparts on the same stamps and guesses
+    n = HOST_N["admom"]
+    area = torch.full((n,), scale**2, dtype=dtype, device=device)
+    wt0 = torch.tensor(np.stack([g.get_data()[0] for g in guesses]), device=device)
+    shares = {"admom": hold_rows(host["admom"], nt.admom_batch(
+        stacked_pixels(obs[:n]), wt0, area, nt.AdmomConf(), device=device), "AdmomFitter")}
+    n = HOST_N["gaussmom"]
+    shares["gaussmom"] = hold_rows(host["gaussmom"], nt.gaussmom.gaussmom_measure(
+        stacked_pixels(obs[:n]), 1.2, area[:n]), "GaussMom")
+    n = HOST_N["prepsf"]
+    imgs, wts, cens, pimgs, pcens, _ = (a[:n] for a in sims)
+    tot_var = torch.tensor([float(np.sum(1.0 / o.weight[o.weight > 0])) for o in obs[:n]],
+                           dtype=dtype, device=device)
+    for name in prepsf:
+        shares[name] = hold_rows(host[name], nt.prepsfmom_batch(
+            imgs, cens, pimgs, pcens, tot_var, target_dim=4 * nt.sims.DIMS[0], kernel=name,
+            jac_tuple=nt.sims.JAC, fwhm=PREPSF_FWHM, device=device), "PrePSFMom " + name,
+            rtol=PREPSF_RTOL, atol=PREPSF_ATOL)
+    n = HOST_N["em"]
+    preps = [nt.em.prep_obs(o) for o in obs[:n]]
+    batch = nt.em_batch(stacked_pixels([p[0] for p in preps]),
+                        torch.tensor(np.stack([em_guess.get_data()] * n), device=device),
+                        torch.tensor([[[1.0, 0, 0, 0, 0, 0]]] * n, dtype=dtype, device=device),
+                        torch.tensor([p[1] for p in preps], dtype=dtype, device=device),
+                        nt.EMConf(), device=device)
+    em_rows = [dict(r, gmix=r.get_gmix().get_data(),
+                    gmix_conv=r.get_convolved_gmix().get_data()) for r in host["em"]]
+    shares["em"] = hold_rows(em_rows, {k: batch[k] for k in ("flags", "numiter", "gmix",
+                                                             "gmix_conv", "sky", "fdiff")},
+                             "EMFitter")
+
+    # GMix.make_image on the card against its CPU render
+    _, cpu_imgs = cpu_side.get("26 render")
+    card_imgs = host["make_image"][0]
+    render_err = 0.0
+    for mode, a, b in zip(("exact", "fast"), card_imgs, cpu_imgs):
+        err = np.abs(a - b)
+        tol = 1e-12 * np.abs(b) + 1e-12 * np.abs(b).max()
+        if not np.all(err <= tol):
+            raise SmokeFailure("GMix.make_image %s: the card's render differs from the CPU's "
+                               "by %.3e" % (mode, err.max()))
+        render_err = max(render_err, float((err / np.abs(b).max()).max()))
+
+    # K2 at the host shapes: one lane of 2401 pixels, admom's weight
+    # (n = 1, fast) and the render (n = 6, exact)
+    px = obs[0].pixels
+    v, u, a1 = (x[None].contiguous() for x in (px.v, px.u, px.area))
+    wt = torch.as_tensor(guesses[0].get_data(), device=device)[None]
+    gm6 = nt.GMixModel(list(HOST_RENDER_PARS), "exp").to_device(device)[None]
+    rows = [dict(time_k2("host admom weight n=1 [1x2401]", wt, v, u, a1, True),
+                 launches_a_object=want["admom"] / HOST_N["admom"]),
+            dict(time_k2("host make_image n=6 [1x2401]", gm6, v, u, scale**2, False),
+                 launches_a_object=1)]
+    numiter = np.array([r["numiter"] for r in host["admom"]])
+    phase_line("26 host", t0, "%s; float64 49x49 sims, each object against the batched call's "
+               "row (flags, numiter equal; rtol %g + atol %g, pre-psf rtol %g + atol %g; "
+               "largest share of it): AdmomFitter %d objects %.3f (numiter mean "
+               "%.2f, max %d) %.3f ms/object, K2 %d launches; GaussMom %d %.3f %.3f ms/object, "
+               "K2 %d; PGaussMom %d %.3f %.3f ms/object; KSigmaMom %d %.3f %.3f ms/object; "
+               "EMFitter %d %.3f %.3f ms/object; GMix.make_image exp n=6 exact and fast, card "
+               "against CPU within rtol 1e-12 + 1e-12 of the peak (max err %.3e of the peak), "
+               "%.3f ms; K2 %s; total %.1f s"
+               % (card_line(), HOST_RTOL, HOST_ATOL, PREPSF_RTOL, PREPSF_ATOL,
+                  HOST_N["admom"], shares["admom"], numiter.mean(), numiter.max(), ms["admom"],
+                  k2["admom"], HOST_N["gaussmom"], shares["gaussmom"], ms["gaussmom"],
+                  k2["gaussmom"], HOST_N["prepsf"], shares["pgauss"], ms["pgauss"],
+                  HOST_N["prepsf"], shares["ksigma"], ms["ksigma"], HOST_N["em"],
+                  shares["em"], ms["em"], render_err, ms["make_image"],
+                  "; ".join("%s %.4f ms (plain %.4f, bound %.5f, %s), %.1f launches an object"
+                            % (r["shape"], r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"],
+                               r["launches_a_object"]) for r in rows),
+                  time.perf_counter() - t_all))
+    return dict(k2_launches={"host " + k: v for k, v in k2.items() if v}, k2_rows=rows)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -3539,8 +3750,8 @@ def main():
 
 
 def phases(device, t_all, kind, cpu_side):
-    """phases 3-25 and the kernels line, with the CPU sides of phases 5,
-    9, 15 and 17-24 from cpu_side"""
+    """phases 3-26 and the kernels line, with the CPU sides of phases 5,
+    9, 15, 17-24 and 26 from cpu_side"""
     t0 = time.perf_counter()
     max_abs, ncase, worst = check_kernel(device)
     indep = check_k2_batch_independence(device)
@@ -3685,6 +3896,7 @@ def phases(device, t_all, kind, cpu_side):
     pri = prior_phase(device, t_all, cpu_side)
     opt = options_phase(device, t_all, cpu_side)
     scaleout_phase(device, t_all)
+    hst = host_phase(device, t_all, cpu_side)
     prepsf_launches = {k: g["launches"] for k, g in prepsf.items() if "dilate" not in k}
 
     top = rows[0]
@@ -3698,14 +3910,16 @@ def phases(device, t_all, kind, cpu_side):
         "launches": (launches + k2_lm_launches + admom_launches + sum(k2_modes.values())
                      + mb_launches["k2"] + sum(prepsf_launches.values())
                      + sum(models["k2_launches"].values()) + sum(comp["k2_launches"].values())
-                     + sum(pri["k2_launches"].values()) + sum(opt["k2_launches"].values())),
+                     + sum(pri["k2_launches"].values()) + sum(opt["k2_launches"].values())
+                     + sum(hst["k2_launches"].values())),
         "launches_by_path": dict({"gaussmom": launches, "exp-lm": k2_lm_launches,
                                   "admom": admom_launches, "mb exp-lm": mb_launches["k2"]},
                                  **k2_modes, **prepsf_launches, **models["k2_launches"],
                                  **comp["k2_launches"], **pri["k2_launches"],
-                                 **opt["k2_launches"]),
+                                 **opt["k2_launches"], **hst["k2_launches"]),
         "max_abs_err": max(max_abs, *(r["max_abs_err"] for r in rows + admom_rows + mb_k2_rows
-                                      + [prepsf_row, models["k2_row"], comp["k2_row"]]),
+                                      + [prepsf_row, models["k2_row"], comp["k2_row"]]
+                                      + hst["k2_rows"]),
                            lm_rows[1]["max_abs_err"]),
         "ms": top["ms"],
         "plain_ms": top["plain_ms"],
@@ -3715,7 +3929,8 @@ def phases(device, t_all, kind, cpu_side):
         "attrs": {k: top[k] for k in ("regs", "static_smem", "dynamic_smem",
                                       "blocks_per_sm")},
         "shapes": rows + [lm_rows[1]] + admom_rows + mb_k2_rows + [prepsf_row, models["k2_row"],
-                                                                   comp["k2_row"]],
+                                                                   comp["k2_row"]]
+        + hst["k2_rows"],
     }, {
         "name": "normal_eqs",
         "route": "cuda",

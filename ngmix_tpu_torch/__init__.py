@@ -15,9 +15,54 @@ is one launch of K3 (ops/lm_solve.py, csrc/lm_solve.cuh), and the joint
 multi-band solve one launch of K3-mb (csrc/lm_solve_mb.cuh); their
 plain versions are the host loop over K1,
 the LM's normal equations (ops/normal_eqs.py, csrc/normal_eqs.cu).
+
+The host single-object API keeps the JAX package's names: the data
+model (Observation, ObsList, MultiBandObsList, Jacobian, GMix and its
+models, Shape) with numpy arrays at the surface and the pixels on a
+device, and the single-object fitters of the batched measures
+(admom.AdmomFitter, gaussmom.GaussMom, prepsfmom.KSigmaMom and
+PGaussMom, em.EMFitter), each one lane of its batched loop, with the
+mixture evaluations through K2.
+
 Entry points run on the CUDA card unless the caller passes
 device="cpu".
 """
+from . import gexceptions  # noqa: F401
+from . import jacobian  # noqa: F401
+from . import moments  # noqa: F401
+from . import pixels  # noqa: F401
+from . import shape  # noqa: F401
+from . import util  # noqa: F401
+from .util import print_pars
+from .gexceptions import (
+    BootGalFailure,
+    BootPSFFailure,
+    FFTRangeError,
+    GMixFatalError,
+    GMixMaxIterEM,
+    GMixRangeError,
+    NGmixBaseException,
+    PSFFluxFailure,
+)
+from .jacobian import DiagonalJacobian, Jacobian, UnitJacobian
+from .shape import Shape
+from . import gmix  # noqa: F401
+from . import observation  # noqa: F401
+from .observation import MultiBandObsList, Observation, ObsList, get_mb_obs
+from .gmix.gmix import GMix, GMixCM, GMixCoellip, GMixModel, make_gmix_model
+from .gmix.gmix_lists import GMixList, MultiBandGMixList
+from . import em  # noqa: F401
+from .em import EMFitter, run_em
+from . import admom  # noqa: F401
+from . import prepsfmom  # noqa: F401
+from . import ksigmamom  # noqa: F401
+from .prepsfmom import KSigmaMom, PGaussMom
+from . import gaussmom  # noqa: F401
+from . import fastexp  # noqa: F401
+fastexp_nb = fastexp
+from . import containers  # noqa: F401
+from .admom import AdmomFitter, find_cen_admom, run_admom
+from .gaussmom import GaussMom
 from .admom import AdmomConf, admom_batch
 from .batch import (
     MetacalConfig,
@@ -36,6 +81,38 @@ from .prepsfmom import prepsfmom_batch
 from .sims import make_sim_batch, make_sim_batch_hetero, make_sim_batch_mb
 
 __all__ = [
+    "AdmomFitter",
+    "BootGalFailure",
+    "BootPSFFailure",
+    "DiagonalJacobian",
+    "EMFitter",
+    "FFTRangeError",
+    "GMix",
+    "GMixCM",
+    "GMixCoellip",
+    "GMixFatalError",
+    "GMixList",
+    "GMixMaxIterEM",
+    "GMixModel",
+    "GMixRangeError",
+    "GaussMom",
+    "Jacobian",
+    "KSigmaMom",
+    "MultiBandGMixList",
+    "MultiBandObsList",
+    "NGmixBaseException",
+    "ObsList",
+    "Observation",
+    "PGaussMom",
+    "PSFFluxFailure",
+    "Shape",
+    "UnitJacobian",
+    "find_cen_admom",
+    "get_mb_obs",
+    "make_gmix_model",
+    "print_pars",
+    "run_admom",
+    "run_em",
     "AdmomConf",
     "EMConf",
     "LMConf",

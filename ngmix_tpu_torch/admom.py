@@ -16,8 +16,12 @@ n = 1, with the pixels' area (``gmix.core._eval_batched``); the JAX
 package evaluates it with the plain ``eval_gmix``, and routing it
 through the kernel is this port's choice. On CPU tensors K2 is its
 plain version, so the plain version of this module is the same loop on
-the CPU. The host API (AdmomResult, AdmomFitter, run_admom,
-find_cen_admom, admom_fit) waits for ROADMAP queue item 13.
+the CPU.
+
+The host API (``admom_fit``, ``AdmomResult``, ``AdmomFitter``,
+``run_admom``, ``find_cen_admom``) runs one stamp as one lane of the
+same loop on the observation's device, so on the card its weight goes
+through K2 twice an iteration and once more for the covariance.
 """
 from typing import NamedTuple
 
@@ -27,7 +31,11 @@ import torch
 from . import flags as nf
 from .defaults import GMIX_LOW_DETVAL
 from .gmix import core as gcore
+from .gmix.gmix import GMix, GMixModel
+from .moments import fwhm_to_T
+from .observation import Observation
 from .pixels import Pixels
+from .shape import _t, e1e2_to_g1g2
 from .util import get_ratio_error, resolve_device
 
 DEFAULT_MAXITER = 200
@@ -410,4 +418,161 @@ def admom_batch(pixels, wt0, jac_area, conf: AdmomConf, device=None):
     res = admom_result(raw, torch.as_tensor(jac_area, dtype=dtype, device=dev))
     res["numiter"] = raw["numiter"]
     res["wt"] = raw["wt"]
+    return res
+
+
+def admom_fit(pixels, wt0, jac_area, conf: AdmomConf):
+    """adaptive moments of one stamp, one lane of admom_raw on the
+    pixels' device: pixels fields [P] tensors, wt0 [6]; returns the
+    result dict of admom_result for the stamp with numiter and wt"""
+    pixels = Pixels(*(x[None] for x in pixels))
+    raw = admom_raw(pixels, torch.as_tensor(wt0, device=pixels.val.device)[None], conf)
+    res = admom_result(raw, jac_area)
+    res["numiter"] = raw["numiter"]
+    res["wt"] = raw["wt"]
+    return {k: v[0] for k, v in res.items()}
+
+
+# ----------------------------------------------------------------------
+# host API
+
+class AdmomResult(dict):
+    """admom fit result of one observation"""
+
+    def __init__(self, obs, result):
+        self._obs = obs
+        self.update(result)
+
+    def get_gmix(self):
+        if self["flags"] != 0:
+            raise RuntimeError("cannot create gmix, fit failed")
+        pars = np.array(self["pars"], copy=True)
+        pars[5] = 1.0
+        e1 = pars[2] / pars[4]
+        e2 = pars[3] / pars[4]
+        g1, g2 = (float(x) for x in e1e2_to_g1g2(_t(e1), _t(e2)))
+        pars[2] = g1
+        pars[3] = g2
+        return GMixModel(pars, "gauss")
+
+    def make_image(self):
+        """the fitted gaussian at the image's flux, rendered through K2
+        on the observation's device"""
+        if self["flags"] != 0:
+            raise RuntimeError("cannot create image, fit failed")
+        obs = self._obs
+        gm = self.get_gmix()
+        gm.set_flux(obs.image.sum())
+        return gm.make_image(obs.image.shape, jacobian=obs.jacobian, device=obs.device)
+
+
+_INT_KEYS = ("flags", "flux_flags", "T_flags", "rho4_flags")
+_FLOAT_KEYS = ("flux", "flux_err", "flux_mean", "T", "T_err", "rho4", "rho4_err", "s2n",
+               "e1", "e2", "e1err", "e2err", "wsum", "sums_norm")
+
+
+class AdmomFitter(object):
+    """adaptive moments fitter (kind = "am"); go(obs, guess) takes a
+    GMix guess or a T guess, from which a gaussian is drawn with rng"""
+
+    kind = "am"
+
+    def __init__(self, maxiter=DEFAULT_MAXITER, shiftmax=DEFAULT_SHIFTMAX,
+                 etol=DEFAULT_ETOL, Ttol=DEFAULT_TTOL, cenonly=False,
+                 rng=None):
+        self.conf = AdmomConf(
+            maxiter=maxiter, shiftmax=shiftmax, etol=etol, Ttol=Ttol,
+            cenonly=cenonly,
+        )
+        self.rng = rng
+
+    def go(self, obs, guess):
+        if not isinstance(obs, Observation):
+            raise ValueError("input obs must be an Observation")
+
+        guess_gmix = self._get_guess(obs=obs, guess=guess)
+        pixels = obs.pixels
+        wt0 = torch.as_tensor(guess_gmix.get_data()[0], dtype=pixels.val.dtype,
+                              device=pixels.val.device)
+
+        res = admom_fit(pixels, wt0, obs.jacobian.area, self.conf)
+        result = {k: v.cpu().numpy() for k, v in res.items() if k != "wt"}
+        for k in _INT_KEYS:
+            result[k] = int(result[k])
+            result[k.replace("flags", "flagstr")] = nf.get_flags_str(result[k])
+        result["numiter"] = int(result["numiter"])
+        for k in _FLOAT_KEYS:
+            result[k] = float(result[k])
+        return AdmomResult(obs=obs, result=result)
+
+    def _get_guess(self, obs, guess):
+        if isinstance(guess, GMix):
+            return guess
+        return self._generate_guess(obs=obs, Tguess=guess)
+
+    def _get_rng(self):
+        if self.rng is None:
+            self.rng = np.random.RandomState()
+        return self.rng
+
+    def _generate_guess(self, obs, Tguess):
+        rng = self._get_rng()
+        scale = obs.jacobian.get_scale()
+        pars = np.zeros(6)
+        pars[0:2] = rng.uniform(low=-0.5 * scale, high=0.5 * scale, size=2)
+        pars[2:4] = rng.uniform(low=-0.3, high=0.3, size=2)
+        pars[4] = Tguess * (1.0 + rng.uniform(low=-0.1, high=0.1))
+        pars[5] = 1.0
+        return GMixModel(pars, "gauss")
+
+
+def run_admom(obs, guess, maxiter=DEFAULT_MAXITER, shiftmax=DEFAULT_SHIFTMAX,
+              etol=DEFAULT_ETOL, Ttol=DEFAULT_TTOL, cenonly=False, rng=None):
+    """run adaptive moments on one observation"""
+    am = AdmomFitter(
+        maxiter=maxiter, shiftmax=shiftmax, etol=etol, Ttol=Ttol,
+        cenonly=cenonly, rng=rng,
+    )
+    return am.go(obs=obs, guess=guess)
+
+
+def find_cen_admom(obs, fwhm=None, gmix=None, maxiter=DEFAULT_MAXITER,
+                   shiftmax=DEFAULT_SHIFTMAX, etol=DEFAULT_ETOL,
+                   Ttol=DEFAULT_TTOL, ntry=1, rng=None):
+    """center-only adaptive moments, retried up to ntry times from a
+    center drawn with rng within half a pixel; res["cen"] is the
+    fitted center, NaN on failure"""
+    if ntry > 1 and rng is None:
+        raise ValueError(
+            "send a random number generator rng= when trying more than once "
+            "this facilitates generating a new guess for the center"
+        )
+
+    if gmix is not None:
+        wt = gmix.copy()
+    elif fwhm is not None:
+        T = float(fwhm_to_T(fwhm))
+        wt = GMixModel([0.0, 0.0, 0.0, 0.0, T, 1.0], "gauss")
+    else:
+        raise ValueError("send gmix= or fwhm=")
+
+    scale = obs.jacobian.scale
+    am = AdmomFitter(
+        maxiter=maxiter, shiftmax=shiftmax, etol=etol, Ttol=Ttol,
+        cenonly=True,
+    )
+
+    res = None
+    for itry in range(ntry):
+        res = am.go(obs=obs, guess=wt)
+        if res["flags"] == 0:
+            break
+        if ntry > 1:
+            drow, dcol = rng.uniform(low=-scale / 2, high=scale / 2, size=2)
+            wt.set_cen(row=drow, col=dcol)
+
+    if res["flags"] == 0:
+        res["cen"] = res.get_gmix().get_cen()
+    else:
+        res["cen"] = np.zeros(2) + np.nan
     return res

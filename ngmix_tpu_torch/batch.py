@@ -86,8 +86,11 @@ _MEASURES = ("gaussmom", "admom") + _LM_MEASURES + _PREPSF_MEASURES
 _PSF_MODES = ("gauss", "azgauss", "fitgauss", "dilate")
 
 
-def _host_jacobian(conf):
-    return Jacobian(*(float(x) for x in conf.jac))
+def _host_jacobian(conf, row0=0.0, col0=0.0):
+    return Jacobian(
+        row=row0, col=col0, dvdrow=conf.jac[0], dvdcol=conf.jac[1],
+        dudrow=conf.jac[2], dudcol=conf.jac[3],
+    )
 
 
 def _type_shear(type_, step):

@@ -4,9 +4,15 @@ This system has no weights. Its state is the pipeline configuration
 and the arrays that go in: the MetacalConfig, LMConf, AdmomConf and
 EMConf fields (the plain dict that a NamedTuple's ``_asdict()``
 gives, or the attributes of a plain configuration object), the LM
-priors (``prior_from_object``) and mixtures and pixel planes as numpy
-arrays. Nothing here imports JAX; JAX arrays are read through numpy.
+priors (``prior_from_object``), mixtures and pixel planes as numpy
+arrays, and the host data model: observations (with their psf and
+attachments, in their lists), jacobians and mixtures
+(``observation_from_object``, ``jacobian_from_object``,
+``gmix_from_object``). Nothing here imports JAX or the JAX package:
+objects are read through their attributes and numpy, by class name.
 """
+import copy
+
 import numpy as np
 import torch
 
@@ -15,6 +21,9 @@ from .admom import AdmomConf
 from .batch import MetacalConfig
 from .em import EMConf
 from .fitting.lm import LMConf
+from .gmix.gmix import GMix, GMixCM, GMixCoellip, GMixModel
+from .jacobian import Jacobian
+from .observation import MultiBandObsList, Observation, ObsList
 from .pixels import Pixels
 
 
@@ -126,3 +135,60 @@ def prior_from_object(obj):
         raise TypeError("no prior of the port for %s: the ported priors are %s"
                         % (type(obj).__name__, ", ".join(sorted(_PRIOR_FIELDS))))
     return make(obj)
+
+
+def jacobian_from_object(jac):
+    """the port's Jacobian of another package's jacobian (anything with
+    row0, col0, dvdrow, dvdcol, dudrow and dudcol)"""
+    return Jacobian(row=jac.row0, col=jac.col0, dvdrow=jac.dvdrow, dvdcol=jac.dvdcol,
+                    dudrow=jac.dudrow, dudcol=jac.dudcol)
+
+
+def gmix_from_object(gm):
+    """the port's mixture of another package's GMix, GMixModel, GMixCM
+    or GMixCoellip (by class name; any other class becomes a GMix of
+    its full pars). The model's pars are read from its ``_pars`` and
+    the [n, 6] data is copied as it is."""
+    name = type(gm).__name__
+    if name == "GMixModel":
+        out = GMixModel(np.asarray(gm._pars), gm._model_name)
+    elif name == "GMixCM":
+        out = GMixCM(float(gm._fracdev), float(gm._TdByTe), np.asarray(gm._pars))
+    elif name == "GMixCoellip":
+        out = GMixCoellip(np.asarray(gm._pars))
+    else:
+        out = GMix(pars=np.asarray(gm.get_full_pars()))
+    out.get_data()[:] = np.asarray(gm.get_data(), dtype=np.float64)
+    return out
+
+
+_PLANE_NAMES = ("bmask", "ormask", "noise", "mfrac")
+
+
+def observation_from_object(obs, device=None):
+    """the port's Observation, ObsList or MultiBandObsList of another
+    package's (by class name), with the psf, the mixture, the planes
+    bmask/ormask/noise/mfrac and the metadata; the pixels go on device
+    (the CUDA card unless the caller passes one)"""
+    name = type(obs).__name__
+    if name in ("ObsList", "MultiBandObsList"):
+        out = (ObsList if name == "ObsList" else MultiBandObsList)(meta=copy.deepcopy(obs.meta))
+        for sub in obs:
+            out.append(observation_from_object(sub, device=device))
+        return out
+    if name != "Observation":
+        raise TypeError("expected an Observation, ObsList or MultiBandObsList, got %s" % name)
+    planes = {k: np.array(getattr(obs, k)) for k in _PLANE_NAMES
+              if getattr(obs, "has_" + k)()}
+    return Observation(
+        np.array(obs.image),
+        weight=np.array(obs.weight),
+        jacobian=jacobian_from_object(obs.jacobian),
+        gmix=gmix_from_object(obs.get_gmix()) if obs.has_gmix() else None,
+        psf=observation_from_object(obs.get_psf(), device=device) if obs.has_psf() else None,
+        meta=copy.deepcopy(obs.meta),
+        store_pixels=obs.store_pixels,
+        ignore_zero_weight=obs.ignore_zero_weight,
+        device=device,
+        **planes,
+    )

@@ -13,9 +13,13 @@ active (not done and under maxiter) takes the new state, the others
 keep theirs through ``torch.where`` on every field, and the loop reads
 the count of active lanes from the device once per iteration, as
 admom.admom_raw does. A lane's result does not depend on its batch.
-The host API (EMFitter, run_em, prep_obs, EMResult) waits for ROADMAP
-queue item 13.
+
+The host API (``prep_obs``, ``EMResult``, ``EMFitter`` with
+``EMFitterFixCen``, ``EMFitterFixCov`` and ``EMFitterFluxOnly``,
+``run_em``, and ``em_fit``) fits one observation as one lane of the
+same loop on the observation's device.
 """
+import logging
 from typing import NamedTuple
 
 import numpy as np
@@ -24,8 +28,12 @@ import torch
 from . import flags as nf
 from .defaults import FASTEXP_MAX_CHI2, GMIX_LOW_DETVAL
 from .gmix import core as gcore
+from .gmix.gmix import GMix, GMixModel
+from .observation import Observation
 from .pixels import Pixels
 from .util import resolve_device
+
+logger = logging.getLogger(__name__)
 
 DEFAULT_TOL = 1.0e-5
 DEFAULT_MINITER = 40
@@ -284,3 +292,160 @@ def prep_image(images):
     im_max = torch.amax(images, dim=(-2, -1))
     sky = 0.001 * (im_max - im_min) - im_min
     return images + sky[..., None, None], sky
+
+
+def em_fit(pixels, gmix0, gmix_psf, sky, conf: EMConf):
+    """EM of one stamp, one lane of em_raw on the pixels' device:
+    pixels fields [P] tensors, gmix0 [n, 6], gmix_psf [m, 6], sky a
+    number; returns em_raw's dict for the stamp"""
+    dtype, dev = pixels.val.dtype, pixels.val.device
+    out = em_raw(
+        Pixels(*(x[None] for x in pixels)),
+        torch.as_tensor(gmix0, dtype=dtype, device=dev)[None],
+        torch.as_tensor(gmix_psf, dtype=dtype, device=dev)[None],
+        torch.as_tensor(sky, dtype=dtype, device=dev).reshape(1),
+        conf,
+    )
+    return {k: v[0] for k, v in out.items()}
+
+
+# ----------------------------------------------------------------------
+# host API
+
+def prep_obs(obs):
+    """a copy of obs with its sky shifted by prep_image, and the shift"""
+    imsky, sky = prep_image(torch.tensor(obs.image))
+    newobs = obs.copy()
+    with newobs.writeable():
+        newobs.image[:, :] = imsky.numpy()
+    return newobs, float(sky)
+
+
+class EMResult(dict):
+    """EM fit result of one observation, with the fitted pre-psf and
+    convolved mixtures"""
+
+    def __init__(self, obs, result, gm=None, gm_conv=None):
+        self._obs = obs
+        self.update(result)
+        if gm is not None and gm_conv is not None:
+            self._gm = gm
+            self._gm_conv = gm_conv
+
+    def has_gmix(self):
+        return hasattr(self, "_gm")
+
+    def get_gmix(self):
+        if not self.has_gmix():
+            raise RuntimeError("no gmix set")
+        return self._gm.copy()
+
+    def get_convolved_gmix(self):
+        if not self.has_gmix():
+            raise RuntimeError("no gmix set")
+        return self._gm_conv.copy()
+
+    def make_image(self):
+        """the convolved mixture rendered through K2 on the
+        observation's device"""
+        gm = self.get_convolved_gmix()
+        return gm.make_image(
+            self._obs.image.shape, jacobian=self._obs.jacobian, device=self._obs.device
+        )
+
+
+class EMFitter(object):
+    """EM fitter of one observation; go(obs, guess, sky=None) takes a
+    pre-psf GMix guess and, without sky, shifts the image by
+    prep_obs"""
+
+    mode = "free"
+
+    def __init__(self, miniter=DEFAULT_MINITER, maxiter=DEFAULT_MAXITER,
+                 tol=DEFAULT_TOL, vary_sky=False):
+        self.miniter = miniter
+        self.maxiter = maxiter
+        self.tol = tol
+        self.vary_sky = vary_sky
+
+    def go(self, obs, guess, sky=None):
+        if not isinstance(obs, Observation):
+            raise ValueError("input obs must be an instance of Observation")
+
+        if sky is None:
+            obs_sky, sky = prep_obs(obs)
+        else:
+            obs_sky = obs
+
+        if not obs_sky.has_psf() or not obs_sky.psf.has_gmix():
+            logger.debug("NO PSF SET")
+            gmix_psf = GMixModel([0.0, 0.0, 0.0, 0.0, 0.0, 1.0], "gauss")
+        else:
+            gmix_psf = obs_sky.psf.gmix
+            gmix_psf.set_flux(1.0)
+
+        pixels = obs_sky.pixels
+        fill_zero_weight = bool(torch.any(pixels.ierr <= 0.0))
+
+        conf = EMConf(
+            mode=self.mode, miniter=self.miniter, maxiter=self.maxiter,
+            tol=self.tol, vary_sky=self.vary_sky,
+            fill_zero_weight=fill_zero_weight,
+        )
+
+        out = em_fit(pixels, guess.get_data(), gmix_psf.get_data(), sky, conf)
+
+        flags = int(out["flags"])
+        if flags & nf.EM_RANGE_ERROR:
+            result = {
+                "flags": nf.EM_RANGE_ERROR,
+                "message": "gtot == 0 or elogL == 0",
+            }
+            gm = gm_conv = None
+        else:
+            gm = GMix(pars=out["gmix"].cpu().numpy().ravel())
+            gm_conv = GMix(pars=out["gmix_conv"].cpu().numpy().ravel())
+            result = {
+                "flags": flags,
+                "numiter": int(out["numiter"]),
+                "fdiff": float(out["fdiff"]),
+                "sky": float(out["sky"]),
+                "message": "maxit" if flags & nf.EM_MAXITER else "OK",
+            }
+
+        return EMResult(obs=obs, result=result, gm=gm, gm_conv=gm_conv)
+
+
+class EMFitterFixCen(EMFitter):
+    mode = "fixcen"
+
+
+class EMFitterFixCov(EMFitter):
+    mode = "fixcov"
+
+
+class EMFitterFluxOnly(EMFitter):
+    mode = "fluxonly"
+
+    def __init__(self, miniter=20, maxiter=DEFAULT_MAXITER, tol=DEFAULT_TOL,
+                 vary_sky=False):
+        super().__init__(
+            miniter=miniter, maxiter=maxiter, tol=tol, vary_sky=vary_sky
+        )
+
+
+def run_em(obs, guess, sky=None, fixcen=False, fixcov=False, fluxonly=False,
+           **kws):
+    """fit the observation with EM"""
+    if fixcen:
+        fitter = EMFitterFixCen(**kws)
+    elif fixcov:
+        fitter = EMFitterFixCov(**kws)
+    elif fluxonly:
+        fitter = EMFitterFluxOnly(**kws)
+    else:
+        fitter = EMFitter(**kws)
+    return fitter.go(obs=obs, guess=guess, sky=sky)
+
+
+fit_em = run_em

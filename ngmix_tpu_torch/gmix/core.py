@@ -1,11 +1,11 @@
 """Gaussian-mixture operations on dense [..., n, 6] tensors.
 
-The main-path subset of ``ngmix_tpu/gmix/core.py``: columns are
-(p, row, col, irr, irc, icc), every function broadcasts over leading
-batch dims, and invalid gaussians evaluate to zero instead of raising.
-The batched [B, P] evaluations of the moment sums and of the s/n sums
-(``get_weighted_sums``, ``get_loglike``) go through K2
-(ops/gmix_eval.py).
+The port of ``ngmix_tpu/gmix/core.py``: columns are (p, row, col, irr,
+irc, icc), every function broadcasts over leading batch dims, and
+invalid gaussians evaluate to zero instead of raising. The [..., P]
+evaluations over pixel grids (``render``, ``get_weighted_sums``,
+``get_loglike``, ``get_model_s2n_sum``, ``fill_fdiff``) go through K2
+(ops/gmix_eval.py) on every lane of their leading dims.
 """
 import numpy as np
 import torch
@@ -14,7 +14,7 @@ from .. import flags as _flags
 from ..defaults import FASTEXP_APOD_CHI2, FASTEXP_MAX_CHI2, GMIX_LOW_DETVAL
 from ..moments import get_sheared_moments
 from ..ops import gmix_eval
-from ..shape import g1g2_to_e1e2
+from ..shape import e1e2_to_g1g2, g1g2_to_e1e2, get_round_factor
 from . import tables
 
 # column indices of the gmix tensor
@@ -120,6 +120,12 @@ def _eval_batched(gmix, pixels, fast):
     ).reshape(pixels.v.shape)
 
 
+def render(gmix, coords, fast=True):
+    """the mixture over a coords struct (pixels.make_coords), flat
+    [..., npix], through K2"""
+    return _eval_batched(gmix, coords, fast)
+
+
 def get_loglike(gmix, pixels):
     """log likelihood and s/n sums over a pixel struct: (loglike,
     s2n_numer, s2n_denom, npix), each [...]. Masked pixels carry
@@ -141,11 +147,17 @@ def get_loglike(gmix, pixels):
 
 
 def fill_fdiff(gmix, pixels):
-    """scaled residuals (model - data) * ierr, [..., P]; masked pixels
-    give 0 rows. Broadcasting tensor code (differentiable with
-    torch.func); the LM's normal equations go through K1 instead."""
-    model = eval_gmix(gmix, pixels.v, pixels.u, pixels.area, fast=True)
+    """scaled residuals (model - data) * ierr, [..., P], the apodized
+    model through K2; masked pixels give 0 rows"""
+    model = _eval_batched(gmix, pixels, fast=True)
     return (model - pixels.val) * pixels.ierr
+
+
+def get_model_s2n_sum(gmix, pixels):
+    """sum(model^2 * ivar) [...], the apodized model through K2"""
+    model = _eval_batched(gmix, pixels, fast=True)
+    ivar = pixels.ierr * pixels.ierr
+    return torch.sum(model * model * ivar, dim=-1)
 
 
 # ----------------------------------------------------------------------
@@ -159,6 +171,66 @@ def gmix_get_cen(gmix):
     row = torch.sum(p * gmix[..., G_ROW], dim=-1) / psum_safe
     col = torch.sum(p * gmix[..., G_COL], dim=-1) / psum_safe
     return row, col, psum
+
+
+def gmix_get_e1e2T(gmix):
+    """total (e1, e2, T) [...] about the flux-weighted center; NaN where
+    psum == 0 or T <= 0 (callers flag)"""
+    row, col, psum = gmix_get_cen(gmix)
+    p = gmix[..., G_P]
+    rowdiff = gmix[..., G_ROW] - row[..., None]
+    coldiff = gmix[..., G_COL] - col[..., None]
+
+    irr_sum = torch.sum(p * (gmix[..., G_IRR] + rowdiff * rowdiff), dim=-1)
+    irc_sum = torch.sum(p * (gmix[..., G_IRC] + rowdiff * coldiff), dim=-1)
+    icc_sum = torch.sum(p * (gmix[..., G_ICC] + coldiff * coldiff), dim=-1)
+
+    T_sum = irr_sum + icc_sum
+    ok = (psum != 0) & (T_sum > 0)
+    T_sum_safe = torch.where(ok, T_sum, 1.0)
+    psum_safe = torch.where(psum == 0, 1.0, psum)
+
+    T = torch.where(ok, T_sum / psum_safe, torch.nan)
+    e1 = torch.where(ok, (icc_sum - irr_sum) / T_sum_safe, torch.nan)
+    e2 = torch.where(ok, 2.0 * irc_sum / T_sum_safe, torch.nan)
+    return e1, e2, T
+
+
+def gmix_get_T(gmix):
+    """flux-weighted T about the common center"""
+    _, _, T = gmix_get_e1e2T(gmix)
+    return T
+
+
+def gmix_set_cen(gmix, row, col):
+    """the mixture shifted so that its flux-weighted center is (row, col)"""
+    row0, col0, _ = gmix_get_cen(gmix)
+    out = gmix.clone()
+    out[..., G_ROW] += (row - row0)[..., None]
+    out[..., G_COL] += (col - col0)[..., None]
+    return out
+
+
+def gmix_set_flux(gmix, flux):
+    """the mixture with p rescaled so that sum(p) = flux"""
+    psum = torch.sum(gmix[..., G_P], dim=-1)
+    rat = flux / torch.where(psum == 0, 1.0, psum)
+    out = gmix.clone()
+    out[..., G_P] *= rat[..., None]
+    return out
+
+
+def gmix_make_round(gmix):
+    """the round version: each component's T times the round factor of
+    the total shape, irc = 0"""
+    e1, e2, _ = gmix_get_e1e2T(gmix)
+    g1, g2 = e1e2_to_g1g2(e1, e2)
+    half = 0.5 * (gmix[..., G_IRR] + gmix[..., G_ICC]) * get_round_factor(g1, g2)[..., None]
+    out = gmix.clone()
+    out[..., G_IRC] = 0.0
+    out[..., G_IRR] = half
+    out[..., G_ICC] = half
+    return out
 
 
 def gmix_convolve(gmix, psf):
@@ -257,6 +329,35 @@ def fill_gauss(pars):
     )
 
 
+def fill_coellip(pars):
+    """co-centric, co-elliptical mixture from pars [..., 4 + 2 n] =
+    (row, col, g1, g2, T_1..T_n, F_1..F_n)"""
+    n = (pars.shape[-1] - 4) // 2
+    # the per-model values keep a trailing axis of 1, as in fill_simple
+    row, col, g1, g2 = pars[..., :4].split(1, dim=-1)
+    e1, e2 = g1g2_to_e1e2(g1, g2)
+    Thalf = 0.5 * pars[..., 4:4 + n]
+    flux = pars[..., 4 + n:4 + 2 * n]
+    gm = torch.stack(
+        [
+            flux,
+            torch.broadcast_to(row, flux.shape),
+            torch.broadcast_to(col, flux.shape),
+            Thalf * (1 - e1),
+            Thalf * e2,
+            Thalf * (1 + e1),
+        ],
+        dim=-1,
+    )
+    return gm, _g_flags(g1[..., 0], g2[..., 0])
+
+
+def fill_full(pars):
+    """independent gaussians from pars [..., 6 n]"""
+    gm = pars.reshape(pars.shape[:-1] + (-1, 6))
+    return gm, torch.zeros(pars.shape[:-1], dtype=torch.int32, device=pars.device)
+
+
 # the composite (bulge + disk) models: the 6 exp gaussians of weight
 # 1 - fracdev and the 10 dev gaussians of weight fracdev, the dev sizes
 # scaled by Td/Te, all sizes by Tfactor = 1 / sum_g p_g f_g
@@ -306,15 +407,36 @@ def fill_bdf(pars):
                    torch.ones_like(fracdev))
 
 
+GMIX_FILL_FUNCS = {
+    "exp": fill_exp,
+    "dev": fill_dev,
+    "turb": fill_turb,
+    "gauss": fill_gauss,
+    "bd": fill_bd,
+    "bdf": fill_bdf,
+    "coellip": fill_coellip,
+    "full": fill_full,
+}
+
+
+def gmix_fill(model, pars, fracdev=None, TdByTe=None):
+    """fill by model name or number -> (gmix, flags)"""
+    name = tables.get_model_name(model)
+    if name == "cm":
+        return fill_cm(pars, fracdev, TdByTe)
+    return GMIX_FILL_FUNCS[name](pars)
+
+
 # ----------------------------------------------------------------------
 # weighted moment sums
 
-def _moment_feature_list(vmod, umod, v, u):
+def _moment_feature_list(vmod, umod, v, u, higher_order=False):
     """moment basis functions as a list of [..., npix] tensors, in the
-    order of moments.MOMENTS_NAME_MAP. The first two are the absolute
-    coords v, u; the quadratic terms use centered coords."""
+    order of moments.MOMENTS_NAME_MAP (17 with higher_order, else 6).
+    The first two are the absolute coords v, u; the quadratic and
+    higher terms use centered coords."""
     rad2 = umod * umod + vmod * vmod
-    return [
+    feats = [
         v,
         u,
         umod * umod - vmod * vmod,
@@ -322,6 +444,25 @@ def _moment_feature_list(vmod, umod, v, u):
         rad2,
         torch.ones_like(rad2),
     ]
+    if higher_order:
+        u2 = umod * umod
+        v2 = vmod * vmod
+        vu = vmod * umod
+        r4 = rad2 * rad2
+        feats += [
+            umod * rad2,
+            vmod * rad2,
+            umod * (u2 - 3 * v2),
+            vmod * (3 * u2 - v2),
+            r4,
+            rad2 * (u2 - v2),
+            rad2 * 2 * vu,
+            u2 * u2 - 6 * u2 * v2 + v2 * v2,
+            (u2 - v2) * 4 * vu,
+            r4 * rad2,
+            r4 * r4,
+        ]
+    return feats
 
 
 def weighted_feature_reductions(w, feats, cov_weight=None):
@@ -343,14 +484,15 @@ def weighted_feature_reductions(w, feats, cov_weight=None):
     return sums, cov
 
 
-def get_weighted_sums(wt, pixels, maxrad, with_cov=True):
+def get_weighted_sums(wt, pixels, maxrad, higher_order=False, with_cov=True):
     """weighted moment sums with their covariance.
 
     wt [..., n, 6] is the weight mixture, evaluated with the exact
     (untruncated) exponential times the pixel area through K2;
     pixels fields are [..., npix] with the same leading dims. Returns a
-    dict with sums [..., 6], sums_cov [..., 6, 6] (None without
-    with_cov), wsum, npix and flags.
+    dict with sums [..., nmom], sums_cov [..., nmom, nmom] (None without
+    with_cov), wsum, npix and flags; nmom is 17 with higher_order, else
+    6.
     """
     vcen = wt[..., 0, G_ROW]
     ucen = wt[..., 0, G_COL]
@@ -369,10 +511,19 @@ def get_weighted_sums(wt, pixels, maxrad, with_cov=True):
     wdata = weight * pixels.val
     w2var = weight * weight * var
 
-    feats = _moment_feature_list(vmod, umod, pixels.v, pixels.u)
-    sums, sums_cov = weighted_feature_reductions(
-        wdata, feats, cov_weight=w2var if with_cov else None
-    )
+    feats = _moment_feature_list(vmod, umod, pixels.v, pixels.u, higher_order)
+    if len(feats) <= 8:
+        sums, sums_cov = weighted_feature_reductions(
+            wdata, feats, cov_weight=w2var if with_cov else None
+        )
+    else:
+        # the 17 higher-order moments as contractions, as in the JAX
+        # package
+        F = torch.stack(feats, dim=-1)
+        sums = torch.einsum("...p,...pi->...i", wdata, F)
+        sums_cov = (
+            torch.einsum("...p,...pi,...pj->...ij", w2var, F, F) if with_cov else None
+        )
     return {
         "sums": sums,
         "sums_cov": sums_cov,

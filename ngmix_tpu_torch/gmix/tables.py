@@ -1,8 +1,9 @@
 """Fixed (p, f) gaussian-expansion tables of the exp, dev, gauss and
-turb models.
+turb models, and the model registry.
 
-The port's own copy of the tables in ``ngmix_tpu/gmix/tables.py``:
-they are part of the model definition and match it exactly.
+The port's own copy of the tables and the registry in
+``ngmix_tpu/gmix/tables.py``: they are part of the model definition
+and match it exactly.
 """
 import numpy as np
 
@@ -75,3 +76,120 @@ MODEL_TABLES = {
     "turb": (PVALS_TURB, FVALS_TURB),
     "gauss": (PVALS_GAUSS, FVALS_GAUSS),
 }
+
+# model registry -------------------------------------------------------
+
+GMIX_FULL = 0
+GMIX_GAUSS = 1
+GMIX_TURB = 2
+GMIX_EXP = 3
+GMIX_DEV = 4
+GMIX_BDC = 5
+GMIX_BDF = 6
+GMIX_COELLIP = 7
+GMIX_CM = 9
+GMIX_BD = 10
+
+_gmix_model_dict = {
+    "full": GMIX_FULL,
+    GMIX_FULL: GMIX_FULL,
+    "gauss": GMIX_GAUSS,
+    GMIX_GAUSS: GMIX_GAUSS,
+    "turb": GMIX_TURB,
+    GMIX_TURB: GMIX_TURB,
+    "exp": GMIX_EXP,
+    GMIX_EXP: GMIX_EXP,
+    "dev": GMIX_DEV,
+    GMIX_DEV: GMIX_DEV,
+    "bdc": GMIX_BDC,
+    GMIX_BDC: GMIX_BDC,
+    "bd": GMIX_BD,
+    GMIX_BD: GMIX_BD,
+    "bdf": GMIX_BDF,
+    GMIX_BDF: GMIX_BDF,
+    "cm": GMIX_CM,
+    GMIX_CM: GMIX_CM,
+    "coellip": GMIX_COELLIP,
+    GMIX_COELLIP: GMIX_COELLIP,
+}
+
+_gmix_string_dict = {
+    GMIX_FULL: "full",
+    GMIX_GAUSS: "gauss",
+    GMIX_TURB: "turb",
+    GMIX_EXP: "exp",
+    GMIX_DEV: "dev",
+    GMIX_BDC: "bdc",
+    GMIX_BD: "bd",
+    GMIX_BDF: "bdf",
+    GMIX_CM: "cm",
+    GMIX_COELLIP: "coellip",
+}
+_gmix_string_dict.update({v: v for v in _gmix_string_dict.values()})
+
+_gmix_npars_dict = {
+    GMIX_GAUSS: 6,
+    GMIX_TURB: 6,
+    GMIX_EXP: 6,
+    GMIX_DEV: 6,
+    GMIX_CM: 6,
+    GMIX_BD: 8,
+    GMIX_BDF: 7,
+    GMIX_BDC: 8,
+}
+
+_gmix_ngauss_dict = {
+    GMIX_GAUSS: 1,
+    "gauss": 1,
+    GMIX_TURB: 3,
+    "turb": 3,
+    GMIX_EXP: 6,
+    "exp": 6,
+    GMIX_DEV: 10,
+    "dev": 10,
+    GMIX_CM: 16,
+    GMIX_BD: 16,
+    GMIX_BDF: 16,
+    GMIX_BDC: 16,
+    "em1": 1,
+    "em2": 2,
+    "em3": 3,
+    "em4": 4,
+    "em5": 5,
+    "coellip1": 1,
+    "coellip2": 2,
+    "coellip3": 3,
+    "coellip4": 4,
+    "coellip5": 5,
+}
+
+
+def get_model_num(model):
+    if model not in _gmix_model_dict:
+        raise ValueError("unknown model: '%s'" % model)
+    return _gmix_model_dict[model]
+
+
+def get_model_name(model):
+    if model not in _gmix_string_dict:
+        raise ValueError("unknown model: '%s'" % model)
+    return _gmix_string_dict[model]
+
+
+def get_model_ngauss(model):
+    key = model if model in _gmix_ngauss_dict else get_model_num(model)
+    if key not in _gmix_ngauss_dict:
+        raise ValueError("unknown model: '%s'" % model)
+    return _gmix_ngauss_dict[key]
+
+
+def get_model_npars(model):
+    return _gmix_npars_dict[get_model_num(model)]
+
+
+def get_coellip_npars(ngauss):
+    return 4 + 2 * ngauss
+
+
+def get_coellip_ngauss(npars):
+    return (npars - 4) // 2

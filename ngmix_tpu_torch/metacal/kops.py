@@ -60,11 +60,15 @@ def _build_pixel_kresponse(N):
     return s[:, None] * s[None, :]
 
 
-def _build_sky_kvu(N, jac):
+def _wcs(jac):
+    """the hashable WCS matrix (dvdrow, dvdcol, dudrow, dudcol) of a
+    jacobian, or of anything with those four fields"""
+    return tuple(float(getattr(jac, k)) for k in ("dvdrow", "dvdcol", "dudrow", "dudcol"))
+
+
+def _build_sky_kvu(N, wcs):
     kr, kc = _build_kgrids(N)
-    J = np.array(
-        [[jac.dvdrow, jac.dvdcol], [jac.dudrow, jac.dudcol]], dtype=float
-    )
+    J = np.array(wcs, dtype=float).reshape(2, 2)
     Jinv = np.linalg.inv(J)
     # k_sky = J^-T kappa
     kv = Jinv[0, 0] * kr + Jinv[1, 0] * kc
@@ -72,8 +76,8 @@ def _build_sky_kvu(N, jac):
     return kv, ku
 
 
-def _build_sky_ksq(N, jac):
-    kv, ku = _build_sky_kvu(N, jac)
+def _build_sky_ksq(N, wcs):
+    kv, ku = _build_sky_kvu(N, wcs)
     return kv * kv + ku * ku
 
 
@@ -134,8 +138,8 @@ _BUILDERS = {
     "kgrid_c": lambda N: _build_kgrids(N)[1],
     "signed": _signed,
     "pixel": _build_pixel_kresponse,
-    "sky_kv": lambda N, jac: _build_sky_kvu(N, jac)[0],
-    "sky_ku": lambda N, jac: _build_sky_kvu(N, jac)[1],
+    "sky_kv": lambda N, wcs: _build_sky_kvu(N, wcs)[0],
+    "sky_ku": lambda N, wcs: _build_sky_kvu(N, wcs)[1],
     "sky_ksq": _build_sky_ksq,
     "scale_w": _build_scale_w,
     "scale_fw": _build_scale_fw,
@@ -183,14 +187,14 @@ def sky_kvu(N, jac, dtype=torch.float64, device=None):
     """sky-frame k components (kv, ku) on the pixel-frame fft grid"""
     dev = _dev(device)
     return (
-        _const("sky_kv", (N, jac), dev, dtype),
-        _const("sky_ku", (N, jac), dev, dtype),
+        _const("sky_kv", (N, _wcs(jac)), dev, dtype),
+        _const("sky_ku", (N, _wcs(jac)), dev, dtype),
     )
 
 
 def sky_ksq(N, jac, dtype=torch.float64, device=None):
     """|k_sky|^2 on the pixel-frame grid, [N, N]"""
-    return _const("sky_ksq", (N, jac), _dev(device), dtype)
+    return _const("sky_ksq", (N, _wcs(jac)), _dev(device), dtype)
 
 
 # ----------------------------------------------------------------------

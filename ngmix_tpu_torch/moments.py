@@ -2,8 +2,11 @@
 
 Ports of ``ngmix_tpu/moments.py``: ``make_mom_result`` works on
 tensors with any leading batch dims and encodes every failure as a
-flag bit with torch.where, so it never raises on bad data.
+flag bit with torch.where, so it never raises on bad data. The size
+conversions take numbers, numpy arrays or tensors; ``result_to_host``
+turns a result dict into numpy with flag strings.
 """
+import numpy as np
 import torch
 
 from . import flags as _flags
@@ -43,12 +46,47 @@ MOMENTS_NAME_MAP = {
 SIGMA_TO_FWHM_FAC = 2.3548200450309493
 
 
+def _sqrt(x):
+    return torch.sqrt(x) if isinstance(x, torch.Tensor) else np.sqrt(x)
+
+
+def sigma_to_fwhm(sigma):
+    return sigma * SIGMA_TO_FWHM_FAC
+
+
 def fwhm_to_sigma(fwhm):
     return fwhm / SIGMA_TO_FWHM_FAC
 
 
+def T_to_fwhm(T):
+    return sigma_to_fwhm(_sqrt(T / 2.0))
+
+
 def fwhm_to_T(fwhm):
     return 2 * fwhm_to_sigma(fwhm) ** 2
+
+
+def r50_to_sigma(r50):
+    return fwhm_to_sigma(2.0 * r50)
+
+
+def sigma_to_r50(sigma):
+    return sigma_to_fwhm(sigma) / 2.0
+
+
+def r50_to_T(r50):
+    return 2 * r50_to_sigma(r50) ** 2
+
+
+def T_to_r50(T):
+    return sigma_to_r50(_sqrt(T / 2.0))
+
+
+def moms_to_e1e2(M1, M2, T):
+    """e = (M1 / T, M2 / T); T <= 0 gives NaN (flagged upstream)"""
+    T = shape._t(T)
+    Tsafe = torch.where(T <= 0.0, torch.nan, T)
+    return M1 / Tsafe, M2 / Tsafe
 
 
 def get_Tround(T, g1, g2):
@@ -59,6 +97,18 @@ def get_Tround(T, g1, g2):
 def get_T(Tround, g1, g2):
     gsq = g1**2 + g2**2
     return Tround * (1 + gsq) / (1 - gsq)
+
+
+def get_sheared_M1M2T(M1, M2, T, s1, s2):
+    """shear raw M1, M2, T moments"""
+    T = shape._t(T)
+    e1, e2 = moms_to_e1e2(shape._t(M1), shape._t(M2), T)
+    g1, g2 = shape.e1e2_to_g1g2(e1, e2)
+    g1s, g2s = shape.shear_reduced(g1, g2, s1, s2)
+    Tround = get_Tround(T, g1, g2)
+    Ts = get_T(Tround, g1s, g2s)
+    e1s, e2s = shape.g1g2_to_e1e2(g1s, g2s)
+    return Ts * e1s, Ts * e2s, Ts
 
 
 def get_sheared_g1g2T(g1, g2, T, s1, s2):
@@ -233,3 +283,51 @@ def _add_moments_by_name(res, nmom):
             )
             res[name] = val
             res[err_name] = torch.where(fsum_pos, err, torch.nan)
+
+
+def regularize_mom_shapes(res, fwhm_reg):
+    """regularized shapes e = M1,2 / (T + T_reg) of a result dict of
+    tensors; fwhm_reg <= 0 returns res"""
+    if fwhm_reg <= 0:
+        return res
+
+    raw_mom = res["sums"]
+    raw_mom_cov = res["sums_cov"]
+    T_reg = fwhm_to_T(fwhm_reg)
+
+    amat = torch.eye(6, dtype=raw_mom.dtype, device=raw_mom.device)
+    amat[4, 5] = T_reg
+
+    # pre-PSF measures leave the centroid moments NaN: 0 in the
+    # transform, NaN again after it
+    nan0 = torch.isnan(raw_mom[..., 0])
+    nan1 = torch.isnan(raw_mom[..., 1])
+    mom_in = raw_mom.clone()
+    mom_in[..., 0] = torch.where(nan0, 0.0, raw_mom[..., 0])
+    mom_in[..., 1] = torch.where(nan1, 0.0, raw_mom[..., 1])
+
+    reg_mom = torch.einsum("ij,...j->...i", amat, mom_in)
+    reg_mom[..., 0] = torch.where(nan0, torch.nan, reg_mom[..., 0])
+    reg_mom[..., 1] = torch.where(nan1, torch.nan, reg_mom[..., 1])
+    reg_mom_cov = torch.einsum("ij,...jk,lk->...il", amat, raw_mom_cov, amat)
+
+    momres = make_mom_result(reg_mom, reg_mom_cov, sums_norm=res.get("sums_norm"))
+    for col in ["T", "T_err", "T_flags"]:
+        momres[col] = res[col]
+    momres["flags"] = momres["flags"] | res["flags"]
+    return momres
+
+
+def result_to_host(res, index=None):
+    """a (possibly batched) result dict of tensors as numpy, one batch
+    element of it with index, with the flag strings of 0-d flags"""
+    out = {}
+    for k, v in res.items():
+        a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+        if index is not None and a.ndim > 0:
+            a = a[index]
+        out[k] = a
+    for fk in ("flags", "T_flags", "flux_flags"):
+        if fk in out and np.ndim(out[fk]) == 0:
+            out[fk.replace("flags", "flagstr")] = _flags.get_flags_str(int(out[fk]))
+    return out

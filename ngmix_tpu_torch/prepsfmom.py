@@ -19,19 +19,27 @@ The kernels and every matrix are static configuration, built in
 float64 numpy on the host and cached on the device per (kind,
 arguments, device, dtype). Products are complex ``torch.matmul`` with
 TF32 off (util.full_precision_matmuls). Device code never raises on
-bad data: flags carry failures. The host API (PrePSFMom, KSigmaMom,
-PGaussMom and the FFTRangeError check on kernel_nrm) waits for ROADMAP
-queue item 13.
+bad data: flags carry failures.
+
+The host API (``PrePSFMom``, ``KSigmaMom``, ``PGaussMom``) measures one
+observation by the full-FFT route, as the JAX package's does, on the
+observation's device, and raises FFTRangeError where the kernel's
+normalization on the padded grid is not 1.
 """
 import functools
+import logging
 
 import numpy as np
 import torch
 
 from .defaults import FASTEXP_MAX_CHI2
+from .gexceptions import FFTRangeError
 from .metacal.kops import complex_dtype
-from .moments import fwhm_to_sigma, make_mom_result
+from .moments import fwhm_to_sigma, make_mom_result, result_to_host
+from .observation import Observation
 from .util import full_precision_matmuls, resolve_device
+
+logger = logging.getLogger(__name__)
 
 
 # ----------------------------------------------------------------------
@@ -508,3 +516,168 @@ def prepsfmom_batch(images, cens, psf_images, psf_cens, tot_var, target_dim,
     )
     res["kernel_nrm"] = torch.full((B,), plan["nrm"], dtype=dtype, device=dev)
     return res
+
+
+# ----------------------------------------------------------------------
+# host API
+
+class PrePSFMom(object):
+    """pre-psf weighted moments of one observation with the ksigma
+    kernel or the gaussian one ("gauss" or "pgauss")"""
+
+    def __init__(self, fwhm, kernel, pad_factor=4, ap_rad=1.5,
+                 fwhm_smooth=0, use_noise_image=False):
+        self.fwhm = fwhm
+        self.pad_factor = pad_factor
+        self.kernel = kernel
+        self.ap_rad = ap_rad
+        self.fwhm_smooth = fwhm_smooth
+        self.use_noise_image = use_noise_image
+        if self.kernel == "ksigma":
+            self.kind = "ksigma"
+        elif self.kernel in ["gauss", "pgauss"]:
+            self.kind = "pgauss"
+        else:
+            raise ValueError(
+                "The kernel '%s' for PrePSFMom is not recognized!"
+                % self.kernel
+            )
+
+    def go(self, obs, return_kernels=False, no_psf=False):
+        """the moments result dict (numpy, with flag strings) of obs;
+        no_psf deconvolves the pixel response alone. return_kernels is
+        taken for the reference's signature and returns nothing more,
+        as in the JAX package."""
+        psf_obs = _check_obs_and_get_psf_obs(obs, no_psf)
+
+        if psf_obs is not None and (
+            psf_obs.image.shape[0] > obs.image.shape[0]
+        ):
+            target_dim = int(psf_obs.image.shape[0] * self.pad_factor)
+        else:
+            target_dim = int(obs.image.shape[0] * self.pad_factor)
+
+        jac = obs.jacobian
+        jac_tuple = (jac.dvdrow, jac.dvdcol, jac.dudrow, jac.dudcol)
+
+        msk = obs.weight > 0
+        tot_var = float(np.sum(1.0 / obs.weight[msk]))
+
+        full_precision_matmuls()
+        dev = obs.device
+
+        def one(x):
+            return torch.tensor(np.asarray(x, dtype=np.float64), device=dev)[None]
+
+        if self.use_noise_image:
+            if not obs.has_noise():
+                raise ValueError(
+                    "obs.noise must be set when use_noise_image=True"
+                )
+            noise_image = one(obs.noise)
+        else:
+            noise_image = torch.zeros_like(one(obs.image))
+
+        if psf_obs is not None:
+            psf_image = one(psf_obs.image)
+            psf_cen = one(psf_obs.jacobian.get_cen())
+        else:
+            psf_image = one(np.zeros((1, 1)))
+            psf_cen = one(np.zeros(2))
+
+        mom, cov, norm, nrm = prepsfmom_core(
+            one(obs.image), one(jac.get_cen()), psf_image, psf_cen, one(tot_var),
+            noise_image, int(target_dim), float(self.ap_rad),
+            self.kind if self.kind == "ksigma" else "gauss", jac_tuple,
+            float(self.fwhm), float(self.fwhm_smooth), psf_obs is not None,
+            bool(self.use_noise_image),
+        )
+
+        nrm = float(nrm[0])
+        if not np.allclose(nrm, 1.0, atol=1e-5, rtol=0):
+            raise FFTRangeError(
+                "FFT size appears to be too small for %s kernel size %f: "
+                "norm = %f (should be 1)!" % (self.kind, self.fwhm, nrm)
+            )
+
+        res = result_to_host(make_mom_result(mom, cov, sums_norm=norm), index=0)
+        if res["flags"] != 0:
+            logger.debug("pre-psf moments failed: %s" % res["flagstr"])
+        return res
+
+
+class KSigmaMom(PrePSFMom):
+    """ksigma pre-psf moments (Bernstein et al., arXiv:1508.05655)"""
+
+    def __init__(self, fwhm, pad_factor=4, ap_rad=1.5, fwhm_smooth=0,
+                 use_noise_image=False):
+        super().__init__(
+            fwhm, "ksigma", pad_factor=pad_factor, ap_rad=ap_rad,
+            fwhm_smooth=fwhm_smooth, use_noise_image=use_noise_image,
+        )
+
+
+class PGaussMom(PrePSFMom):
+    """gaussian-kernel pre-psf moments"""
+
+    def __init__(self, fwhm, pad_factor=4, ap_rad=1.5, fwhm_smooth=0,
+                 use_noise_image=False):
+        super().__init__(
+            fwhm, "pgauss", pad_factor=pad_factor, ap_rad=ap_rad,
+            fwhm_smooth=fwhm_smooth, use_noise_image=use_noise_image,
+        )
+
+
+PrePSFGaussMom = PGaussMom
+
+
+def _check_obs_and_get_psf_obs(obs, no_psf):
+    """the psf observation of obs (None with no_psf); raises for a
+    non-square image, a missing psf, or a psf of another WCS matrix"""
+    if not isinstance(obs, Observation):
+        raise ValueError("input obs must be an Observation")
+
+    shape = obs.image.shape
+    if shape[0] != shape[1]:
+        raise ValueError(
+            "pre-psf moments require a square image, got %s" % (shape,)
+        )
+
+    if not obs.has_psf() and not no_psf:
+        raise RuntimeError("The PSF must be set to measure a pre-PSF moment!")
+
+    if not no_psf:
+        psf_obs = obs.get_psf()
+        j1 = obs.jacobian
+        j2 = psf_obs.jacobian
+        same = all(
+            np.isclose(getattr(j1, a), getattr(j2, a))
+            for a in ("dvdrow", "dvdcol", "dudrow", "dudcol")
+        )
+        if not same:
+            raise RuntimeError(
+                "The PSF and observation must have the same WCS "
+                "Jacobian for measuring pre-PSF moments."
+            )
+    else:
+        psf_obs = None
+
+    return psf_obs
+
+
+# the reference's caching toggles: the port caches its constants per
+# configuration and device (_const), so they change nothing
+def turn_on_fft_caching():
+    pass
+
+
+def turn_off_fft_caching():
+    pass
+
+
+def turn_on_kernel_caching():
+    pass
+
+
+def turn_off_kernel_caching():
+    pass

@@ -1,9 +1,12 @@
-"""Device selection and ratio-error propagation.
+"""Device selection, parameter printing and ratio-error propagation.
 
-``get_ratio_var`` / ``get_ratio_error`` are the port's copies of
-``ngmix_tpu/util.py:34-54``; they never raise on b == 0 (the variance
-is +inf there).
+``print_pars`` / ``format_pars`` and ``get_ratio_var`` /
+``get_ratio_error`` are the port's copies of ``ngmix_tpu/util.py:12-54``;
+the ratio errors never raise on b == 0 (the variance is +inf there).
 """
+from sys import stdout
+
+import numpy as np
 import torch
 
 
@@ -22,6 +25,28 @@ def resolve_device(device=None):
             )
         device = "cuda"
     return torch.device(device)
+
+
+def print_pars(pars, fmt="%8.3g", front=None, stream=stdout, logger=None):
+    """print parameters with a uniform width"""
+    txt = ""
+    if front is not None:
+        txt += front + " "
+    if pars is None:
+        txt += "%s" % None
+    else:
+        txt += format_pars(pars, fmt=fmt)
+
+    if logger is not None:
+        logger.debug(txt)
+    else:
+        stream.write(txt + "\n")
+
+
+def format_pars(pars, fmt="%8.3g"):
+    """format parameters as one line"""
+    fmt = " ".join([fmt + " "] * len(pars))
+    return fmt % tuple(np.asarray(pars))
 
 
 def full_precision_matmuls():
