@@ -11,7 +11,8 @@ dev LM models, the bdf and bd bulge+disk models, the
 prior-regularized exp and bdf fits, the LM options (variable
 projection, sheared-type refinement), the scale-out path (ragged
 catalogs, checkpoints, a process group) and the single-object host
-API (the admom, gaussmom, pre-psf and EM fitters, GMix.make_image);
+API (the admom, gaussmom, pre-psf and EM fitters, GMix.make_image, and
+the LM fitters Fitter, CoellipFitter and PSFFluxFitter);
 and holds the hand-written CUDA
 kernels K2 (mixture evaluation), K1 (LM normal
 equations), K3 (every lane's whole LM solve of the exp, gauss, dev, bdf
@@ -310,8 +311,23 @@ printing one timed line as soon as it ends:
            1e-12 with an atol of 1e-12 of the peak; K2 at the host shapes
            (one lane of 2401 pixels, n = 1 and 6) against its plain
            version and timed; each fitter's ms an object, beside the
-           card's name and power limit.
-The float64 CPU sides of phases 5, 9, 15, 17-24 and 26 run in
+           card's name and power limit;
+27. fitters: the host LM fitters in float64 on 49x49 stamps made from
+           numpy (seed FIT_SEED) with gauss psf mixtures: Fitter("exp").go
+           on 64 objects and on 16 two-band objects, Fitter("bdf") with
+           the production PriorBDFSep on 8, Fitter("gauss") on 8 psf
+           stamps without a psf (K3 with a zero psf), CoellipFitter(3) on
+           8 psf stamps and Fitter("exp") on 8 objects under a
+           two-gaussian psf (run_lm), PSFFluxFitter on 8: every fit's
+           route asserted; K3 launched once a fit of the K3 route and
+           K3-mb once a fit of the K3-mb route, counted from 0, and
+           neither by the other fits; every fit held to the same fit on
+           the CPU (flags equal, pars, pars_err and s2n to rtol 1e-5 and
+           atol 1e-7, nfev within 2); K3 and K3-mb at B = 1 on one fit's
+           inputs against their plain versions and timed beside their
+           bounds; ms an object of each group, beside the card's name and
+           power limit.
+The float64 CPU sides of phases 5, 9, 15, 17-24, 26 and 27 run in
 CPU_WORKERS spawned processes of one thread each from the end of phase
 2, while the card runs the phases before them.
 Needs one CUDA card and exits nonzero, printing the reason, on any
@@ -1896,7 +1912,8 @@ def start_cpu_side(device):
     log10(Td/Te) has no information at fracdev 0, and its float64 CPU
     run of 256 exp stamps took 450 s on one H100 host core); phase 23's
     prior fits (submit_prior_cpu); phase 24's option pipelines on phase
-    21's exp inputs"""
+    21's exp inputs; phase 26's render and phase 27's host fits (made
+    from their numpy seed in the worker)"""
     side = CpuSide()
     gen = functools.partial(torch.Generator(device=device).manual_seed)
     nb = nt.sims.MB_NBAND
@@ -1933,6 +1950,7 @@ def start_cpu_side(device):
     for name, (measure, box, conf, lm_conf) in OPTION_RUNS.items():
         side.submit("24 " + name, option_cpu_results, flat, measure, box, conf, lm_conf)
     side.submit("26 render", host_render, [torch.tensor(HOST_RENDER_PARS)], "cpu")
+    side.submit("27 fitters", fitter_cpu_results, [])
     return side
 
 
@@ -3714,6 +3732,251 @@ def host_phase(device, t_all, cpu_side):
     return dict(k2_launches={"host " + k: v for k, v in k2.items() if v}, k2_rows=rows)
 
 
+# ----------------------------------------------------------------------
+# the host LM fitters
+
+# phase 27's fits: 64 exp objects (K3), 16 two-band exp objects (K3-mb),
+# 8 bdf with the production PriorBDFSep (K3), 8 psf stamps fit by
+# Fitter("gauss") without a psf (K3, zero psf covariance), 8 psf stamps
+# fit by CoellipFitter(3) and 8 exp objects under a two-gaussian psf
+# (run_lm), and PSFFluxFitter on 8 exp objects
+FIT_N = {"exp": 64, "mb": 16, "bdf": 8, "psf": 8, "coellip": 8, "psf2": 8, "psfflux": 8}
+FIT_ROUTE = {"exp": "K3", "mb": "K3-mb", "bdf": "K3", "psf": "K3", "coellip": "run_lm",
+             "psf2": "run_lm"}
+FIT_SEED = 27
+FIT_NOISE = 0.1
+# the gauss psf of the galaxies (T = 0.3 arcsec^2), the two-gaussian psf
+# (a full mixture) and the three-gaussian coelliptical psf stamps
+FIT_PSF = [0.0, 0.0, 0.0, 0.0, 0.3, 1.0]
+FIT_PSF2 = [0.6, 0.0, 0.0, 0.1, 0.01, 0.12, 0.4, 0.0, 0.0, 0.35, -0.02, 0.4]
+FIT_COELLIP = [0.0, 0.0, 0.03, -0.02, 0.15, 0.45, 1.3, 0.5, 0.35, 0.15]
+
+
+def fitter_inputs():
+    """phase 27's stamps from numpy (seed FIT_SEED): 49x49 galaxies at
+    0.263"/pixel rendered by GMix.make_image on the CPU with numpy noise
+    of sigma FIT_NOISE, each with a 25x25 psf stamp and its mixture, and
+    a guess jittered about the truth; the psf stamps for the psf fits.
+    Returns {group: [dict of numpy arrays and numbers]}"""
+    rng = np.random.RandomState(FIT_SEED)
+    dims, pdims, scale = nt.sims.DIMS, nt.sims.PSF_DIMS, nt.sims.SCALE
+    cen, pcen = (dims[0] - 1) / 2.0, (pdims[0] - 1) / 2.0
+
+    def jac(c):
+        return nt.DiagonalJacobian(row=c, col=c, scale=scale)
+
+    def psf_stamp(gm, noise=1e-6):
+        im = gm.make_image(pdims, jacobian=jac(pcen), fast_exp=True, device="cpu")
+        return im + rng.normal(size=pdims) * noise, np.full(pdims, 1.0 / noise**2)
+
+    psfs = {"gauss": nt.GMixModel(FIT_PSF, "gauss"), "two": nt.GMix(pars=FIT_PSF2)}
+    psf_ims = {k: psf_stamp(gm) for k, gm in psfs.items()}
+
+    def galaxy(model, psf, fluxes, extra=()):
+        shape = [rng.uniform(-0.05, 0.05), rng.uniform(-0.05, 0.05), rng.uniform(-0.2, 0.2),
+                 rng.uniform(-0.2, 0.2), rng.uniform(0.3, 1.0)]
+        stamps = []
+        for flux in fluxes:
+            gm = nt.GMixModel(shape + list(extra) + [flux], model)
+            im = gm.convolve(psfs[psf]).make_image(dims, jacobian=jac(cen), fast_exp=True,
+                                                   device="cpu")
+            stamps.append((im + rng.normal(size=dims) * FIT_NOISE,
+                           np.full(dims, 1.0 / FIT_NOISE**2)))
+        truth = np.array(shape + list(extra) + list(fluxes))
+        guess = truth * rng.uniform(0.9, 1.1, truth.size)
+        guess[:2] = truth[:2] + rng.uniform(-0.02, 0.02, 2)
+        return dict(stamps=stamps, psf=psf, guess=guess)
+
+    out = {
+        "exp": [galaxy("exp", "gauss", [rng.uniform(50, 200)]) for _ in range(FIT_N["exp"])],
+        "mb": [galaxy("exp", "gauss", list(rng.uniform(50, 200, 2)))
+               for _ in range(FIT_N["mb"])],
+        "bdf": [galaxy("bdf", "gauss", [rng.uniform(50, 200)], [rng.uniform(0.2, 0.8)])
+                for _ in range(FIT_N["bdf"])],
+        "psf2": [galaxy("exp", "two", [rng.uniform(50, 200)]) for _ in range(FIT_N["psf2"])],
+    }
+    for g in out["bdf"]:
+        g["guess"][5] = 0.5
+    out["psf"] = [dict(stamps=[psf_ims["gauss"]], psf=None,
+                       guess=np.array([0.0, 0.0, 0.0, 0.0, FIT_PSF[4], 1.0])
+                       * rng.uniform(0.95, 1.05, 6)) for _ in range(FIT_N["psf"])]
+    out["coellip"] = [dict(stamps=[psf_stamp(nt.GMixCoellip(FIT_COELLIP), noise=1e-5)],
+                           psf=None, guess=np.array(FIT_COELLIP) * rng.uniform(0.95, 1.05, 10))
+                      for _ in range(FIT_N["coellip"])]
+    return out, psf_ims
+
+
+def fitter_observations(obj, psf_ims, device):
+    """an input of fitter_inputs as the fit's observation on device: an
+    Observation with its psf Observation and mixture, or a
+    MultiBandObsList of one epoch a band"""
+    dims, pdims, scale = nt.sims.DIMS, nt.sims.PSF_DIMS, nt.sims.SCALE
+
+    def jac(d):
+        return nt.DiagonalJacobian(row=(d[0] - 1) / 2.0, col=(d[1] - 1) / 2.0, scale=scale)
+
+    def one(im, wt):
+        if obj["psf"] is None:
+            return nt.Observation(im, weight=wt, jacobian=jac(im.shape), device=device)
+        pim, pwt = psf_ims[obj["psf"]]
+        gm = nt.GMixModel(FIT_PSF, "gauss") if obj["psf"] == "gauss" else nt.GMix(pars=FIT_PSF2)
+        psf = nt.Observation(pim, weight=pwt, jacobian=jac(pdims), gmix=gm, device=device)
+        return nt.Observation(im, weight=wt, jacobian=jac(dims), psf=psf, device=device)
+
+    if len(obj["stamps"]) == 1:
+        return one(*obj["stamps"][0])
+    mb = nt.MultiBandObsList()
+    for stamp in obj["stamps"]:
+        ol = nt.ObsList()
+        ol.append(one(*stamp))
+        mb.append(ol)
+    return mb
+
+
+def group_fitter(group):
+    """the fitter of a group of phase 27's fits"""
+    if group == "bdf":
+        return nt.Fitter("bdf", prior=bdf_prior())
+    if group == "psf":
+        return nt.Fitter("gauss")
+    if group == "coellip":
+        return nt.CoellipFitter(3)
+    return nt.Fitter("exp")
+
+
+def fitter_columns(res):
+    """the compared fields of a group's results as [N, ...] float64
+    tensors (s2n 0 where a fit failed) and flags and nfev"""
+    if "nfev" not in res[0]:
+        cols = {k: torch.tensor([float(r[k]) for r in res], dtype=torch.float64)
+                for k in ("flux", "flux_err", "chi2per")}
+        nfev = torch.zeros(len(res), dtype=torch.int32)
+    else:
+        cols = {k: torch.tensor(np.stack([r[k] for r in res]), dtype=torch.float64)
+                for k in ("pars", "pars_err")}
+        cols["s2n"] = torch.tensor([float(r.get("s2n", 0.0)) for r in res], dtype=torch.float64)
+        nfev = torch.tensor([r["nfev"] for r in res], dtype=torch.int32)
+    return dict(cols, flags=torch.tensor([r["flags"] for r in res], dtype=torch.int32),
+                nfev=nfev)
+
+
+def fitter_fits(device, inputs, timed=False):
+    """phase 27's fits of inputs (fitter_inputs) on device: {group:
+    compared columns}, and with timed the ms an object of each group and
+    each group's K3, K3-mb and K2 launches"""
+    inputs, psf_ims = inputs
+    cols, ms, counts = {}, {}, {}
+    for group, objs in inputs.items():
+        obs = [fitter_observations(o, psf_ims, device) for o in objs]
+        fitter = group_fitter(group)
+        _sync(device)
+        lm_solve.launches = lm_solve.launches_mb = gmix_eval.launches = 0
+        t = time.perf_counter()
+        res = [fitter.go(o, g["guess"]) for o, g in zip(obs, objs)]
+        if timed:
+            _sync(device)
+            ms[group] = (time.perf_counter() - t) * 1e3 / len(objs)
+            counts[group] = (lm_solve.launches, lm_solve.launches_mb, gmix_eval.launches)
+        routes = {r.route for r in res}
+        if routes != {FIT_ROUTE[group]}:
+            raise SmokeFailure("host Fitter %s: routes %s, expected %s"
+                               % (group, routes, FIT_ROUTE[group]))
+        cols[group] = fitter_columns(res)
+    flux = nt.PSFFluxFitter()
+    obs = [fitter_observations(o, psf_ims, device) for o in inputs["exp"][:FIT_N["psfflux"]]]
+    _sync(device)
+    lm_solve.launches = lm_solve.launches_mb = gmix_eval.launches = 0
+    t = time.perf_counter()
+    res = [flux.go(o) for o in obs]
+    if timed:
+        _sync(device)
+        ms["psfflux"] = (time.perf_counter() - t) * 1e3 / len(obs)
+        counts["psfflux"] = (lm_solve.launches, lm_solve.launches_mb, gmix_eval.launches)
+    cols["psfflux"] = fitter_columns(res)
+    return cols, ms, counts
+
+
+def fitter_cpu_results(args):
+    """phase 27's fits on the CPU (the kernels' plain versions)"""
+    return fitter_fits("cpu", fitter_inputs())[0]
+
+
+def fitter_k3_rows(device, inputs):
+    """K3 on one exp fit's inputs and K3-mb on one two-band fit's, at B =
+    1 in float64: against their plain versions on the same card inputs
+    (per_lane_diff's LM tolerance) and timed beside their bounds"""
+    inputs, psf_ims = inputs
+    rows = []
+    for group, mb in (("exp", False), ("mb", True)):
+        obj = inputs[group][0]
+        obs = fitter_observations(obj, psf_ims, device)
+        seen = {}
+        name = "lm_solve_mb" if mb else "lm_solve"
+        solve = getattr(lm_solve, name)
+
+        def spy(*a):
+            seen["args"], seen["conf"] = a[:9 if mb else 8], a[9 if mb else 8]
+            return solve(*a)
+
+        with mock.patch.object(lm_solve, name, spy):
+            nt.Fitter("exp").go(obs, obj["guess"])
+        args, conf = seen["args"], seen["conf"]
+        state = solve(*args, conf, "exp", None)
+        plain_fn = lm_solve.lm_solve_mb_plain if mb else lm_solve.lm_solve_plain
+        plain, _, plain_ms = timed_call(plain_fn, *args, conf, "exp", None)
+        a = solve_cols(tlm._normal_epilogue(state, args[1], args[2], conf,
+                                            torch.sum(args[-2] > 0)))
+        b = solve_cols(tlm._normal_epilogue(plain, args[1], args[2], conf,
+                                            torch.sum(args[-2] > 0)))
+        max_abs, _, _ = per_lane_diff(a, b, "host Fitter %s at B = 1 against its plain version"
+                                      % ("K3-mb" if mb else "K3"))
+        t_ms = time_ms(lambda: solve(*args, conf, "exp", None), 20)
+        b_ms, by = (k3mb_bound if mb else k3_bound)(args, state, "exp")
+        rows.append(dict(shape="host Fitter exp %s[1x%s] float64"
+                         % ("nband 2 " if mb else "", "x".join(map(str, args[-1].shape[1:]))),
+                         ms=t_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                         max_abs_err=max_abs, nfev=int(state["nfev"][0]), launches_a_object=1))
+    return rows
+
+
+def fitter_phase(device, t_all, cpu_side):
+    """phase 27: the host LM fitters on the card in float64, held fit by
+    fit to the same fits on the CPU; K3 and K3-mb at B = 1 timed"""
+    t0 = time.perf_counter()
+    inputs = fitter_inputs()
+    cols, ms, counts = fitter_fits(device, inputs, timed=True)
+    # one K3 or K3-mb launch a fit of those routes, none for run_lm and
+    # PSFFluxFitter
+    want = {g: (FIT_N[g] if FIT_ROUTE.get(g) == "K3" else 0,
+                FIT_N[g] if FIT_ROUTE.get(g) == "K3-mb" else 0) for g in counts}
+    got = {g: c[:2] for g, c in counts.items()}
+    if got != want:
+        raise SmokeFailure("host Fitter: K3 and K3-mb launches %s, expected %s" % (got, want))
+    _, cpu = cpu_side.get("27 fitters")
+    worst = {}
+    for group, c in cols.items():
+        keys = ("flux", "flux_err", "chi2per") if group == "psfflux" else ("pars", "pars_err",
+                                                                           "s2n")
+        worst[group] = per_lane_diff(c, cpu[group], "host %s card against CPU" % group,
+                                     keys=keys)
+    rows = fitter_k3_rows(device, inputs)
+    k3 = sum(counts[g][0] for g in counts)
+    k3mb = sum(counts[g][1] for g in counts)
+    k2 = sum(counts[g][2] for g in counts)
+    phase_line("27 fitters", t0, "%s; float64 49x49, card against CPU per fit (flags equal, "
+               "rtol 1e-5 + atol 1e-7, nfev within 2; max rel): %s; K3 %d, K3-mb %d, K2 %d "
+               "launches; %s; total %.1f s"
+               % (card_line(), ", ".join(
+                   "%s %d %s %.3f ms/object (%.1e)" % (g, FIT_N[g], FIT_ROUTE.get(g, "K2"), ms[g],
+                                                      worst[g][1]) for g in cols),
+                  k3, k3mb, k2, "; ".join(
+                      "%s %.4f ms (plain %.4f, bound %.6f, %s), nfev %d"
+                      % (r["shape"], r["ms"], r["plain_ms"], r["bound_ms"], r["bound_by"],
+                         r["nfev"]) for r in rows), time.perf_counter() - t_all))
+    return dict(k3_launches=k3, k3mb_launches=k3mb, k2_launches=k2, rows=rows,
+                max_abs_err=max(r["max_abs_err"] for r in rows))
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -3750,8 +4013,8 @@ def main():
 
 
 def phases(device, t_all, kind, cpu_side):
-    """phases 3-26 and the kernels line, with the CPU sides of phases 5,
-    9, 15, 17-24 and 26 from cpu_side"""
+    """phases 3-27 and the kernels line, with the CPU sides of phases 5,
+    9, 15, 17-24, 26 and 27 from cpu_side"""
     t0 = time.perf_counter()
     max_abs, ncase, worst = check_kernel(device)
     indep = check_k2_batch_independence(device)
@@ -3897,6 +4160,7 @@ def phases(device, t_all, kind, cpu_side):
     opt = options_phase(device, t_all, cpu_side)
     scaleout_phase(device, t_all)
     hst = host_phase(device, t_all, cpu_side)
+    fit = fitter_phase(device, t_all, cpu_side)
     prepsf_launches = {k: g["launches"] for k, g in prepsf.items() if "dilate" not in k}
 
     top = rows[0]
@@ -3911,12 +4175,13 @@ def phases(device, t_all, kind, cpu_side):
                      + mb_launches["k2"] + sum(prepsf_launches.values())
                      + sum(models["k2_launches"].values()) + sum(comp["k2_launches"].values())
                      + sum(pri["k2_launches"].values()) + sum(opt["k2_launches"].values())
-                     + sum(hst["k2_launches"].values())),
+                     + sum(hst["k2_launches"].values()) + fit["k2_launches"]),
         "launches_by_path": dict({"gaussmom": launches, "exp-lm": k2_lm_launches,
                                   "admom": admom_launches, "mb exp-lm": mb_launches["k2"]},
                                  **k2_modes, **prepsf_launches, **models["k2_launches"],
                                  **comp["k2_launches"], **pri["k2_launches"],
-                                 **opt["k2_launches"], **hst["k2_launches"]),
+                                 **opt["k2_launches"], **hst["k2_launches"],
+                                 **{"host Fitter": fit["k2_launches"]}),
         "max_abs_err": max(max_abs, *(r["max_abs_err"] for r in rows + admom_rows + mb_k2_rows
                                       + [prepsf_row, models["k2_row"], comp["k2_row"]]
                                       + hst["k2_rows"]),
@@ -3954,14 +4219,17 @@ def phases(device, t_all, kind, cpu_side):
         "replaces_loop": "ngmix_tpu/fitting/lm.py:539-790",
         "launches": (k3_launches + modes[-1]["launches"]["k3"]
                      + sum(models["k3_launches"].values()) + sum(comp["k3_launches"].values())
-                     + sum(pri["k3_launches"].values()) + sum(opt["k3_launches"].values())),
+                     + sum(pri["k3_launches"].values()) + sum(opt["k3_launches"].values())
+                     + fit["k3_launches"]),
         "launches_by_path": dict({"exp-lm": k3_launches, "exp-lm host loop": hl["k3"],
                                   "exp-lm dilate": modes[-1]["launches"]["k3"]},
                                  **models["k3_launches"], **comp["k3_launches"],
-                                 **pri["k3_launches"], **opt["k3_launches"]),
+                                 **pri["k3_launches"], **opt["k3_launches"],
+                                 **{"host Fitter": fit["k3_launches"]}),
         "max_abs_err": max(k3c["plain64"][0], k3c["full64"][0], k3_row["max_abs_err"],
                            k3c["full32"]["max_abs_err"], models["max_abs_err"],
-                           comp["max_abs_err"], pri["max_abs_err"]),
+                           comp["max_abs_err"], pri["max_abs_err"],
+                           fit["rows"][0]["max_abs_err"]),
         "ms": k3_row["ms"],
         "plain_ms": k3_row["plain_ms"],
         "bound_ms": k3_row["bound_ms"],
@@ -3969,7 +4237,7 @@ def phases(device, t_all, kind, cpu_side):
         "library_ms": None,
         "attrs": k3_attrs,
         "shapes": [k3_row, k3c["full32"]] + models["k3_rows"] + comp["k3_rows"]
-        + pri["k3_rows"],
+        + pri["k3_rows"] + fit["rows"][:1],
         "exp_lm_calls": calls,
     }, {
         "name": "lm_solve_mb",
@@ -3979,19 +4247,22 @@ def phases(device, t_all, kind, cpu_side):
         "replaces_loop": "ngmix_tpu/fitting/lm.py:539-790 under ngmix_tpu/batch.py:1795-1866",
         "launches": (mb_launches["k3mb"] + sum(models["k3mb_launches"].values())
                      + sum(comp["k3mb_launches"].values())
-                     + sum(pri["k3mb_launches"].values())),
+                     + sum(pri["k3mb_launches"].values()) + fit["k3mb_launches"]),
         "launches_by_path": dict({"mb exp-lm": mb_launches["k3mb"]},
                                  **models["k3mb_launches"], **comp["k3mb_launches"],
-                                 **pri["k3mb_launches"]),
+                                 **pri["k3mb_launches"],
+                                 **{"host Fitter": fit["k3mb_launches"]}),
         "max_abs_err": max(k3mb_row["max_abs_err"], models["mb_max_abs_err"],
-                           comp["mb_max_abs_err"], pri["mb_max_abs_err"]),
+                           comp["mb_max_abs_err"], pri["mb_max_abs_err"],
+                           fit["rows"][1]["max_abs_err"]),
         "ms": k3mb_row["ms"],
         "plain_ms": k3mb_row["plain_ms"],
         "bound_ms": k3mb_row["bound_ms"],
         "bound_by": k3mb_row["bound_by"],
         "library_ms": None,
         "attrs": k3mb_row.pop("attrs"),
-        "shapes": [k3mb_row] + models["k3mb_rows"] + comp["k3mb_rows"] + pri["k3mb_rows"],
+        "shapes": [k3mb_row] + models["k3mb_rows"] + comp["k3mb_rows"] + pri["k3mb_rows"]
+        + fit["rows"][1:],
     }] + [{
         "name": "lm_solve_" + mode,
         "route": "cuda",

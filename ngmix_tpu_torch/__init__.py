@@ -19,14 +19,21 @@ the LM's normal equations (ops/normal_eqs.py, csrc/normal_eqs.cu).
 The host single-object API keeps the JAX package's names: the data
 model (Observation, ObsList, MultiBandObsList, Jacobian, GMix and its
 models, Shape) with numpy arrays at the surface and the pixels on a
-device, and the single-object fitters of the batched measures
+device; the single-object fitters of the batched measures
 (admom.AdmomFitter, gaussmom.GaussMom, prepsfmom.KSigmaMom and
 PGaussMom, em.EMFitter), each one lane of its batched loop, with the
-mixture evaluations through K2.
+mixture evaluations through K2; and the LM fitters (fitting.Fitter,
+CoellipFitter, PSFFluxFitter) with their guessers and runners, a fit
+that K3 or K3-mb can run being one launch of the kernel at B = 1 and
+any other fit the residual-form LM (fitting.lm.run_lm).
 
 Entry points run on the CUDA card unless the caller passes
 device="cpu".
 """
+__version__ = "0.5.0"
+
+from . import defaults  # noqa: F401
+from . import flags  # noqa: F401
 from . import gexceptions  # noqa: F401
 from . import jacobian  # noqa: F401
 from . import moments  # noqa: F401
@@ -79,9 +86,27 @@ from .em import EMConf, em_batch
 from .fitting.lm import LMConf
 from .prepsfmom import prepsfmom_batch
 from .sims import make_sim_batch, make_sim_batch_hetero, make_sim_batch_mb
+from . import priors  # noqa: F401
+from .priors import srandu
+from . import joint_prior  # noqa: F401
+from . import fitting  # noqa: F401
+from .fitting import CoellipFitter, Fitter, PSFFluxFitter
+from . import guessers  # noqa: F401
+from . import runners  # noqa: F401
+from .runners import PSFRunner, Runner
+from . import batch  # noqa: F401
+from . import checkpoint  # noqa: F401
+from . import parallel  # noqa: F401
+from . import ragged  # noqa: F401
 
 __all__ = [
     "AdmomFitter",
+    "CoellipFitter",
+    "Fitter",
+    "PSFFluxFitter",
+    "PSFRunner",
+    "Runner",
+    "srandu",
     "BootGalFailure",
     "BootPSFFailure",
     "DiagonalJacobian",

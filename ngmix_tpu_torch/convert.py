@@ -4,7 +4,7 @@ This system has no weights. Its state is the pipeline configuration
 and the arrays that go in: the MetacalConfig, LMConf, AdmomConf and
 EMConf fields (the plain dict that a NamedTuple's ``_asdict()``
 gives, or the attributes of a plain configuration object), the LM
-priors (``prior_from_object``), mixtures and pixel planes as numpy
+priors with their generators' states (``prior_from_object``), mixtures and pixel planes as numpy
 arrays, and the host data model: observations (with their psf and
 attachments, in their lists), jacobians and mixtures
 (``observation_from_object``, ``jacobian_from_object``,
@@ -92,49 +92,67 @@ def _num(x):
 
 
 # the priors the port has, by class name: the public attributes of
-# another package's prior that make the port's
+# another package's prior that make the port's, and its generator
 _PRIOR_FIELDS = {
-    "FlatPrior": lambda o: priors.FlatPrior(_num(o.minval), _num(o.maxval)),
-    "TwoSidedErf": lambda o: priors.TwoSidedErf(_num(o.minval), _num(o.width_at_min),
-                                                _num(o.maxval), _num(o.width_at_max)),
-    "Normal": lambda o: priors.Normal(_num(o.mean), _num(o.sigma), bounds=o.bounds),
-    "LogNormal": lambda o: priors.LogNormal(
-        _num(o.mean), _num(o.sigma), shift=None if o.shift is None else _num(o.shift)),
-    "Sinh": lambda o: priors.Sinh(_num(o.mean), _num(o.scale)),
-    "TruncatedGaussian": lambda o: priors.TruncatedGaussian(
-        _num(o.mean), _num(o.sigma), _num(o.minval), _num(o.maxval)),
-    "GPriorBA": lambda o: priors.GPriorBA(_num(o.sigma), A=_num(o.A)),
-    "GPriorGauss": lambda o: priors.GPriorGauss(np.asarray(o.pars)),
-    "ZDisk2D": lambda o: priors.ZDisk2D(_num(o.radius)),
-    "CenPrior": lambda o: priors.CenPrior(_num(o.cen1), _num(o.cen2), _num(o.sigma1),
-                                          _num(o.sigma2)),
-    "PriorSimpleSep": lambda o: joint_prior.PriorSimpleSep(
-        *map(prior_from_object, (o.cen_prior, o.g_prior, o.T_prior)), _F_priors(o)),
-    "PriorBDFSep": lambda o: joint_prior.PriorBDFSep(
-        *map(prior_from_object, (o.cen_prior, o.g_prior, o.T_prior, o.fracdev_prior)),
-        _F_priors(o)),
-    "PriorBDSep": lambda o: joint_prior.PriorBDSep(
-        *map(prior_from_object, (o.cen_prior, o.g_prior, o.T_prior, o.logTratio_prior,
-                                 o.fracdev_prior)), _F_priors(o)),
+    "FlatPrior": lambda o, r: priors.FlatPrior(_num(o.minval), _num(o.maxval), rng=r),
+    "TwoSidedErf": lambda o, r: priors.TwoSidedErf(_num(o.minval), _num(o.width_at_min),
+                                                   _num(o.maxval), _num(o.width_at_max),
+                                                   rng=r),
+    "Normal": lambda o, r: priors.Normal(_num(o.mean), _num(o.sigma), bounds=o.bounds, rng=r),
+    "LogNormal": lambda o, r: priors.LogNormal(
+        _num(o.mean), _num(o.sigma), shift=None if o.shift is None else _num(o.shift), rng=r),
+    "Sinh": lambda o, r: priors.Sinh(_num(o.mean), _num(o.scale), rng=r),
+    "TruncatedGaussian": lambda o, r: priors.TruncatedGaussian(
+        _num(o.mean), _num(o.sigma), _num(o.minval), _num(o.maxval), rng=r),
+    "GPriorBA": lambda o, r: priors.GPriorBA(_num(o.sigma), A=_num(o.A), rng=r),
+    "GPriorGauss": lambda o, r: priors.GPriorGauss(np.asarray(o.pars), rng=r),
+    "ZDisk2D": lambda o, r: priors.ZDisk2D(_num(o.radius), rng=r),
+    "CenPrior": lambda o, r: priors.CenPrior(_num(o.cen1), _num(o.cen2), _num(o.sigma1),
+                                             _num(o.sigma2), rng=r),
+}
+# the joint priors: their components, converted with one generator
+# memo, then the F prior(s)
+_JOINT_FIELDS = {
+    "PriorSimpleSep": (joint_prior.PriorSimpleSep, ("cen_prior", "g_prior", "T_prior")),
+    "PriorBDFSep": (joint_prior.PriorBDFSep,
+                    ("cen_prior", "g_prior", "T_prior", "fracdev_prior")),
+    "PriorBDSep": (joint_prior.PriorBDSep, ("cen_prior", "g_prior", "T_prior",
+                                            "logTratio_prior", "fracdev_prior")),
 }
 
 
-def _F_priors(obj):
-    """the F prior, or the list of them when the prior has nband > 1"""
-    F = [prior_from_object(p) for p in obj.F_priors]
-    return F if obj.nband > 1 else F[0]
+def _rng_copy(rng, memo):
+    """a new RandomState in the state of rng (None for none), one for
+    each distinct generator: components that share a generator share
+    its copy, so their draws interleave as the original's do"""
+    if rng is None:
+        return None
+    if id(rng) not in memo:
+        copy_ = np.random.RandomState()
+        copy_.set_state(rng.get_state())
+        memo[id(rng)] = copy_
+    return memo[id(rng)]
 
 
-def prior_from_object(obj):
+def prior_from_object(obj, _memo=None):
     """the port's prior of another package's prior (or any object) of
     the same class name, built from its public attributes read through
-    numpy; a joint prior's components are converted too. Raises
-    TypeError for a class the port does not have."""
-    make = _PRIOR_FIELDS.get(type(obj).__name__)
+    numpy, with a copy of its generator's state; a joint prior's
+    components are converted too, components that share a generator
+    sharing one copy. Raises TypeError for a class the port does not
+    have."""
+    memo = {} if _memo is None else _memo
+    name = type(obj).__name__
+    if name in _JOINT_FIELDS:
+        cls, fields = _JOINT_FIELDS[name]
+        F = [prior_from_object(p, memo) for p in obj.F_priors]
+        return cls(*(prior_from_object(getattr(obj, f), memo) for f in fields),
+                   F if obj.nband > 1 else F[0])
+    make = _PRIOR_FIELDS.get(name)
     if make is None:
         raise TypeError("no prior of the port for %s: the ported priors are %s"
-                        % (type(obj).__name__, ", ".join(sorted(_PRIOR_FIELDS))))
-    return make(obj)
+                        % (name, ", ".join(sorted(list(_PRIOR_FIELDS) + list(_JOINT_FIELDS)))))
+    return make(obj, _rng_copy(getattr(obj, "rng", None), memo))
 
 
 def jacobian_from_object(jac):

@@ -4,6 +4,9 @@ The port's own copy of the constants of ``ngmix_tpu/defaults.py`` that
 it uses: these numbers define the objective, so they match the JAX
 package exactly.
 """
+# the LM's stopping settings of a Fitter without fit_pars
+DEFAULT_LM_PARS = {"maxfev": 4000, "ftol": 1.0e-5, "xtol": 1.0e-5}
+
 # parameter / covariance values reported when a fit fails
 PDEF = -9.999e9
 CDEF = 9.999e9

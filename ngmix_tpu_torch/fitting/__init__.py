@@ -1,1 +1,20 @@
-"""Batched fitters (the normal-equation Levenberg-Marquardt)."""
+"""The LM fitters: the batched normal-equation LM of the pipelines
+(lm.run_lm_normal_batched), and the host API's fitters over the
+residual form and the kernels (Fitter, CoellipFitter, PSFFluxFitter),
+their fit objective and results (fit_model) and the noise-power
+covariance (noise_cov)."""
+from . import lm  # noqa: F401
+from .fit_model import (  # noqa: F401
+    CoellipFitModel,
+    FitData,
+    FitModel,
+    PSFFluxFitModel,
+    SIMPLE_ANALYTIC_MODELS,
+    make_fdiff_fn,
+    make_lnprob_fn,
+    pack_fit_data,
+)
+from .fitters import CoellipFitter, Fitter, PSFFluxFitter  # noqa: F401
+from .lm import LMConf, run_lm, run_lm_batch  # noqa: F401
+from . import noise_cov  # noqa: F401
+from . import fit_model  # noqa: F401

@@ -17,6 +17,11 @@ a kernel whose per-lane result does not depend on the batch, so a lane
 computes the same bits whichever lanes share its level: compaction
 changes the schedule, never the results.
 
+``run_lm`` is the reference's residual form for one object, the
+solver of the host ``Fitter`` where K3 cannot run the fit: the same
+iteration over a residual vector and its ``torch.func.jacfwd``
+Jacobian (``run_lm_batch`` runs it lane by lane).
+
 ``run_gn_refine_batched`` is the reference's fixed-iteration damped
 Gauss-Newton refiner from a near-optimal start (the sheared metacal
 types from the noshear optimum, and the full-width evaluation that ends
@@ -24,6 +29,7 @@ a variable-projection solve).
 """
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..defaults import CDEF, PDEF
@@ -206,6 +212,215 @@ def _mask_normal(JtJ, Jtr, pinned):
     eye = torch.eye(Jtr.shape[-1], dtype=JtJ.dtype, device=JtJ.device)
     JtJ_m = JtJ_m + torch.where(pinned[..., None], eye, 0.0)
     return JtJ_m, Jtr * free
+
+
+# ----------------------------------------------------------------------
+# the residual form: one object's LM over a residual function
+
+def get_def_stuff(npars):
+    """the pars, covariance and errors of a failed fit (numpy)"""
+    pars = np.zeros(npars) + PDEF
+    cov = np.zeros((npars, npars)) + CDEF
+    err = np.zeros(npars) + CDEF
+    return pars, cov, err
+
+
+def run_lm(resid_fn, data, guess, lo, hi, conf: LMConf, n_prior_pars=0,
+           k_space=False, n_eff=None):
+    """minimize sum(resid_fn(x, data)^2) over x [npars] with box bounds:
+    the reference's residual-form LM (ngmix_tpu/fitting/lm.py: run_lm).
+
+    resid_fn(pars, data) -> residuals [nres] is a tensor function that
+    torch.func.jacfwd can differentiate (no in-place writes to its
+    inputs, no reads to the host, no branches on tensor values); the
+    Jacobian in internal coordinates is its jacfwd through i2e. The
+    loop runs on the host with one read from the device an iteration
+    (the stopping test); each iteration is the reference's while_loop
+    body: the pinned dims, the masked and damped Cholesky step, the
+    clipped trial point and its evaluation, the accept test, the
+    ftol / xtol / stuck rules and the damping update.
+
+    guess [npars]; lo, hi [npars] (+-inf for open sides); n_prior_pars:
+    the residual's leading prior rows, kept out of the chi^2/dof scale;
+    n_eff: the rows that count for the dof (prior rows included), the
+    residual's length by default. Returns a dict of tensors: pars,
+    pars_err, pars_cov, pars_cov0, flags, nfev, ier, cost and s_sq, with
+    the reference's flag semantics and order. The reference's k-space
+    residuals (k_space) are not ported yet (ROADMAP queue item 13).
+    """
+    if k_space:
+        raise NotImplementedError(
+            "k_space=True is not ported yet: ROADMAP queue item 13 (the host "
+            "single-object API)")
+    guess = torch.as_tensor(guess)
+    npars = guess.shape[-1]
+    dtype, dev = guess.dtype, guess.device
+    lo = torch.broadcast_to(torch.as_tensor(lo, dtype=dtype, device=dev), guess.shape)
+    hi = torch.broadcast_to(torch.as_tensor(hi, dtype=dtype, device=dev), guess.shape)
+
+    def resid_twice(y):
+        r = resid_fn(i2e(y, lo, hi), data)
+        return r, r
+
+    jac = torch.func.jacfwd(resid_twice, has_aux=True)
+
+    def resid_and_jac(y):
+        J, r = jac(y)
+        return r, J
+
+    def cost_of(r):
+        return torch.sum(r * r)
+
+    def solve_damped(JtJ, Jtr, lam):
+        """_solve_damped for one object in a few launches (the unrolled
+        Cholesky is ~600 tiny operations at 10 parameters): nan where
+        the damped matrix is not positive definite"""
+        diag = torch.diagonal(JtJ)
+        A = JtJ + torch.diag(lam * torch.where(diag > 0, diag, 1.0))
+        L, info = torch.linalg.cholesky_ex(A)
+        dy = torch.cholesky_solve(-Jtr[:, None], L)[:, 0]
+        return torch.where(info == 0, dy, torch.nan)
+
+    y = e2i(guess, lo, hi)
+    r, J = resid_and_jac(y)
+    cost = cost_of(r)
+    lam = torch.tensor(conf.lambda0, dtype=dtype, device=dev)
+    nfev = 1
+    done = False
+    small_step = small_cost = torch.tensor(False, device=dev)
+    pinned = torch.zeros(npars, dtype=torch.bool, device=dev)
+    while not done and nfev < conf.maxfev:
+        JtJ = J.T @ J
+        Jtr = J.T @ r
+        new_pinned = _pinned_dims(y, Jtr, cost, conf.ftol, lo, hi)
+        # a pin transition resets the damping and voids convergence
+        pin_changed = torch.any(new_pinned != pinned)
+        pinned = new_pinned
+        lam_eff = torch.where(pin_changed, conf.lambda0, lam)
+        JtJ_m, Jtr_m = _mask_normal(JtJ, Jtr, pinned)
+        dy = solve_damped(JtJ_m, Jtr_m, lam_eff)
+        step_ok = torch.all(torch.isfinite(dy))
+        dy = torch.where(step_ok, dy, 0.0)
+
+        y_try = clip_internal(y + dy, lo, hi)
+        dy = y_try - y
+        r_try, J_try = resid_and_jac(y_try)
+        cost_try = cost_of(r_try)
+        cost_try = torch.where(torch.isfinite(cost_try), cost_try, torch.inf)
+        accept = step_ok & (cost_try < cost)
+
+        # predicted reduction of the quadratic model
+        pred = -torch.dot(dy, 2.0 * Jtr) - torch.dot(dy, JtJ @ dy)
+        pred = torch.clamp(pred, min=1.0e-300)
+        actual = cost - cost_try
+        small_cost = accept & ((actual <= conf.ftol * cost) & (pred <= conf.ftol * cost))
+        # xtol over the free dims only
+        ynorm = torch.sqrt(torch.sum((y * (~pinned).to(dtype)) ** 2))
+        small_step = accept & (torch.sqrt(torch.sum(dy * dy)) <= conf.xtol * (ynorm + conf.xtol))
+        stuck = (~accept) & (lam_eff >= conf.lambda_max)
+        lam = torch.where(accept, torch.clamp(lam_eff / conf.lambda_down, min=conf.lambda_min),
+                          torch.clamp(lam_eff * conf.lambda_up, max=conf.lambda_max * 10.0))
+        y = torch.where(accept, y_try, y)
+        r = torch.where(accept, r_try, r)
+        cost = torch.where(accept, cost_try, cost)
+        J = torch.where(accept, J_try, J)
+        nfev += 1
+        # the iteration's one read from the device
+        done = bool((small_cost | small_step | stuck) & ~pin_changed)
+    return _residual_epilogue(y, r, J, lo, hi, conf, nfev, done, small_cost, small_step,
+                              n_prior_pars, n_eff, cost)
+
+
+def _residual_epilogue(y, r, J, lo, hi, conf, nfev, done, small_cost, small_step,
+                       n_prior_pars, n_eff, cost):
+    """run_lm's result from its final state: the external covariance by
+    undoing the bounds chain rule on J (J_ext = J / g), scaled by the
+    chi^2/dof of the non-prior rows, and the reference's flags"""
+    npars = y.shape[-1]
+    dtype, dev = y.dtype, y.device
+    pars = i2e(y, lo, hi)
+    grad = i2e_grad(y, lo, hi)
+    g_safe = torch.where(grad == 0.0, torch.finfo(dtype).tiny, grad)
+    J_ext = J / g_safe[None, :]
+    pcov0 = chol_inverse(J_ext.T @ J_ext)
+    singular = ~torch.all(torch.isfinite(pcov0))
+
+    nres = r.shape[-1] if n_eff is None else int(n_eff)
+    dof = nres - n_prior_pars - npars
+    zero_dof = dof == 0
+    s_sq = torch.sum(r[n_prior_pars:] ** 2) / max(dof, 1)
+    pcov = pcov0 * s_sq
+
+    eye = torch.eye(npars, dtype=dtype, device=dev)
+    matsel = torch.where(singular, eye, pcov)
+    mat_finite = torch.all(torch.isfinite(matsel))
+    neg_eig = mat_finite & ~chol_is_spd(matsel)
+    neg_diag = torch.any(torch.diagonal(pcov) < 0)
+    eig_notfinite = ~mat_finite
+    func_notfinite = ~torch.all(torch.isfinite(r))
+    maxed = nfev >= conf.maxfev
+
+    flags = 0
+    if bool(func_notfinite):
+        flags |= LM_FUNC_NOTFINITE
+    if bool(singular & ~func_notfinite):
+        flags |= LM_SINGULAR_MATRIX
+    if zero_dof:
+        flags |= ZERO_DOF
+    cov_bad = bool(singular) or zero_dof
+    if not cov_bad and bool(neg_eig & ~eig_notfinite):
+        flags |= LM_NEG_COV_EIG
+    if not cov_bad and bool(neg_diag & ~eig_notfinite):
+        flags |= LM_NEG_COV_DIAG
+    if not cov_bad and bool(eig_notfinite):
+        flags |= EIG_NOTFINITE
+    if maxed and not done and flags == 0:
+        flags |= MAXITER
+
+    cov_ok = not (cov_bad or bool(neg_eig | neg_diag | eig_notfinite))
+    perr = (torch.sqrt(torch.abs(torch.diagonal(pcov))) if cov_ok
+            else torch.full((npars,), CDEF, dtype=dtype, device=dev))
+    pars_out = torch.full_like(pars, PDEF) if bool(func_notfinite) else pars
+    pcov_out = pcov if cov_ok else torch.full((npars, npars), CDEF, dtype=dtype, device=dev)
+    ier = 1 if bool(small_cost) else 2 if bool(small_step) else 5
+    return {
+        "pars": pars_out,
+        "pars_err": perr,
+        "pars_cov": pcov_out,
+        "pars_cov0": pcov0,
+        "flags": torch.tensor(flags, dtype=torch.int32, device=dev),
+        "nfev": torch.tensor(nfev, dtype=torch.int32, device=dev),
+        "ier": torch.tensor(ier, dtype=torch.int32, device=dev),
+        "cost": cost,
+        "s_sq": s_sq,
+    }
+
+
+def _tree_index(tree, i):
+    """lane i of every tensor of a nested tuple, NamedTuple, list or
+    dict (None stays None)"""
+    if tree is None:
+        return None
+    if isinstance(tree, torch.Tensor):
+        return tree[i]
+    if isinstance(tree, dict):
+        return {k: _tree_index(v, i) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_tree_index(v, i) for v in tree))
+    return type(tree)(_tree_index(v, i) for v in tree)
+
+
+def run_lm_batch(resid_fn, data, guess, lo, hi, conf: LMConf, n_prior_pars=0,
+                 k_space=False, n_eff=None):
+    """run_lm over a batch, lane by lane: data (a nested structure of
+    tensors) and guess carry a leading [B] dim, n_eff (if given) is a
+    [B] row count; returns run_lm's fields stacked along [B] (k_space
+    raises in run_lm)"""
+    outs = [run_lm(resid_fn, _tree_index(data, i), guess[i], lo, hi, conf,
+                   n_prior_pars=n_prior_pars, k_space=k_space,
+                   n_eff=None if n_eff is None else int(n_eff[i]))
+            for i in range(guess.shape[0])]
+    return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
 
 # ----------------------------------------------------------------------

@@ -19,7 +19,12 @@ rows to K3 and K3-mb (``ops/lm_solve.py``) as [nrows, 8] float64: the
 kind, the form, the one or two parameter indices (-1 for none) and up
 to four constants of each row, evaluated by
 ``csrc/lm_common.cuh: prior_row`` with the same formulas.
+
+The host methods of the guessers and the host fitters are the
+reference's: ``sample`` and ``get_lnprob_scalar`` in numpy over the
+components' generators, and ``get_lnprob_scalar_device`` on tensors.
 """
+import numpy as np
 import torch
 
 from .priors.priors import FORM_FDIFF, FORM_LNP, sqrt_m2ln_grad
@@ -107,6 +112,37 @@ class PriorSimpleSep(object):
                 r, d = p.get_fdiff_device_grad(x[k])
             rows.append((r, [(k, d)]))
         return rows
+
+    def get_lnprob_scalar(self, pars):
+        """ln(prob) of one parameter vector (numpy), the components'
+        host values summed; raises GMixRangeError where a component
+        does"""
+        lnp = self.cen_prior.get_lnprob_scalar(pars[0], pars[1])
+        lnp += self.g_prior.get_lnprob_scalar2d(pars[2], pars[3])
+        for p, k in self._one_dim():
+            lnp += p.get_lnprob_scalar(pars[k])
+        return lnp
+
+    def get_lnprob_scalar_device(self, pars):
+        """ln(prob) [...] of pars [..., npars] on tensors: LOWVAL
+        outside a component's support, never raising"""
+        lnp = self.cen_prior.get_lnprob_device(pars[..., 0], pars[..., 1])
+        lnp = lnp + self.g_prior.get_lnprob_device2d(pars[..., 2], pars[..., 3])
+        for p, k in self._one_dim():
+            lnp = lnp + p.get_lnprob_device(pars[..., k])
+        return lnp
+
+    def sample(self, nrand=None):
+        """parameter vectors [nrand, npars] drawn from the components in
+        the reference's order (cen, g, T, the extra shape columns, the
+        fluxes); one vector [npars] for nrand None"""
+        n = 1 if nrand is None else nrand
+        samples = np.zeros((n, self.npars))
+        samples[:, 0], samples[:, 1] = self.cen_prior.sample(n)
+        samples[:, 2], samples[:, 3] = self.g_prior.sample2d(n)
+        for p, k in self._one_dim():
+            samples[:, k] = p.sample(n)
+        return samples[0, :] if nrand is None else samples
 
     def fill_fdiff_device(self, pars):
         """the prior rows [B, n_prior_pars] of pars [B, npars]"""

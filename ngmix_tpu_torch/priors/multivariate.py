@@ -1,5 +1,6 @@
 """The 2-d center prior: the device side of
-``ngmix_tpu/priors/multivariate.py``."""
+``ngmix_tpu/priors/multivariate.py``, with its host ``sample`` and
+``get_lnprob_scalar``."""
 import torch
 
 from .priors import CEN, PriorBase
@@ -50,6 +51,19 @@ class CenPrior(PriorBase):
     def get_lnprob_device(self, x1, x2):
         l1, l2 = self.get_lnprob_device_sep(x1, x2)
         return l1 + l2
+
+    def get_lnprob_scalar(self, x1, x2):
+        d1 = self.cen1 - x1
+        d2 = self.cen2 - x2
+        return -0.5 * d1 * d1 * self.s2inv1 - 0.5 * d2 * d2 * self.s2inv2
+
+    def sample(self, nrand=None):
+        """(x1, x2) drawn from the two gaussians"""
+        rand1 = self.rng.normal(loc=self.cen1, scale=self.sigma1, size=nrand)
+        rand2 = self.rng.normal(loc=self.cen2, scale=self.sigma2, size=nrand)
+        return rand1, rand2
+
+    sample2d = sample
 
 
 SimpleGauss2D = CenPrior

@@ -10,14 +10,24 @@ expression; where a value is guarded by a ``where`` (outside the
 support, or sqrt(-2 ln p) at chi2 = 0) the derivative is 0.
 
 K3 and K3-mb evaluate the same rows from a table (``kind`` and
-``consts`` of each prior, ``csrc/lm_common.cuh: prior_row``). Sampling
-and the host API are not ported; ``rng`` is accepted and not used.
+``consts`` of each prior, ``csrc/lm_common.cuh: prior_row``).
+
+The host methods that the guessers and the host fitters call are the
+reference's numpy code: ``sample`` draws from ``self.rng`` (a numpy
+``RandomState``; ``make_rng`` of the ``rng`` argument), so a prior
+whose generator is in the same state draws the same numbers, and
+``get_lnprob_scalar`` evaluates one value, raising ``GMixRangeError``
+where the reference does. Rejection sampling goes through
+``draw_until``, the reference's accumulator.
 """
 import math
 
+import numpy as np
 import torch
 
 from ..defaults import LOWVAL
+from ..gexceptions import GMixRangeError
+from .random import make_rng
 
 # the kinds of prior row of K3's and K3-mb's prior table
 # (csrc/lm_common.cuh: PriorKind)
@@ -40,12 +50,41 @@ def sqrt_m2ln_grad(lnp, *dlnp):
     return (row,) + tuple(torch.where(pos, (-2.0 * d) * half, 0.0) for d in dlnp)
 
 
+def draw_until(n, propose):
+    """at least n accepted draws, exactly n returned (leading axis).
+
+    ``propose(k)`` makes k proposals and returns the accepted ones. Each
+    round asks for the deficit over the running acceptance rate (at
+    least 1/64), as the reference's sampler does, so the same generator
+    state gives the same draws."""
+    if n <= 0:
+        return np.asarray(propose(0))[:0]
+    kept = []
+    have = 0
+    asked = 0
+    ask = int(n)
+    while have < n:
+        got = np.asarray(propose(ask))
+        kept.append(got)
+        have += got.shape[0]
+        asked += ask
+        rate = max(have / asked, 1.0 / 64.0)
+        ask = int(np.ceil((n - have) / rate)) + 1
+    return np.concatenate(kept, axis=0)[:n]
+
+
+def _one_or_many(vals, nrand):
+    """the reference's convention: nrand None gives a bare value"""
+    return vals[0] if nrand is None else vals
+
+
 class PriorBase(object):
-    """a prior's bounds (used by the joint priors' ``bounds``)"""
+    """a prior's bounds (used by the joint priors' ``bounds``) and its
+    numpy generator"""
 
     def __init__(self, rng=None, bounds=None):
         self.bounds = bounds
-        self.rng = rng
+        self.rng = make_rng(rng)
 
     def has_bounds(self):
         return self.bounds is not None
@@ -84,6 +123,17 @@ class FlatPrior(PriorBase):
     def _out(self, val):
         return (val < self.minval) | (val > self.maxval)
 
+    def get_lnprob_scalar(self, val):
+        if np.any(np.asarray(val) < self.minval) or np.any(np.asarray(val) > self.maxval):
+            raise GMixRangeError("value %s out of range: [%s,%s]"
+                                 % (val, self.minval, self.maxval))
+        return 0.0
+
+    def sample(self, nrand=None):
+        n = 1 if nrand is None else nrand
+        span = self.maxval - self.minval
+        return _one_or_many(self.minval + span * self.rng.uniform(size=n), nrand)
+
     def get_lnprob_device_grad(self, val):
         return torch.where(self._out(val), LOWVAL, torch.zeros_like(val)), torch.zeros_like(val)
 
@@ -108,6 +158,28 @@ class TwoSidedErf(_LnpFdiff, PriorBase):
     @property
     def consts(self):
         return (self.minval, self.width_at_min, self.maxval, self.width_at_max)
+
+    def _smooth_box(self, x):
+        """the probability of numpy values x"""
+        from scipy.special import erf
+
+        rise = erf((x - self.minval) / self.width_at_min)
+        fall = erf((self.maxval - x) / self.width_at_max)
+        return 0.5 * (rise + fall)
+
+    def get_lnprob_scalar(self, val):
+        p = float(self._smooth_box(np.float64(val)))
+        return np.log(p) if p > 0.0 else LOWVAL
+
+    def sample(self, nrand=None):
+        lo = self.minval - 5.0 * self.width_at_min
+        hi = self.maxval + 5.0 * self.width_at_max
+
+        def propose(k):
+            x = self.rng.uniform(low=lo, high=hi, size=k)
+            return x[self.rng.uniform(size=k) < self._smooth_box(x)]
+
+        return _one_or_many(draw_until(1 if nrand is None else nrand, propose), nrand)
 
     def get_lnprob_device_grad(self, val):
         a = (val - self.minval) / self.width_at_min
@@ -139,6 +211,15 @@ class Normal(PriorBase):
     @property
     def consts(self):
         return (self.mean, self.sigma)
+
+    def get_lnprob_scalar(self, val):
+        z = (val - self.mean) / self.sigma
+        return -0.5 * z * z
+
+    def sample(self, nrand=None, size=None):
+        if size is None and nrand is not None:
+            size = nrand
+        return self.rng.normal(loc=self.mean, scale=self.sigma, size=size)
 
     def get_lnprob_device_grad(self, val):
         z = (val - self.mean) / self.sigma
@@ -174,6 +255,21 @@ class LogNormal(_LnpFdiff, PriorBase):
         return (0.0 if self.shift is None else self.shift, self.logmean,
                 -0.5 * self.logivar, self.lnprob_max)
 
+    def get_lnprob_scalar(self, val):
+        if self.shift is not None:
+            val = val - self.shift
+        if val <= 0:
+            raise GMixRangeError("values of LogNormal must be > 0")
+        t = np.log(val)
+        return -0.5 * (self.logivar * (t - self.logmean) ** 2) - t - self.lnprob_max
+
+    def sample(self, nrand=None):
+        z = self.rng.normal(size=nrand)
+        r = np.exp(self.logmean + self.logsigma * z)
+        if self.shift is not None:
+            r += self.shift
+        return r
+
     def get_lnprob_device_grad(self, val):
         if self.shift is not None:
             val = val - self.shift
@@ -203,6 +299,16 @@ class Sinh(PriorBase):
     def consts(self):
         return (self.mean, self.scale)
 
+    def get_lnprob_scalar(self, val):
+        f = np.sinh((val - self.mean) / self.scale)
+        return -0.5 * f * f
+
+    def sample(self, nrand=None):
+        n = 1 if nrand is None else nrand
+        vals = self.rng.uniform(low=self.mean - self.scale, high=self.mean + self.scale,
+                                size=n)
+        return _one_or_many(vals, nrand)
+
     def get_fdiff_device_grad(self, val):
         u = (val - self.mean) / self.scale
         return torch.sinh(u), torch.cosh(u) * (1.0 / self.scale)
@@ -230,6 +336,19 @@ class TruncatedGaussian(PriorBase):
     @property
     def consts(self):
         return (self.mean, self.sinv, self.minval, self.maxval)
+
+    def get_lnprob_scalar(self, val):
+        if val < self.minval or val > self.maxval:
+            raise GMixRangeError("value out of range")
+        z = (val - self.mean) * self.sinv
+        return -0.5 * z * z
+
+    def sample(self, nrand=None):
+        def propose(k):
+            cand = self.rng.normal(loc=self.mean, scale=self.sigma, size=k)
+            return cand[(cand > self.minval) & (cand < self.maxval)]
+
+        return _one_or_many(draw_until(1 if nrand is None else nrand, propose), nrand)
 
     def _out(self, val):
         return (val < self.minval) | (val > self.maxval)

@@ -1,7 +1,9 @@
 """Rules of the PyTorch port's package: no JAX inside it or in
 chip_smoke.py (every module of the package is scanned), the kernel
 build command, the ignored build directory,
-and constants and tables equal to the JAX package's."""
+constants and tables equal to the JAX package's, and the package's
+surface: every submodule the JAX package's __init__ imports that the
+port has, and __version__."""
 import ast
 from pathlib import Path
 
@@ -9,10 +11,12 @@ import numpy as np
 import pytest
 import torch
 
+import ngmix_tpu
 from ngmix_tpu import defaults as jdefaults, flags as jflags
 from ngmix_tpu.gmix import tables as jtables
 from ngmix_tpu.metacal import defaults as jmdefaults
 
+import ngmix_tpu_torch
 from ngmix_tpu_torch import defaults, flags
 from ngmix_tpu_torch.gmix import tables
 from ngmix_tpu_torch.metacal import defaults as mdefaults
@@ -89,3 +93,27 @@ def test_constants_match_jax_package():
 def test_tables_match_jax_package():
     for name in ("PVALS_EXP", "FVALS_EXP", "PVALS_TURB", "FVALS_TURB"):
         np.testing.assert_array_equal(getattr(tables, name), getattr(jtables, name))
+
+
+def _init_submodules(path):
+    """the submodules a package __init__ imports at its top level (the
+    first name of each relative import)"""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.ImportFrom) and node.level == 1:
+            if node.module is None:
+                names.update(a.name for a in node.names)
+            else:
+                names.add(node.module.split(".")[0])
+    return names
+
+
+def test_package_imports_the_reference_submodules_it_has():
+    names = _init_submodules(ROOT / "ngmix_tpu" / "__init__.py")
+    have = sorted(n for n in names if (PKG / (n + ".py")).exists()
+                  or (PKG / n / "__init__.py").exists())
+    assert {"checkpoint", "parallel", "ragged", "guessers", "runners", "fitting", "defaults",
+            "flags"} <= set(have)
+    missing = [n for n in have if not hasattr(ngmix_tpu_torch, n)]
+    assert not missing, missing
+    assert ngmix_tpu_torch.__version__ == ngmix_tpu.__version__
