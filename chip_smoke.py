@@ -26,8 +26,9 @@ printing one timed line as soon as it ends:
 1. card:   the card's name and power limit (nvidia-smi);
 2. build:  nvcc builds every kernel (K1, K2, K3 with its modes, K3-mb)
            into build/ngmix_tpu_torch/ (first use), one process a
-           source, all started together; prints the slowest units and
-           nvcc's CPU seconds;
+           source, the costliest first, one a core; prints each unit's
+           nvcc CPU seconds; meanwhile the residual LM runs once on the
+           card (warm_run_lm);
 3. kernel: K2 against its plain version on the same CUDA inputs over
            n in {1, 6} (compile-time) and {3, 18} (any n), both modes,
            float32 and float64, B in {1, 3, 10243} (10243 leaves a
@@ -110,12 +111,12 @@ printing one timed line as soon as it ends:
            tolerances. The share of lanes outside rtol 1e-4 is printed.
            Then K3 bitwise equal on a permuted and truncated batch,
            timed beside its bound and its plain version; then the
-           exp-LM call by the K3 and the host-loop routes, 5 calls each
-           interleaved (median and range), with each route's device
-           operations a call and busy time from one profiled call, and
-           the device idle share of the unprofiled calls (1 - busy /
-           the span between CUDA events recorded at the call's start
-           and end). The host-loop route's first timed call and one
+           exp-LM call by the K3 and the host-loop routes, N_TIMED
+           calls each interleaved (median and range) with the span
+           between CUDA events recorded at a call's start and end (a
+           call's device operations, busy time and idle share come from
+           python -m ngmix_tpu_torch.profile_main_path). The host-loop
+           route's first timed call and one
            call on the het sims are gated like phase 8 (and K1's
            launches over them printed), and the share of its float32
            lanes whose e1/e2/T/flux differ from the K3 route's by more
@@ -127,8 +128,9 @@ printing one timed line as soon as it ends:
            like phase 4, with K2 launched and one call launching K2
            twice an iteration and once more; prints numiter (mean, p50,
            max), the host loop's iterations a call, stamps/s (median
-           and range of 3 calls), the device operations a call and the
-           device idle share, measured as in phase 13;
+           and range of 3 calls) and the CUDA-event span of a call (its
+           device operations and idle share come from
+           profile_main_path);
 15. admom-cpu: the first 256 stamps in float64 on the card and on the
            CPU: flags and numiter equal, every field to rtol 1e-8 and
            atol 1e-10 with NaNs in the same places;
@@ -162,8 +164,8 @@ printing one timed line as soon as it ends:
            sims, gated like phase 8 (|m|, |hetero m| < 1e-3, flagged <=
            max(8, 0.5% B), e1 equal to pars[:, 2]) with K3-mb launched
            once a call and K2 launched; objects/s and epoch-stamps/s
-           (median and range of 3 calls), device operations, idle share
-           and nfev as in phase 13. Then: the flat exp-LM (through K3) on
+           (median and range of 3 calls), the event span and nfev.
+           Then: the flat exp-LM (through K3) on
            the same stamps, whose optimum the joint fit shares: the share
            of lanes whose e1/e2/T differ by more than half the flat
            pars_err, and both band fluxes within half the flat flux
@@ -179,7 +181,7 @@ printing one timed line as soon as it ends:
 19. prepsf: bench.py's pre-psf moments, prepsfmom_batch (ksigma, FWHM
            2.0, target_dim 196, tot_var = NOISE^2, partial modes) on
            B = 10240 49x49 sim stamps in float32: stamps/s (median and
-           range of 3 calls), device operations a call, T finite and
+           range of 3 calls), the event span, T finite and
            kernel_nrm within 1e-5 of 1; the pgauss and ksigma metacal
            pipelines (the gaussmom fields, FWHM 2.0) at B = 10240 with
            the reference's gate, |m| < 1.5e-3, 1.1 < R11 < 1.8
@@ -197,7 +199,7 @@ printing one timed line as soon as it ends:
            sky-shifted stamps (sims.em1_inputs) at B = 10240 with the
            default EMConf in float32: flagged lanes, numiter (mean,
            p50, p90, p99, max), stamps/s (median and range of 3 calls),
-           device operations and idle share as in phase 13; then 256
+           the event span; then 256
            stamps in float64 on the card and the CPU: flags and numiter
            equal, gmix, gmix_conv and sky to rtol 1e-8 and atol 1e-10;
 21. models: the gauss-lm and dev-lm metacal pipelines (through K3) at
@@ -327,13 +329,39 @@ printing one timed line as soon as it ends:
            inputs against their plain versions and timed beside their
            bounds; ms an object of each group, beside the card's name and
            power limit.
-The float64 CPU sides of phases 5, 9, 15, 17-24, 26 and 27 run in
+28. bootstrap: the host metacal bootstrap and the k-space fitters in
+           float64 on stamps made from numpy (a seed a group): the
+           reference's shear oracle (tests/test_metacal.py:204-249) on 16
+           objects, MetacalBootstrapper(psf="gauss", types noshear, 1p,
+           1m) with Runner(GaussMom(1.2)) and PSFRunner(Fitter("gauss"),
+           SimplePSFGuesser(guess_from_moms=True), ntry=3): flags 0,
+           |m| < 1e-3; MetacalBootstrapper with Runner(Fitter("exp"),
+           TFluxGuesser) under psf="fitgauss" on 8 objects and "dilate"
+           (all nine types) on 4; KSpaceFitter gauss and exp,
+           GalsimSpergelFitter, GalsimMoffatFitter and
+           GalsimPSFFluxFitter on 4 objects each, on the stamps and from
+           the guesses of the reference's tests/test_kspace_fitters.py:
+           every fit's route K3,
+           every result held to the same run on the CPU (moments rtol
+           1e-10 + atol 1e-12, LM fields rtol 1e-5 + atol 1e-7 and nfev
+           within 2, flags equal), the first object's metacal images of
+           each psf mode to rtol 1e-8 + atol 1e-10 of the peak; K3 and
+           K2 launches counted from 0 equal to the K3-route fits and to
+           the GaussMom, admom, s/n-sum and moments-guess calls
+           (counted_fits), none by the k-space fits; ms an object of each
+           group, beside the card's name and power limit.
+The float64 CPU sides of phases 5, 9, 15, 17-24 and 26-28 run in
 CPU_WORKERS spawned processes of one thread each from the end of phase
-2, while the card runs the phases before them.
+2, while the card runs the phases before them: each job's lanes split
+over the workers, so that they take the jobs in the order the phases
+read them. Before the JSON result the timing line gives each phase
+line's own seconds ("2 build" the kernels' build) and the seconds the
+phases waited for the CPU sides.
 Needs one CUDA card and exits nonzero, printing the reason, on any
 failure or without a card. The last line is the JSON result.
 """
 import concurrent.futures
+import contextlib
 import functools
 import json
 import subprocess
@@ -351,12 +379,13 @@ from ngmix_tpu_torch.fitting import fit_model, lm as tlm
 from ngmix_tpu_torch.gmix import core as gcore
 from ngmix_tpu_torch.gaussmom import make_weight_gmix
 from ngmix_tpu_torch.ops import _build, gmix_eval, lm_solve, normal_eqs
-from ngmix_tpu_torch.profile_main_path import _busy_us
 
 B_MAIN = 10240
 B_COMPACT = 2048
 B_BOUNDED = 256
-N_TIMED = 5
+N_TIMED = 3
+# launches a K3 or K3-mb time takes the mean of (after two warm-ups)
+K3_TIMED = 3
 NTYPES = 5
 CONF = nt.sims.METACAL_GAUSSMOM_CONFIG
 ADMOM_CONF = nt.sims.METACAL_ADMOM_CONFIG
@@ -428,8 +457,30 @@ class SmokeFailure(Exception):
     pass
 
 
+# each phase line's end (time.perf_counter()) and the seconds each phase
+# waited for CpuSide's results: the timing line before the last line of
+# the output
+PHASE_ENDS = {}
+CPU_WAITS = {}
+
+
 def phase_line(name, t0, msg=""):
-    print("[%s] %.2f s %s" % (name, time.perf_counter() - t0, msg), flush=True)
+    now = PHASE_ENDS[name] = time.perf_counter()
+    print("[%s] %.2f s %s" % (name, now - t0, msg), flush=True)
+
+
+def timing_line(t_all):
+    """each phase line's own seconds (from the end of the line before it,
+    the first from t_all; "2 build" is the kernels' build), the seconds
+    the phases waited for the CPU sides and the run's total"""
+    own, prev = [], t_all
+    for name, end in PHASE_ENDS.items():
+        own.append("%s %.1f" % (name, end - prev))
+        prev = end
+    return "timing: %s; cpu waits %s; total %.1f s" % (
+        ", ".join(own),
+        ", ".join("%s %.1f" % kv for kv in CPU_WAITS.items() if kv[1] >= 0.05) or "none",
+        time.perf_counter() - t_all)
 
 
 def card_line():
@@ -1237,19 +1288,6 @@ def timed_call(fn, *args):
     return out, time.perf_counter() - t0, start.elapsed_time(end)
 
 
-def device_profile(fn, *args):
-    """device operations and busy time (ms, the union of their
-    intervals) of one call, from torch.profiler's device trace"""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn(*args)
-        torch.cuda.synchronize()
-    ops = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA
-           and e.time_range.end > e.time_range.start]
-    return len(ops), _busy_us(ops) / 1e3
-
-
 def model_rp(pars, psf_gmix, model):
     """the reparametrized gaussians of the model at pars, whose count
     (6, 1 or 10) the operation counts take"""
@@ -1307,7 +1345,7 @@ def k3_timed_row(args, conf, model="exp", prior=None, plain_lanes=None):
     max_abs = max(float((a[k].double() - b[k].double()).abs().max())
                   for k in ("e1", "e2", "T", "flux"))
     indep = check_batch_independence(args, conf, model=model, prior=prior)
-    ms = time_ms(lambda: lm_solve.lm_solve(*args, conf, model, prior), 10)
+    ms = time_ms(lambda: lm_solve.lm_solve(*args, conf, model, prior), K3_TIMED)
     b_ms, by = k3_bound(args, state, model, prior)
     return dict(shape="%s NG=%d [%dx%d]%s" % (model, NGAUSS[model], *args[4].shape,
                                              prior_text(prior)), ms=ms,
@@ -1352,14 +1390,9 @@ def time_k3(device, hom, het, res_k3):
     host["split32"] = (sum(x[0] for x in splits) / NTYPES, max(x[1] for x in splits))
     calls = {}
     for r, f in routes.items():
-        t_prof = time.perf_counter()
-        nops, busy_ms = device_profile(f, *hom)
-        t_prof = time.perf_counter() - t_prof
         w = sorted(walls[r])
-        span = sorted(spans[r])[N_TIMED // 2]
         calls[r] = dict(stamps_per_s=B_MAIN / w[N_TIMED // 2], sec=w[N_TIMED // 2],
-                        sec_range=(w[0], w[-1]), ops=nops, busy_ms=busy_ms,
-                        span_ms=span, idle=1.0 - busy_ms / span, profile_s=t_prof)
+                        sec_range=(w[0], w[-1]), span_ms=sorted(spans[r])[N_TIMED // 2])
     return row, calls, host
 
 
@@ -1573,17 +1606,15 @@ def admom_phases(device, t_all, cpu_side):
     admom_launches = read_launches()["k2"]
     it_hom, it_het = pipeline_numiter(ap["res"]), pipeline_numiter(ap["het_res"])
     fn_admom = nt.make_metacal_pipeline_fn(ADMOM_CONF, measure="admom", device=device)
-    admom_ops, admom_busy = device_profile(fn_admom, *hom)
     phase_line(
         "14 admom", t0,
         "B=%d m=%.3e hetero_m=%.3e R11=%.4f flagged=%d hetero_flagged=%d k2_launches=%d "
         "stamps/s=%.1f (median %.4f s/call of 3, range %.4f-%.4f); numiter (mean, p50, max): "
-        "hom (%.3f, %g, %d) het (%.3f, %g, %d); host-loop iterations a call: hom %d het %d; %d "
-        "device operations a call, busy %.3f ms, event span %.3f ms, idle %.1f%%"
+        "hom (%.3f, %g, %d) het (%.3f, %g, %d); host-loop iterations a call: hom %d het %d; "
+        "event span %.3f ms"
         % (B_MAIN, ap["m"], ap["het_m"], ap["R11"], ap["flagged"], ap["het_flagged"],
            admom_launches, ap["stamps_per_s"], ap["sec"], *ap["sec_range"], *it_hom, *it_het,
-           it_hom[2], it_het[2], admom_ops, admom_busy, ap["span_ms"],
-           100 * (1 - admom_busy / ap["span_ms"])))
+           it_hom[2], it_het[2], ap["span_ms"]))
     check_gate(ap, B_MAIN, "admom")
     if admom_launches <= 0:
         raise SmokeFailure("the admom path did not launch K2")
@@ -1606,8 +1637,7 @@ def admom_phases(device, t_all, cpu_side):
     t0 = time.perf_counter()
     ab, ab_row = run_admom_batch(device, hom)
     admom_rows = [time_k2_captured("admom pipeline", fn_admom, *hom), ab_row]
-    for r in admom_rows:
-        print(k2_row_text(r), flush=True)
+    print("; ".join(k2_row_text(r) for r in admom_rows), flush=True)
     phase_line("16 admom-batch", t0, "B=%d 49x49: flagged=%d numiter (mean, p50, max) "
                "(%.3f, %g, %d) stamps/s=%.1f (median of 3, range %.4f-%.4f s)"
                % (B_MAIN, ab["flagged"], *ab["numiter"], ab["stamps_per_s"],
@@ -1855,11 +1885,21 @@ def _one_thread():
     torch.set_num_threads(1)
 
 
-def _timed_job(fn, args, rest):
-    """fn(args, *rest) and its CPU seconds, in a CpuSide worker"""
+def _timed_job(fn, args):
+    """fn(*args) and its CPU seconds, in a CpuSide worker"""
     t0 = time.process_time()
-    out = fn(args, *rest)
+    out = fn(*args)
     return out, time.process_time() - t0
+
+
+def _cat_results(parts):
+    """the results of a job's chunks, concatenated along the leading dim
+    of every tensor of their nested dicts"""
+    if len(parts) == 1:
+        return parts[0]
+    if isinstance(parts[0], dict):
+        return {k: _cat_results([p[k] for p in parts]) for k in parts[0]}
+    return torch.cat(parts)
 
 
 class CpuSide:
@@ -1877,16 +1917,43 @@ class CpuSide:
         self.waited = 0.0
         self.cpu = {}
 
-    def submit(self, key, fn, args, *rest):
-        self.inputs[key] = (args,) + rest
-        self.jobs[key] = self.pool.apply_async(_timed_job, (fn, [a.cpu() for a in args], rest))
+    def submit(self, key, fn, lanes, *rest):
+        """fn(*lanes, *rest) in the workers. lanes are the job's per-lane
+        arguments, each a tensor or a list of tensors whose leading dim
+        counts the same lanes; every job is split into min(CPU_WORKERS,
+        lanes) jobs of consecutive lanes, whose results get()
+        concatenates, so that the workers take the phases' CPU sides in
+        the order the phases read them. rest goes to every part as it
+        is"""
+        self.inputs[key] = tuple(lanes) + rest
+        sizes = {x.shape[0] for lane in lanes
+                 for x in (lane if isinstance(lane, (list, tuple)) else [lane])}
+        if len(sizes) > 1:
+            raise ValueError("%s: the lane arguments' leading dims differ: %s" % (key, sizes))
+        B = sizes.pop() if sizes else 0
+        n = max(1, min(CPU_WORKERS, B))
+        edges = [B * i // n for i in range(n + 1)]
+
+        def part(x, lo, hi):
+            if isinstance(x, (list, tuple)):
+                return [a[lo:hi].cpu() for a in x]
+            return x[lo:hi].cpu()
+
+        self.jobs[key] = [self.pool.apply_async(_timed_job, (
+            fn, tuple(part(x, lo, hi) for x in lanes) + rest))
+            for lo, hi in zip(edges[:-1], edges[1:])]
 
     def get(self, key):
         """the job's inputs (args on the card, *rest) and its result,
         waiting for it"""
         t0 = time.perf_counter()
-        out, self.cpu[key] = self.jobs.pop(key).get()
-        self.waited += time.perf_counter() - t0
+        parts = [job.get() for job in self.jobs.pop(key)]
+        out = _cat_results([p[0] for p in parts])
+        self.cpu[key] = sum(p[1] for p in parts)
+        waited = time.perf_counter() - t0
+        self.waited += waited
+        phase = key.split()[0]
+        CPU_WAITS[phase] = CPU_WAITS.get(phase, 0.0) + waited
         return self.inputs.pop(key), out
 
     def cpu_text(self, n=5):
@@ -1919,38 +1986,40 @@ def start_cpu_side(device):
     nb = nt.sims.MB_NBAND
     hom = nt.make_sim_batch(gen(314), B_MAIN, torch.float32, device=device)
     flat = [a[:N_CPU].double() for a in hom]
-    side.submit("5 gaussmom", pipeline_cpu_results, flat, CONF, "gaussmom")
-    side.submit("9 host-loop", host_loop_cpu_results, flat)
-    side.submit("15 admom", pipeline_cpu_results, flat, ADMOM_CONF, "admom")
-    side.submit("20 em", em_cpu_results, flat[:3], nt.EMConf())
+    side.submit("5 gaussmom", pipeline_cpu_results, (flat,), CONF, "gaussmom")
+    side.submit("9 host-loop", host_loop_cpu_results, (flat,))
+    side.submit("15 admom", pipeline_cpu_results, (flat,), ADMOM_CONF, "admom")
+    side.submit("20 em", em_cpu_results, (flat[:3],), nt.EMConf())
     for measure, conf in PSF_MODE_RUNS:
-        side.submit("17 %s %s" % (measure, conf.psf_mode), pipeline_cpu_results, flat, conf,
+        side.submit("17 %s %s" % (measure, conf.psf_mode), pipeline_cpu_results, (flat,), conf,
                     measure)
     het_mb = nt.make_sim_batch_mb(gen(271), B_MB, torch.float32, device=device, hetero=True)
-    side.submit("18 mb", mb_cpu_results, *distinct_epochs(het_mb, N_CPU_MB), "exp-lm", None)
+    side.submit("18 mb", mb_cpu_results, distinct_epochs(het_mb, N_CPU_MB), "exp-lm", None)
     del het_mb
     for case in PREPSF_CPU_CASES:
-        side.submit("19 %s %s %s" % case, prepsf_cpu_results, prepsf_cpu_inputs(hom), *case)
+        side.submit("19 %s %s %s" % case, prepsf_cpu_results, (prepsf_cpu_inputs(hom),), *case)
     het = [x[:, None] for x in nt.make_sim_batch_hetero(gen(271), B_MAIN, torch.float32,
                                                           device=device)]
-    side.submit("21 exp-lm", flat_cpu_results, flat, "exp-lm", BOX)
+    side.submit("21 exp-lm", flat_cpu_results, (flat,), "exp-lm", BOX)
     mb = distinct_epochs(het, N_CPU_MB_MODELS)
     for model in MODEL_GATES:
-        side.submit("21 mb " + model, mb_cpu_results, *mb, model + "-lm", None)
+        side.submit("21 mb " + model, mb_cpu_results, mb, model + "-lm", None)
     truth = [x[:, None] for x in nt.make_sim_batch_hetero(
         gen(271), B_MAIN, torch.float32, device=device, gal_model="bdf")]
     for model, sims in (("bdf", het), ("bd", truth)):
         box = COMPOSITE[model][0]
         side.submit("22 flat " + model, flat_cpu_results,
-                    [a[:N_CPU_COMPOSITE] for a in flat] if model == "bdf"
-                    else [a[:N_CPU_COMPOSITE, 0].double() for a in truth], model + "-lm", box)
+                    ([a[:N_CPU_COMPOSITE] for a in flat] if model == "bdf"
+                     else [a[:N_CPU_COMPOSITE, 0].double() for a in truth],), model + "-lm", box)
         side.submit("22 mb " + model, mb_cpu_results,
-                    *distinct_epochs(sims, N_CPU_MB_COMPOSITE), model + "-lm", mb_box(box, nb))
+                    distinct_epochs(sims, N_CPU_MB_COMPOSITE), model + "-lm", mb_box(box, nb))
     submit_prior_cpu(side, hom, truth)
     for name, (measure, box, conf, lm_conf) in OPTION_RUNS.items():
-        side.submit("24 " + name, option_cpu_results, flat, measure, box, conf, lm_conf)
-    side.submit("26 render", host_render, [torch.tensor(HOST_RENDER_PARS)], "cpu")
-    side.submit("27 fitters", fitter_cpu_results, [])
+        side.submit("24 " + name, option_cpu_results, (flat,), measure, box, conf, lm_conf)
+    side.submit("26 render", host_render, (), HOST_RENDER_PARS, "cpu")
+    side.submit("27 fitters", fitter_cpu_results, ())
+    for group in BOOT_GROUPS:
+        side.submit("28 " + group, bootstrap_cpu_results, (), group)
     return side
 
 
@@ -1982,7 +2051,6 @@ def mb_phase(device, t_all, cpu_side):
                            "K2 %d and K3 %d times in one call, not K3-mb once a call and K2"
                            % (launches["k3mb"], one["k3mb"], one["k2"], one["k3"]))
     sec, (lo, hi), span = timed3(fn, *hom)
-    nops, busy = device_profile(fn, *hom)
     E = len(nt.sims.MB_BAND)
     types = nt.batch.GALSHEAR_TYPES
     nfev = [numiter_stats(*(r[t]["nfev"] for t in types)) for r in (res, het_res)]
@@ -1993,9 +2061,8 @@ def mb_phase(device, t_all, cpu_side):
         "s/call of 3, range %.4f-%.4f)"
         % (B_MB, E, g["m"], g["het_m"], g["R11"], g["flagged"], g["het_flagged"],
            launches["k3mb"], launches["k2"], B_MB / sec, E * B_MB / sec, sec, lo, hi))
-    print("    nfev (mean, p50, max): hom (%.3f, %g, %d) het (%.3f, %g, %d); %d device "
-          "operations a call, busy %.3f ms, event span %.3f ms, idle %.1f%%"
-          % (*nfev[0], *nfev[1], nops, busy, span, 100 * (1 - busy / span)), flush=True)
+    print("    nfev (mean, p50, max): hom (%.3f, %g, %d) het (%.3f, %g, %d); event span "
+          "%.3f ms" % (*nfev[0], *nfev[1], span), flush=True)
 
     flat = nt.make_metacal_pipeline_fn(MB_CONF, measure="exp-lm", device=device)(
         *(a[:, 0] for a in hom))
@@ -2015,7 +2082,7 @@ def mb_phase(device, t_all, cpu_side):
     cpu_worst, cpu_dnfev, _ = mb_card_cpu(cpu_args, band, cpu)
 
     state = lm_solve.lm_solve_mb(*args, conf)
-    ms = time_ms(lambda: lm_solve.lm_solve_mb(*args, conf), 10)
+    ms = time_ms(lambda: lm_solve.lm_solve_mb(*args, conf), K3_TIMED)
     b_ms, by = k3mb_bound(args, state)
     B, _, P = args[5].shape
     attrs = lm_solve.kernel_attrs_mb(args[0].dtype, nt.sims.MB_NBAND, E, P)
@@ -2075,8 +2142,7 @@ def timed3(fn, *args):
 
 def run_prepsfmom(device, hom):
     """bench.py's standalone pre-psf moments: ksigma at target_dim 196
-    on the 49x49 stamps, float32, partial modes; three timed calls and
-    the device operations of one"""
+    on the 49x49 stamps, float32, partial modes; three timed calls"""
     args = prepsf_args(hom)
     fn = functools.partial(nt.prepsfmom_batch, device=device, **PREPSF_KW)
     res = fn(*args)
@@ -2086,9 +2152,8 @@ def run_prepsfmom(device, hom):
             ((res["kernel_nrm"] - 1.0).abs() < 1e-5).all()):
         raise SmokeFailure("prepsfmom_batch: T not finite or kernel_nrm away from 1")
     sec, rng, span = timed3(fn, *args)
-    nops, busy = device_profile(fn, *args)
     return dict(flagged=int((~ok).sum()), stamps_per_s=B / sec, sec=sec, sec_range=rng,
-                ops=nops, busy_ms=busy, span_ms=span)
+                span_ms=span)
 
 
 def run_prepsf_pipelines(device, hom):
@@ -2207,10 +2272,9 @@ def prepsf_phase(device, t_all, cpu_side):
     phase_line(
         "19 prepsf", t0,
         "prepsfmom_batch B=%d ksigma target_dim %d: flagged=%d stamps/s=%.1f (median %.4f "
-        "s/call of 3, range %.4f-%.4f), %d device operations a call, busy %.3f ms, event "
-        "span %.3f ms" % (B_MAIN, PREPSF_KW["target_dim"], pp["flagged"], pp["stamps_per_s"],
-                          pp["sec"], *pp["sec_range"], pp["ops"], pp["busy_ms"],
-                          pp["span_ms"]))
+        "s/call of 3, range %.4f-%.4f), event span %.3f ms"
+        % (B_MAIN, PREPSF_KW["target_dim"], pp["flagged"], pp["stamps_per_s"], pp["sec"],
+           *pp["sec_range"], pp["span_ms"]))
     print("    pipelines B=%d FWHM %.1f: %s" % (B_MAIN, PREPSF_FWHM, "; ".join(
         "%s m=%.3e R11=%.4f flagged=%d k2=%d stamps/s=%.1f (range %.4f-%.4f s)"
         % (k, g["m"], g["R11"], g["flagged"], g["launches"], g["stamps_per_s"], *g["sec_range"])
@@ -2248,16 +2312,14 @@ def em_phase(device, t_all, cpu_side):
             torch.isfinite(res["gmix"][ok]).all()):
         raise SmokeFailure("em_batch: bad gmix shape or not finite")
     sec, rng, span = timed3(fn, *args)
-    nops, busy = device_profile(fn, *args)
     it = res["numiter"].double()
     q = [float(torch.quantile(it, x)) for x in (0.5, 0.9, 0.99)]
     phase_line("20 em", t0, "em_batch B=%d 49x49 float32: flagged=%d (maxiter %d) "
                "stamps/s=%.1f (median %.4f s/call of 3, range %.4f-%.4f); numiter (mean, p50, "
-               "p90, p99, max): %.3f, %g, %g, %g, %d (the host loop's iterations a call); %d "
-               "device operations a call, busy %.3f ms, event span %.3f ms, idle %.1f%%"
+               "p90, p99, max): %.3f, %g, %g, %g, %d (the host loop's iterations a call); "
+               "event span %.3f ms"
                % (B_MAIN, int((~ok).sum()), int((res["numiter"] >= conf.maxiter).sum()),
-                  B_MAIN / sec, sec, *rng, float(it.mean()), *q, int(it.max()), nops, busy,
-                  span, 100 * (1 - busy / span)))
+                  B_MAIN / sec, sec, *rng, float(it.mean()), *q, int(it.max()), span))
     t0 = time.perf_counter()
     (args64, _), cpu = cpu_side.get("20 em")
     card = nt.em_batch(*nt.sims.em1_inputs(*args64), conf, device="cuda")
@@ -2326,7 +2388,7 @@ def k3mb_model_row(args, conf, model, prior=None):
     PLAIN_LANES_MB object-lanes, and timed beside its bound"""
     split, in_err, max_abs, plain_ms, state = k3mb_against_plain(args, conf, model, prior,
                                                                  PLAIN_LANES_MB)
-    ms = time_ms(lambda: lm_solve.lm_solve_mb(*args, conf, model, prior), 10)
+    ms = time_ms(lambda: lm_solve.lm_solve_mb(*args, conf, model, prior), K3_TIMED)
     b_ms, by = k3mb_bound(args, state, model, prior)
     B, E, P = args[5].shape
     return dict(shape="%s NG=%d [%dx%dx%d]%s" % (model, NGAUSS[model], B, E, P,
@@ -2605,30 +2667,89 @@ def first_lanes(args, n=256):
     return float64(x if x.dim() == 1 else x[:n] for x in args)
 
 
-def composite_k3_checks(model, args, exp_args):
+def eager_steps():
+    """a context in which the LM loops step eagerly on the card, not by
+    replaying a captured CUDA graph of the step"""
+    stepper = tlm._stepper
+    return mock.patch.object(tlm, "_stepper", lambda step, s, graph: stepper(step, s, False))
+
+
+def replay_check(args, model, mb=False):
+    """the plain solve (mb: K3-mb's) of the first 64 lanes of K3's
+    inputs args in float64 for 8 iterations, its steps replayed from a
+    CUDA graph, against the same solve's eager steps: every state tensor
+    bitwise equal"""
+    a = first_lanes(args, 64)
+    conf = nt.LMConf(maxfev=8)
+    plain = lm_solve.lm_solve_mb_plain if mb else lm_solve.lm_solve_plain
+    replayed = plain(*a, conf, model)
+    with eager_steps():
+        eager = plain(*a, conf, model)
+    differ = [k for k in eager if not torch.equal(eager[k], replayed[k])]
+    if differ:
+        raise SmokeFailure("the plain %s%s solve's replayed steps differ from its eager "
+                           "steps in %s" % ("mb " if mb else "", model, differ))
+
+
+def joint_first_lanes(paths, n=256):
+    """the first n lanes of each path's K3 or K3-mb inputs in float64,
+    stacked into one batch (the paths' shared 1-d inputs, lo and hi,
+    equal), and each path's slice of it: one kernel solve and one plain
+    solve hold every path, the plain version's host loop running as
+    long as its slowest lane instead of once a path"""
+    parts = [first_lanes(a, n) for a in paths]
+    for p in parts[1:]:
+        if not all(torch.equal(x, y) for x, y in zip(parts[0], p) if x.dim() == 1):
+            raise SmokeFailure("the paths' shared inputs differ")
+    joint = tuple(x if x.dim() == 1 else torch.cat([p[i] for p in parts])
+                  for i, x in enumerate(parts[0]))
+    ends = np.cumsum([0] + [p[0].shape[0] for p in parts])
+    return joint, [slice(a, b) for a, b in zip(ends[:-1], ends[1:])]
+
+
+def rows(result, sl):
+    """the lanes sl of every column of a result dict"""
+    return {k: v[sl] for k, v in result.items()}
+
+
+def plain64(paths, model, mb=False, prior=None):
+    """the float64 check of K3 (mb: K3-mb) against its plain version on
+    the first 256 lanes of every path, stacked (joint_first_lanes): the
+    inputs, each path's slice, and the plain solve's state"""
+    joint, slices = joint_first_lanes(paths)
+    plain = lm_solve.lm_solve_mb_plain if mb else lm_solve.lm_solve_plain
+    return joint, slices, plain(*joint, nt.LMConf(), model, prior)
+
+
+def composite_k3_row(model, args):
     """K3 of the composite model on the bdf-truth path's float32 solve
     inputs args against its plain version by phase 13's criterion,
-    timed beside its bound with its registers and local memory; on the
-    exp path's exp_args in float32 against its float64 solve
-    (beyond_optimum); on 256 lanes of each path in float64 against its
-    plain version (f64_lanes). Returns the row and the two checks'
-    numbers"""
-    conf = nt.LMConf()
-    row = k3_timed_row(args, conf, model, plain_lanes=PLAIN_LANES)
+    timed beside its bound, with its registers and local memory"""
+    row = k3_timed_row(args, nt.LMConf(), model, plain_lanes=PLAIN_LANES)
     row["attrs"] = lm_solve.kernel_attrs(args[0].dtype, args[4].shape[1], model)
+    return row
+
+
+def composite_k3_checks(model, args, exp_args):
+    """K3 of the composite model on the exp path's float32 solve inputs
+    exp_args against its float64 solve (beyond_optimum), and on 256
+    lanes of each path (args: the bdf-truth path's) in float64 against
+    its plain version (f64_lanes; both paths' lanes in one solve,
+    plain64). Returns the two checks' numbers"""
+    conf = nt.LMConf()
+    paths = (args, exp_args)
     e64 = float64(exp_args)
     f32 = beyond_optimum(
         model, solve_columns(lm_solve.lm_solve(*exp_args, conf, model), exp_args, conf),
         solve_columns(lm_solve.lm_solve(*e64, conf, model), e64, conf),
         ("e1", "e2", "T", "flux"), "K3 (%s) in float32 on the exp path" % model)
-    f64 = []
-    for name, a in (("bdf-truth", args), ("exp", exp_args)):
-        a64 = first_lanes(a)
-        f64.append(f64_lanes(lm_result(lm_solve.lm_solve(*a64, conf, model), a64, conf),
-                             lm_result(lm_solve.lm_solve_plain(*a64, conf, model), a64, conf),
-                             "K3 (%s) and its plain version in float64 on the %s path"
-                             % (model, name)))
-    return row, f32, f64
+    joint, slices, plain = plain64(paths, model)
+    kern = lm_result(lm_solve.lm_solve(*joint, conf, model), joint, conf)
+    plain = lm_result(plain, joint, conf)
+    f64 = [f64_lanes(rows(kern, sl), rows(plain, sl),
+                     "K3 (%s) and its plain version in float64 on the %s path" % (model, name))
+           for name, sl in zip(("bdf-truth", "exp"), slices)]
+    return f32, f64
 
 
 def run_composite_mb(device, model, hom, het):
@@ -2658,33 +2779,39 @@ def run_composite_mb(device, model, hom, het):
     return dict(g, launches=launches), [capture_mb_inputs(fn, *x)[0]["k3mb"] for x in (het, hom)]
 
 
-def composite_k3mb_checks(model, args, exp_args):
-    """K3-mb of the composite model as composite_k3_checks holds K3: on
-    the mb bdf-truth path's float32 solve inputs args by phase 13's
-    criterion, timed beside its bound with its registers and its local
-    memory at nband 1-6; on the mb exp path's exp_args in float32
-    against its float64 solve; on 256 object-lanes of each in float64
-    against its plain version"""
-    conf = nt.LMConf()
-    row = k3mb_model_row(args, conf, model)
+def composite_k3mb_row(model, args):
+    """K3-mb of the composite model on the mb bdf-truth path's float32
+    solve inputs args against its plain version by phase 13's
+    criterion, timed beside its bound, with its registers and its local
+    memory at nband 1-6"""
+    row = k3mb_model_row(args, nt.LMConf(), model)
     E, P = args[5].shape[1:]
     row["attrs"] = lm_solve.kernel_attrs_mb(torch.float32, nt.sims.MB_NBAND, E, P, model)
     row["local_nband"] = [lm_solve.kernel_attrs_mb(torch.float32, n, E, P, model)["local_bytes"]
                           for n in range(1, 7)]
+    return row
+
+
+def composite_k3mb_checks(model, args, exp_args):
+    """K3-mb of the composite model as composite_k3_checks holds K3: on
+    the mb exp path's float32 solve inputs exp_args against its float64
+    solve, and on 256 object-lanes of each path in float64 against its
+    plain version (both in one solve, plain64)"""
+    conf = nt.LMConf()
+    paths = (args, exp_args)
     e64 = float64(exp_args)
     f32 = beyond_optimum(
         model, mb_cols(_epilogue_mb(lm_solve.lm_solve_mb(*exp_args, conf, model), exp_args,
                                     conf)),
         mb_cols(_epilogue_mb(lm_solve.lm_solve_mb(*e64, conf, model), e64, conf)), MB_KEYS,
         "K3-mb (%s) in float32 on the mb exp path" % model)
-    f64 = []
-    for name, a in (("bdf-truth", args), ("exp", exp_args)):
-        a64 = first_lanes(a)
-        f64.append(f64_lanes(
-            _epilogue_mb(lm_solve.lm_solve_mb(*a64, conf, model), a64, conf),
-            _epilogue_mb(lm_solve.lm_solve_mb_plain(*a64, conf, model), a64, conf),
-            "K3-mb (%s) and its plain version in float64 on the mb %s path" % (model, name)))
-    return row, f32, f64
+    joint, slices, plain = plain64(paths, model, mb=True)
+    kern = _epilogue_mb(lm_solve.lm_solve_mb(*joint, conf, model), joint, conf)
+    plain = _epilogue_mb(plain, joint, conf)
+    f64 = [f64_lanes(rows(kern, sl), rows(plain, sl),
+                     "K3-mb (%s) and its plain version in float64 on the mb %s path"
+                     % (model, name)) for name, sl in zip(("bdf-truth", "exp"), slices)]
+    return f32, f64
 
 
 def cat_types(res, keys):
@@ -2755,11 +2882,9 @@ def composite_phase(device, t_all, cpu_side):
                       r["launches"]["k3mb"]) for m, r in mb.items())))
 
     t1 = time.perf_counter()
-    k3 = {}
-    for model, (box, _) in COMPOSITE.items():
-        truth_args, exp_args = (capture_k3_inputs(x, device, measure=model + "-lm",
-                                                  lm_bounds=box)[0] for x in (het, hom))
-        k3[model] = composite_k3_checks(model, truth_args, exp_args)
+    inputs = {model: [capture_k3_inputs(x, device, measure=model + "-lm", lm_bounds=box)[0]
+                      for x in (het, hom)] for model, (box, _) in COMPOSITE.items()}
+    rows3 = {model: composite_k3_row(model, inputs[model][0]) for model in COMPOSITE}
     k2_in, k2_launches = capture_k2_inputs(fns["bdf"], *hom)
     del hom, het
     gm, v = k2_in[:2]
@@ -2768,7 +2893,11 @@ def composite_phase(device, t_all, cpu_side):
                            % v.shape[1])
     k2_row = dict(time_k2("bdf-lm get_loglike n=%d fast [%dx%d]" % (gm.shape[1], *v.shape),
                           *k2_in, fast=True), launches_a_call=k2_launches)
-    k3mb = {model: composite_k3mb_checks(model, *mb_args[model]) for model in COMPOSITE}
+    rows3mb = {model: composite_k3mb_row(model, mb_args[model][0]) for model in COMPOSITE}
+    k3 = {model: (rows3[model],) + composite_k3_checks(model, *inputs[model])
+          for model in COMPOSITE}
+    k3mb = {model: (rows3mb[model],) + composite_k3mb_checks(model, *mb_args[model])
+            for model in COMPOSITE}
     print("    %s; %s; K2 %s: %.4f ms, plain %.4f ms, bound %.4f ms (%s), %d launches a call; "
           "%.1f s" % ("; ".join(
               "K3 %s (bdf-truth inputs): %.4f ms, plain %.4f ms (%d lanes), bound %.4f ms (%s), "
@@ -2794,10 +2923,13 @@ def composite_phase(device, t_all, cpu_side):
           flush=True)
 
     t1 = time.perf_counter()
+    replay_check(inputs["bd"][0], "bd")
+    replay_check(mb_args["bdf"][0], "bdf", mb=True)
     cc = {(kind, model): composite_card_cpu(cpu_side, kind, model)
           for model in COMPOSITE for kind in ("flat", "mb")}
-    phase_line("22 composite-cpu", t1, "float64 card against CPU, bdf on phase 21's exp "
-               "inputs, bd on the bdf-truth sims: %s; total %.1f s" % ("; ".join(
+    phase_line("22 composite-cpu", t1, "the plain solves' replayed steps bitwise equal to their "
+               "eager steps (bd, mb bdf: 64 lanes, 8 iterations); float64 card against CPU, bdf "
+               "on phase 21's exp inputs, bd on the bdf-truth sims: %s; total %.1f s" % ("; ".join(
                    "%s %s-lm, %d %s (%s=%d): %s" % (
                        kind, m, n, "stamps" if kind == "flat" else "objects x 3 epochs",
                        "k3" if kind == "flat" else "k3mb", launches, f64_text(r))
@@ -2990,7 +3122,8 @@ def prior_kernel_checks(model, paths, prior, mb=False):
     """K3 (mb: K3-mb) with the prior's rows on each path's float32 solve
     inputs (paths: name -> inputs): against its own float64 solve of
     every lane (beyond_optimum with PRIOR_F32_LIMIT), on the first 256
-    lanes in float64 against its plain version (prior_f64_lanes), and
+    lanes in float64 against its plain version (prior_f64_lanes; every
+    path's lanes in one solve, plain64), and
     cost_pix in both states (check_cost_pix). Returns, by path, the
     lanes beyond half a pars_err and the largest distance, the float64
     lanes outside and the largest relative difference, and the lanes
@@ -3004,8 +3137,11 @@ def prior_kernel_checks(model, paths, prior, mb=False):
         return mb_cols(_epilogue_mb(state, a, conf)) if mb else solve_columns(state, a, conf)
 
     kernel = "K3-mb" if mb else "K3"
+    joint, slices, ref = plain64(paths.values(), model, mb, prior)
+    kern = cols(solve(*joint, conf, model, prior), joint)
+    ref = cols(ref, joint)
     out = {}
-    for name, args in paths.items():
+    for (name, args), sl in zip(paths.items(), slices):
         what = "%s (%s) with the prior on the %s path" % (kernel, model, name)
         s32 = solve(*args, conf, model, prior)
         a64 = float64(args)
@@ -3014,9 +3150,7 @@ def prior_kernel_checks(model, paths, prior, mb=False):
         f32 = beyond_optimum(limit, cols(s32, args), cols(s64, a64), keys,
                              what + " in float32", limits=PRIOR_F32_LIMIT)
         nrow = check_cost_pix(s32, args, prior, what) + check_cost_pix(s64, a64, prior, what)
-        f = first_lanes(args)
-        f64 = prior_f64_lanes(cols(solve(*f, conf, model, prior), f),
-                              cols(plain(*f, conf, model, prior), f),
+        f64 = prior_f64_lanes(rows(kern, sl), rows(ref, sl),
                               what + " in float64 against its plain version", keys)
         out[name] = (f32, f64, nrow)
     return out
@@ -3033,13 +3167,14 @@ def prior_timed_rows(model, args, prior, mb=False):
         E, P = args[5].shape[1:]
         row["attrs"] = lm_solve.kernel_attrs_mb(torch.float32, nt.sims.MB_NBAND, E, P, model)
         state = lm_solve.lm_solve_mb(*args, conf, model)
-        row["ms_no_prior"] = time_ms(lambda: lm_solve.lm_solve_mb(*args, conf, model), 10)
+        row["ms_no_prior"] = time_ms(lambda: lm_solve.lm_solve_mb(*args, conf, model),
+                                     K3_TIMED)
         row["bound_no_prior"] = k3mb_bound(args, state, model)[0]
     else:
         row = k3_timed_row(args, conf, model, prior, plain_lanes=PLAIN_LANES)
         row["attrs"] = lm_solve.kernel_attrs(torch.float32, args[4].shape[1], model)
         state = lm_solve.lm_solve(*args, conf, model)
-        row["ms_no_prior"] = time_ms(lambda: lm_solve.lm_solve(*args, conf, model), 10)
+        row["ms_no_prior"] = time_ms(lambda: lm_solve.lm_solve(*args, conf, model), K3_TIMED)
         row["bound_no_prior"] = k3_bound(args, state, model)[0]
     row["nfev_sum_no_prior"] = int(state["nfev"].sum())
     # the prior rows' share of an evaluation's operations, at the guess
@@ -3074,7 +3209,7 @@ def prior_card_cpu(cpu_side, key, box, prior, mb=False):
     on an H100), whose pars lie within 1e-3 pars_err; unflagged pars
     inside the box. Returns f64_lanes' numbers, the card call's launches
     and the stamps or objects"""
-    inputs, cpu = get_chunks(cpu_side, key) if mb else cpu_side.get(key)
+    inputs, cpu = cpu_side.get(key)
     reset_launches()
     if mb:
         args, band = inputs[:2]
@@ -3098,37 +3233,17 @@ def prior_card_cpu(cpu_side, key, box, prior, mb=False):
     return out, launches, args[0].shape[0]
 
 
-# the objects of each of the mb bdf-lm CPU side's jobs: its 256 objects
-# take ~200 s of one core, so they run as jobs of this many on the pool
-PRIOR_MB_CHUNK = 32
-
-
 def submit_prior_cpu(side, hom, truth):
     """phase 23's CPU sides: exp-lm with its prior on the first N_CPU exp
     stamps, bdf-lm with its prior on the first N_CPU bdf-truth stamps and
-    the mb bdf-lm on N_CPU_MB objects of distinct bdf-truth epochs, in
-    jobs of PRIOR_MB_CHUNK objects"""
-    side.submit("23 flat exp", flat_cpu_results, [a[:N_CPU].double() for a in hom], "exp-lm",
-                BOX, exp_prior())
-    side.submit("23 flat bdf", flat_cpu_results, [a[:N_CPU, 0].double() for a in truth],
+    the mb bdf-lm on N_CPU_MB objects of distinct bdf-truth epochs"""
+    side.submit("23 flat exp", flat_cpu_results, ([a[:N_CPU].double() for a in hom],),
+                "exp-lm", BOX, exp_prior())
+    side.submit("23 flat bdf", flat_cpu_results, ([a[:N_CPU, 0].double() for a in truth],),
                 "bdf-lm", nt.sims.BDF_LM_BOUNDS, bdf_prior())
     nb = nt.sims.MB_NBAND
-    args, band = distinct_epochs(truth, N_CPU_MB)
-    for i in range(0, N_CPU_MB, PRIOR_MB_CHUNK):
-        j = slice(i, i + PRIOR_MB_CHUNK)
-        side.submit("23 mb bdf %d" % i, mb_cpu_results, [a[j] for a in args], band[j],
-                    "bdf-lm", mb_box(nt.sims.BDF_LM_BOUNDS, nb), bdf_prior(nb))
-
-
-def get_chunks(cpu_side, prefix):
-    """the inputs and results of cpu_side's jobs named prefix + a start
-    index, joined in that order"""
-    keys = sorted((k for k in cpu_side.jobs if k.startswith(prefix + " ")),
-                  key=lambda k: int(k.rsplit(" ", 1)[1]))
-    parts = [cpu_side.get(k) for k in keys]
-    args = [torch.cat([p[0][0][i] for p in parts]) for i in range(len(parts[0][0][0]))]
-    band = torch.cat([p[0][1] for p in parts])
-    return (args, band) + parts[0][0][2:], nt.batch._concat_results([p[1] for p in parts])
+    side.submit("23 mb bdf", mb_cpu_results, distinct_epochs(truth, N_CPU_MB), "bdf-lm",
+                mb_box(nt.sims.BDF_LM_BOUNDS, nb), bdf_prior(nb))
 
 
 def prior_phase(device, t_all, cpu_side):
@@ -3317,7 +3432,7 @@ def option_kernel_row(name, args, kw, conf, model):
         model, f32, solve_cols(option_result(plain, pa, conf, model, varpro)),
         ("e1", "e2", "T", "flux"), "K3 %s in float32 against its plain version" % name,
         limits=OPTION_F32_LIMIT, ref="its plain version")
-    ms = time_ms(lambda: lm_solve.lm_solve(*args, conf, model, None, **kw), 10)
+    ms = time_ms(lambda: lm_solve.lm_solve(*args, conf, model, None, **kw), K3_TIMED)
     b_ms, by = option_bound(args, state, model, varpro)
     nfev = state["nfev"]
     return dict(shape="%s %s NG=%d [%dx%d]" % (model, "varpro" if varpro else
@@ -3556,10 +3671,10 @@ HOST_RTOL, HOST_ATOL = 1e-10, 1e-12
 PREPSF_RTOL, PREPSF_ATOL = 1e-10, 1e-13
 
 
-def host_render(args, device):
-    """GMix.make_image of the exp mixture of pars args[0] on a 49x49
-    stamp under the sims' WCS, exact and fast, on device"""
-    gm = nt.GMixModel(args[0].tolist(), "exp")
+def host_render(pars, device):
+    """GMix.make_image of the exp mixture of pars on a 49x49 stamp under
+    the sims' WCS, exact and fast, on device"""
+    gm = nt.GMixModel(list(pars), "exp")
     jac = nt.DiagonalJacobian(row=24.3, col=23.8, scale=nt.sims.SCALE)
     return [gm.make_image(nt.sims.DIMS, jacobian=jac, fast_exp=fast, device=device)
             for fast in (False, True)]
@@ -3651,7 +3766,7 @@ def host_phase(device, t_all, cpu_side):
         run(name, HOST_N["prepsf"], lambda i: m.go(obs[i]))
     em = nt.EMFitter()
     run("em", HOST_N["em"], lambda i: em.go(obs[i], em_guess))
-    run("make_image", 1, lambda i: host_render([torch.tensor(HOST_RENDER_PARS)], device))
+    run("make_image", 1, lambda i: host_render(HOST_RENDER_PARS, device))
     want = {"admom": sum(2 * r["numiter"] + 1 for r in host["admom"]),
             "gaussmom": HOST_N["gaussmom"], "pgauss": 0, "ksigma": 0, "em": 0, "make_image": 2}
     if k2 != want:
@@ -3896,7 +4011,7 @@ def fitter_fits(device, inputs, timed=False):
     return cols, ms, counts
 
 
-def fitter_cpu_results(args):
+def fitter_cpu_results():
     """phase 27's fits on the CPU (the kernels' plain versions)"""
     return fitter_fits("cpu", fitter_inputs())[0]
 
@@ -3977,6 +4092,284 @@ def fitter_phase(device, t_all, cpu_side):
                 max_abs_err=max(r["max_abs_err"] for r in rows))
 
 
+# ----------------------------------------------------------------------
+# the metacal bootstrap and the k-space fitters (phase 28)
+
+# the objects of each group and the seed of its stamps and draws, one a
+# group
+BOOT_N = {"oracle": 16, "fitgauss": 8, "dilate": 4, "kspace": 4}
+BOOT_SEEDS = {"oracle": 28, "fitgauss": 29, "dilate": 30, "kspace": 31}
+BOOT_GROUPS = tuple(BOOT_N)
+BOOT_TYPES = ["noshear", "1p", "1m"]
+BOOT_NOISE = 1e-5
+BOOT_MOM_KEYS = ("e1", "e2", "T", "flux", "s2n")
+BOOT_LM_KEYS = ("pars", "pars_err", "s2n")
+# the k-space fits, each on the stamps and from the guess of its test in
+# the reference's tests/test_kspace_fitters.py: 49x49 stamps (65x65 for
+# exp's larger galaxy, 33x33 for a psf stamp) at the pixel scale of the
+# sims, the postage stamps the batched pipeline measures. Each is (stamp
+# dims, galaxy model, its (g1, g2, T, flux), the gaussian psf's (g1,
+# g2) of T 0.3 or None for no psf, noise, the fit's guess); psfflux's
+# exp galaxy has r50 0.5 (T 0.5325), its template's r50
+_R50_EXP_T2 = 1.6783469900166605 * np.sqrt(2.0 / 6.0)
+KSPACE_FITS = {
+    "gauss": ((49, 49), "gauss", (0.05, -0.03, 0.9, 100.0), (0.0, 0.0), 1e-4,
+              [0.0, 0.0, 0.0, 0.0, 1.1 * float(nt.moments.T_to_r50(0.9)), 90.0]),
+    "exp": ((65, 65), "exp", (0.04, 0.02, 2.0, 100.0), (0.0, 0.0), 1e-3,
+            [0.0, 0.0, 0.0, 0.0, _R50_EXP_T2, 80.0]),
+    "spergel": ((49, 49), "gauss", (0.02, 0.0, 0.9, 100.0), (0.0, 0.0), 1e-3,
+                [0.0, 0.0, 0.0, 0.0, 0.45, 0.8, 90.0]),
+    "moffat": ((33, 33), "turb", (0.02, -0.01, 0.3, 100.0), None, 1e-3,
+               [0.0, 0.0, 0.0, 0.0, 0.35, 3.0, 90.0]),
+    "psfflux": ((49, 49), "exp", (0.0, 0.0, 0.5325, 100.0), (0.02, -0.01), 1e-5, None),
+}
+
+
+def _boot_stamp(rng, dims, gal, psf, noise):
+    """(image, weight, center, psf image, psf weight) of gal under psf
+    (None: no psf) on a dims stamp whose center is jittered by up to half
+    a pixel, plus noise, the psf on a 25x25 stamp"""
+    scale = nt.sims.SCALE
+    cen = (np.array(dims) - 1.0) / 2.0 + rng.uniform(-0.5, 0.5, size=2)
+    jac = nt.DiagonalJacobian(row=cen[0], col=cen[1], scale=scale)
+    pjac = nt.DiagonalJacobian(row=12.0, col=12.0, scale=scale)
+    img = (gal if psf is None else gal.convolve(psf)).make_image(dims, jacobian=jac,
+                                                                  device="cpu")
+    img = img + rng.normal(size=dims) * noise
+    pimg = None if psf is None else psf.make_image((25, 25), jacobian=pjac, device="cpu")
+    return img, np.full(dims, 1.0 / noise**2), cen, pimg, np.full((25, 25), 1e10)
+
+
+def bootstrap_inputs(group):
+    """phase 28's stamps of a group, numpy from its seed (BOOT_SEEDS):
+    the reference's shear oracle (tests/test_metacal.py:204-249: 49x49
+    exp galaxies of T 0.5 sheared by (0.02, 0) under a turb psf, noise
+    BOOT_NOISE) for "oracle", its stamps at noise 1e-3 for "fitgauss"
+    and "dilate"; for "kspace" a dict of each k-space fit's stamps
+    (KSPACE_FITS)"""
+    rng = np.random.RandomState(BOOT_SEEDS[group])
+    n = BOOT_N[group]
+    if group == "kspace":
+        out = {}
+        for name, (dims, model, pars, psf_g, noise, _) in KSPACE_FITS.items():
+            gal = nt.GMixModel([0.0, 0.0, *pars], model)
+            psf = None if psf_g is None else nt.GMixModel([0.0, 0.0, *psf_g, 0.3, 1.0], "gauss")
+            out[name] = [_boot_stamp(rng, dims, gal, psf, noise) for _ in range(n)]
+        return out
+    gal = nt.GMixModel([0.0, 0.0, 0.0, 0.0, 0.5, 100.0], "exp").get_sheared(0.02, 0.0)
+    psf = nt.GMixModel([0.0, 0.0, 0.025, -0.01, 0.27, 1.0], "turb")
+    noise = BOOT_NOISE if group == "oracle" else 1e-3
+    return [_boot_stamp(rng, (49, 49), gal, psf, noise) for _ in range(n)]
+
+
+def bootstrap_observation(item, device):
+    img, wt, cen, pimg, pwt = item
+    scale = nt.sims.SCALE
+    jac = nt.DiagonalJacobian(row=cen[0], col=cen[1], scale=scale)
+    pjac = nt.DiagonalJacobian(row=12.0, col=12.0, scale=scale)
+    psf = None if pimg is None else nt.Observation(pimg, weight=pwt, jacobian=pjac,
+                                                   device=device)
+    return nt.Observation(img, weight=wt, jacobian=jac, psf=psf, device=device)
+
+
+def bootstrap_runs(group, device, inputs):
+    """phase 28's group on device in float64, every bootstrap's draws
+    from a RandomState of the group's seed: the shear oracle's
+    MetacalBootstrapper (psf='gauss', Runner(GaussMom(1.2)),
+    PSFRunner(Fitter("gauss"), SimplePSFGuesser(guess_from_moms=True),
+    ntry=3), noshear, 1p, 1m), Runner(Fitter("exp"), TFluxGuesser) under
+    psf='fitgauss' (its five types) and 'dilate' (all nine), or the
+    k-space fits of KSPACE_FITS (KSpaceFitter gauss and exp,
+    GalsimSpergelFitter, GalsimMoffatFitter on make_kobs of the psf
+    stamps, GalsimPSFFluxFitter with an exp template). Returns {subgroup:
+    [N] columns} and the first object's metacal images of each type"""
+    rng = np.random.RandomState(BOOT_SEEDS[group])
+    if group == "kspace":
+        cols = {}
+        for name, items in inputs.items():
+            obs = [bootstrap_observation(x, device) for x in items]
+            if name == "psfflux":
+                fitter = nt.fitting.GalsimPSFFluxFitter(model={"model": "exp", "r50": 0.5})
+                cols[name] = fitter_columns([fitter.go(o) for o in obs])
+                continue
+            fitter = {"spergel": nt.fitting.GalsimSpergelFitter,
+                      "moffat": nt.fitting.GalsimMoffatFitter}.get(
+                          name, functools.partial(nt.KSpaceFitter, name))()
+            guess = np.array(KSPACE_FITS[name][-1])
+            res = [fitter.go(nt.make_kobs(o) if name == "moffat" else o, guess) for o in obs]
+            # the round model's s/n of a k-space fit as its s2n
+            cols[name] = dict(fitter_columns(res), s2n=torch.tensor(
+                [float(r.get("s2n_r", 0.0)) for r in res], dtype=torch.float64))
+        return cols, {}
+    obs = [bootstrap_observation(x, device) for x in inputs]
+    psf_runner = nt.PSFRunner(fitter=nt.Fitter("gauss"), ntry=3,
+                              guesser=nt.guessers.SimplePSFGuesser(rng=rng, guess_from_moms=True))
+    if group == "oracle":
+        runner = nt.Runner(nt.GaussMom(fwhm=1.2))
+        kw = dict(psf="gauss", types=BOOT_TYPES)
+    else:
+        runner = nt.Runner(nt.Fitter("exp"), ntry=2, guesser=nt.guessers.TFluxGuesser(
+            rng=rng, T=0.6, flux=100.0))
+        kw = dict(psf=group)
+    boot = nt.MetacalBootstrapper(runner=runner, psf_runner=psf_runner, rng=rng, **kw)
+    out = [boot.go(o) for o in obs]
+    types = list(out[0][0])
+    routes = {o[1][t].psf.meta["result"].route for o in out for t in types}
+    if group != "oracle":
+        routes |= {o[0][t].route for o in out for t in types}
+    if routes != {"K3"}:
+        raise SmokeFailure("host metacal bootstrap %s: fit routes %s, not K3" % (group, routes))
+    if group == "oracle":
+        cols = {t: dict({k: torch.tensor([float(o[0][t][k]) for o in out], dtype=torch.float64)
+                         for k in BOOT_MOM_KEYS},
+                        flags=torch.tensor([int(o[0][t]["flags"]) for o in out]),
+                        nfev=torch.zeros(len(out), dtype=torch.int32)) for t in types}
+    else:
+        cols = {t: fitter_columns([o[0][t] for o in out]) for t in types}
+    images = {t: (out[0][1][t].image.copy(), out[0][1][t].psf.image.copy()) for t in types}
+    return cols, images
+
+
+def run_lm_replay_check(item, device):
+    """a Moffat k-space fit of the stamp item on the card, run_lm's steps
+    replayed from a CUDA graph, against the same fit's eager steps:
+    flags, nfev, pars and pars_err bitwise equal"""
+    kobs = nt.make_kobs(bootstrap_observation(item, device))
+    guess = np.array(KSPACE_FITS["moffat"][-1])
+    replayed = nt.fitting.GalsimMoffatFitter().go(kobs, guess)
+    with eager_steps():
+        eager = nt.fitting.GalsimMoffatFitter().go(kobs, guess)
+    differ = [k for k in ("flags", "nfev", "pars", "pars_err")
+              if not np.array_equal(np.asarray(eager[k]), np.asarray(replayed[k]))]
+    if differ:
+        raise SmokeFailure("run_lm's replayed steps differ from its eager steps in %s" % differ)
+
+
+def bootstrap_cpu_results(group):
+    """phase 28's group on the CPU (the kernels' plain versions)"""
+    return bootstrap_runs(group, "cpu", bootstrap_inputs(group))
+
+
+def oracle_m(cols):
+    """the oracle's multiplicative bias: <e1> of noshear over R11 from 1p
+    and 1m, against the applied 0.02"""
+    e1 = {t: float(cols[t]["e1"].mean()) for t in BOOT_TYPES}
+    R11 = (e1["1p"] - e1["1m"]) / (2 * nt.metacal.DEFAULT_STEP)
+    return e1["noshear"] / R11 / 0.02 - 1, R11
+
+
+def counted_fits():
+    """wrappers that count the consumers of K3 and K2 launches in the
+    host API: Fitter.go (one K3 launch a K3-route fit, and one K2 launch
+    for the s/n sums of an unflagged one), GaussMom.go (one K2 launch),
+    AdmomFitter.go (2 numiter + 1 K2 launches) and SimplePSFGuesser's
+    moments guess (one K2 launch). Returns the patches and the counts"""
+    counts = {"k3": 0, "k2": 0}
+
+    def fitter(out, guesser):
+        if out.route == "K3":
+            counts["k3"] += 1
+        counts["k2"] += int(out["flags"] == 0)
+
+    def moments(out, guesser):
+        counts["k2"] += 1
+
+    def admom(out, guesser):
+        counts["k2"] += 2 * int(out["numiter"]) + 1
+
+    def guess(out, guesser):
+        counts["k2"] += int(guesser.guess_from_moms)
+
+    def wrap(cls, name, count):
+        fn = getattr(cls, name)
+
+        @functools.wraps(fn)
+        def wrapper(self, *a, **kw):
+            out = fn(self, *a, **kw)
+            count(out, self)
+            return out
+        return mock.patch.object(cls, name, wrapper)
+
+    return [wrap(nt.Fitter, "go", fitter), wrap(nt.GaussMom, "go", moments),
+            wrap(nt.AdmomFitter, "go", admom),
+            wrap(nt.guessers.SimplePSFGuesser, "__call__", guess)], counts
+
+
+def bootstrap_phase(device, t_all, cpu_side):
+    """phase 28: the host metacal bootstrap and the k-space fitters in
+    float64 on the card, a seed a group: the reference's shear oracle on
+    BOOT_N["oracle"] objects (flags 0, |m| < 1e-3), MetacalBootstrapper
+    with Runner(Fitter("exp")) under psf='fitgauss' and 'dilate', the
+    k-space fits; every result held to the same run on the CPU
+    (CpuSide): the moments to rtol 1e-10 + atol 1e-12, the LM fields to
+    rtol 1e-5 + atol 1e-7 with nfev within 2, flags equal; the first
+    object's metacal images and psf images of each psf mode to rtol
+    1e-8 + atol 1e-10 of the peak; K3 and K2 launches counted from 0
+    against the fits and measurements that launch them (counted_fits),
+    none by the k-space fits; the k-space fits' mean nfev"""
+    t0 = time.perf_counter()
+    ms, launches, worst, cols = {}, {}, {}, {}
+    img_err = 0.0
+    for group in BOOT_GROUPS:
+        inputs = bootstrap_inputs(group)
+        patches, counts = counted_fits()
+        _sync(device)
+        lm_solve.launches = lm_solve.launches_mb = gmix_eval.launches = 0
+        t = time.perf_counter()
+        with contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            cols[group], images = bootstrap_runs(group, device, inputs)
+        _sync(device)
+        ms[group] = (time.perf_counter() - t) * 1e3 / BOOT_N[group]
+        launches[group] = (lm_solve.launches, gmix_eval.launches)
+        want = (0, 0) if group == "kspace" else (counts["k3"], counts["k2"])
+        if launches[group] != want or lm_solve.launches_mb:
+            raise SmokeFailure("host metacal bootstrap %s: K3 and K2 launched %s times (K3-mb "
+                               "%d), expected %s" % (group, launches[group],
+                                                     lm_solve.launches_mb, want))
+        _, (cpu_cols, cpu_images) = cpu_side.get("28 " + group)
+        for t, c in cols[group].items():
+            if group == "oracle":
+                r = per_lane_diff(c, cpu_cols[t], "bootstrap %s %s card against CPU" % (group, t),
+                                  rtol=1e-10, atol=1e-12, dnfev=0, keys=BOOT_MOM_KEYS)
+            else:
+                keys = ("flux", "flux_err", "chi2per") if t == "psfflux" else BOOT_LM_KEYS
+                r = per_lane_diff(c, cpu_cols[t], "%s %s card against CPU" % (group, t),
+                                  keys=keys)
+            worst[group] = max(worst.get(group, 0.0), r[1])
+        for t, (im, pim) in images.items():
+            for a, b in ((im, cpu_images[t][0]), (pim, cpu_images[t][1])):
+                err = np.abs(a - b)
+                if not (err <= 1e-10 * np.abs(b).max() + 1e-8 * np.abs(b)).all():
+                    raise SmokeFailure("bootstrap %s %s: the metacal image differs from the "
+                                       "CPU's by %.3e" % (group, t, err.max()))
+                img_err = max(img_err, float((err / np.abs(b).max()).max()))
+    run_lm_replay_check(bootstrap_inputs("kspace")["moffat"][0], device)
+    flags = {g: int(sum(int((c["flags"] != 0).sum()) for c in cols[g].values())) for g in cols}
+    if flags["oracle"]:
+        raise SmokeFailure("the shear oracle flagged %d fits" % flags["oracle"])
+    m, R11 = oracle_m(cols["oracle"])
+    if not abs(m) < 1e-3:
+        raise SmokeFailure("the shear oracle's m = %.3e, not below 1e-3" % m)
+    nfev = ", ".join("%s %.2f" % (t, float(c["nfev"].double().mean()))
+                     for t, c in cols["kspace"].items() if t != "psfflux")
+    phase_line("28 bootstrap", t0, "%s; float64, card against CPU (moments rtol 1e-10, LM rtol "
+               "1e-5 + atol 1e-7 with nfev within 2; max rel): shear oracle %d objects m=%.3e "
+               "R11=%.4f %.3f ms/object (%.1e); %s (k-space nfev a fit: %s; run_lm's replayed "
+               "steps bitwise equal to its eager steps); metacal images "
+               "within %.1e of the peak; flagged %s; K3 and K2 launches %s (each the K3-route "
+               "fits and the GaussMom, admom, s/n and moments-guess calls; none by k-space); "
+               "total %.1f s"
+               % (card_line(), BOOT_N["oracle"], m, R11, ms["oracle"], worst["oracle"],
+                  "; ".join("%s %d objects %.3f ms/object (%.1e)" % (g, BOOT_N[g], ms[g],
+                                                                     worst[g])
+                            for g in BOOT_GROUPS if g != "oracle"),
+                  nfev, img_err, flags, launches, time.perf_counter() - t_all))
+    return dict(k3_launches=sum(k for k, _ in launches.values()),
+                k2_launches=sum(k for _, k in launches.values()), m=m)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -3994,9 +4387,7 @@ def main():
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         built = pool.submit(_build.build)
-        # torch.profiler's one-time start-up (seconds) while nvcc runs,
-        # not in the first profiled call of phase 13
-        device_profile(lambda: torch.ones(1, device=device).add_(1))
+        warm_run_lm(device)
         path = built.result()
     _build.load()
     units = sorted(_build.UNIT_SECONDS.items(), key=lambda x: -x[1])
@@ -4012,9 +4403,21 @@ def main():
         cpu_side.close()
 
 
+def warm_run_lm(device):
+    """the residual LM (no kernel of ours) once on a small linear problem
+    on device: the one-time start-up of its first fit on the card (the
+    Jacobian's torch.func transforms and the factorization, seconds)
+    then runs while nvcc does, not in phase 27's first run_lm fit"""
+    A = torch.linspace(-1.0, 1.0, 12, dtype=torch.float64, device=device).reshape(6, 2)
+    y = A @ torch.tensor([0.5, -1.0], dtype=torch.float64, device=device)
+    inf = torch.full((2,), torch.inf, dtype=torch.float64, device=device)
+    tlm.run_lm(lambda p, d: d[0] @ p - d[1], (A, y), torch.zeros_like(inf), -inf, inf,
+               tlm.LMConf())
+
+
 def phases(device, t_all, kind, cpu_side):
-    """phases 3-27 and the kernels line, with the CPU sides of phases 5,
-    9, 15, 17-24, 26 and 27 from cpu_side"""
+    """phases 3-28 and the kernels line, with the CPU sides of phases 5,
+    9, 15, 17-24 and 26-28 from cpu_side"""
     t0 = time.perf_counter()
     max_abs, ncase, worst = check_kernel(device)
     indep = check_k2_batch_independence(device)
@@ -4142,12 +4545,10 @@ def phases(device, t_all, kind, cpu_side):
           % (k3_row["shape"], k3_row["ms"], k3_row["plain_ms"], k3_row["bound_ms"],
              k3_row["bound_by"], k3_row["nfev_sum"], k3_row["split"],
              k3_row["max_in_err"], k3_row["max_abs_err"], k3_row["indep"]), flush=True)
-    for r, c in calls.items():
-        print("    exp-LM call, %s route: %.1f stamps/s (median %.4f s of %d, range %.4f-%.4f); "
-              "%d device operations, busy %.3f ms, event span %.3f ms, idle %.1f%% (the "
-              "profiled call %.1f s)"
-              % (r, c["stamps_per_s"], c["sec"], N_TIMED, *c["sec_range"], c["ops"],
-                 c["busy_ms"], c["span_ms"], 100 * c["idle"], c["profile_s"]), flush=True)
+    print("    " + "; ".join(
+        "exp-LM call, %s route: %.1f stamps/s (median %.4f s of %d, range %.4f-%.4f), event "
+        "span %.3f ms" % (r, c["stamps_per_s"], c["sec"], N_TIMED, *c["sec_range"], c["span_ms"])
+        for r, c in calls.items()), flush=True)
     phase_line("13 k3-times", t0, "total %.1f s" % (time.perf_counter() - t_all))
 
     admom_launches, admom_rows, modes = admom_phases(device, t_all, cpu_side)
@@ -4161,6 +4562,7 @@ def phases(device, t_all, kind, cpu_side):
     scaleout_phase(device, t_all)
     hst = host_phase(device, t_all, cpu_side)
     fit = fitter_phase(device, t_all, cpu_side)
+    boot = bootstrap_phase(device, t_all, cpu_side)
     prepsf_launches = {k: g["launches"] for k, g in prepsf.items() if "dilate" not in k}
 
     top = rows[0]
@@ -4175,13 +4577,15 @@ def phases(device, t_all, kind, cpu_side):
                      + mb_launches["k2"] + sum(prepsf_launches.values())
                      + sum(models["k2_launches"].values()) + sum(comp["k2_launches"].values())
                      + sum(pri["k2_launches"].values()) + sum(opt["k2_launches"].values())
-                     + sum(hst["k2_launches"].values()) + fit["k2_launches"]),
+                     + sum(hst["k2_launches"].values()) + fit["k2_launches"]
+                     + boot["k2_launches"]),
         "launches_by_path": dict({"gaussmom": launches, "exp-lm": k2_lm_launches,
                                   "admom": admom_launches, "mb exp-lm": mb_launches["k2"]},
                                  **k2_modes, **prepsf_launches, **models["k2_launches"],
                                  **comp["k2_launches"], **pri["k2_launches"],
                                  **opt["k2_launches"], **hst["k2_launches"],
-                                 **{"host Fitter": fit["k2_launches"]}),
+                                 **{"host Fitter": fit["k2_launches"],
+                                    "host metacal bootstrap": boot["k2_launches"]}),
         "max_abs_err": max(max_abs, *(r["max_abs_err"] for r in rows + admom_rows + mb_k2_rows
                                       + [prepsf_row, models["k2_row"], comp["k2_row"]]
                                       + hst["k2_rows"]),
@@ -4220,12 +4624,13 @@ def phases(device, t_all, kind, cpu_side):
         "launches": (k3_launches + modes[-1]["launches"]["k3"]
                      + sum(models["k3_launches"].values()) + sum(comp["k3_launches"].values())
                      + sum(pri["k3_launches"].values()) + sum(opt["k3_launches"].values())
-                     + fit["k3_launches"]),
+                     + fit["k3_launches"] + boot["k3_launches"]),
         "launches_by_path": dict({"exp-lm": k3_launches, "exp-lm host loop": hl["k3"],
                                   "exp-lm dilate": modes[-1]["launches"]["k3"]},
                                  **models["k3_launches"], **comp["k3_launches"],
                                  **pri["k3_launches"], **opt["k3_launches"],
-                                 **{"host Fitter": fit["k3_launches"]}),
+                                 **{"host Fitter": fit["k3_launches"],
+                                    "host metacal bootstrap": boot["k3_launches"]}),
         "max_abs_err": max(k3c["plain64"][0], k3c["full64"][0], k3_row["max_abs_err"],
                            k3c["full32"]["max_abs_err"], models["max_abs_err"],
                            comp["max_abs_err"], pri["max_abs_err"],
@@ -4282,6 +4687,7 @@ def phases(device, t_all, kind, cpu_side):
     } for mode, loop in (("refine", "ngmix_tpu/fitting/lm.py:903-976"),
                          ("varpro", "ngmix_tpu/batch.py:831-871"))]}, allow_nan=False),
         flush=True)
+    print(timing_line(t_all), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),
     }}), flush=True)

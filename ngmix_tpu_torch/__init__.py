@@ -25,7 +25,13 @@ PGaussMom, em.EMFitter), each one lane of its batched loop, with the
 mixture evaluations through K2; and the LM fitters (fitting.Fitter,
 CoellipFitter, PSFFluxFitter) with their guessers and runners, a fit
 that K3 or K3-mb can run being one launch of the kernel at B = 1 and
-any other fit the residual-form LM (fitting.lm.run_lm).
+any other fit the residual-form LM (fitting.lm.run_lm); metacal's
+image engines (metacal.get_all_metacal: deconvolve, shear and
+reconvolve in k space, with the rot90 noise fix) and the bootstrappers
+(Bootstrapper, MetacalBootstrapper) over those fitters; simobs; and
+the k-space half: the k-space observations (kobs) and the fitters of
+analytic k profiles (fitting.KSpaceFitter and its subclasses, the
+residual-form LM with complex residuals).
 
 Entry points run on the CUDA card unless the caller passes
 device="cpu".
@@ -94,6 +100,21 @@ from .fitting import CoellipFitter, Fitter, PSFFluxFitter
 from . import guessers  # noqa: F401
 from . import runners  # noqa: F401
 from .runners import PSFRunner, Runner
+from . import bootstrap  # noqa: F401
+from .bootstrap import Bootstrapper
+from . import simobs  # noqa: F401
+from . import metacal  # noqa: F401
+from .metacal import MetacalBootstrapper
+from . import kobs  # noqa: F401
+from .kobs import (
+    KMultiBandObsList,
+    KObservation,
+    KObsList,
+    get_kmb_obs,
+    make_iilist,
+    make_kobs,
+)
+from .fitting import KSpaceFitter
 from . import batch  # noqa: F401
 from . import checkpoint  # noqa: F401
 from . import parallel  # noqa: F401
@@ -101,6 +122,15 @@ from . import ragged  # noqa: F401
 
 __all__ = [
     "AdmomFitter",
+    "Bootstrapper",
+    "KMultiBandObsList",
+    "KObservation",
+    "KObsList",
+    "KSpaceFitter",
+    "MetacalBootstrapper",
+    "get_kmb_obs",
+    "make_iilist",
+    "make_kobs",
     "CoellipFitter",
     "Fitter",
     "PSFFluxFitter",

@@ -136,7 +136,7 @@ def prepare_psf_kdata(psf_images, psf_cens, conf: MetacalConfig):
     )
     jac = _host_jacobian(conf)
     dtype, dev = psf_images.dtype, psf_images.device
-    psfhat = _batched_centered_fft(psf_images, psf_cens, N)
+    psfhat = kops.centered_fft(psf_images, psf_cens, N)
     psf_flux = psfhat[:, 0, 0].real[:, None, None]
     psfhat_n = psfhat / psf_flux
     pix = kops.pixel_kresponse(N, dtype=dtype, device=dev)
@@ -248,7 +248,7 @@ def metacal_image_set(images, cens, psf_images, psf_cens,
     N = psfdata["N"]
     jac = _host_jacobian(conf)
 
-    imhat = _batched_centered_fft(images, cens, N)
+    imhat = kops.centered_fft(images, cens, N)
     objhat = kops.deconvolve_k(imhat, psfdata["psfhat_n"])
     pix = psfdata["pix"]
     ksq = psfdata["ksq"]
@@ -284,52 +284,22 @@ def metacal_image_set(images, cens, psf_images, psf_cens,
         if crop is not None:
             out[type_] = _batched_centered_ifft_crop(sheared * ghat_t, cens, *crop)
         else:
-            out[type_] = _batched_centered_ifft(sheared * ghat_t, cens, conf.dims)
+            out[type_] = kops.centered_ifft(sheared * ghat_t, cens, conf.dims)
         if with_psf_images:
             Hp, Wp = conf.psf_dims
             pcen = torch.tensor([(Hp - 1) / 2.0, (Wp - 1) / 2.0], dtype=images.dtype,
                                 device=images.device).expand(B, 2)
-            psf_out[type_] = _batched_centered_ifft(ghat_t, pcen, conf.psf_dims)
+            psf_out[type_] = kops.centered_ifft(ghat_t, pcen, conf.psf_dims)
     if with_psf_images:
         return out, sigma, psf_out
     return out, sigma
-
-
-def _center_phase(cens, N, dtype, sign):
-    """separable center-shift phase e^{sign i (kr c0 + kc c1)} [B, N, N]
-    as the outer product of two per-lane phase vectors"""
-    kr, kc = kops.kgrids(N, dtype=dtype, device=cens.device)
-    pr = torch.exp(sign * 1j * kr[:, 0][None, :] * cens[:, 0, None])
-    pc = torch.exp(sign * 1j * kc[0, :][None, :] * cens[:, 1, None])
-    return pr[:, :, None] * pc[:, None, :]
-
-
-def _batched_centered_fft(img, cens, N):
-    H, W = img.shape[-2:]
-    phase = _center_phase(cens, N, img.dtype, +1.0)
-    if H <= N // 2 and W <= N // 2:
-        # small blocks: partial-input DFT products, no padded buffer
-        return kops.dft2_zeropad(img, N) * phase
-    pad = torch.zeros(
-        img.shape[:-2] + (N, N), dtype=kops.complex_dtype(img.dtype),
-        device=img.device,
-    )
-    pad[..., :H, :W] = img
-    return kops.fft2_auto(pad) * phase
-
-
-def _batched_centered_ifft(khat, cens, dims):
-    N = khat.shape[-1]
-    phase = _center_phase(cens, N, khat.real.dtype, -1.0)
-    full = kops.fft2_auto(khat * phase, inverse=True).real
-    return full[..., : dims[0], : dims[1]]
 
 
 def _batched_centered_ifft_crop(khat, cens, r0, c0, fh, fw):
     """only rows r0..r0+fh-1, cols c0..c0+fw-1 of the centered inverse
     transform, via partial inverse-DFT products (kops.idft2_crop)"""
     N = khat.shape[-1]
-    phase = _center_phase(cens, N, khat.real.dtype, -1.0)
+    phase = kops.center_phase(cens, N, khat.real.dtype, -1.0)
     return kops.idft2_crop(khat * phase, r0, c0, fh, fw).real
 
 
@@ -749,8 +719,8 @@ def _composite_pf(x, model):
     p, f = gcore._cm_pf(fracdev, R)
     Tf = 1.0 / torch.sum(p * f, dim=-1)
     B = x.shape[0]
-    pe, pd, fd = (torch.as_tensor(t, dtype=x.dtype, device=x.device)
-                  for t in (tables.PVALS_EXP, tables.PVALS_DEV, tables.FVALS_DEV))
+    pe, pd, fd = (gcore._table(t, x) for t in (tables.PVALS_EXP, tables.PVALS_DEV,
+                                                 tables.FVALS_DEV))
     zero = torch.zeros_like(p)
     d_fracdev = (torch.cat([-pe, pd]).expand(B, -1), zero)
     cols = [d_fracdev]
@@ -788,8 +758,7 @@ def exp_chain(pars, psf_gmix, model="exp"):
         pv, fv, Tf, d_extra = _composite_pf(pars[:, 5:nshape], model)
         Ts = T * Tf
     else:
-        pv, fv = (torch.as_tensor(x, dtype=pars.dtype, device=pars.device)
-                  for x in tables.MODEL_TABLES[model])
+        pv, fv = (gcore._table(x, pars) for x in tables.MODEL_TABLES[model])
         d_extra = []
         Ts = T
     # e(g) and de/dg through the clip gc = g min(1, c / |g|)

@@ -238,20 +238,18 @@ def run_lm(resid_fn, data, guess, lo, hi, conf: LMConf, n_prior_pars=0,
     (the stopping test); each iteration is the reference's while_loop
     body: the pinned dims, the masked and damped Cholesky step, the
     clipped trial point and its evaluation, the accept test, the
-    ftol / xtol / stuck rules and the damping update.
+    ftol / xtol / stuck rules and the damping update. On a CUDA device
+    the iteration is captured once into a CUDA graph and replayed.
 
     guess [npars]; lo, hi [npars] (+-inf for open sides); n_prior_pars:
     the residual's leading prior rows, kept out of the chi^2/dof scale;
     n_eff: the rows that count for the dof (prior rows included), the
-    residual's length by default. Returns a dict of tensors: pars,
+    residual's length by default; k_space: the residual holds the real
+    and the imaginary parts of complex residuals, so the dof is half the
+    non-prior rows less npars. Returns a dict of tensors: pars,
     pars_err, pars_cov, pars_cov0, flags, nfev, ier, cost and s_sq, with
-    the reference's flag semantics and order. The reference's k-space
-    residuals (k_space) are not ported yet (ROADMAP queue item 13).
+    the reference's flag semantics and order.
     """
-    if k_space:
-        raise NotImplementedError(
-            "k_space=True is not ported yet: ROADMAP queue item 13 (the host "
-            "single-object API)")
     guess = torch.as_tensor(guess)
     npars = guess.shape[-1]
     dtype, dev = guess.dtype, guess.device
@@ -281,15 +279,10 @@ def run_lm(resid_fn, data, guess, lo, hi, conf: LMConf, n_prior_pars=0,
         dy = torch.cholesky_solve(-Jtr[:, None], L)[:, 0]
         return torch.where(info == 0, dy, torch.nan)
 
-    y = e2i(guess, lo, hi)
-    r, J = resid_and_jac(y)
-    cost = cost_of(r)
-    lam = torch.tensor(conf.lambda0, dtype=dtype, device=dev)
-    nfev = 1
-    done = False
-    small_step = small_cost = torch.tensor(False, device=dev)
-    pinned = torch.zeros(npars, dtype=torch.bool, device=dev)
-    while not done and nfev < conf.maxfev:
+    def step(s):
+        """one iteration from the state s: the new state and stop, the
+        iteration's convergence verdict"""
+        y, r, J, cost, lam, pinned = (s[k] for k in ("y", "r", "J", "cost", "lam", "pinned"))
         JtJ = J.T @ J
         Jtr = J.T @ r
         new_pinned = _pinned_dims(y, Jtr, cost, conf.ftol, lo, hi)
@@ -318,24 +311,83 @@ def run_lm(resid_fn, data, guess, lo, hi, conf: LMConf, n_prior_pars=0,
         ynorm = torch.sqrt(torch.sum((y * (~pinned).to(dtype)) ** 2))
         small_step = accept & (torch.sqrt(torch.sum(dy * dy)) <= conf.xtol * (ynorm + conf.xtol))
         stuck = (~accept) & (lam_eff >= conf.lambda_max)
-        lam = torch.where(accept, torch.clamp(lam_eff / conf.lambda_down, min=conf.lambda_min),
-                          torch.clamp(lam_eff * conf.lambda_up, max=conf.lambda_max * 10.0))
-        y = torch.where(accept, y_try, y)
-        r = torch.where(accept, r_try, r)
-        cost = torch.where(accept, cost_try, cost)
-        J = torch.where(accept, J_try, J)
+        return {
+            "y": torch.where(accept, y_try, y),
+            "r": torch.where(accept, r_try, r),
+            "J": torch.where(accept, J_try, J),
+            "cost": torch.where(accept, cost_try, cost),
+            "lam": torch.where(accept,
+                               torch.clamp(lam_eff / conf.lambda_down, min=conf.lambda_min),
+                               torch.clamp(lam_eff * conf.lambda_up, max=conf.lambda_max * 10.0)),
+            "pinned": pinned,
+            "small_cost": small_cost,
+            "small_step": small_step,
+            "stop": (small_cost | small_step | stuck) & ~pin_changed,
+        }
+
+    y = e2i(guess, lo, hi)
+    r, J = resid_and_jac(y)
+    false = torch.tensor(False, device=dev)
+    s = {"y": y, "r": r, "J": J, "cost": cost_of(r),
+         "lam": torch.tensor(conf.lambda0, dtype=dtype, device=dev),
+         "pinned": torch.zeros(npars, dtype=torch.bool, device=dev),
+         "small_cost": false, "small_step": false, "stop": false}
+    # on the card the step replays a captured CUDA graph: the Jacobian's
+    # transforms are thousands of small launches an iteration
+    advance = _stepper(step, s, graph=dev.type == "cuda")
+    nfev, done = 1, False
+    while not done and nfev < conf.maxfev:
+        s = advance()
         nfev += 1
         # the iteration's one read from the device
-        done = bool((small_cost | small_step | stuck) & ~pin_changed)
+        done = bool(s["stop"])
+    y, r, J, cost = s["y"], s["r"], s["J"], s["cost"]
+    small_cost, small_step = s["small_cost"], s["small_step"]
     return _residual_epilogue(y, r, J, lo, hi, conf, nfev, done, small_cost, small_step,
-                              n_prior_pars, n_eff, cost)
+                              n_prior_pars, n_eff, cost, k_space)
+
+
+def _stepper(step, s, graph):
+    """a function that advances the state s (a dict of tensors) by one
+    step(s) and returns the new state. With graph (CUDA tensors, a step
+    that launches no kernel of ours and reads nothing to the host) the
+    step is captured once into a CUDA graph and each call replays it and
+    copies its result into the step's inputs: one launch for the
+    thousands of small ones of an eager step, and the same kernels in
+    the same order, so the same state. One step runs first on a side
+    stream, outside the capture, so that the capture meets a warm
+    allocator and the model tables already on the device"""
+    if not graph:
+        cur = [s]
+
+        def advance():
+            cur[0] = step(cur[0])
+            return cur[0]
+        return advance
+    static = {k: v.clone() for k, v in s.items()}
+    side = torch.cuda.Stream(device=static["y"].device)
+    side.wait_stream(torch.cuda.current_stream(side.device))
+    with torch.cuda.stream(side):
+        step(static)
+    torch.cuda.current_stream(side.device).wait_stream(side)
+    cuda_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(cuda_graph):
+        out = step(static)
+
+    def replay():
+        cuda_graph.replay()
+        for k, v in out.items():
+            static[k].copy_(v)
+        return static
+    return replay
 
 
 def _residual_epilogue(y, r, J, lo, hi, conf, nfev, done, small_cost, small_step,
-                       n_prior_pars, n_eff, cost):
+                       n_prior_pars, n_eff, cost, k_space=False):
     """run_lm's result from its final state: the external covariance by
     undoing the bounds chain rule on J (J_ext = J / g), scaled by the
-    chi^2/dof of the non-prior rows, and the reference's flags"""
+    chi^2/dof of the non-prior rows (half of them, less npars, for
+    k_space), and the reference's flags"""
     npars = y.shape[-1]
     dtype, dev = y.dtype, y.device
     pars = i2e(y, lo, hi)
@@ -346,7 +398,10 @@ def _residual_epilogue(y, r, J, lo, hi, conf, nfev, done, small_cost, small_step
     singular = ~torch.all(torch.isfinite(pcov0))
 
     nres = r.shape[-1] if n_eff is None else int(n_eff)
-    dof = nres - n_prior_pars - npars
+    if k_space:
+        dof = (nres - n_prior_pars) // 2 - npars
+    else:
+        dof = nres - n_prior_pars - npars
     zero_dof = dof == 0
     s_sq = torch.sum(r[n_prior_pars:] ** 2) / max(dof, 1)
     pcov = pcov0 * s_sq
@@ -414,8 +469,7 @@ def run_lm_batch(resid_fn, data, guess, lo, hi, conf: LMConf, n_prior_pars=0,
                  k_space=False, n_eff=None):
     """run_lm over a batch, lane by lane: data (a nested structure of
     tensors) and guess carry a leading [B] dim, n_eff (if given) is a
-    [B] row count; returns run_lm's fields stacked along [B] (k_space
-    raises in run_lm)"""
+    [B] row count; returns run_lm's fields stacked along [B]"""
     outs = [run_lm(resid_fn, _tree_index(data, i), guess[i], lo, hi, conf,
                    n_prior_pars=n_prior_pars, k_space=k_space,
                    n_eff=None if n_eff is None else int(n_eff[i]))
@@ -545,7 +599,8 @@ def compaction_levels(nfev, compact_capacity):
 
 
 def run_lm_normal_batched(normal_fn, data, guess, lo, hi, conf: LMConf,
-                          nres, compact_capacity=None, gather_fn=None, prior_fn=None):
+                          nres, k_space=False, compact_capacity=None, gather_fn=None,
+                          prior_fn=None):
     """Batched LM driven by normal-equation reductions: the finished
     solver state of run_lm_normal_state through _normal_epilogue.
 
@@ -571,17 +626,15 @@ def run_lm_normal_batched(normal_fn, data, guess, lo, hi, conf: LMConf,
     a prior's pseudo-residual rows to the objective (a joint prior's
     fill_fdiff_jacobian), in external coordinates before the bounds
     chain rule: cost += sum rows^2, Jtr += Jp^T rows, JtJ += Jp^T Jp.
-    The covariance scales by the pixel cost alone (cost_pix / dof).
-
-    The reference's k-space residuals (k_space) are not ported yet
-    (ROADMAP queue item 13).
+    The covariance scales by the pixel cost alone (cost_pix / dof);
+    k_space halves the dof (nres // 2 - npars), as for complex residuals.
     """
     lo = torch.as_tensor(lo, dtype=guess.dtype, device=guess.device)
     hi = torch.as_tensor(hi, dtype=guess.dtype, device=guess.device)
     state = run_lm_normal_state(normal_fn, data, guess, lo, hi, conf,
                                 compact_capacity=compact_capacity,
                                 gather_fn=gather_fn, prior_fn=prior_fn)
-    return _normal_epilogue(state, lo, hi, conf, nres)
+    return _normal_epilogue(state, lo, hi, conf, nres, k_space)
 
 
 def _internal_normal_fn(normal_fn, lo, hi, prior_fn=None):
@@ -609,12 +662,16 @@ def _internal_normal_fn(normal_fn, lo, hi, prior_fn=None):
 
 
 def run_lm_normal_state(normal_fn, data, guess, lo, hi, conf: LMConf,
-                        compact_capacity=None, gather_fn=None, prior_fn=None):
+                        compact_capacity=None, gather_fn=None, prior_fn=None,
+                        graph=False):
     """the solver loop of run_lm_normal_batched (same arguments but
     nres): the finished per-lane state y, cost (with the prior rows),
     cost_pix (the pixels' alone), Jtr, JtJ (internal coordinates), lam,
     nfev, done, ier_small_step, ier_small_cost and pinned, which
-    _normal_epilogue turns into the result"""
+    _normal_epilogue turns into the result. graph=True (CUDA tensors, a
+    normal_fn that launches no kernel of ours and reads nothing to the
+    host): the iterations after the last compaction level replay one
+    captured step (_stepper)"""
     B, npars = guess.shape
     dtype, dev = guess.dtype, guess.device
     lo = torch.as_tensor(lo, dtype=dtype, device=dev)
@@ -656,9 +713,12 @@ def run_lm_normal_state(normal_fn, data, guess, lo, hi, conf: LMConf,
         cur_data = (_take if gather_fn is None else gather_fn)(cur_data, idx)
         cur_state = _take(cur_state, idx)
 
-    while n_act > 0:
-        cur_state = _lm_step(cur_state, cur_data, eval_normal, lo, hi, conf)
-        n_act = _count_active(cur_state, conf)
+    if n_act > 0:
+        advance = _stepper(lambda st: _lm_step(st, cur_data, eval_normal, lo, hi, conf),
+                           cur_state, graph)
+        while n_act > 0:
+            cur_state = advance()
+            n_act = _count_active(cur_state, conf)
     # scatter each level's results back; lanes left behind at a gather
     # were inactive there, so their frozen values are final
     for prev_state, idx in reversed(outer):
@@ -668,11 +728,13 @@ def run_lm_normal_state(normal_fn, data, guess, lo, hi, conf: LMConf,
     return cur_state
 
 
-def _normal_epilogue(out, lo, hi, conf, nres):
+def _normal_epilogue(out, lo, hi, conf, nres, k_space=False):
     """pars, covariance and flags from a finished solver state: the
     covariance through the unrolled Cholesky scaled by the pixels'
-    chi^2/dof (cost_pix / (nres - npars); prior rows never enter it),
-    with the reference's flag semantics and order"""
+    chi^2/dof (cost_pix / (nres - npars), or cost_pix / (nres // 2 -
+    npars) for k_space, whose nres rows are the real and imaginary parts
+    of complex residuals; prior rows never enter it), with the
+    reference's flag semantics and order"""
     B, npars = out["y"].shape
     dtype, dev = out["y"].dtype, out["y"].device
     y = out["y"]
@@ -690,7 +752,7 @@ def _normal_epilogue(out, lo, hi, conf, nres):
     singular = ~torch.all(torch.isfinite(pcov0.reshape(B, -1)), dim=-1)
 
     nres = torch.as_tensor(nres, device=dev)
-    dof = nres - npars
+    dof = (nres // 2 if k_space else nres) - npars
     zero_dof = torch.broadcast_to(dof == 0, (B,))
     dof_safe = torch.clamp(dof, min=1)
     s_sq = out["cost_pix"] / dof_safe
@@ -798,14 +860,10 @@ def run_gn_refine_batched(normal_fn, data, guess, lo, hi, conf: LMConf, nres, ni
     O(step) perturbation, so a few unconditional steps from the noshear
     optimum converge quadratically with no accept or reject and no
     straggler tail; niter = 0 is one evaluation at the guess. Arguments
-    as run_lm_normal_batched's. The reference's k-space residuals
-    (k_space) are not ported yet (ROADMAP queue item 13)."""
-    if k_space:
-        raise NotImplementedError(
-            "k_space=True is not ported yet: ROADMAP queue item 13 (the host "
-            "single-object API)")
+    as run_lm_normal_batched's; k_space halves the dof (nres // 2 -
+    npars) in the epilogue, as for complex residuals."""
     lo = torch.as_tensor(lo, dtype=guess.dtype, device=guess.device)
     hi = torch.as_tensor(hi, dtype=guess.dtype, device=guess.device)
     state = run_gn_refine_state(normal_fn, data, guess, lo, hi, conf, niter=niter, lam=lam,
                                 prior_fn=prior_fn)
-    return _normal_epilogue(state, lo, hi, conf, nres)
+    return _normal_epilogue(state, lo, hi, conf, nres, k_space)

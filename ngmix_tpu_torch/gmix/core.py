@@ -301,8 +301,21 @@ def fill_simple(pars, pvals, fvals):
     return gm, _g_flags(g1[..., 0], g2[..., 0])
 
 
+# the model tables as tensors, one a table, dtype and device: made at
+# first use, not at every fill (a copy from host memory waits for the
+# device, and cannot be captured into a CUDA graph)
+_TABLES = {}
+
+
 def _table(vals, like):
-    return torch.as_tensor(vals, dtype=like.dtype, device=like.device)
+    """the table vals (a module constant) as a tensor of like's dtype on
+    like's device"""
+    key = (id(vals), like.dtype, like.device)
+    hit = _TABLES.get(key)
+    if hit is None or hit[0] is not vals:
+        hit = _TABLES[key] = (vals, torch.as_tensor(vals, dtype=like.dtype,
+                                                    device=like.device))
+    return hit[1]
 
 
 def fill_exp(pars):

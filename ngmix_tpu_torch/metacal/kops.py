@@ -227,6 +227,44 @@ def idft2_crop(khat, r0, c0, nrows, ncols):
     return torch.matmul(out, Ec)
 
 
+def center_phase(cen, N, dtype, sign):
+    """the separable center-shift phase e^{sign i (kr c0 + kc c1)}
+    [..., N, N] of centers cen [..., 2], as the outer product of two
+    phase vectors"""
+    kr, kc = kgrids(N, dtype=dtype, device=cen.device)
+    pr = torch.exp(sign * 1j * kr[:, 0] * cen[..., 0, None])
+    pc = torch.exp(sign * 1j * kc[0, :] * cen[..., 1, None])
+    return pr[..., :, None] * pc[..., None, :]
+
+
+def centered_fft(img, cen, N):
+    """the N x N FFT of real stamps img [..., H, W] with phases referenced
+    to the (fractional) centers cen [..., 2]: khat(kappa) = sum_x img(x)
+    e^{-i kappa.(x - cen)}, so the profile sits at the origin. Stamps of
+    at most N / 2 a side take the partial-input DFT products
+    (dft2_zeropad), larger ones a padded FFT"""
+    H, W = img.shape[-2:]
+    cen = torch.as_tensor(cen, dtype=img.dtype, device=img.device)
+    phase = center_phase(cen, N, img.dtype, +1.0)
+    if H <= N // 2 and W <= N // 2:
+        return dft2_zeropad(img, N) * phase
+    pad = torch.zeros(img.shape[:-2] + (N, N), dtype=complex_dtype(img.dtype),
+                      device=img.device)
+    pad[..., :H, :W] = img
+    return fft2_auto(pad) * phase
+
+
+def centered_ifft(khat, cen, dims):
+    """the inverse of centered_fft: a centered k profile [..., N, N]
+    rendered into [..., dims] stamps whose centers land at cen [..., 2]"""
+    N = khat.shape[-1]
+    dtype = khat.real.dtype
+    cen = torch.as_tensor(cen, dtype=dtype, device=khat.device)
+    phase = center_phase(cen, N, dtype, -1.0)
+    full = fft2_auto(khat * phase, inverse=True).real
+    return full[..., : dims[0], : dims[1]]
+
+
 def deconvolve_k(imhat, psfhat, eps=1.0e-10):
     """I(k)/P(k) with an amplitude floor that keeps the division
     finite; modes at the floor are suppressed by the target psf"""
@@ -235,6 +273,12 @@ def deconvolve_k(imhat, psfhat, eps=1.0e-10):
     floor = (eps * max_amp).to(psfhat.dtype)
     safe = torch.where(amp > eps * max_amp, psfhat, floor)
     return imhat / safe
+
+
+def gauss_kprofile(N, jac, sigma, flux=1.0, dtype=torch.float64, device=None):
+    """the k profile [N, N] of a round gaussian of sky sigma on the
+    pixel-frame grid (no pixel factor)"""
+    return flux * torch.exp(-0.5 * sigma**2 * sky_ksq(N, jac, dtype=dtype, device=device))
 
 
 def gauss_target_sigma(psfhat, ksq, small_kval=1.0e-2, smaller_kval=3.0e-3):

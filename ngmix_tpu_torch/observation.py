@@ -584,3 +584,26 @@ def get_mb_obs(obs_in):
     mbobs = MultiBandObsList()
     mbobs.append(obslist)
     return mbobs
+
+
+# the k-space containers live in kobs.py and are re-exported here, as in
+# the reference's namespace; the import sits at the bottom because kobs
+# imports the classes above
+from .kobs import (  # noqa: E402,F401
+    DEFAULT_XINTERP,
+    KMultiBandObsList,
+    KObservation,
+    KObsList,
+    get_kmb_obs,
+    make_iilist,
+    make_kobs,
+)
+
+__all__ += [
+    "KObservation",
+    "KObsList",
+    "KMultiBandObsList",
+    "make_kobs",
+    "make_iilist",
+    "get_kmb_obs",
+]

@@ -37,18 +37,18 @@ NVCC_FLAGS = (
 
 _lib = None
 # each unit's nvcc CPU seconds (user + system) on an H100 host
-# (chip_smoke.py phase 2, 777.1 s in all): the build starts the
+# (chip_smoke.py phase 2, 731.1 s in all): the build starts the
 # costliest first, one process a core, so that the longest units never
 # wait behind short ones for a core. A unit not listed counts as the
 # costliest.
 UNIT_CPU_SECONDS = {
-    "lm_solve_mb_bd_f64.cu": 85.3, "lm_solve_mb_bdf_f64.cu": 69.7, "lm_solve_opt_bd.cu": 64.6,
-    "lm_solve_mb_dev_f64.cu": 50.8, "lm_solve_mb_bd.cu": 50.6, "lm_solve_opt_bdf.cu": 50.0,
-    "lm_solve.cu": 45.8, "lm_solve_mb_exp_f64.cu": 43.2, "lm_solve_mb_bdf.cu": 41.6,
-    "lm_solve_mb_gauss_f64.cu": 37.8, "lm_solve_opt_dev.cu": 35.4, "lm_solve_bd.cu": 32.8,
-    "lm_solve_opt.cu": 30.8, "lm_solve_mb_dev.cu": 27.2, "lm_solve_bdf.cu": 27.1,
-    "lm_solve_mb_exp.cu": 25.4, "lm_solve_opt_gauss.cu": 25.0, "lm_solve_mb_gauss.cu": 22.0,
-    "gmix_eval.cu": 8.9, "normal_eqs.cu": 2.9,
+    "lm_solve_mb_bd_f64.cu": 85.0, "lm_solve_mb_bdf_f64.cu": 67.3, "lm_solve_opt_bd.cu": 57.7,
+    "lm_solve_mb_dev_f64.cu": 49.3, "lm_solve_opt_bdf.cu": 48.1, "lm_solve_mb_bd.cu": 45.5,
+    "lm_solve_mb_exp_f64.cu": 44.3, "lm_solve.cu": 43.0, "lm_solve_mb_bdf.cu": 40.1,
+    "lm_solve_mb_gauss_f64.cu": 35.1, "lm_solve_bd.cu": 31.4, "lm_solve_opt_dev.cu": 30.9,
+    "lm_solve_mb_dev.cu": 28.5, "lm_solve_opt.cu": 26.0, "lm_solve_mb_exp.cu": 24.9,
+    "lm_solve_bdf.cu": 23.4, "lm_solve_mb_gauss.cu": 21.4, "lm_solve_opt_gauss.cu": 19.2,
+    "gmix_eval.cu": 7.8, "normal_eqs.cu": 2.3,
 }
 # this process's build, where it made one: each unit's nvcc CPU seconds
 UNIT_SECONDS = {}

@@ -157,8 +157,9 @@ def lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp", prior=No
                    refine=0, varpro=False):
     """plain PyTorch version of K3: the host loop of
     fitting.lm.run_lm_normal_state without compaction, over the model's
-    normal equations with K1's plain version and the prior's rows; with
-    refine, fitting.lm.run_gn_refine_state over the same; with varpro,
+    normal equations with K1's plain version and the prior's rows (on
+    CUDA tensors its steps replay a captured CUDA graph); with refine,
+    fitting.lm.run_gn_refine_state over the same; with varpro,
     batch.varpro_state. Same arguments and result as lm_solve."""
     # batch imports this module, so its models are imported here
     from .. import batch
@@ -175,7 +176,7 @@ def lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp", prior=No
         return batch.varpro_state(data, guess, lo, hi, conf, model)
     return lm.run_lm_normal_state(
         normal_fn, data, guess, lo, hi,
-        conf, compact_capacity=None, prior_fn=_prior_fn(prior),
+        conf, compact_capacity=None, prior_fn=_prior_fn(prior), graph=guess.is_cuda,
     )
 
 
@@ -393,8 +394,9 @@ def lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp",
     """plain PyTorch version of K3-mb: the host loop of
     fitting.lm.run_lm_normal_state without compaction, over the joint
     multi-band normal equations of the model (batch._mb_exp_normal_fn
-    with K1's plain version) and the prior's rows. Same arguments and
-    result as lm_solve_mb."""
+    with K1's plain version) and the prior's rows (on CUDA tensors its
+    steps replay a captured CUDA graph). Same arguments and result as
+    lm_solve_mb."""
     from .. import batch
 
     B, E, P = v.shape
@@ -404,7 +406,7 @@ def lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp",
     return lm.run_lm_normal_state(
         functools.partial(batch._mb_exp_normal_fn, plain=True, model=model),
         (planes, psf_gmix, band), guess, lo, hi, conf, compact_capacity=None,
-        prior_fn=_prior_fn(prior),
+        prior_fn=_prior_fn(prior), graph=guess.is_cuda,
     )
 
 

@@ -62,9 +62,10 @@ def make_coords(dims, jac: Jac):
 
 
 def _copied(x, dtype, device):
-    """x as a tensor that shares no memory with a numpy array"""
+    """x as a tensor that shares no memory with a numpy array (of any
+    strides: np.rot90 and flips give negative ones)"""
     if isinstance(x, np.ndarray):
-        return torch.tensor(x, dtype=dtype, device=device)
+        return torch.tensor(np.ascontiguousarray(x), dtype=dtype, device=device)
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 

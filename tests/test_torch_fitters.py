@@ -183,10 +183,14 @@ def test_run_lm_batch_lane_by_lane():
                          torch.as_tensor(lo), torch.as_tensor(hi), conf, n_eff=30)
         for k, v in one.items():
             assert torch.equal(out[k][i], v), k
-    # the k-space residuals wait for ROADMAP item 13b-2
-    with pytest.raises(NotImplementedError, match="queue item 13"):
-        tlm.run_lm(tres, tuple(x[0] for x in data), torch.as_tensor(guess),
-                   torch.as_tensor(lo), torch.as_tensor(hi), conf, k_space=True)
+    # the k-space residuals (ROADMAP item 13b-2) halve the dof, n_eff //
+    # 2 - npars, and change nothing else; run_lm_batch passes k_space on
+    kout = tlm.run_lm_batch(tres, data, torch.as_tensor(np.stack([guess, guess])),
+                            torch.as_tensor(lo), torch.as_tensor(hi), conf,
+                            n_eff=torch.tensor([30, 30]), k_space=True)
+    for k in ("pars", "flags", "nfev", "ier", "cost"):
+        assert torch.equal(kout[k], out[k]), k
+    np.testing.assert_allclose(kout["s_sq"].numpy(), out["s_sq"].numpy() * 28 / 13, rtol=1e-14)
 
 
 # ----------------------------------------------------------------------

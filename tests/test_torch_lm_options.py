@@ -223,8 +223,18 @@ def test_gn_refine_matches_jax(niter):
                                     tlm.LMConf(), niter=niter,
                                     prior_fn=prior.fill_fdiff_jacobian)
     assert bool(state["pinned"][:, 4].all()) == bool(niter)
-    with pytest.raises(NotImplementedError, match="queue item 13"):
-        tlm.run_gn_refine_batched(None, None, guess, lo, hi, tlm.LMConf(), nres, k_space=True)
+    # k_space (the k-space fitters' complex residuals) halves the dof of
+    # the covariance, nres // 2 - npars, and changes nothing else
+    kout = tlm.run_gn_refine_batched(
+        functools.partial(tbatch._normal_fn, model="exp"),
+        (tbatch._lm_planes(pix), psf_gmix), guess, lo, hi, tlm.LMConf(), nres, niter=niter,
+        k_space=True, prior_fn=prior.fill_fdiff_jacobian)
+    for k in ("pars", "flags", "nfev", "ier", "cost"):
+        assert torch.equal(kout[k], out[k]), k
+    ratio = (nres - 6).double() / (nres // 2 - 6).double()
+    np.testing.assert_allclose(kout["s_sq"].numpy(), (out["s_sq"] * ratio).numpy(), rtol=1e-14)
+    np.testing.assert_allclose(kout["pars_err"].numpy(),
+                               (out["pars_err"] * ratio[:, None].sqrt()).numpy(), rtol=1e-13)
 
 
 # ----------------------------------------------------------------------

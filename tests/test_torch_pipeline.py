@@ -385,10 +385,24 @@ def test_unported_options_raise(inputs):
             with pytest.raises(ValueError, match="varpro"):
                 nt.make_metacal_pipeline_fn(conf, measure=measure, device="cpu",
                                             lm_conf=nt.LMConf(varpro=True), **kw)
-    # the k-space residuals of the refiner wait for the host API (item 13)
-    with pytest.raises(NotImplementedError, match="queue item 13"):
-        nt.fitting.lm.run_gn_refine_batched(None, None, None, None, None, nt.LMConf(), 1,
-                                            k_space=True)
+    # the k-space residuals (item 13b-2): the refiner's epilogue halves
+    # the dof, nres // 2 - npars, and changes nothing else
+    A = torch.linspace(-1.0, 1.0, 40, dtype=torch.float64).reshape(1, 20, 2)
+    y = A[..., 0] * 0.5 - A[..., 1] + 0.01 * torch.cos(torch.arange(20.0, dtype=torch.float64))
+
+    def normal_fn(x, d):
+        r = torch.einsum("bij,bj->bi", d[0], x) - d[1]
+        return (torch.sum(r * r, -1), torch.einsum("bij,bi->bj", d[0], r),
+                torch.einsum("bij,bik->bjk", d[0], d[0]))
+
+    inf = torch.full((2,), torch.inf, dtype=torch.float64)
+    out = {k: nt.fitting.lm.run_gn_refine_batched(
+        normal_fn, (A, y), torch.zeros((1, 2), dtype=torch.float64), -inf, inf, nt.LMConf(),
+        torch.tensor([20]), niter=2, k_space=k) for k in (False, True)}
+    assert torch.equal(out[True]["pars"], out[False]["pars"])
+    assert int(out[True]["flags"][0]) == int(out[False]["flags"][0]) == 0
+    np.testing.assert_allclose(float(out[True]["s_sq"][0]),
+                               float(out[False]["s_sq"][0]) * 18 / 8, rtol=1e-14)
     # as in the JAX package, the psf-sheared types need psf_mode='dilate'
     with pytest.raises(ValueError, match="psf_mode='dilate'"):
         nt.metacal_pipeline(*inputs, conf._replace(types=("noshear", "1p_psf")),
