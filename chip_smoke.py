@@ -25,10 +25,15 @@ printing one timed line as soon as it ends:
 
 1. card:   the card's name and power limit (nvidia-smi);
 2. build:  nvcc builds every kernel (K1, K2, K3 with its modes, K3-mb)
-           into build/ngmix_tpu_torch/ (first use), one process a
-           source, the costliest first, one a core; prints each unit's
-           nvcc CPU seconds; meanwhile the residual LM runs once on the
-           card (warm_run_lm);
+           into build/ngmix_tpu_torch/ (first use), one library a
+           source, in the background from the start: one nvcc process a
+           core, the sources of phases 3-18 first (EARLY_UNITS), then
+           the costliest first; meanwhile the residual LM runs once on
+           the card (warm_run_lm) and the card sides of phases 3-17 run,
+           each kernel call waiting for its own source; the CPU sides
+           start when the last source has started. The line is printed
+           when the build has ended (before phase 18), with its wall
+           seconds and each unit's nvcc CPU seconds and wall span;
 3. kernel: K2 against its plain version on the same CUDA inputs over
            n in {1, 6} (compile-time) and {3, 18} (any n), both modes,
            float32 and float64, B in {1, 3, 10243} (10243 leaves a
@@ -350,22 +355,42 @@ printing one timed line as soon as it ends:
            the GaussMom, admom, s/n-sum and moments-guess calls
            (counted_fits), none by the k-space fits; ms an object of each
            group, beside the card's name and power limit.
-The float64 CPU sides of phases 5, 9, 15, 17-24 and 26-28 run in
-CPU_WORKERS spawned processes of one thread each from the end of phase
-2, while the card runs the phases before them: each job's lanes split
-over the workers, so that they take the jobs in the order the phases
-read them. Before the JSON result the timing line gives each phase
-line's own seconds ("2 build" the kernels' build) and the seconds the
-phases waited for the CPU sides.
+29. host-api: the rest of the host API in float64 on the card, each
+           result against the CPU's: Fitter("exp") with a PriorSimpleSep
+           of LMBounds slots, its bounds the prior's, on 4 objects (K3),
+           CoellipFitter(3) with PriorCoellipSame on 4 psf stamps,
+           KSpaceFitter("spergel") with PriorSpergelSep and
+           KSpaceFitter("exp") with PriorGalsimSimpleSep on 2 objects each
+           (phase 28's k-space stamps and guesses; seed API_SEED), routes
+           and launches counted (phase 27's criterion); a MEDS object
+           (ScriptMEDS, in memory) read on the card and fitted (K3);
+           GMixND.get_lnprob_array over 10^6 rows of a 3-d mixture of 8
+           gaussians that GMixND.fit made from 10^5 samples (the mixture
+           they are drawn from where sklearn is absent), timed with
+           profiling.timed and its sync, and get_gaussap_flux over 10^6
+           bdf objects in 3 bands, rtol 1e-12, flags equal. Phase 23 also
+           runs exp-lm and the mb bdf-lm with LMBounds slots through K3
+           and K3-mb (the LMBounds kind of the prior table), gated and
+           held to the plain versions as its other priors.
+The float64 CPU sides of phases 5, 9, 15, 17-24 and 26-29 run in
+CPU_WORKERS spawned processes of one thread each (at nice 10) from the
+moment the build's last source has started, while the card runs the
+phases before them (the checks of phases 5, 9, 15 and 17 wait for the
+build's end): each job's lanes
+split over the workers, so that they take the jobs in the order the
+phases read them. Before the JSON result the timing line gives each
+phase line's own seconds ("2 build" the wait for the build's end before
+phase 18), the build's wall seconds and the seconds the phases waited
+for the CPU sides.
 Needs one CUDA card and exits nonzero, printing the reason, on any
 failure or without a card. The last line is the JSON result.
 """
-import concurrent.futures
 import contextlib
 import functools
 import json
 import subprocess
 import multiprocessing
+import os
 import sys
 import time
 from unittest import mock
@@ -374,7 +399,7 @@ import numpy as np
 import torch
 
 import ngmix_tpu_torch as nt
-from ngmix_tpu_torch import joint_prior, priors as tpriors
+from ngmix_tpu_torch import joint_prior, priors as tpriors, profiling
 from ngmix_tpu_torch.fitting import fit_model, lm as tlm
 from ngmix_tpu_torch.gmix import core as gcore
 from ngmix_tpu_torch.gaussmom import make_weight_gmix
@@ -471,14 +496,16 @@ def phase_line(name, t0, msg=""):
 
 def timing_line(t_all):
     """each phase line's own seconds (from the end of the line before it,
-    the first from t_all; "2 build" is the kernels' build), the seconds
-    the phases waited for the CPU sides and the run's total"""
+    the first from t_all; "2 build" is the wait for the build's end
+    before phase 18), the build's wall seconds, the seconds the phases
+    waited for the CPU sides and the run's total"""
     own, prev = [], t_all
     for name, end in PHASE_ENDS.items():
         own.append("%s %.1f" % (name, end - prev))
         prev = end
-    return "timing: %s; cpu waits %s; total %.1f s" % (
+    return "timing: %s; build wall %s; cpu waits %s; total %.1f s" % (
         ", ".join(own),
+        "%.1f s" % BUILD_SECONDS["wall"] if "wall" in BUILD_SECONDS else "none (built before)",
         ", ".join("%s %.1f" % kv for kv in CPU_WAITS.items() if kv[1] >= 0.05) or "none",
         time.perf_counter() - t_all)
 
@@ -983,9 +1010,22 @@ def host_loop_cpu_results(args):
             *(a.cpu() for a in args))
 
 
+def gaussmom_card_cpu(cpu_side):
+    """phase 5: the gaussmom pipeline on the first N_CPU stamps in float64
+    on the card and the CPU (cpu_side's job), every field compared"""
+    t0 = time.perf_counter()
+    (args, *_), cpu_res = cpu_side.get("5 gaussmom")
+    card_res = nt.make_metacal_pipeline_fn(CONF, device="cuda")(*args)
+    worst = max(compare_results(card_res[t], cpu_res[t], "gaussmom " + t)
+                for t in nt.batch.GALSHEAR_TYPES)
+    phase_line("5 cpu", t0, "256 stamps float64: flags equal, every field within rtol "
+               "1e-8 + atol 1e-10 (at most %.3e of it)" % worst)
+
+
 def compare_lm_card_cpu(cpu_side):
-    """per-lane float64 exp-LM run of the first N_CPU stamps by the
-    host-loop route on the card and the CPU (cpu_side's job)"""
+    """phase 9: per-lane float64 exp-LM run of the first N_CPU stamps by
+    the host-loop route on the card and the CPU (cpu_side's job)"""
+    t0 = time.perf_counter()
     (args,), cpu = cpu_side.get("9 host-loop")
     with host_loop_route():
         card = nt.make_metacal_pipeline_fn(LM_CONF, measure="exp-lm", device="cuda")(*args)
@@ -1004,7 +1044,8 @@ def compare_lm_card_cpu(cpu_side):
                 raise SmokeFailure("%s/%s differ between card and CPU: max %.3e"
                                    % (t, k, float(err.max())))
             worst = max(worst, float((err / b.abs().clamp_min(1e-300)).max()))
-    return worst, dnfev
+    phase_line("9 lm-cpu", t0, "256 stamps float64: flags equal, e1/e2/T/flux max "
+               "rel diff %.3e, max nfev diff %d" % (worst, dnfev))
 
 
 def check_compaction(hom, device):
@@ -1626,13 +1667,16 @@ def admom_phases(device, t_all, cpu_side):
         raise SmokeFailure("an admom call launched K2 %d times, not twice an iteration and "
                            "once more" % read_launches()["k2"])
 
-    t0 = time.perf_counter()
-    (args, *_), cpu = cpu_side.get("15 admom")
-    card = fn_admom(*args)
-    admom_worst = max(compare_results(card[t], cpu[t], "admom " + t)
-                      for t in nt.batch.GALSHEAR_TYPES)
-    phase_line("15 admom-cpu", t0, "256 stamps float64: flags and numiter equal, every field "
-               "within rtol 1e-8 + atol 1e-10 (at most %.3e of it)" % admom_worst)
+    def admom_card_cpu():
+        t0 = time.perf_counter()
+        (args, *_), cpu = cpu_side.get("15 admom")
+        card = fn_admom(*args)
+        admom_worst = max(compare_results(card[t], cpu[t], "admom " + t)
+                          for t in nt.batch.GALSHEAR_TYPES)
+        phase_line("15 admom-cpu", t0, "256 stamps float64: flags and numiter equal, every "
+                   "field within rtol 1e-8 + atol 1e-10 (at most %.3e of it)" % admom_worst)
+
+    cpu_side.defer(admom_card_cpu)
 
     t0 = time.perf_counter()
     ab, ab_row = run_admom_batch(device, hom)
@@ -1662,12 +1706,18 @@ def admom_phases(device, t_all, cpu_side):
           "plain version: flags equal, %.4f outside rtol 1e-4, largest difference %.3e "
           "pars_err" % (k3d["lanes"], k3d["max_abs_irc"], k3d["split"], k3d["max_in_err"]),
           flush=True)
-    modes_worst = psf_modes_card_cpu(cpu_side, runs)
     del hom
-    phase_line("17 psf-modes", t0, "256 stamps float64 card against CPU: psf_sigma and the "
-               "moments results within rtol 1e-8 + atol 1e-10 (at most %.3e of it), exp-LM "
-               "within phase 12's tolerances; total %.1f s"
-               % (modes_worst, time.perf_counter() - t_all))
+
+    def modes_card_cpu():
+        t1 = time.perf_counter()
+        modes_worst = psf_modes_card_cpu(cpu_side, runs)
+        phase_line("17 psf-modes", t1, "256 stamps float64 card against CPU: psf_sigma and "
+                   "the moments results within rtol 1e-8 + atol 1e-10 (at most %.3e of it), "
+                   "exp-LM within phase 12's tolerances; the card side %.1f s; total %.1f s"
+                   % (modes_worst, t_card, time.perf_counter() - t_all))
+
+    t_card = time.perf_counter() - t0
+    cpu_side.defer(modes_card_cpu)
     return admom_launches, admom_rows + psf_rows, modes
 
 
@@ -1882,7 +1932,11 @@ def distinct_epochs(het, n):
 
 
 def _one_thread():
+    """a CpuSide worker's start: one thread, and a lower priority than
+    the build's nvcc processes and the main process, so that it takes
+    the cores they leave"""
     torch.set_num_threads(1)
+    os.nice(10)
 
 
 def _timed_job(fn, args):
@@ -2020,6 +2074,7 @@ def start_cpu_side(device):
     side.submit("27 fitters", fitter_cpu_results, ())
     for group in BOOT_GROUPS:
         side.submit("28 " + group, bootstrap_cpu_results, (), group)
+    submit_host_api_cpu(side)
     return side
 
 
@@ -2976,8 +3031,11 @@ def prior_bytes(prior):
 
 
 def prior_text(prior):
-    return "" if prior is None else " + %s (%d rows)" % (type(prior).__name__,
-                                                        prior.n_prior_pars)
+    if prior is None:
+        return ""
+    nlmb = int((prior.table()[:, 0] == tpriors.priors.LMBOUNDS).sum())
+    return " + %s (%d rows%s)" % (type(prior).__name__, prior.n_prior_pars,
+                                 ", %d of LMBounds" % nlmb if nlmb else "")
 
 
 def exp_prior():
@@ -3001,7 +3059,11 @@ def bdf_prior(nband=1):
 # the fracdev prior is informative, and the reference recorded no m
 # for it)
 PRIOR_FITS = {"exp": (exp_prior, BOX, 1e-3),
-              "bdf": (bdf_prior, nt.sims.BDF_LM_BOUNDS, 3e-3)}
+              "bdf": (bdf_prior, nt.sims.BDF_LM_BOUNDS, 3e-3),
+              # the same boxes with LMBounds slots (lmbounds_prior)
+              "exp lmbounds": (lambda: lmbounds_prior("exp"), BOX, 1e-3),
+              "bdf lmbounds": (lambda nband=1: lmbounds_prior("bdf", nband),
+                               nt.sims.BDF_LM_BOUNDS, 3e-3)}
 # the float32 solves with the prior against their float64 optimum: lanes
 # beyond half a pars_err, at most max(8, 1e-4 of the lanes) (fault 3.4's
 # bdf limit), none beyond F32_MAX_ERR; on bdf's exp-truth paths, where
@@ -3033,13 +3095,14 @@ def capture_solve(fn, *args, mb=False):
     return seen["args"], seen["prior"], res
 
 
-def run_prior_fit(device, model, hom, het, mb=False):
-    """the model's LM main path with its prior and box, through K3 on the
-    flat sims (mb: K3-mb on the mb sims, the prior of nband flux slots and
-    the box extended to the bands), gated, with its launches and the
-    wall time of the hom call. Returns the gate values and the solve
-    inputs and prior of the hom and het calls"""
-    make, box, limit = PRIOR_FITS[model]
+def run_prior_fit(device, model, hom, het, mb=False, key=None):
+    """the model's LM main path with its prior and box (PRIOR_FITS[key],
+    key the model by default), through K3 on the flat sims (mb: K3-mb on
+    the mb sims, the prior of nband flux slots and the box extended to
+    the bands), gated, with its launches and the wall time of the hom
+    call. Returns the gate values and the solve inputs and prior of the
+    hom and het calls"""
+    make, box, limit = PRIOR_FITS[key or model]
     measure = model + "-lm"
     if mb:
         nb = nt.sims.MB_NBAND
@@ -3057,7 +3120,8 @@ def run_prior_fit(device, model, hom, het, mb=False):
     _sync(device)
     launches = read_launches()
     B = B_MB if mb else B_MAIN
-    what = "%s%s-lm with its prior" % ("mb " if mb else "", model)
+    what = "%s%s-lm with its prior%s" % ("mb " if mb else "", model,
+                                         " of LMBounds" if key else "")
     g = (mb_gate(res, het_res, B, nshape=len(box[0]) - 1) if mb
          else exp_lm_gate(res, het_res, B, npars=len(box[0])))
     if not (abs(g["m"]) < limit and abs(g["het_m"]) < limit):
@@ -3263,11 +3327,15 @@ def prior_phase(device, t_all, cpu_side):
     hom_mb = nt.make_sim_batch_mb(gen(314), B_MB, torch.float32, device=device)
     truth_mb = nt.make_sim_batch_mb(gen(271), B_MB, torch.float32, device=device,
                                     hetero=True, gal_model="bdf")
-    exp_run, exp_args, eprior = run_prior_fit(device, "exp", hom, nt.make_sim_batch_hetero(
-        gen(271), B_MAIN, torch.float32, device=device))
+    het = nt.make_sim_batch_hetero(gen(271), B_MAIN, torch.float32, device=device)
+    exp_run, exp_args, eprior = run_prior_fit(device, "exp", hom, het)
     bdf_run, bdf_args, bprior = run_prior_fit(device, "bdf", hom, truth)
     mb_run, mb_args, mprior = run_prior_fit(device, "bdf", hom_mb, truth_mb, mb=True)
-    del hom, truth, hom_mb, truth_mb
+    # phase 29's LMBounds through K3 and K3-mb, on the same sims
+    lexp_run, lexp_args, lprior = run_prior_fit(device, "exp", hom, het, key="exp lmbounds")
+    lmb_run, lmb_args, lmprior = run_prior_fit(device, "bdf", hom_mb, truth_mb, mb=True,
+                                               key="bdf lmbounds")
+    del hom, het, truth, hom_mb, truth_mb
     t_fits = time.perf_counter()
     checks = {
         "exp": prior_kernel_checks("exp", {"exp": exp_args[0]}, eprior),
@@ -3275,11 +3343,16 @@ def prior_phase(device, t_all, cpu_side):
                                    bprior),
         "mb bdf": prior_kernel_checks("bdf", {"exp": mb_args[0], "bdf-truth": mb_args[1]},
                                       mprior, mb=True),
+        "exp lmbounds": prior_kernel_checks("exp", {"exp": lexp_args[0]}, lprior),
+        "mb bdf lmbounds": prior_kernel_checks("bdf", {"bdf-truth": lmb_args[1]}, lmprior,
+                                               mb=True),
     }
     t_checks = time.perf_counter()
     rows = {"exp": prior_timed_rows("exp", exp_args[0], eprior),
             "bdf": prior_timed_rows("bdf", bdf_args[1], bprior),
-            "mb bdf": prior_timed_rows("bdf", mb_args[1], mprior, mb=True)}
+            "mb bdf": prior_timed_rows("bdf", mb_args[1], mprior, mb=True),
+            "exp lmbounds": prior_timed_rows("exp", lexp_args[0], lprior),
+            "mb bdf lmbounds": prior_timed_rows("bdf", lmb_args[1], lmprior, mb=True)}
     t_rows = time.perf_counter()
     cc = {"flat exp": prior_card_cpu(cpu_side, "23 flat exp", BOX, eprior),
           "flat bdf": prior_card_cpu(cpu_side, "23 flat bdf", nt.sims.BDF_LM_BOUNDS, bprior),
@@ -3290,7 +3363,8 @@ def prior_phase(device, t_all, cpu_side):
         raise SmokeFailure("card against CPU: the prior calls launched K3 or K3-mb %s times"
                            % [x[1] for x in cc.values()])
     t_cc = time.perf_counter()
-    runs = {"exp-lm": exp_run, "bdf-lm": bdf_run, "mb bdf-lm": mb_run}
+    runs = {"exp-lm": exp_run, "bdf-lm": bdf_run, "mb bdf-lm": mb_run,
+            "exp-lm lmbounds": lexp_run, "mb bdf-lm lmbounds": lmb_run}
     phase_line("23 priors", t0, "B=%d float32 (mb %dx%d), exp sims and %s: %s; %s; card "
                "against CPU float64: %s; total %.1f s" % (
                    B_MAIN, B_MB, len(nt.sims.MB_BAND), "het sims (exp) / bdf-truth sims", "; ".join(
@@ -3319,14 +3393,15 @@ def prior_phase(device, t_all, cpu_side):
         + "; fits %.1f s, checks %.1f s, timed rows %.1f s, card against CPU %.1f s"
         % (t_fits - t0, t_checks - t_fits, t_rows - t_checks, t_cc - t_rows), flush=True)
     return dict(
-        k3_rows=[rows["exp"], rows["bdf"]],
+        k3_rows=[rows["exp"], rows["bdf"], rows["exp lmbounds"]],
         k3_launches={"%s prior" % k: r["launches"]["k3"] for k, r in runs.items()
                      if not k.startswith("mb")},
-        k3mb_rows=[rows["mb bdf"]],
-        k3mb_launches={"mb bdf-lm prior": mb_run["launches"]["k3mb"]},
+        k3mb_rows=[rows["mb bdf"], rows["mb bdf lmbounds"]],
+        k3mb_launches={"%s prior" % k: r["launches"]["k3mb"] for k, r in runs.items()
+                       if k.startswith("mb")},
         k2_launches={"%s prior" % k: r["launches"]["k2"] for k, r in runs.items()},
-        max_abs_err=max(rows["exp"]["max_abs_err"], rows["bdf"]["max_abs_err"]),
-        mb_max_abs_err=rows["mb bdf"]["max_abs_err"],
+        max_abs_err=max(rows[k]["max_abs_err"] for k in ("exp", "bdf", "exp lmbounds")),
+        mb_max_abs_err=max(rows[k]["max_abs_err"] for k in ("mb bdf", "mb bdf lmbounds")),
     )
 
 
@@ -4370,6 +4445,331 @@ def bootstrap_phase(device, t_all, cpu_side):
                 k2_launches=sum(k for _, k in launches.values()), m=m)
 
 
+# ----------------------------------------------------------------------
+# the rest of the host API (phase 29)
+
+# phase 29's host fits: the objects of each group and the seed of their
+# stamps
+API_N = {"exp lmbounds": 4, "coellip": 4, "spergel": 2, "kspace exp": 2}
+API_SEED = 32
+API_ROUTE = {"exp lmbounds": "K3", "coellip": "run_lm", "spergel": "run_lm",
+             "kspace exp": "run_lm", "meds": "K3"}
+# GMixND over a catalog: the rows, and the samples its fit takes, of a
+# 3-d mixture of 8 gaussians; gaussap over a catalog of bdf objects in 3
+# bands
+GMIXND_ROWS, GMIXND_SAMPLES, GMIXND_NGAUSS = 1000000, 100000, 8
+GAP_OBJECTS = 1000000
+
+
+def lmbounds_prior(kind, nband=1):
+    """phase 29's joint priors: the reference test's exp prior with its T
+    and flux slots as LMBounds (a box without weight), the production
+    PriorBDFSep with LMBounds fluxes, and the joint priors of the
+    coellip, Spergel and galsim fits"""
+    cen, g = tpriors.CenPrior(0.0, 0.0, 0.263, 0.263), tpriors.GPriorBA(0.3)
+    erf = tpriors.TwoSidedErf(-1.0, 0.1, 1e3, 1.0)
+    if kind == "exp":
+        F = tpriors.LMBounds(1e-4, 1e9)
+        return joint_prior.PriorSimpleSep(cen, g, tpriors.LMBounds(0.01, 10.0),
+                                          F if nband == 1 else [F] * nband)
+    if kind == "bdf":
+        F = tpriors.LMBounds(-100.0, 1e9)
+        return joint_prior.PriorBDFSep(cen, tpriors.GPriorBA(0.1), erf, tpriors.LogNormal(0.5, 0.1),
+                                       F if nband == 1 else [F] * nband)
+    F = tpriors.TwoSidedErf(-100.0, 0.1, 1e9, 1.0)
+    if kind == "coellip":
+        return joint_prior.PriorCoellipSame(3, cen, g, tpriors.LMBounds(1e-4, 10.0), F)
+    if kind == "spergel":
+        return joint_prior.PriorSpergelSep(cen, g, tpriors.TwoSidedErf(0.01, 0.01, 5.0, 0.1),
+                                           tpriors.TwoSidedErf(-0.8, 0.05, 3.5, 0.1), F)
+    return joint_prior.PriorGalsimSimpleSep(cen, g, tpriors.LMBounds(0.01, 5.0), F)
+
+
+def host_api_inputs():
+    """phase 29's stamps from numpy (seed API_SEED): exp galaxies under the
+    gauss psf as phase 27's (guesses jittered about the truth), the
+    coelliptical psf stamps of phase 27, and the Spergel and exp stamps
+    and guesses of phase 28's k-space fits (KSPACE_FITS)"""
+    rng = np.random.RandomState(API_SEED)
+    dims, scale = nt.sims.DIMS, nt.sims.SCALE
+    jac = nt.DiagonalJacobian(row=(dims[0] - 1) / 2.0, col=(dims[1] - 1) / 2.0, scale=scale)
+    psf = nt.GMixModel(FIT_PSF, "gauss")
+    out = {"exp lmbounds": [], "coellip": []}
+    for _ in range(API_N["exp lmbounds"]):
+        truth = np.array([rng.uniform(-0.05, 0.05), rng.uniform(-0.05, 0.05),
+                          rng.uniform(-0.2, 0.2), rng.uniform(-0.2, 0.2), rng.uniform(0.3, 1.0),
+                          rng.uniform(50, 200)])
+        im = nt.GMixModel(truth, "exp").convolve(psf).make_image(dims, jacobian=jac,
+                                                                 fast_exp=True, device="cpu")
+        guess = truth * rng.uniform(0.9, 1.1, 6)
+        guess[:2] = truth[:2] + rng.uniform(-0.02, 0.02, 2)
+        out["exp lmbounds"].append(dict(stamps=[(im + rng.normal(size=dims) * FIT_NOISE,
+                                                 np.full(dims, 1.0 / FIT_NOISE**2))],
+                                        psf="gauss", guess=guess))
+    pdims = nt.sims.PSF_DIMS
+    pjac = nt.DiagonalJacobian(row=(pdims[0] - 1) / 2.0, col=(pdims[1] - 1) / 2.0, scale=scale)
+    cim = nt.GMixCoellip(FIT_COELLIP).make_image(pdims, jacobian=pjac, fast_exp=True,
+                                                  device="cpu")
+    for _ in range(API_N["coellip"]):
+        out["coellip"].append(dict(stamps=[(cim + rng.normal(size=pdims) * 1e-5,
+                                            np.full(pdims, 1e10))], psf=None,
+                                   guess=np.array(FIT_COELLIP) * rng.uniform(0.95, 1.05, 10)))
+    for group, name in (("spergel", "spergel"), ("kspace exp", "exp")):
+        kdims, model, pars, psf_g, noise, guess = KSPACE_FITS[name]
+        gal = nt.GMixModel([0.0, 0.0, *pars], model)
+        kpsf = nt.GMixModel([0.0, 0.0, *psf_g, 0.3, 1.0], "gauss")
+        out[group] = [dict(item=_boot_stamp(rng, kdims, gal, kpsf, noise), guess=np.array(guess))
+                      for _ in range(API_N[group])]
+    return out
+
+
+def host_api_fits(device, inputs):
+    """phase 29's fits on device in float64: {group: compared columns},
+    and the K3, K3-mb and K2 launches of each group"""
+    fitters = {"exp lmbounds": nt.Fitter("exp", prior=lmbounds_prior("exp")),
+               "coellip": nt.CoellipFitter(3, prior=lmbounds_prior("coellip")),
+               "spergel": nt.KSpaceFitter("spergel", prior=lmbounds_prior("spergel")),
+               "kspace exp": nt.KSpaceFitter("exp", prior=lmbounds_prior("galsim"))}
+    cols, counts = {}, {}
+    for group, objs in inputs.items():
+        if "item" in objs[0]:
+            obs = [bootstrap_observation(o["item"], device) for o in objs]
+        else:
+            obs = [fitter_observations(o, {"gauss": None}, device) if o["psf"] is None
+                   else host_api_observation(o, device) for o in objs]
+        _sync(device)
+        lm_solve.launches = lm_solve.launches_mb = gmix_eval.launches = 0
+        res = [fitters[group].go(o, g["guess"]) for o, g in zip(obs, objs)]
+        _sync(device)
+        counts[group] = (lm_solve.launches, lm_solve.launches_mb, gmix_eval.launches)
+        # the k-space fits have no kernel route: run_lm, always
+        routes = {getattr(r, "route", "run_lm") for r in res}
+        if routes != {API_ROUTE[group]}:
+            raise SmokeFailure("host fits %s: routes %s, expected %s"
+                               % (group, routes, API_ROUTE[group]))
+        cols[group] = fitter_columns(res)
+    return cols, counts
+
+
+def host_api_observation(obj, device):
+    """an exp input of host_api_inputs as its Observation on device, its
+    psf Observation carrying the gauss mixture"""
+    dims, pdims, scale = nt.sims.DIMS, nt.sims.PSF_DIMS, nt.sims.SCALE
+    psf_gm = nt.GMixModel(FIT_PSF, "gauss")
+    pjac = nt.DiagonalJacobian(row=(pdims[0] - 1) / 2.0, col=(pdims[1] - 1) / 2.0, scale=scale)
+    pim = psf_gm.make_image(pdims, jacobian=pjac, fast_exp=True, device="cpu")
+    psf = nt.Observation(pim, weight=np.full(pdims, 1e12), jacobian=pjac, gmix=psf_gm,
+                         device=device)
+    jac = nt.DiagonalJacobian(row=(dims[0] - 1) / 2.0, col=(dims[1] - 1) / 2.0, scale=scale)
+    im, wt = obj["stamps"][0]
+    return nt.Observation(im, weight=wt, jacobian=jac, psf=psf, device=device)
+
+
+class ScriptMEDS(nt.medsreaders.NGMixMEDSMixin):
+    """an in-memory MEDS of one object with one cutout (the raw-access
+    interface NGMixMEDSMixin reads): an exp galaxy under the gauss psf
+    on a 49x49 stamp at 0.263"/pixel, from numpy (seed API_SEED + 1)"""
+
+    def __init__(self, device):
+        self.device = device
+        rng = np.random.RandomState(API_SEED + 1)
+        dims, pdims = nt.sims.DIMS, nt.sims.PSF_DIMS
+        self.cen = (dims[0] - 1) / 2.0 + rng.uniform(-0.5, 0.5, 2)
+        self.truth = np.array([0.0, 0.0, 0.1, -0.05, 0.6, 120.0])
+        jac = nt.DiagonalJacobian(row=self.cen[0], col=self.cen[1], scale=nt.sims.SCALE)
+        psf = nt.GMixModel(FIT_PSF, "gauss")
+        im = nt.GMixModel(self.truth, "exp").convolve(psf).make_image(dims, jacobian=jac,
+                                                                      device="cpu")
+        self.cuts = {"image": im + rng.normal(size=dims) * FIT_NOISE,
+                     "weight": np.full(dims, 1.0 / FIT_NOISE**2),
+                     "noise": rng.normal(size=dims) * FIT_NOISE}
+        pjac = nt.DiagonalJacobian(row=(pdims[0] - 1) / 2.0, col=(pdims[1] - 1) / 2.0,
+                                   scale=nt.sims.SCALE)
+        self.psf_im = psf.make_image(pdims, jacobian=pjac, device="cpu")
+        self._cat = np.zeros(1, dtype=[("id", "i8"), ("ncutout", "i4"),
+                                       ("file_id", "i4", (1,)), ("orig_row", "f8", (1,)),
+                                       ("orig_col", "f8", (1,)), ("orig_start_row", "i8", (1,)),
+                                       ("orig_start_col", "i8", (1,)),
+                                       ("psf_cutout_row", "f8", (1,)),
+                                       ("psf_cutout_col", "f8", (1,))])
+        c = self._cat
+        c["id"], c["ncutout"] = 7, 1
+        c["orig_row"][0, 0], c["orig_col"][0, 0] = 500 + self.cen[0], 800 + self.cen[1]
+        c["orig_start_row"][0, 0], c["orig_start_col"][0, 0] = 500, 800
+        c["psf_cutout_row"][0, 0] = c["psf_cutout_col"][0, 0] = (pdims[0] - 1) / 2.0
+
+    size = 1
+
+    def get_cutout(self, iobj, icut, type="image"):
+        if type not in self.cuts:
+            raise RuntimeError("no %s cutouts" % type)
+        return self.cuts[type].copy()
+
+    def get_jacobian(self, iobj, icut):
+        c = self._cat
+        return dict(row0=c["orig_row"][iobj, icut] - c["orig_start_row"][iobj, icut],
+                    col0=c["orig_col"][iobj, icut] - c["orig_start_col"][iobj, icut],
+                    dudrow=0.0, dudcol=nt.sims.SCALE, dvdrow=nt.sims.SCALE, dvdcol=0.0)
+
+    def get_image_info(self):
+        return np.array([("/meds/epoch_0.fits", 1.0)],
+                        dtype=[("image_path", "U32"), ("scale", "f8")])
+
+    def has_psf(self):
+        return True
+
+    def get_psf(self, iobj, icut):
+        return self.psf_im.copy()
+
+
+def meds_fit(device):
+    """the MEDS object's observation list on device and its exp fit
+    (Fitter, K3), the psf's mixture set to the gauss psf: the fit's
+    columns and the observation's image, weight and jacobian centre"""
+    meds = ScriptMEDS(device)
+    obslist = nt.medsreaders.MultiBandNGMixMEDS([meds], device=device).get_mbobs(0)[0]
+    obs = obslist[0]
+    obs.psf.set_gmix(nt.GMixModel(FIT_PSF, "gauss"))
+    res = nt.Fitter("exp").go(obs, meds.truth * np.array([1, 1, 1.1, 0.9, 1.05, 0.95]))
+    if res.route != "K3":
+        raise SmokeFailure("the MEDS object's fit took %s, not K3" % res.route)
+    return fitter_columns([res]), (obs.image, obs.weight, np.array(obs.jacobian.get_cen()))
+
+
+def gmixnd_mixture(device):
+    """GMixND.fit of GMIXND_NGAUSS gaussians to GMIXND_SAMPLES samples of
+    a 3-d mixture of as many, drawn in numpy (seed API_SEED + 2), on
+    device"""
+    rng = np.random.RandomState(API_SEED + 2)
+    means = rng.normal(scale=2.0, size=(GMIXND_NGAUSS, 3))
+    A = rng.normal(size=(GMIXND_NGAUSS, 3, 3)) * 0.5
+    comp = rng.randint(GMIXND_NGAUSS, size=GMIXND_SAMPLES)
+    samples = means[comp] + np.einsum("nij,nj->ni", A[comp], rng.normal(size=(GMIXND_SAMPLES, 3)))
+    samples += 0.4 * rng.normal(size=samples.shape)
+    gm = nt.GMixND(rng=np.random.RandomState(API_SEED + 3), device=device)
+    try:
+        gm.fit(samples, GMIXND_NGAUSS, n_iter=500)
+    except ImportError:
+        # no sklearn on this host: the mixture the samples are drawn from
+        # (weights 1/8, covariances A A^T + 0.16 I)
+        cov = A @ np.swapaxes(A, 1, 2) + 0.16 * np.eye(3)
+        gm.set_mixture(np.full(GMIXND_NGAUSS, 1.0 / GMIXND_NGAUSS), means, cov)
+        gm.fitted = False
+    return gm
+
+
+def catalog_rows():
+    """the GMixND rows [GMIXND_ROWS, 3] and the gaussap catalog
+    [GAP_OBJECTS, 9] (bdf: row, col, g1, g2, T, fracdev, 3 fluxes) from
+    numpy (seed API_SEED + 4)"""
+    rng = np.random.RandomState(API_SEED + 4)
+    rows = rng.normal(scale=2.5, size=(GMIXND_ROWS, 3))
+    n = GAP_OBJECTS
+    cat = np.column_stack([rng.normal(scale=0.1, size=(n, 2)),
+                           rng.uniform(-0.75, 0.75, (n, 2)), rng.uniform(-0.2, 3.0, n),
+                           rng.uniform(0.0, 1.0, n), rng.uniform(1.0, 1e3, (n, 3))])
+    return rows, cat
+
+
+def host_api_cpu_results(group):
+    """phase 29's CPU sides: the host fits of a group, or ("support") the
+    GMixND mixture and its ln(prob) of the rows and the MEDS object's
+    fit"""
+    if group != "support":
+        inputs = host_api_inputs()
+        return host_api_fits("cpu", {group: inputs[group]})[0][group]
+    gm = gmixnd_mixture("cpu")
+    rows, _ = catalog_rows()
+    return dict(mixture=(gm.weights, gm.means, gm.covars), lnprob=gm.get_lnprob_array(rows),
+                fitted=getattr(gm, "fitted", True), meds=meds_fit("cpu"))
+
+
+def gaussap_cpu_results(cat):
+    """the aperture fluxes and flags of a part of the catalog on the CPU,
+    as tensors (CpuSide concatenates the parts)"""
+    flux, flags = nt.gaussap.get_gaussap_flux(cat.numpy(), "bdf", 2.0, device="cpu")
+    return {"flux": torch.as_tensor(flux), "flags": torch.as_tensor(flags)}
+
+
+def submit_host_api_cpu(side):
+    """phase 29's CPU sides: each group's fits, the support job and the
+    catalog's aperture fluxes split over the workers"""
+    for group in API_N:
+        side.submit("29 " + group, host_api_cpu_results, (), group)
+    side.submit("29 support", host_api_cpu_results, (), "support")
+    side.submit("29 gaussap", gaussap_cpu_results, (torch.as_tensor(catalog_rows()[1]),))
+
+
+def host_api_phase(device, t_all, cpu_side):
+    """phase 29: the rest of the host API on the card in float64, each
+    result held to the CPU's: the host fits with the joint priors of
+    LMBounds, coellip, Spergel and galsim (phase 27's criterion, routes
+    and launches counted from 0), GMixND.get_lnprob_array over
+    GMIXND_ROWS rows of the mixture GMixND.fit made (timed with
+    profiling.timed and its sync), get_gaussap_flux over GAP_OBJECTS bdf
+    objects in 3 bands (rtol 1e-12, flags equal) and a MEDS object's
+    observation and fit"""
+    t0 = time.perf_counter()
+    cols, counts = host_api_fits(device, host_api_inputs())
+    worst = {}
+    for group, c in cols.items():
+        _, cpu = cpu_side.get("29 " + group)
+        keys = ("pars", "pars_err") if group in ("spergel", "kspace exp") else (
+            "pars", "pars_err", "s2n")
+        worst[group] = per_lane_diff(c, cpu, "host %s card against CPU" % group, keys=keys)[1]
+    want = {g: (API_N[g] if API_ROUTE[g] == "K3" else 0, 0) for g in counts}
+    if {g: c[:2] for g, c in counts.items()} != want:
+        raise SmokeFailure("phase 29's fits: K3 and K3-mb launches %s, expected %s"
+                           % ({g: c[:2] for g, c in counts.items()}, want))
+    _, sup = cpu_side.get("29 support")
+    _, gap = cpu_side.get("29 gaussap")
+    lm_solve.launches = gmix_eval.launches = 0
+    mcols, (image, weight, cen) = meds_fit(device)
+    meds_launches = (lm_solve.launches, gmix_eval.launches)
+    cimage, cweight, ccen = sup["meds"][1]
+    if not (np.array_equal(image, cimage) and np.array_equal(weight, cweight)
+            and np.array_equal(cen, ccen)):
+        raise SmokeFailure("the MEDS observation on the card differs from the CPU's")
+    worst["meds"] = per_lane_diff(mcols, sup["meds"][0], "the MEDS object's fit card against "
+                                  "CPU", keys=("pars", "pars_err", "s2n"))[1]
+    rows, cat = catalog_rows()
+    gm = nt.GMixND(*sup["mixture"], device=device)
+    profiling.report(reset=True)
+    with profiling.timed("gmixnd", sync=gm._mixture_tensors()):
+        lnp = gm.get_lnprob_device(rows)
+    with profiling.timed("gmixnd", sync=lnp):
+        lnp = gm.get_lnprob_device(rows)
+    gmixnd_s = profiling.report()["gmixnd"][2]
+    lnp = lnp.cpu().numpy()
+    t_gap = time.perf_counter()
+    flux, flags = nt.gaussap.get_gaussap_flux(cat, "bdf", 2.0, device=device)
+    gap_s = time.perf_counter() - t_gap
+    if not np.array_equal(flags, gap["flags"].numpy()):
+        raise SmokeFailure("gaussap flags differ card against CPU on %d objects"
+                           % int((flags != gap["flags"].numpy()).any(1).sum()))
+    ok = flags == 0
+    rel = {}
+    for what, a, b in (("GMixND", lnp, sup["lnprob"]),
+                       ("gaussap", flux[ok], gap["flux"].numpy()[ok])):
+        err = np.abs(a - b) / np.abs(b)
+        rel[what] = float(err.max())
+        if not rel[what] <= 1e-12:
+            raise SmokeFailure("%s card against CPU: max rel %.3e > 1e-12" % (what, rel[what]))
+    k3 = sum(c[0] for c in counts.values()) + meds_launches[0]
+    k2 = sum(c[2] for c in counts.values()) + meds_launches[1]
+    phase_line("29 host-api", t0, "float64 card against CPU (flags equal, rtol 1e-5 + atol "
+               "1e-7, nfev within 2; max rel): %s; GMixND %d rows, %d gaussians %s %d "
+               "samples, %.3f ms (profiling.timed), max rel %.2e; gaussap %d bdf objects x 3 "
+               "bands %.3f s, %d flagged, max rel %.2e; K3 %d, K2 %d launches; total %.1f s"
+               % (", ".join("%s %d %s (%.1e)" % (g, API_N.get(g, 1), API_ROUTE[g], w)
+                            for g, w in worst.items()), GMIXND_ROWS, GMIXND_NGAUSS,
+                  "fit to" if sup["fitted"] else "(sklearn absent: the drawing mixture) of",
+                  GMIXND_SAMPLES, 1e3 * gmixnd_s, rel["GMixND"], GAP_OBJECTS, gap_s,
+                  int((~ok).any(1).sum()), rel["gaussap"], k3, k2,
+                  time.perf_counter() - t_all))
+    return dict(k3_launches=k3, k2_launches=k2)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the card",
@@ -4384,23 +4784,78 @@ def main():
     kind = torch.cuda.get_device_name(0)
     phase_line("1 card", t0, "%s, %d device(s)" % (kind, torch.cuda.device_count()))
 
-    t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        built = pool.submit(_build.build)
-        warm_run_lm(device)
-        path = built.result()
-    _build.load()
-    units = sorted(_build.UNIT_SECONDS.items(), key=lambda x: -x[1])
-    phase_line("2 build", t0, "%s, %d units on %d cores, the costliest first; nvcc CPU %.1f s "
-               "(%s)" % (path.relative_to(path.parents[2]), len(_build.sources()),
-                         _build._slots(), sum(_build.UNIT_SECONDS.values()),
-                         ", ".join("%s %.1f" % (k[:-3], v) for k, v in units)))
-
-    cpu_side = start_cpu_side(device)
+    # the build runs beside the card sides of phases 3-17 (whose time it
+    # hides: nvcc keeps every core); the CPU sides start when its last
+    # source has started (LateCpuSide)
+    build = _build.start(first=EARLY_UNITS)
+    warm_run_lm(device)
+    cpu_side = LateCpuSide(device, build)
     try:
         return phases(device, t_all, kind, cpu_side)
     finally:
         cpu_side.close()
+
+
+class LateCpuSide:
+    """the CpuSide of the run, started once the build's last source has
+    started, as cores free up (its workers beside every nvcc slow the
+    build more than they gain): the checks of phases 5, 9, 15 and 17
+    that read it are deferred (defer) and run, in their order, right
+    after the build's line (start, or the first get)"""
+
+    def __init__(self, device, build):
+        self.device, self.build = device, build
+        self.side, self.deferred = None, []
+
+    def defer(self, fn):
+        self.deferred.append(fn)
+
+    def start(self):
+        if self.side is None:
+            if self.build is not None:
+                self.build.launched.wait()
+            self.side = start_cpu_side(self.device)
+            build_line(self.build)
+            while self.deferred:
+                self.deferred.pop(0)()
+
+    def get(self, key):
+        self.start()
+        return self.side.get(key)
+
+    def __getattr__(self, name):
+        if name.startswith("_") or self.side is None:
+            raise AttributeError(name)
+        return getattr(self.side, name)
+
+    def close(self):
+        if self.side is not None:
+            self.side.close()
+
+
+# the sources of the kernels that phases 3-18 launch, built first
+EARLY_UNITS = ("gmix_eval", "normal_eqs", "lm_solve", "lm_solve_mb_exp")
+BUILD_SECONDS = {}
+
+
+def build_line(build):
+    """phase 2's line once the build started by main has ended (None: the
+    libraries were there): its wall seconds and each unit's nvcc CPU
+    seconds"""
+    t0 = time.perf_counter()
+    if build is None:
+        phase_line("2 build", t0, "%s: every source's library was built before"
+                   % _build.library_path().relative_to(_build.BUILD_DIR.parents[1]))
+        return
+    path = build.wait()
+    BUILD_SECONDS["wall"] = build.seconds
+    units = sorted(_build.UNIT_SECONDS.items(), key=lambda x: -x[1])
+    phase_line("2 build", t0, "%s, %d units, %d at a time beside phases 3-17 (%s first, then "
+               "the costliest); wall %.1f s, nvcc CPU %.1f s (unit CPU s [wall from-to]: %s)"
+               % (path.relative_to(path.parents[2]), len(_build.sources()), build.slots,
+                  ", ".join(EARLY_UNITS), build.seconds, sum(_build.UNIT_SECONDS.values()),
+                  ", ".join("%s %.1f [%.0f-%.0f]" % (k[:-3], v, *build.span[k[:-3]])
+                            for k, v in units)))
 
 
 def warm_run_lm(device):
@@ -4416,8 +4871,10 @@ def warm_run_lm(device):
 
 
 def phases(device, t_all, kind, cpu_side):
-    """phases 3-28 and the kernels line, with the CPU sides of phases 5,
-    9, 15, 17-24 and 26-28 from cpu_side"""
+    """phases 3-29 and the kernels line, with the CPU sides of phases 5,
+    9, 15, 17-24 and 26-29 from cpu_side (a LateCpuSide: the checks of
+    phases 5, 9, 15 and 17 run with phase 2's line after phase 17's card
+    side)"""
     t0 = time.perf_counter()
     max_abs, ncase, worst = check_kernel(device)
     indep = check_k2_batch_independence(device)
@@ -4448,20 +4905,13 @@ def phases(device, t_all, kind, cpu_side):
         raise SmokeFailure("too many flagged lanes: %d, %d > %d"
                            % (mp["flagged"], mp["het_flagged"], limit))
 
-    t0 = time.perf_counter()
-    (args, *_), cpu_res = cpu_side.get("5 gaussmom")
-    card_res = nt.make_metacal_pipeline_fn(CONF, device="cuda")(*args)
-    worst = max(compare_results(card_res[t], cpu_res[t], "gaussmom " + t)
-                for t in nt.batch.GALSHEAR_TYPES)
-    phase_line("5 cpu", t0, "256 stamps float64: flags equal, every field within rtol "
-               "1e-8 + atol 1e-10 (at most %.3e of it)" % worst)
+    cpu_side.defer(lambda: gaussmom_card_cpu(cpu_side))
     del hom
 
     t0 = time.perf_counter()
     rows = [time_k2(name, *x, fast=False) for name, x in main_path_shapes(device, B_MAIN).items()]
-    for r in rows:
-        print(k2_row_text(r), flush=True)
-    phase_line("6 times", t0, "total %.1f s" % (time.perf_counter() - t_all))
+    phase_line("6 times", t0, "%s; total %.1f s" % ("; ".join(k2_row_text(r).strip() for r in rows),
+                                                    time.perf_counter() - t_all))
 
     t0 = time.perf_counter()
     k1_abs, k1_ncase, k1_worst = check_k1(device)
@@ -4488,10 +4938,7 @@ def phases(device, t_all, kind, cpu_side):
                            % (k3_launches, k2_lm_launches))
     check_gate(lp, B_MAIN, "exp-LM")
 
-    t0 = time.perf_counter()
-    lm_worst, dnfev = compare_lm_card_cpu(cpu_side)
-    phase_line("9 lm-cpu", t0, "256 stamps float64: flags equal, e1/e2/T/flux max "
-               "rel diff %.3e, max nfev diff %d" % (lm_worst, dnfev))
+    cpu_side.defer(lambda: compare_lm_card_cpu(cpu_side))
 
     t0 = time.perf_counter()
     lv_cascade, lv_flat = check_compaction(hom, device)
@@ -4552,6 +4999,7 @@ def phases(device, t_all, kind, cpu_side):
     phase_line("13 k3-times", t0, "total %.1f s" % (time.perf_counter() - t_all))
 
     admom_launches, admom_rows, modes = admom_phases(device, t_all, cpu_side)
+    cpu_side.start()
     k3mb_row, mb_k2_rows, mb_launches, mb_args = mb_phase(device, t_all, cpu_side)
     prepsf_row, prepsf = prepsf_phase(device, t_all, cpu_side)
     em_phase(device, t_all, cpu_side)
@@ -4563,6 +5011,7 @@ def phases(device, t_all, kind, cpu_side):
     hst = host_phase(device, t_all, cpu_side)
     fit = fitter_phase(device, t_all, cpu_side)
     boot = bootstrap_phase(device, t_all, cpu_side)
+    api = host_api_phase(device, t_all, cpu_side)
     prepsf_launches = {k: g["launches"] for k, g in prepsf.items() if "dilate" not in k}
 
     top = rows[0]
@@ -4578,14 +5027,15 @@ def phases(device, t_all, kind, cpu_side):
                      + sum(models["k2_launches"].values()) + sum(comp["k2_launches"].values())
                      + sum(pri["k2_launches"].values()) + sum(opt["k2_launches"].values())
                      + sum(hst["k2_launches"].values()) + fit["k2_launches"]
-                     + boot["k2_launches"]),
+                     + boot["k2_launches"] + api["k2_launches"]),
         "launches_by_path": dict({"gaussmom": launches, "exp-lm": k2_lm_launches,
                                   "admom": admom_launches, "mb exp-lm": mb_launches["k2"]},
                                  **k2_modes, **prepsf_launches, **models["k2_launches"],
                                  **comp["k2_launches"], **pri["k2_launches"],
                                  **opt["k2_launches"], **hst["k2_launches"],
                                  **{"host Fitter": fit["k2_launches"],
-                                    "host metacal bootstrap": boot["k2_launches"]}),
+                                    "host metacal bootstrap": boot["k2_launches"],
+                                    "host API": api["k2_launches"]}),
         "max_abs_err": max(max_abs, *(r["max_abs_err"] for r in rows + admom_rows + mb_k2_rows
                                       + [prepsf_row, models["k2_row"], comp["k2_row"]]
                                       + hst["k2_rows"]),
@@ -4624,13 +5074,14 @@ def phases(device, t_all, kind, cpu_side):
         "launches": (k3_launches + modes[-1]["launches"]["k3"]
                      + sum(models["k3_launches"].values()) + sum(comp["k3_launches"].values())
                      + sum(pri["k3_launches"].values()) + sum(opt["k3_launches"].values())
-                     + fit["k3_launches"] + boot["k3_launches"]),
+                     + fit["k3_launches"] + boot["k3_launches"] + api["k3_launches"]),
         "launches_by_path": dict({"exp-lm": k3_launches, "exp-lm host loop": hl["k3"],
                                   "exp-lm dilate": modes[-1]["launches"]["k3"]},
                                  **models["k3_launches"], **comp["k3_launches"],
                                  **pri["k3_launches"], **opt["k3_launches"],
                                  **{"host Fitter": fit["k3_launches"],
-                                    "host metacal bootstrap": boot["k3_launches"]}),
+                                    "host metacal bootstrap": boot["k3_launches"],
+                                    "host API": api["k3_launches"]}),
         "max_abs_err": max(k3c["plain64"][0], k3c["full64"][0], k3_row["max_abs_err"],
                            k3c["full32"]["max_abs_err"], models["max_abs_err"],
                            comp["max_abs_err"], pri["max_abs_err"],

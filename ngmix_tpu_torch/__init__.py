@@ -31,7 +31,12 @@ reconvolve in k space, with the rot90 noise fix) and the bootstrappers
 (Bootstrapper, MetacalBootstrapper) over those fitters; simobs; and
 the k-space half: the k-space observations (kobs) and the fitters of
 analytic k profiles (fitting.KSpaceFitter and its subclasses, the
-residual-form LM with complex residuals).
+residual-form LM with complex residuals); the priors' host methods
+(probabilities, fdiffs, sampling and fits) and the joint priors of the
+coellip, galsim and Spergel fits; GMixND (empirical priors evaluated
+over a catalog on the device), gaussap (gaussian-aperture fluxes of a
+catalog), medsreaders (Observations from MEDS cutouts) and profiling
+(stage timers and torch.profiler traces).
 
 Entry points run on the CUDA card unless the caller passes
 device="cpu".
@@ -119,10 +124,16 @@ from . import batch  # noqa: F401
 from . import checkpoint  # noqa: F401
 from . import parallel  # noqa: F401
 from . import ragged  # noqa: F401
+from . import gaussap  # noqa: F401
+from . import gmix_ndim  # noqa: F401
+from .gmix_ndim import GMixND  # noqa: F401
+from . import medsreaders  # noqa: F401
+from . import profiling  # noqa: F401
 
 __all__ = [
     "AdmomFitter",
     "Bootstrapper",
+    "GMixND",
     "KMultiBandObsList",
     "KObservation",
     "KObsList",

@@ -293,6 +293,14 @@ def admom_raw(pixels, wt0, conf: AdmomConf):
     }
 
 
+def admom_single(pixels, wt0, conf: AdmomConf):
+    """adaptive moments of one stamp: admom_raw on one lane. pixels:
+    Pixels of [P] fields (tensors on one device), wt0 [6]; returns
+    admom_raw's dict of that lane"""
+    raw = admom_raw(Pixels(*(x[None] for x in pixels)), wt0[None], conf)
+    return {k: v[0] for k, v in raw.items()}
+
+
 def admom_result(raw, jac_area):
     """raw admom output -> the full result dict, batched: flux, T, rho4
     and shapes with their errors and flags; failures are NaN values and
@@ -576,3 +584,10 @@ def find_cen_admom(obs, fwhm=None, gmix=None, maxiter=DEFAULT_MAXITER,
     else:
         res["cen"] = np.zeros(2) + np.nan
     return res
+
+
+# the reference's package layout (ngmix.admom.admom)
+import sys as _sys  # noqa: E402
+
+admom = _sys.modules[__name__]
+admom_nb = admom

@@ -109,6 +109,7 @@ _PRIOR_FIELDS = {
     "ZDisk2D": lambda o, r: priors.ZDisk2D(_num(o.radius), rng=r),
     "CenPrior": lambda o, r: priors.CenPrior(_num(o.cen1), _num(o.cen2), _num(o.sigma1),
                                              _num(o.sigma2), rng=r),
+    "LMBounds": lambda o, r: priors.LMBounds(_num(o.bounds[0]), _num(o.bounds[1]), rng=r),
 }
 # the joint priors: their components, converted with one generator
 # memo, then the F prior(s)
@@ -118,6 +119,12 @@ _JOINT_FIELDS = {
                     ("cen_prior", "g_prior", "T_prior", "fracdev_prior")),
     "PriorBDSep": (joint_prior.PriorBDSep, ("cen_prior", "g_prior", "T_prior",
                                             "logTratio_prior", "fracdev_prior")),
+    "PriorGalsimSimpleSep": (joint_prior.PriorGalsimSimpleSep,
+                             ("cen_prior", "g_prior", "r50_prior")),
+    "PriorSpergelSep": (joint_prior.PriorSpergelSep,
+                        ("cen_prior", "g_prior", "r50_prior", "nu_prior")),
+    # its first argument is ngauss
+    "PriorCoellipSame": (joint_prior.PriorCoellipSame, ("cen_prior", "g_prior", "T_prior")),
 }
 
 
@@ -146,8 +153,10 @@ def prior_from_object(obj, _memo=None):
     if name in _JOINT_FIELDS:
         cls, fields = _JOINT_FIELDS[name]
         F = [prior_from_object(p, memo) for p in obj.F_priors]
-        return cls(*(prior_from_object(getattr(obj, f), memo) for f in fields),
-                   F if obj.nband > 1 else F[0])
+        parts = [prior_from_object(getattr(obj, f), memo) for f in fields]
+        if name == "PriorCoellipSame":
+            parts.insert(0, int(obj.ngauss))
+        return cls(*parts, F if obj.nband > 1 else F[0])
     make = _PRIOR_FIELDS.get(name)
     if make is None:
         raise TypeError("no prior of the port for %s: the ported priors are %s"

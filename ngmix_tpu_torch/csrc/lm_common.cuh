@@ -567,6 +567,7 @@ enum PriorKind {
   kPriorTrunc = 6,      // TruncatedGaussian (mean, sinv, min, max)
   kPriorGBA = 7,        // GPriorBA, 2-d (sig2inv)
   kPriorZDisk = 8,      // ZDisk2D, 2-d (radius^2)
+  kPriorLMBounds = 9,   // LMBounds: a box without weight, row 0 * x, derivative 0
 };
 constexpr int kPriorLnp = 0;
 constexpr int kPriorFdiff = 1;
@@ -689,6 +690,11 @@ __device__ __forceinline__ void prior_row(const double* r, const T* yl, int np, 
     }
     case kPriorZDisk: {
       v = x0 * x0 + x1 * x1 >= c0 ? ninf : T(0);
+      break;
+    }
+    case kPriorLMBounds: {
+      // the reference's 0 * val in both forms: ln p 0 gives the row 0
+      v = T(0) * x0;
       break;
     }
     default:  // not a kind: nan
@@ -994,8 +1000,11 @@ __device__ void solve_lane(const Conf& cf, const T* guess,
     }
     const T pred = clamp_min(-pred_g - pred_h, static_cast<T>(kPredFloor));
     const T actual = cost - cost_try;
+    // a trial cost equal to the current one where the model predicts
+    // less than ftol of it ends the descent (fitting/lm.py _lm_step)
+    const bool at_floor = step_ok && actual == T(0) && pred <= ftol * cost;
     const bool small_cost =
-        accept && actual <= ftol * cost && pred <= ftol * cost;
+        at_floor || (accept && actual <= ftol * cost && pred <= ftol * cost);
     // xtol over the free dims only
     T ysq = T(0), dsq = T(0);
 #pragma unroll

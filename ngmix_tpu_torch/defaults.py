@@ -26,3 +26,8 @@ GMIX_LOW_DETVAL = 1.0e-200
 
 # ln(prob) of a point outside a prior's support
 LOWVAL = float("-inf")
+
+
+def copy_if_needed():
+    """the JAX package's numpy>=2 shim: None"""
+    return None

@@ -268,6 +268,16 @@ def em_raw(pixels, gmix0, gmix_psf, sky, conf: EMConf):
     }
 
 
+def em_single(pixels, gmix0, gmix_psf, sky, conf: EMConf):
+    """EM of one stamp: em_raw on one lane. pixels: Pixels of [P] fields,
+    gmix0 [n, 6], gmix_psf [m, 6] (tensors on one device), sky a
+    number; returns em_raw's dict of that lane"""
+    sky = torch.as_tensor(sky, dtype=pixels.val.dtype, device=pixels.val.device)
+    raw = em_raw(Pixels(*(x[None] for x in pixels)), gmix0[None], gmix_psf[None],
+                 sky.reshape(1), conf)
+    return {k: v[0] for k, v in raw.items()}
+
+
 def em_batch(pixels, gmix0, gmix_psf, sky, conf: EMConf, device=None):
     """EM over a [B] batch of stamps: pixels a Pixels or a (v, u, area,
     val, ierr) tuple of [B, P] fields, gmix0 [B, n, 6], gmix_psf
@@ -449,3 +459,10 @@ def run_em(obs, guess, sky=None, fixcen=False, fixcov=False, fluxonly=False,
 
 
 fit_em = run_em
+
+
+# the reference's package layout (ngmix.em.em)
+import sys as _sys  # noqa: E402
+
+em = _sys.modules[__name__]
+em_nb = em

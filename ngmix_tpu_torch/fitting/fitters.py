@@ -28,6 +28,8 @@ so the kernels' model is the unconvolved one to the bit
 K3-mb fit launches its kernel or raises; nothing falls back to run_lm.
 CPU observations take the kernels' plain versions.
 """
+import logging
+
 import numpy as np
 import torch
 
@@ -37,6 +39,9 @@ from ..gmix.gmix import get_model_name, get_model_num
 from ..ops import lm_solve
 from .fit_model import CoellipFitModel, FitModel, PSFFluxFitModel
 from .lm import LMConf, _normal_epilogue, get_def_stuff, run_lm
+
+LOGGER = logging.getLogger(__name__)
+
 
 def fit_route(fit_model, prior):
     """the route of a fit ("K3", "K3-mb" or "run_lm"), from the model,

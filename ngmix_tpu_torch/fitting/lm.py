@@ -526,7 +526,12 @@ def _lm_step(s, data, eval_normal, lo, hi, conf):
     pred = torch.clamp(pred, min=1.0e-300)
     actual = s["cost"] - cost_try
 
-    small_cost = accept & (
+    # a trial cost equal to the current one to the last bit, where the
+    # model predicts less than ftol of it, is the end of the descent
+    # (MINPACK lmdif's ftol test, taken or not): without it the lane
+    # rejects every later step until lambda passes lambda_max
+    at_floor = step_ok & (actual == 0) & (pred <= conf.ftol * s["cost"])
+    small_cost = at_floor | accept & (
         (actual <= conf.ftol * s["cost"]) & (pred <= conf.ftol * s["cost"])
     )
     # xtol over the free dims only

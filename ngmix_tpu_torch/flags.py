@@ -3,6 +3,8 @@
 The port's own copy of ``ngmix_tpu/flags.py``. Results carry int32
 flag tensors on the device and are rendered to strings on the host.
 """
+import numpy as np
+
 NO_ATTEMPT = 2**0
 CEN_SHIFT = 2**1
 NONPOS_FLUX = 2**2
@@ -71,3 +73,9 @@ def get_flags_str(val, name_map=None):
             nstrs.append(name_map.get(fval, "bit 2**%d" % pow_))
     return "|".join(nstrs)
 
+
+
+def get_flags_str_array(vals, name_map=None):
+    """get_flags_str of every value of an array, in its shape"""
+    return np.array([get_flags_str(int(v), name_map) for v in np.ravel(vals)]).reshape(
+        np.shape(vals))

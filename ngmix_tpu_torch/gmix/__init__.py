@@ -30,3 +30,7 @@ from .gmix import (  # noqa: F401
     make_gmix_model,
 )
 from .gmix_lists import GMixList, MultiBandGMixList  # noqa: F401
+
+# the reference's module paths: the roles of its numba modules are core's
+gmix_nb = core
+render_nb = core

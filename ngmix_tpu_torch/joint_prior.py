@@ -1,10 +1,14 @@
-"""Joint priors on a model's parameter vector: the device side of
-``ngmix_tpu/joint_prior.py`` for the models of the batched pipeline.
+"""Joint priors on a model's parameter vector: the port of
+``ngmix_tpu/joint_prior.py``.
 
 ``PriorSimpleSep`` (the simple models: row, col, g1, g2, T, one flux a
 band), ``PriorBDFSep`` (bdf: fracdev after T) and ``PriorBDSep`` (bd:
-log10(Td/Te) and fracdev after T). nband is the length of the list of
-F priors, one flux a band, or 1 for a single F prior.
+log10(Td/Te) and fracdev after T); ``PriorGalsimSimpleSep`` (r50 in
+T's slot) and ``PriorSpergelSep`` (r50 and nu in bdf's T and fracdev
+slots), whose fits (``KSpaceFitter``) take run_lm; ``PriorCoellipSame``
+(ngauss T and ngauss flux slots sharing one T and one F prior, for
+``CoellipFitter``, run_lm). nband is the length of the list of F
+priors, one flux a band, or 1 for a single F prior.
 
 ``fill_fdiff_device(pars)`` maps pars [B, npars] to the LM's prior rows
 [B, nrows], as the reference maps one vector: PriorSimpleSep takes
@@ -20,13 +24,17 @@ kind, the form, the one or two parameter indices (-1 for none) and up
 to four constants of each row, evaluated by
 ``csrc/lm_common.cuh: prior_row`` with the same formulas.
 
-The host methods of the guessers and the host fitters are the
-reference's: ``sample`` and ``get_lnprob_scalar`` in numpy over the
-components' generators, and ``get_lnprob_scalar_device`` on tensors.
+The host methods are the reference's: ``sample``, ``get_widths``,
+``get_lnprob_scalar``, ``get_prob_scalar``, ``get_lnprob_array`` and
+``get_prob_array`` in numpy over the components' generators, the host
+``fill_fdiff`` (one vector's rows into a numpy array, evaluated by
+``fill_fdiff_device`` in float64 on the CPU), and
+``get_lnprob_scalar_device`` on tensors.
 """
 import numpy as np
 import torch
 
+from .gmix.tables import get_coellip_npars
 from .priors.priors import FORM_FDIFF, FORM_LNP, sqrt_m2ln_grad
 
 # the columns of a prior table row: kind, form, the two parameter
@@ -113,6 +121,25 @@ class PriorSimpleSep(object):
             rows.append((r, [(k, d)]))
         return rows
 
+    def get_widths(self, nrand=10000):
+        """the standard deviation of each parameter over nrand samples
+        (2 for g1 and g2), drawn once and kept"""
+        if not hasattr(self, "_sigma_estimates"):
+            sigmas = self.sample(nrand).std(axis=0)
+            sigmas[2] = 2.0
+            sigmas[3] = 2.0
+            self._sigma_estimates = sigmas
+        return self._sigma_estimates
+
+    def fill_fdiff(self, pars, fdiff):
+        """one vector's prior rows (fill_fdiff_device in float64 on the
+        CPU) into the front of the numpy array fdiff; returns their
+        number"""
+        x = torch.as_tensor(np.asarray(pars, dtype="f8"))[None]
+        rows = self.fill_fdiff_device(x)[0].numpy()
+        fdiff[: rows.size] = rows
+        return rows.size
+
     def get_lnprob_scalar(self, pars):
         """ln(prob) of one parameter vector (numpy), the components'
         host values summed; raises GMixRangeError where a component
@@ -122,6 +149,21 @@ class PriorSimpleSep(object):
         for p, k in self._one_dim():
             lnp += p.get_lnprob_scalar(pars[k])
         return lnp
+
+    def get_prob_scalar(self, pars):
+        return np.exp(self.get_lnprob_scalar(pars))
+
+    def get_lnprob_array(self, pars):
+        """ln(prob) [N] of parameter vectors [N, npars] (numpy), the
+        components' array forms summed"""
+        lnp = self.cen_prior.get_lnprob_array(pars[:, 0], pars[:, 1])
+        lnp = lnp + self.g_prior.get_lnprob_array2d(pars[:, 2], pars[:, 3])
+        for p, k in self._one_dim():
+            lnp = lnp + p.get_lnprob_array(pars[:, k])
+        return lnp
+
+    def get_prob_array(self, pars):
+        return np.exp(self.get_lnprob_array(pars))
 
     def get_lnprob_scalar_device(self, pars):
         """ln(prob) [...] of pars [..., npars] on tensors: LOWVAL
@@ -215,5 +257,89 @@ class PriorBDFSep(PriorSimpleSep):
         return [self.fracdev_prior]
 
 
-# the joint priors the LM measures take
+class PriorGalsimSimpleSep(PriorSimpleSep):
+    """PriorSimpleSep with r50 in T's slot (ref: joint_prior.py:148-154)"""
+
+    def __init__(self, cen_prior, g_prior, r50_prior, F_prior):
+        super().__init__(cen_prior, g_prior, r50_prior, F_prior)
+        self.r50_prior = r50_prior
+
+
+class PriorSpergelSep(PriorBDFSep):
+    """spergel [c1, c2, g1, g2, r50, nu, F...]: PriorBDFSep with r50 and
+    nu in T's and fracdev's slots (ref: joint_prior.py:349-357)"""
+
+    def __init__(self, cen_prior, g_prior, r50_prior, nu_prior, F_prior):
+        super().__init__(cen_prior, g_prior, r50_prior, nu_prior, F_prior)
+        self.r50_prior = r50_prior
+        self.nu_prior = nu_prior
+
+
+class PriorCoellipSame(PriorSimpleSep):
+    """ngauss coelliptical gaussians [c1, c2, g1, g2, T_1..T_n,
+    F_1..F_n], every T under T_prior and every flux under F_prior, one
+    band (ref: joint_prior.py:360-440)"""
+
+    def __init__(self, ngauss, cen_prior, g_prior, T_prior, F_prior):
+        self.ngauss = ngauss
+        super().__init__(cen_prior, g_prior, T_prior, F_prior)
+        if self.nband != 1:
+            raise ValueError("coellip only supports one band")
+
+    @property
+    def npars(self):
+        return get_coellip_npars(self.ngauss)
+
+    @property
+    def n_prior_pars(self):
+        return 3 + 2 * self.ngauss
+
+    def _one_dim(self):
+        ng = self.ngauss
+        return ([(self.T_prior, 4 + i) for i in range(ng)]
+                + [(self.F_priors[0], 4 + ng + i) for i in range(ng)])
+
+    def set_bounds(self):
+        bounds = [(None, None)] * 4
+        some = False
+        for p in [self.T_prior] + self.F_priors:
+            if p.has_bounds():
+                some = True
+                pb = (p.bounds[0], p.bounds[1])
+            else:
+                pb = (None, None)
+            bounds += [pb] * self.ngauss
+        self.bounds = bounds if some else None
+
+    def get_lnprob_scalar(self, pars):
+        if len(pars) != self.npars:
+            raise ValueError("pars size %d expected %d" % (len(pars), self.npars))
+        return super().get_lnprob_scalar(pars)
+
+    def get_lnprob_array(self, pars):
+        # the reference takes PriorSimpleSep's: T in column 4 and the
+        # one flux in column 5
+        lnp = self.cen_prior.get_lnprob_array(pars[:, 0], pars[:, 1])
+        lnp = lnp + self.g_prior.get_lnprob_array2d(pars[:, 2], pars[:, 3])
+        lnp = lnp + self.T_prior.get_lnprob_array(pars[:, 4])
+        return lnp + self.F_priors[0].get_lnprob_array(pars[:, 5])
+
+    def sample(self, nrand=None):
+        """the reference's draws: column 4 takes T_prior twice (a draw,
+        then a second added in the loop), each other T one, then the
+        fluxes"""
+        n = 1 if nrand is None else nrand
+        ng = self.ngauss
+        samples = np.zeros((n, self.npars))
+        samples[:, 0], samples[:, 1] = self.cen_prior.sample(n)
+        samples[:, 2], samples[:, 3] = self.g_prior.sample2d(n)
+        samples[:, 4] = self.T_prior.sample(n)
+        for i in range(ng):
+            samples[:, 4 + i] += self.T_prior.sample(n)
+        for i in range(ng):
+            samples[:, 4 + ng + i] = self.F_priors[0].sample(n)
+        return samples[0, :] if nrand is None else samples
+
+
+# the joint priors whose rows the kernels take (a subclass's too)
 PRIORS = (PriorSimpleSep, PriorBDFSep, PriorBDSep)

@@ -200,6 +200,11 @@ def sky_ksq(N, jac, dtype=torch.float64, device=None):
 # ----------------------------------------------------------------------
 # transforms
 
+def fft_axis(A, axis=-1, inverse=False):
+    """the 1-d FFT (or its inverse) along one axis"""
+    return torch.fft.ifft(A, dim=axis) if inverse else torch.fft.fft(A, dim=axis)
+
+
 def fft2_auto(A, inverse=False):
     """2-D FFT over the last two axes"""
     return torch.fft.ifft2(A) if inverse else torch.fft.fft2(A)

@@ -1,20 +1,31 @@
-"""Build the package's CUDA sources into one shared library, at first use.
+"""Build the package's CUDA sources at first use, one shared library a
+source, and load their C functions.
 
 Every ``csrc/*.cu`` is compiled for Hopper (sm_90a) by its own ``nvcc``
-process, one a core, the costliest first (``UNIT_CPU_SECONDS``), and the
-objects are linked into one shared library with a plain C interface:
-no PyTorch headers and no ninja, so the build takes as long as its
-slowest source, or as the host's cores take for all of them. The
-library is named by a hash of the sources, their headers and the
-flags, lives in ``build/ngmix_tpu_torch/`` at the root of the checkout,
-and is loaded with ctypes.
+process, one a core, and linked into a shared library of its own with a
+plain C interface: no PyTorch headers and no ninja. The libraries of a
+build live in ``build/ngmix_tpu_torch/<hash>/`` at the root of the
+checkout (the hash covers the sources, their headers and the flags),
+one ``<source>.so`` a source, and are loaded with ctypes.
+
+``load()`` returns the library object the wrappers call: each C
+function is looked up in its source's library when it is first used,
+and waits for that source alone. ``start()`` begins a build in the
+background (the sources in the order given, the others after them, the
+costliest first by ``UNIT_CPU_SECONDS``), so that a caller can use the
+first sources' kernels while nvcc compiles the rest; ``build()`` builds
+every source and returns when all are done. A failed or late build
+raises with nvcc's output.
 """
+import atexit
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -35,7 +46,6 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
-_lib = None
 # each unit's nvcc CPU seconds (user + system) on an H100 host
 # (chip_smoke.py phase 2, 731.1 s in all): the build starts the
 # costliest first, one process a core, so that the longest units never
@@ -50,7 +60,8 @@ UNIT_CPU_SECONDS = {
     "lm_solve_bdf.cu": 23.4, "lm_solve_mb_gauss.cu": 21.4, "lm_solve_opt_gauss.cu": 19.2,
     "gmix_eval.cu": 7.8, "normal_eqs.cu": 2.3,
 }
-# this process's build, where it made one: each unit's nvcc CPU seconds
+# this process's build, where it made one: each unit's nvcc CPU seconds,
+# set as each unit ends
 UNIT_SECONDS = {}
 
 
@@ -67,22 +78,44 @@ def find_nvcc():
 
 
 def nvcc_commands(out, nvcc="nvcc"):
-    """the commands that build every source into ``out``: one compile a
-    source into an object beside ``out`` (they run in parallel), and the
-    link of the objects into the shared library"""
-    objs = ["%s.%s.o" % (out, src.stem) for src in sources()]
+    """the commands that build every source into the directory ``out``:
+    one compile a source into its object in ``out`` (they run in
+    parallel), and one link a source of its object into
+    ``out/<source>.so``, in the order of sources()"""
+    out = Path(out)
+    objs = [str(out / (src.stem + ".o")) for src in sources()]
     compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
                 for src, obj in zip(sources(), objs)]
-    return compiles, [nvcc, "-shared", "-o", str(out), *objs]
+    links = [[nvcc, "-shared", "-o", str(out / (src.stem + ".so")), obj]
+             for src, obj in zip(sources(), objs)]
+    return compiles, links
 
 
 def library_path():
+    """the directory of this checkout's libraries, named by a hash of the
+    sources, the headers they include and the flags"""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    # the sources and the headers they include
     for src in sorted(CSRC.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
-    return BUILD_DIR / ("libngmix_tpu_torch_%s.so" % h.hexdigest()[:16])
+    return BUILD_DIR / ("ngmix_tpu_torch_%s" % h.hexdigest()[:16])
+
+
+_UNIT_OF = {}
+
+
+def unit_of(name):
+    """the source (its stem) whose library defines the C function name:
+    the source that names it, or names it without its "_attrs" suffix
+    (the macros that define the kernels' entry points add it)"""
+    if not _UNIT_OF:
+        for src in sources():
+            for tok in re.findall(r"\bngmix_\w+", src.read_text()):
+                _UNIT_OF.setdefault(tok, src.stem)
+    for key in (name, name[:-len("_attrs")] if name.endswith("_attrs") else None):
+        if key in _UNIT_OF:
+            return _UNIT_OF[key]
+    raise AttributeError("no source defines %s" % name)
 
 
 def _slots():
@@ -93,27 +126,127 @@ def _slots():
         return os.cpu_count() or 1
 
 
-def _run_all(cmds, deadline, slots=None):
+class _Build(object):
+    """one build of every source, in a thread: each source compiles in its
+    own nvcc process, at most ``slots`` at a time in the given order of
+    stems, and is linked into its library in a temporary directory as
+    soon as its object exists; when all are done the directory becomes
+    library_path(). ``open(stem)`` loads one source's library, waiting
+    for it; ``wait()`` waits for all. Both raise the build's error"""
+
+    def __init__(self, order, slots):
+        self.path = library_path()
+        self.order = list(order)
+        self.slots = slots
+        self.done = {stem: threading.Event() for stem in self.order}
+        # set once the last source's nvcc has started: from then on cores
+        # free up as sources end
+        self.launched = threading.Event()
+        self.finished = threading.Event()
+        self.error = None
+        self.seconds = None
+        # each source's [start, end] seconds from the build's start
+        self.span = {}
+        self.procs = []
+        self.lock = threading.Lock()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        self.tmpdir = Path(tempfile.mkdtemp(dir=BUILD_DIR))
+        self.t0 = time.perf_counter()
+        self.thread = threading.Thread(target=self._run, name="ngmix-nvcc", daemon=True)
+        self.thread.start()
+
+    def _run(self):
+        try:
+            compiles, links = nvcc_commands(self.tmpdir, nvcc=find_nvcc())
+            idx = {src.stem: i for i, src in enumerate(sources())}
+            order = [idx[stem] for stem in self.order]
+            deadline = time.monotonic() + BUILD_TIMEOUT_S
+
+            def started(k):
+                self.span[self.order[k]] = [time.perf_counter() - self.t0, None]
+
+            def linked(k, cpu):
+                i = order[k]
+                UNIT_SECONDS[sources()[i].name] = cpu
+                _run_all([links[i]], deadline)
+                self.span[self.order[k]][1] = time.perf_counter() - self.t0
+                self.done[self.order[k]].set()
+
+            _run_all([compiles[i] for i in order], deadline, self.slots, linked, self.procs,
+                     self.launched, started)
+            with self.lock:
+                if self.path.exists():
+                    shutil.rmtree(self.tmpdir, ignore_errors=True)
+                else:
+                    os.replace(self.tmpdir, self.path)
+                self.tmpdir = None
+        except BaseException as exc:  # noqa: BLE001 - raised again in every waiter
+            self.error = exc
+            shutil.rmtree(self.tmpdir, ignore_errors=True)
+        finally:
+            self.seconds = time.perf_counter() - self.t0
+            self.launched.set()
+            self.finished.set()
+            for ev in self.done.values():
+                ev.set()
+
+    def _check(self):
+        if self.error is not None:
+            raise RuntimeError("the kernels' build failed: %s" % self.error) from self.error
+
+    def open(self, stem):
+        """one source's library, loaded, once it is linked"""
+        self.done[stem].wait()
+        self._check()
+        with self.lock:
+            where = self.path if self.tmpdir is None else self.tmpdir
+            return ctypes.CDLL(str(where / (stem + ".so")))
+
+    def wait(self):
+        """every source's library: the directory that holds them"""
+        self.finished.wait()
+        self._check()
+        return self.path
+
+    def stop(self):
+        """kill the build's nvcc processes (at the interpreter's exit)"""
+        for proc in list(self.procs):
+            if proc.poll() is None:
+                proc.kill()
+
+
+def _run_all(cmds, deadline, slots=None, on_done=None, procs=None, launched=None,
+             on_start=None):
     """run the commands in their order, at most ``slots`` at a time (all
-    at once for None), each one's output to a temporary file; raises
-    with the first failure's output, or when the deadline
-    (time.monotonic()) passes, stopping the rest. Returns each command's
-    CPU seconds (its process's and its children's user + system time)"""
+    at once for None), each one's output to a temporary file, calling
+    on_done(k, CPU seconds) as command k ends; raises with the first
+    failure's output, or when the deadline (time.monotonic()) passes,
+    stopping the rest. Returns each command's CPU seconds (its process's
+    and its children's user + system time). ``procs`` (a list) holds
+    the running processes; the event ``launched`` is set once the last
+    command has started, and on_start(k) is called as command k starts"""
     pending = list(range(len(cmds)))
     running = {}
     cpu = [None] * len(cmds)
+    procs = [] if procs is None else procs
     try:
         while pending or running:
             while pending and (slots is None or len(running) < slots):
                 i = pending.pop(0)
                 log = tempfile.TemporaryFile("w+")
-                running[i] = (subprocess.Popen(cmds[i], stdout=log, stderr=subprocess.STDOUT,
-                                               text=True), log)
+                proc = subprocess.Popen(cmds[i], stdout=log, stderr=subprocess.STDOUT, text=True)
+                running[i] = (proc, log)
+                procs.append(proc)
+                if on_start is not None:
+                    on_start(i)
+            if not pending and launched is not None:
+                launched.set()
             for i, (proc, log) in list(running.items()):
                 pid, status, usage = os.wait4(proc.pid, os.WNOHANG)
                 if pid == 0:
                     continue
                 del running[i]
+                procs.remove(proc)
                 proc.returncode = os.waitstatus_to_exitcode(status)
                 cpu[i] = usage.ru_utime + usage.ru_stime
                 log.seek(0)
@@ -122,112 +255,133 @@ def _run_all(cmds, deadline, slots=None):
                 if proc.returncode != 0:
                     raise RuntimeError("nvcc failed (%d): %s\n%s"
                                        % (proc.returncode, " ".join(cmds[i]), out))
+                if on_done is not None:
+                    on_done(i, cpu[i])
             if running and time.monotonic() > deadline:
                 raise RuntimeError("nvcc did not finish in %d s: %s" % (
                     BUILD_TIMEOUT_S, " ".join(cmds[min(running)])))
-            time.sleep(0.1)
+            time.sleep(0.05)
     finally:
         for proc, log in running.values():
             proc.kill()
             proc.wait()
             log.close()
+            if proc in procs:
+                procs.remove(proc)
     return cpu
 
 
-def build():
-    """compile the sources if their library is missing; returns its path.
+# this process's build, while it runs or once it ran
+_BUILD = None
+_lib = None
 
-    Writes to a temporary name and renames, so concurrent builders
-    never load a half-written file. Raises with nvcc's output on
-    failure or after BUILD_TIMEOUT_S seconds.
-    """
+
+def _complete(path):
+    return all((path / (src.stem + ".so")).exists() for src in sources())
+
+
+def start(first=()):
+    """begin building every source in the background, unless its
+    libraries exist or a build runs: the stems of ``first`` in their
+    order, then the other sources, the costliest first; one nvcc
+    process a core at a time. Returns the build, or None where there is
+    nothing to build"""
+    global _BUILD
+    if _BUILD is None and not _complete(library_path()):
+        rest = sorted((s.stem for s in sources() if s.stem not in first),
+                      key=lambda stem: -UNIT_CPU_SECONDS.get(stem + ".cu", 1e9))
+        _BUILD = _Build(list(first) + rest, _slots())
+        atexit.register(_BUILD.stop)
+    return _BUILD
+
+
+def build():
+    """every source's library, built if missing; returns their
+    directory. Raises with nvcc's output on failure or after
+    BUILD_TIMEOUT_S seconds."""
     path = library_path()
-    if path.exists():
+    if _complete(path):
         return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmpdir = tempfile.mkdtemp(dir=BUILD_DIR)
-    try:
-        tmp = os.path.join(tmpdir, path.name)
-        compiles, link = nvcc_commands(tmp, nvcc=find_nvcc())
-        names = [s.name for s in sources()]
-        order = sorted(range(len(names)), key=lambda i: -UNIT_CPU_SECONDS.get(names[i], 1e9))
-        deadline = time.monotonic() + BUILD_TIMEOUT_S
-        cpu = _run_all([compiles[i] for i in order], deadline, _slots())
-        UNIT_SECONDS.update((names[i], c) for i, c in zip(order, cpu))
-        _run_all([link], deadline)
-        os.replace(tmp, path)
-    finally:
-        shutil.rmtree(tmpdir, ignore_errors=True)
-    return path
+    return start().wait()
+
+
+def _open(stem):
+    """one source's library, loaded: from the running build (waiting for
+    that source alone) or from the directory of build()"""
+    if _BUILD is not None and not _BUILD.finished.is_set():
+        return _BUILD.open(stem)
+    return ctypes.CDLL(str(Path(build()) / (stem + ".so")))
+
+
+def _signature(name):
+    """(argtypes, restype) of a C function, by its name"""
+    p, i64, dbl = ctypes.c_void_p, ctypes.c_int64, ctypes.c_double
+    ip = ctypes.POINTER(ctypes.c_int)
+    if name.startswith("ngmix_gmix_eval_attrs_"):
+        # fast, n, smem, out[4]: registers, static and dynamic shared
+        # memory, blocks an SM
+        args = [ctypes.c_int, i64, i64, ip]
+    elif name.startswith("ngmix_gmix_eval_"):
+        # gmix, v, u, area, area_scalar, out, B, n, P, fast, then the
+        # launch plan: tile, head, ntiles, nfull, magic, shift, grid,
+        # smem; stream
+        args = [p, p, p, p, dbl, p, i64, i64, i64, ctypes.c_int, *[i64] * 8, p]
+    elif name.startswith("ngmix_normal_eqs_"):
+        # rp, chain, v, u, ia, ve, cost, jtr, jtj, B, n, P, stream
+        args = [p] * 9 + [i64] * 3 + [p]
+    elif name.startswith("ngmix_lm_solve_mb_"):
+        # attrs: nband, E, P, out[5] as for K3. The solve: guess, lo, hi,
+        # psf, band, v, u, ia, ve, y, cost, cost_pix, jtr, jtj, lam,
+        # nfev, done, ier_small_step, ier_small_cost, pinned, counter,
+        # prior, B, E, P, nband, nprior, maxfev, ftol, xtol, lambda0,
+        # lambda_up, lambda_down, lambda_min, lambda_max, stream
+        args = ([i64, i64, i64, ip] if name.endswith("_attrs")
+                else [p] * 22 + [i64] * 6 + [dbl] * 7 + [p])
+    elif name.startswith("ngmix_lm_solve_opt_"):
+        # attrs: P, out[5]. The solve: K3's arguments through the table
+        # pointer, the full-width outputs fy, fcost, fcost_pix, fjtr,
+        # fjtj, B, P, nprior, maxfev, mode, niter, ftol, xtol, lambda0,
+        # lambda_up, lambda_down, lambda_min, lambda_max, lam_gn, stream
+        args = ([i64, ip] if name.endswith("_attrs")
+                else [p] * 26 + [i64] * 6 + [dbl] * 8 + [p])
+    elif name.startswith("ngmix_lm_solve_"):
+        # attrs: P, out[5]: K2's four values and local memory a thread.
+        # The solve: guess, lo, hi, psf, v, u, ia, ve, y, cost, cost_pix,
+        # jtr, jtj, lam, nfev, done, ier_small_step, ier_small_cost,
+        # pinned, counter, prior, B, P, nprior, maxfev, ftol, xtol,
+        # lambda0, lambda_up, lambda_down, lambda_min, lambda_max, stream
+        args = ([i64, ip] if name.endswith("_attrs")
+                else [p] * 21 + [i64] * 4 + [dbl] * 7 + [p])
+    else:
+        raise AttributeError("no C function %s" % name)
+    return args, ctypes.c_int
+
+
+class Library(object):
+    """the C functions of every source's library: each is bound, with its
+    argtypes and restype, when it is first used, loading its source's
+    library and waiting for that source's build alone"""
+
+    def __init__(self):
+        self._dlls = {}
+
+    def __getattr__(self, name):
+        if name.startswith("_"):
+            raise AttributeError(name)
+        args, res = _signature(name)
+        stem = unit_of(name)
+        if stem not in self._dlls:
+            self._dlls[stem] = _open(stem)
+        fn = getattr(self._dlls[stem], name)
+        fn.argtypes, fn.restype = args, res
+        setattr(self, name, fn)
+        return fn
 
 
 def load():
-    """the loaded library, built first if needed, with every C
-    function's argtypes and restype set"""
+    """the library object whose attributes are the C functions (bound at
+    first use, each waiting for its own source)"""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        p, i64 = ctypes.c_void_p, ctypes.c_int64
-        ip = ctypes.POINTER(ctypes.c_int)
-        for name in ("ngmix_gmix_eval_f32", "ngmix_gmix_eval_f64"):
-            fn = getattr(lib, name)
-            # gmix, v, u, area, area_scalar, out, B, n, P, fast, then the
-            # launch plan: tile, head, ntiles, nfull, magic, shift, grid,
-            # smem; stream
-            fn.argtypes = [
-                p, p, p, p, ctypes.c_double, p, i64, i64, i64,
-                ctypes.c_int, *[i64] * 8, p,
-            ]
-            fn.restype = ctypes.c_int
-        for name in ("ngmix_gmix_eval_attrs_f32", "ngmix_gmix_eval_attrs_f64"):
-            fn = getattr(lib, name)
-            # fast, n, smem, out[4]: registers, static and dynamic shared
-            # memory, blocks an SM
-            fn.argtypes = [ctypes.c_int, i64, i64, ip]
-            fn.restype = ctypes.c_int
-        lm_names = ["%s_%s" % (m, dt) for m in LM_MODELS for dt in ("f32", "f64")]
-        for name in lm_names:
-            fn = getattr(lib, "ngmix_lm_solve_%s_attrs" % name)
-            # P, out[5]: K2's four values and local memory a thread
-            fn.argtypes = [i64, ip]
-            fn.restype = ctypes.c_int
-        for name in ("ngmix_normal_eqs_f32", "ngmix_normal_eqs_f64"):
-            fn = getattr(lib, name)
-            # rp, chain, v, u, ia, ve, cost, jtr, jtj, B, n, P, stream
-            fn.argtypes = [p] * 9 + [i64, i64, i64, p]
-            fn.restype = ctypes.c_int
-        for name in lm_names:
-            fn = getattr(lib, "ngmix_lm_solve_" + name)
-            # guess, lo, hi, psf, v, u, ia, ve, y, cost, cost_pix, jtr,
-            # jtj, lam, nfev, done, ier_small_step, ier_small_cost, pinned,
-            # counter, prior, B, P, nprior, maxfev, ftol, xtol, lambda0,
-            # lambda_up, lambda_down, lambda_min, lambda_max, stream
-            fn.argtypes = [p] * 21 + [i64] * 4 + [ctypes.c_double] * 7 + [p]
-            fn.restype = ctypes.c_int
-        for name in lm_names:
-            fn = getattr(lib, "ngmix_lm_solve_mb_" + name)
-            # guess, lo, hi, psf, band, v, u, ia, ve, y, cost, cost_pix,
-            # jtr, jtj, lam, nfev, done, ier_small_step, ier_small_cost,
-            # pinned, counter, prior, B, E, P, nband, nprior, maxfev, ftol,
-            # xtol, lambda0, lambda_up, lambda_down, lambda_min,
-            # lambda_max, stream
-            fn.argtypes = [p] * 22 + [i64] * 6 + [ctypes.c_double] * 7 + [p]
-            fn.restype = ctypes.c_int
-        for name in lm_names:
-            fn = getattr(lib, "ngmix_lm_solve_mb_%s_attrs" % name)
-            # nband, E, P, out[5] as for K3
-            fn.argtypes = [i64, i64, i64, ip]
-            fn.restype = ctypes.c_int
-        for name in lm_names:
-            fn = getattr(lib, "ngmix_lm_solve_opt_" + name)
-            # K3's arguments through the table pointer, the full-width
-            # outputs fy, fcost, fcost_pix, fjtr, fjtj, B, P, nprior,
-            # maxfev, mode, niter, ftol, xtol, lambda0, lambda_up,
-            # lambda_down, lambda_min, lambda_max, lam_gn, stream
-            fn.argtypes = [p] * 26 + [i64] * 6 + [ctypes.c_double] * 8 + [p]
-            fn.restype = ctypes.c_int
-            fn = getattr(lib, "ngmix_lm_solve_opt_%s_attrs" % name)
-            fn.argtypes = [i64, ip]
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = Library()
     return _lib

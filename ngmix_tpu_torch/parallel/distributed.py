@@ -115,3 +115,16 @@ def local_results(results):
     if isinstance(results, torch.Tensor):
         return results.detach().cpu().numpy()
     return np.asarray(results)
+
+
+def replicated_to_host(tree):
+    """a result that every process holds whole (the all-reduced
+    calibration sums), as numpy on every process, nested dicts, lists
+    and tuples kept"""
+    if isinstance(tree, dict):
+        return {k: replicated_to_host(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(replicated_to_host(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().cpu().numpy()
+    return np.asarray(tree)

@@ -1,6 +1,8 @@
 """The 2-d center prior: the device side of
-``ngmix_tpu/priors/multivariate.py``, with its host ``sample`` and
-``get_lnprob_scalar``."""
+``ngmix_tpu/priors/multivariate.py``, with its host methods
+(``sample``, ``get_fdiff``, ``get_lnprob_scalar[_sep]``,
+``get_prob_scalar`` and the array forms) in numpy."""
+import numpy as np
 import torch
 
 from .priors import CEN, PriorBase
@@ -52,10 +54,24 @@ class CenPrior(PriorBase):
         l1, l2 = self.get_lnprob_device_sep(x1, x2)
         return l1 + l2
 
+    def get_fdiff(self, x1, x2):
+        return (x1 - self.cen1) * self.sinv1, (x2 - self.cen2) * self.sinv2
+
     def get_lnprob_scalar(self, x1, x2):
         d1 = self.cen1 - x1
         d2 = self.cen2 - x2
         return -0.5 * d1 * d1 * self.s2inv1 - 0.5 * d2 * d2 * self.s2inv2
+
+    def get_lnprob_scalar_sep(self, x1, x2):
+        d1 = self.cen1 - x1
+        d2 = self.cen2 - x2
+        return -0.5 * d1 * d1 * self.s2inv1, -0.5 * d2 * d2 * self.s2inv2
+
+    def get_prob_scalar(self, x1, x2):
+        return np.exp(self.get_lnprob_scalar(x1, x2))
+
+    get_prob_array = get_prob_scalar
+    get_lnprob_array = get_lnprob_scalar
 
     def sample(self, nrand=None):
         """(x1, x2) drawn from the two gaussians"""

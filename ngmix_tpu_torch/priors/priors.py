@@ -12,13 +12,21 @@ support, or sqrt(-2 ln p) at chi2 = 0) the derivative is 0.
 K3 and K3-mb evaluate the same rows from a table (``kind`` and
 ``consts`` of each prior, ``csrc/lm_common.cuh: prior_row``).
 
-The host methods that the guessers and the host fitters call are the
-reference's numpy code: ``sample`` draws from ``self.rng`` (a numpy
+The host methods are the reference's numpy code: ``sample`` (and
+``LogNormal.sample_brute``) draws from ``self.rng`` (a numpy
 ``RandomState``; ``make_rng`` of the ``rng`` argument), so a prior
-whose generator is in the same state draws the same numbers, and
-``get_lnprob_scalar`` evaluates one value, raising ``GMixRangeError``
-where the reference does. Rejection sampling goes through
-``draw_until``, the reference's accumulator.
+whose generator is in the same state draws the same numbers;
+``get_lnprob_scalar``, ``get_prob_scalar``, ``get_lnprob_array``,
+``get_prob_array`` and ``get_fdiff`` evaluate numpy values, raising
+``GMixRangeError`` where the reference does; ``LogNormal.fit`` fits
+the family with scipy's ``least_squares``. Rejection sampling goes
+through ``draw_until``, the reference's accumulator.
+
+``LMBounds`` is a box for the LM that carries no prior weight: its row
+is 0 with derivative 0 in both forms (kind ``LMBOUNDS`` of the
+kernels' table), and the joint priors pass its bounds to the fit.
+``Bounded1D`` (``LimitPDF``) samples another prior inside limits, on
+the host only.
 """
 import math
 
@@ -31,7 +39,7 @@ from .random import make_rng
 
 # the kinds of prior row of K3's and K3-mb's prior table
 # (csrc/lm_common.cuh: PriorKind)
-FLAT, NORMAL, CEN, ERF, LOGNORMAL, SINH, TRUNC, GBA, ZDISK = range(9)
+FLAT, NORMAL, CEN, ERF, LOGNORMAL, SINH, TRUNC, GBA, ZDISK, LMBOUNDS = range(10)
 # a row is sqrt(max(-2 ln p, 0)) (FORM_LNP) or a signed fdiff (FORM_FDIFF)
 FORM_LNP, FORM_FDIFF = 0, 1
 
@@ -123,10 +131,29 @@ class FlatPrior(PriorBase):
     def _out(self, val):
         return (val < self.minval) | (val > self.maxval)
 
-    def get_lnprob_scalar(self, val):
+    def _check(self, val):
         if np.any(np.asarray(val) < self.minval) or np.any(np.asarray(val) > self.maxval):
             raise GMixRangeError("value %s out of range: [%s,%s]"
                                  % (val, self.minval, self.maxval))
+
+    def get_prob_scalar(self, val):
+        self._check(val)
+        return 1.0
+
+    def get_lnprob_scalar(self, val):
+        self._check(val)
+        return 0.0
+
+    def get_prob_array(self, vals):
+        self._check(vals)
+        return np.asarray(vals) * 0 + 1.0
+
+    def get_lnprob_array(self, vals):
+        self._check(vals)
+        return 0.0
+
+    def get_fdiff(self, val):
+        self._check(val)
         return 0.0
 
     def sample(self, nrand=None):
@@ -167,9 +194,26 @@ class TwoSidedErf(_LnpFdiff, PriorBase):
         fall = erf((self.maxval - x) / self.width_at_max)
         return 0.5 * (rise + fall)
 
+    def get_prob_scalar(self, val):
+        return float(self._smooth_box(np.float64(val)))
+
     def get_lnprob_scalar(self, val):
-        p = float(self._smooth_box(np.float64(val)))
+        p = self.get_prob_scalar(val)
         return np.log(p) if p > 0.0 else LOWVAL
+
+    def get_prob_array(self, vals):
+        return self._smooth_box(np.array(vals, ndmin=1, dtype="f8"))
+
+    def get_lnprob_array(self, vals):
+        p = self.get_prob_array(vals)
+        return np.where(p > 0.0, np.log(np.where(p > 0.0, p, 1.0)), LOWVAL)
+
+    def get_fdiff(self, val):
+        if isinstance(val, np.ndarray):
+            lnp = self.get_lnprob_array(val)
+        else:
+            lnp = self.get_lnprob_scalar(val)
+        return np.sqrt(np.clip(-2 * lnp, 0.0, None))
 
     def sample(self, nrand=None):
         lo = self.minval - 5.0 * self.width_at_min
@@ -212,9 +256,21 @@ class Normal(PriorBase):
     def consts(self):
         return (self.mean, self.sigma)
 
-    def get_lnprob_scalar(self, val):
+    def get_lnprob(self, val):
         z = (val - self.mean) / self.sigma
         return -0.5 * z * z
+
+    get_lnprob_scalar = get_lnprob
+    get_lnprob_array = get_lnprob
+
+    def get_prob(self, val):
+        return np.exp(self.get_lnprob(val))
+
+    get_prob_array = get_prob
+    get_prob_scalar = get_prob
+
+    def get_fdiff(self, val):
+        return (val - self.mean) / self.sigma
 
     def sample(self, nrand=None, size=None):
         if size is None and nrand is not None:
@@ -255,13 +311,34 @@ class LogNormal(_LnpFdiff, PriorBase):
         return (0.0 if self.shift is None else self.shift, self.logmean,
                 -0.5 * self.logivar, self.lnprob_max)
 
+    def _lnprob_of_log(self, t):
+        """ln(prob) of t = log(val - shift), peak 0"""
+        return -0.5 * (self.logivar * (t - self.logmean) ** 2) - t - self.lnprob_max
+
     def get_lnprob_scalar(self, val):
         if self.shift is not None:
             val = val - self.shift
         if val <= 0:
             raise GMixRangeError("values of LogNormal must be > 0")
-        t = np.log(val)
-        return -0.5 * (self.logivar * (t - self.logmean) ** 2) - t - self.lnprob_max
+        return self._lnprob_of_log(np.log(val))
+
+    def get_lnprob_array(self, vals):
+        vals = np.array(vals, dtype="f8")
+        if self.shift is not None:
+            vals = vals - self.shift
+        if np.any(vals <= 0):
+            raise GMixRangeError("values of LogNormal must be > 0")
+        return self._lnprob_of_log(np.log(vals))
+
+    def get_prob_scalar(self, val):
+        return np.exp(self.get_lnprob_scalar(val))
+
+    def get_prob_array(self, vals):
+        return np.exp(self.get_lnprob_array(vals))
+
+    def get_fdiff(self, val):
+        lnp = self.get_lnprob_scalar(val)
+        return np.sqrt(max(-2 * lnp, 0.0))
 
     def sample(self, nrand=None):
         z = self.rng.normal(size=nrand)
@@ -269,6 +346,47 @@ class LogNormal(_LnpFdiff, PriorBase):
         if self.shift is not None:
             r += self.shift
         return r
+
+    def sample_brute(self, nrand=None, maxval=None):
+        """rejection sampling under a uniform ceiling, a check of sample()
+        (ref: priors.py:366-382)"""
+        if maxval is None:
+            maxval = self.mean + 10 * self.sigma
+        shift = 0.0 if self.shift is None else self.shift
+
+        def propose(k):
+            cand = maxval * self.rng.uniform(size=k) + shift
+            p = np.exp(self._lnprob_of_log(np.log(np.clip(cand - shift, 1e-300, None))))
+            return cand[self.rng.uniform(size=k) < p]
+
+        return _one_or_many(draw_until(1 if nrand is None else nrand, propose), nrand)
+
+    def fit(self, x, y):
+        """fit (mean, sigma, amplitude) of the family to (x, p(x)) data
+        with scipy's least_squares from jittered moment guesses, at most
+        four tries (ref: priors.py:384-418); the result dict"""
+        from scipy.optimize import least_squares
+
+        x = np.asarray(x, dtype="f8")
+        y = np.asarray(y, dtype="f8")
+
+        def resid(pars):
+            m, s, amp = pars
+            if m <= 0 or s <= 0:
+                return np.full(y.size, 1.0e9)
+            model = LogNormal(m, s, rng=self.rng)
+            return amp * model.get_prob_array(np.clip(x, 1e-300, None)) - y
+
+        base = np.array([x.mean(), x.std(), y.mean()])
+        res = None
+        for _ in range(4):
+            jitter = 1.0 + self.rng.uniform(low=-0.1, high=0.1, size=3)
+            fit = least_squares(resid, base * jitter, max_nfev=4000)
+            res = {"flags": 0 if fit.success else 1, "pars": fit.x, "nfev": fit.nfev,
+                   "cost": fit.cost}
+            if res["flags"] == 0:
+                break
+        return res
 
     def get_lnprob_device_grad(self, val):
         if self.shift is not None:
@@ -299,9 +417,14 @@ class Sinh(PriorBase):
     def consts(self):
         return (self.mean, self.scale)
 
+    def get_fdiff(self, val):
+        return np.sinh((val - self.mean) / self.scale)
+
     def get_lnprob_scalar(self, val):
-        f = np.sinh((val - self.mean) / self.scale)
+        f = self.get_fdiff(val)
         return -0.5 * f * f
+
+    get_lnprob_array = get_lnprob_scalar
 
     def sample(self, nrand=None):
         n = 1 if nrand is None else nrand
@@ -343,6 +466,16 @@ class TruncatedGaussian(PriorBase):
         z = (val - self.mean) * self.sinv
         return -0.5 * z * z
 
+    def get_lnprob_array(self, val):
+        val = np.asarray(val)
+        z = (val - self.mean) * self.sinv
+        return np.where((val > self.minval) & (val < self.maxval), -0.5 * z * z, -np.inf)
+
+    def get_fdiff(self, val):
+        if val < self.minval or val > self.maxval:
+            raise GMixRangeError("value out of range")
+        return (val - self.mean) * self.sinv
+
     def sample(self, nrand=None):
         def propose(k):
             cand = self.rng.normal(loc=self.mean, scale=self.sigma, size=k)
@@ -363,3 +496,68 @@ class TruncatedGaussian(PriorBase):
         out = self._out(val)
         return (torch.where(out, math.inf, (val - self.mean) * self.sinv),
                 torch.where(out, 0.0, torch.full_like(val, self.sinv)))
+
+
+class LMBounds(PriorBase):
+    """a box for the LM that carries no prior weight: its row is 0 and
+    its derivative 0, and a joint prior passes its bounds to the fit
+    (ref: priors.py:231-255)"""
+
+    kind = LMBOUNDS
+    fdiff_form = FORM_FDIFF
+    consts = ()
+
+    def __init__(self, minval, maxval, rng=None):
+        super().__init__(rng=rng)
+        self.bounds = (minval, maxval)
+        self.mean = (minval + maxval) / 2.0
+        self.sigma = (maxval - minval) * 0.28
+
+    def get_fdiff(self, val):
+        return 0.0 * val
+
+    def get_lnprob_scalar(self, val):
+        return 0.0 * val
+
+    get_lnprob_array = get_lnprob_scalar
+
+    def sample(self, nrand=None):
+        return self.rng.uniform(low=self.bounds[0], high=self.bounds[1], size=nrand)
+
+    def get_lnprob_device_grad(self, val):
+        return 0.0 * val, torch.zeros_like(val)
+
+    get_fdiff_device_grad = get_lnprob_device_grad
+
+
+class Bounded1D(PriorBase):
+    """another prior sampled inside limits by rejection, on the host
+    (ref: priors.py:258-288)"""
+
+    def __init__(self, pdf, bounds):
+        self.pdf = pdf
+        self.set_limits(bounds)
+
+    def set_limits(self, limits):
+        try:
+            lo, hi = limits
+        except (TypeError, ValueError):
+            raise ValueError("expected bounds to be 2-element sequence")
+        if lo >= hi:
+            raise ValueError("bounds[0] must be less than bounds[1]")
+        self.limits = limits
+        self.bounds = limits
+
+    def sample(self, nrand=None, size=None):
+        if size is None:
+            size = nrand
+        lo, hi = self.bounds
+
+        def propose(k):
+            cand = np.atleast_1d(self.pdf.sample(k))
+            return cand[(cand > lo) & (cand < hi)]
+
+        return _one_or_many(draw_until(1 if size is None else size, propose), size)
+
+
+LimitPDF = Bounded1D

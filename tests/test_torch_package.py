@@ -52,18 +52,19 @@ def test_no_jax_imports(path):
 
 
 def test_nvcc_command_targets_hopper_and_csrc_only():
-    compiles, link = _build.nvcc_commands("out.so")
+    compiles, links = _build.nvcc_commands("out")
     for cmd in compiles:
         assert "arch=compute_90a,code=sm_90a" in cmd
         assert "-c" in cmd and "-O3" in cmd
         assert not any("fast_math" in c or "fast-math" in c for c in cmd)
-    assert "-shared" in link and link[link.index("-o") + 1] == "out.so"
     srcs = [Path(c) for cmd in compiles for c in cmd if c.endswith((".cu", ".cuh", ".cpp"))]
-    # one compile a source, every kernel's source among them, and the
-    # link takes every object
-    assert len(srcs) == len(compiles) == len(_build.sources())
+    # one compile a source, every kernel's source among them, and one
+    # link a source of its object into its own library in the directory
+    assert len(srcs) == len(compiles) == len(links) == len(_build.sources())
     assert {s.name for s in srcs} >= {"gmix_eval.cu", "normal_eqs.cu"}, compiles
-    assert [cmd[cmd.index("-o") + 1] for cmd in compiles] == link[link.index("-o") + 2:]
+    for cmd, link, src in zip(compiles, links, srcs):
+        assert "-shared" in link and link[link.index("-o") + 1] == "out/%s.so" % src.stem
+        assert link[link.index("-o") + 2:] == [cmd[cmd.index("-o") + 1]]
     for s in srcs:
         assert s.resolve().parent == PKG / "csrc", s
     # no PyTorch headers in the kernel sources
@@ -117,3 +118,62 @@ def test_package_imports_the_reference_submodules_it_has():
     missing = [n for n in have if not hasattr(ngmix_tpu_torch, n)]
     assert not missing, missing
     assert ngmix_tpu_torch.__version__ == ngmix_tpu.__version__
+
+
+# the JAX package's public names with no counterpart in the port, each
+# with its reason (names that start with "_", such as batch.py's AD,
+# chunking and quarantine helpers, are private and not compared)
+NO_COUNTERPART = {
+    "run_lm_jit": "the JAX compile cache of run_lm; the port runs run_lm eagerly and "
+                  "replays its steps as CUDA graphs on the card",
+    "gaussmom_measure_jit": "a JAX compile cache",
+    "get_gaussap_flux_jit": "a JAX compile cache",
+    "set_fft_matmul": "a TPU speed toggle (DFT matmuls on the MXU); the port's FFTs are "
+                      "torch.fft",
+    "match_vma": "JAX's shard_map varying-axes types",
+    "make_mesh": "a JAX device mesh; the port runs one process a GPU over "
+                 "torch.distributed",
+    "DEFAULT_DTYPE": "JAX's default float dtype; the port keeps each call's dtype",
+    "pallas_gmix": "K2's Pallas module, ported as ops/gmix_eval.py (csrc/gmix_eval.cu)",
+    "pallas_lm": "K1's Pallas module, ported as ops/normal_eqs.py (csrc/normal_eqs.cu)",
+}
+REF = ROOT / "ngmix_tpu"
+
+
+def _public_names(path):
+    """the public names a module defines at its top level (functions,
+    classes, assignments) and, for an __init__, the names it imports
+    from its package"""
+    names = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+            names.add(node.name)
+        elif isinstance(node, ast.Assign):
+            names.update(n.id for t in node.targets for n in ast.walk(t)
+                         if isinstance(n, ast.Name))
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target, ast.Name):
+            names.add(node.target.id)
+        elif (path.name == "__init__.py" and isinstance(node, ast.ImportFrom)
+              and node.level >= 1):
+            names.update(a.asname or a.name for a in node.names)
+    return {n for n in names if not n.startswith("_")}
+
+
+@pytest.mark.parametrize("rel", sorted(str(p.relative_to(REF)) for p in REF.rglob("*.py")))
+def test_every_reference_name_has_a_counterpart(rel):
+    """each module of the JAX package has its counterpart in the port,
+    with every public name it defines or its __init__ exports, except
+    the names of NO_COUNTERPART"""
+    import importlib
+
+    path = Path(rel)
+    if path.stem in NO_COUNTERPART:
+        assert not (PKG / path).exists(), rel
+        return
+    parts = path.with_suffix("").parts
+    if parts[-1] == "__init__":
+        parts = parts[:-1]
+    mod = importlib.import_module(".".join(("ngmix_tpu_torch",) + parts))
+    missing = sorted(n for n in _public_names(REF / path)
+                     if n not in NO_COUNTERPART and not hasattr(mod, n))
+    assert not missing, (rel, missing)

@@ -254,8 +254,13 @@ def test_prior_from_object_converts_each_class():
     for kind, nband in (("simple", 2), ("bdf", 1), ("bd", 2)):
         t = convert.prior_from_object(_joint(kind, nband))
         assert isinstance(t, tjp.PRIORS) and t.nband == nband
-    for bad in (object(), jpr.LMBounds(0.0, 1.0, rng=rng),
-                jjp.PriorGalsimSimpleSep(objs[-1], objs[7], objs[0], objs[0])):
+    # LMBounds and the galsim joint prior convert since they were ported
+    lmb = convert.prior_from_object(jpr.LMBounds(0.0, 1.0, rng=rng))
+    assert type(lmb).__name__ == "LMBounds" and lmb.bounds == (0.0, 1.0)
+    gal = convert.prior_from_object(jjp.PriorGalsimSimpleSep(objs[-1], objs[7], objs[0],
+                                                             objs[0]))
+    assert isinstance(gal, tjp.PriorGalsimSimpleSep) and gal.r50_prior is gal.T_prior
+    for bad in (object(), jpr.Bounded1D(objs[0], (1.0, 2.0))):
         with pytest.raises(TypeError, match="PriorBDFSep.*PriorSimpleSep"):
             convert.prior_from_object(bad)
 
