@@ -2428,6 +2428,7 @@ def run_model(device, model, hom, het):
     conf = nt.LMConf()
     args, _ = capture_k3_inputs(hom, device, measure=model + "-lm")
     row = k3_timed_row(args, conf, model, plain_lanes=PLAIN_LANES)
+    row["attrs"] = lm_solve.kernel_attrs(args[0].dtype, args[4].shape[1], model)
     a64 = tuple((x if x.dim() == 1 else x[:256]).double().contiguous() for x in args)
     d64 = per_lane_diff(solve_columns(lm_solve.lm_solve(*a64, conf, model), a64, conf),
                         solve_columns(lm_solve.lm_solve_plain(*a64, conf, model), a64, conf),
@@ -2446,11 +2447,13 @@ def k3mb_model_row(args, conf, model, prior=None):
     ms = time_ms(lambda: lm_solve.lm_solve_mb(*args, conf, model, prior), K3_TIMED)
     b_ms, by = k3mb_bound(args, state, model, prior)
     B, E, P = args[5].shape
+    nband = args[0].shape[1] - nt.fitting.fit_model.shape_count(model)
     return dict(shape="%s NG=%d [%dx%dx%d]%s" % (model, NGAUSS[model], B, E, P,
                                                 prior_text(prior)), ms=ms,
                 plain_ms=plain_ms, plain_lanes=min(PLAIN_LANES_MB, B), bound_ms=b_ms,
                 bound_by=by, max_abs_err=max_abs, split=split, max_in_err=in_err,
-                nfev_sum=int(state["nfev"].sum()))
+                nfev_sum=int(state["nfev"].sum()),
+                attrs=lm_solve.kernel_attrs_mb(args[0].dtype, nband, E, P, model))
 
 
 def flat_cpu_results(args, measure, box, prior=None):
@@ -2531,15 +2534,17 @@ def models_phase(device, t_all, mb_args, cpu_side):
           % ("; ".join(
               "K3 %s: %.4f ms, plain %.4f ms (%d lanes), bound %.4f ms (%s), sum nfev %d, "
               "%.4f outside rtol 1e-4, within %.3e pars_err, float64 256 lanes max rel %.3e "
-              "nfev diff %d"
+              "nfev diff %d; %s"
               % (r["row"]["shape"], r["row"]["ms"], r["row"]["plain_ms"], r["row"]["plain_lanes"],
                  r["row"]["bound_ms"], r["row"]["bound_by"], r["row"]["nfev_sum"],
-                 r["row"]["split"], r["row"]["max_in_err"], r["d64"][1], r["d64"][2])
+                 r["row"]["split"], r["row"]["max_in_err"], r["d64"][1], r["d64"][2],
+                 attrs_text(r["row"]["attrs"]))
               for r in runs.values()) + "; " + "; ".join(
               "K3-mb %s: %.4f ms, plain %.4f ms (%d object-lanes), bound %.4f ms (%s), sum "
-              "nfev %d, within %.3e pars_err" % (r["shape"], r["ms"], r["plain_ms"],
-                                                  r["plain_lanes"], r["bound_ms"],
-                                                  r["bound_by"], r["nfev_sum"], r["max_in_err"])
+              "nfev %d, within %.3e pars_err; %s" % (r["shape"], r["ms"], r["plain_ms"],
+                                                      r["plain_lanes"], r["bound_ms"],
+                                                      r["bound_by"], r["nfev_sum"],
+                                                      r["max_in_err"], attrs_text(r["attrs"]))
               for r in mb_rows.values()),
              k2_row["shape"], k2_row["ms"], k2_row["plain_ms"], k2_row["bound_ms"],
              k2_row["bound_by"], k2_row["launches_a_call"], b_k3, b_dnfev, b_worst,
@@ -2842,9 +2847,19 @@ def composite_k3mb_row(model, args):
     row = k3mb_model_row(args, nt.LMConf(), model)
     E, P = args[5].shape[1:]
     row["attrs"] = lm_solve.kernel_attrs_mb(torch.float32, nt.sims.MB_NBAND, E, P, model)
-    row["local_nband"] = [lm_solve.kernel_attrs_mb(torch.float32, n, E, P, model)["local_bytes"]
-                          for n in range(1, 7)]
+    # registers, local bytes and blocks an SM at nband 1-6, float32 and 64
+    row["nband_attrs"] = {str(dt)[6:]: [lm_solve.kernel_attrs_mb(dt, n, E, P, model)
+                                        for n in range(1, 7)]
+                          for dt in (torch.float32, torch.float64)}
     return row
+
+
+def nband_text(attrs):
+    """registers/local bytes/blocks an SM at nband 1-6, float32 then
+    float64"""
+    return "; ".join("%s %s" % (name, " ".join("%d/%d/%d" % (a["regs"], a["local_bytes"],
+                                                              a["blocks_per_sm"]) for a in rows))
+                     for name, rows in attrs.items())
 
 
 def composite_k3mb_checks(model, args, exp_args):
@@ -2966,12 +2981,13 @@ def composite_phase(device, t_all, cpu_side):
               for row, f32, f64 in k3.values()),
               "; ".join(
               "K3-mb %s: %.4f ms, plain %.4f ms (%d object-lanes), bound %.4f ms (%s), sum nfev "
-              "%d, within %.3e pars_err; %s, local bytes at nband 1-6 %s; mb exp path float32: "
-              "%d lanes beyond 0.5 pars_err (largest %.3f); float64 against plain: %s"
+              "%d, within %.3e pars_err; %s; registers/local bytes/blocks an SM at nband 1-6: "
+              "%s; mb exp path float32: %d lanes beyond 0.5 pars_err (largest %.3f); float64 "
+              "against plain: %s"
               % (row["shape"], row["ms"], row["plain_ms"], row["plain_lanes"], row["bound_ms"],
                  row["bound_by"],
                  row["nfev_sum"], row["max_in_err"], attrs_text(row["attrs"]),
-                 row["local_nband"], *f32, "; ".join(f64_text(r) for r in f64))
+                 nband_text(row["nband_attrs"]), *f32, "; ".join(f64_text(r) for r in f64))
               for row, f32, f64 in k3mb.values()),
               k2_row["shape"], k2_row["ms"], k2_row["plain_ms"], k2_row["bound_ms"],
               k2_row["bound_by"], k2_row["launches_a_call"], time.perf_counter() - t1),
@@ -4104,23 +4120,23 @@ def fitter_k3_rows(device, inputs):
         name = "lm_solve_mb" if mb else "lm_solve"
         solve = getattr(lm_solve, name)
 
-        def spy(*a):
-            seen["args"], seen["conf"] = a[:9 if mb else 8], a[9 if mb else 8]
-            return solve(*a)
+        def spy(*a, **kw):
+            seen["args"], seen["conf"], seen["kw"] = a[:9 if mb else 8], a[9 if mb else 8], kw
+            return solve(*a, **kw)
 
         with mock.patch.object(lm_solve, name, spy):
             nt.Fitter("exp").go(obs, obj["guess"])
-        args, conf = seen["args"], seen["conf"]
-        state = solve(*args, conf, "exp", None)
+        args, conf, kw = seen["args"], seen["conf"], seen["kw"]
+        state = solve(*args, conf, "exp", None, **kw)
         plain_fn = lm_solve.lm_solve_mb_plain if mb else lm_solve.lm_solve_plain
-        plain, _, plain_ms = timed_call(plain_fn, *args, conf, "exp", None)
+        plain, _, plain_ms = timed_call(lambda: plain_fn(*args, conf, "exp", None, **kw))
         a = solve_cols(tlm._normal_epilogue(state, args[1], args[2], conf,
                                             torch.sum(args[-2] > 0)))
         b = solve_cols(tlm._normal_epilogue(plain, args[1], args[2], conf,
                                             torch.sum(args[-2] > 0)))
         max_abs, _, _ = per_lane_diff(a, b, "host Fitter %s at B = 1 against its plain version"
                                       % ("K3-mb" if mb else "K3"))
-        t_ms = time_ms(lambda: solve(*args, conf, "exp", None), 20)
+        t_ms = time_ms(lambda: solve(*args, conf, "exp", None, **kw), 20)
         b_ms, by = (k3mb_bound if mb else k3_bound)(args, state, "exp")
         rows.append(dict(shape="host Fitter exp %s[1x%s] float64"
                          % ("nband 2 " if mb else "", "x".join(map(str, args[-1].shape[1:]))),

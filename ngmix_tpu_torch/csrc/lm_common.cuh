@@ -1,4 +1,4 @@
-// Device functions shared by K3 (lm_solve.cu, one stamp a lane) and
+// Device functions shared by K3 (lm_solve.cuh, one stamp a lane) and
 // K3-mb (lm_solve_mb.cuh, one object over its epochs and bands a lane):
 // the models' constants, the bounds maps of fitting/lm.py, one epoch's
 // gaussians and pixel pass (K1's sums of its 6 + NX effective
@@ -15,9 +15,28 @@
 // fracdev) and bd (NX = 2, log10(Td/Te) and fracdev). The fill, the
 // closed-form chain and the pixel pass are one code for all of them.
 //
-// A warp runs one lane. Every function here is called by all 32 threads
-// of the warp, which hold the same bits of every value the loop decides
-// on. exp is the full-precision libm routine: build without fast-math.
+// A warp runs one lane. What bounds the kernels on an H100 is the
+// latency of each (pixel, gaussian) pair's exponential and shared
+// loads, hidden only by the warps resident on an SM, which the
+// registers a thread holds limit. The design holds a thread's
+// registers to what its pixels need:
+// - the lane's LM state (the point, its bounds, (cost, Jtr, JtJ) at the
+//   current and the trial point) lives once in the warp's shared memory
+//   (LmState), not in every thread's registers;
+// - the step algebra is split over the warp (thread k < NP takes dim k:
+//   the pin test by ballot, row k of the damped Cholesky factor in its
+//   registers, the substitutions and the predicted reduction by
+//   shuffles), so every thread holds the same bits of each decision by
+//   construction, in loops of NP steps rather than lane 0's NP^3 / 6;
+// - the gaussians' records are 16-byte aligned 4-tuples that the pixel
+//   pass reads as vector broadcasts, in a loop over the gaussians that
+//   is not unrolled (unrolled 16 times, the composite solves ran 1.5x
+//   slower for the same registers and blocks);
+// - the pixel pass forms its sums as running sums of every thread and
+//   a shuffle tree (exp, gauss: 28 sums), or through a tile in the
+//   warp's shared memory where each thread forms two of the sums (dev,
+//   bdf, bd: 28, 36, 45 sums; Tuning).
+// exp is the full-precision libm routine: build without fast-math.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -29,8 +48,9 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 // the largest pixel count of a lane whose planes fit the shared memory
-// (4 warps x 4 planes x kMaxP float64 values per block); a lane with
-// more reads its planes from global memory
+// (4 warps x 4 planes x kMaxP float64 values per block, with each
+// warp's records and LM state); a lane with more reads its planes from
+// global memory
 constexpr int kMaxP = 1536;
 
 constexpr double kMaxChi2 = 25.0;
@@ -160,9 +180,10 @@ struct Dims {
   static constexpr int kNP = 6 + M::kNX;
   // the shape parameters that reach N and F: g1, g2, T and the extras
   static constexpr int kNS = 3 + M::kNX;
-  // per gaussian in shared memory: q = (N, row, col, Fvv, Fvu, Fuu), then
-  // dN/dflux, then (dN, dFvv, dFvu, dFuu) / d each shape parameter
-  static constexpr int kGStride = 7 + 4 * kNS;
+  // per gaussian in shared memory, in 4-tuples that one vector load
+  // reads (16-byte aligned): (row, col, Fvv, Fvu), (Fuu, N, dN/dflux,
+  // 0), then (dN, dFvv, dFvu, dFuu) / d each shape parameter
+  static constexpr int kGStride = 8 + 4 * kNS;
   // one stamp's running sums: cost, Jtr [kNP], the upper triangle of
   // JtJ
   static constexpr int kNSum = 1 + kNP + kNP * (kNP + 1) / 2;
@@ -171,6 +192,8 @@ struct Dims {
 struct Conf {
   double ftol, xtol, lambda0, lambda_up, lambda_down, lambda_min, lambda_max;
   int maxfev;
+  // end a lane at the cost floor (fitting/lm.py LMConf.at_floor)
+  bool at_floor;
 };
 
 // a lane's finished solver state, as fitting.lm.run_lm_normal_state
@@ -235,6 +258,17 @@ template <int N>
 __device__ __forceinline__ constexpr int tri(int k, int m) {
   return k <= m ? k * N - k * (k - 1) / 2 + (m - k)
                 : m * N - m * (m - 1) / 2 + (k - m);
+}
+
+// (k, m) of entry t of an np x np upper triangle, row by row (tri's
+// inverse)
+__device__ __forceinline__ void tri_km(int np, int t, int& k, int& m) {
+  k = 0;
+  while (t >= np - k) {
+    t -= np - k;
+    ++k;
+  }
+  m = k + t;
 }
 
 // ----------------------------------------------------------------------
@@ -313,11 +347,38 @@ __device__ __forceinline__ Shape<T> fill_shape(T g1, T g2) {
   return s;
 }
 
+// four consecutive values of a 16-byte aligned record in shared memory
+// in one or two vector loads, and their store
+__device__ __forceinline__ void ld4(const float* p, float& a, float& b, float& c, float& d) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  a = q.x;
+  b = q.y;
+  c = q.z;
+  d = q.w;
+}
+__device__ __forceinline__ void ld4(const double* p, double& a, double& b, double& c,
+                                    double& d) {
+  const double2 q0 = *reinterpret_cast<const double2*>(p);
+  const double2 q1 = *reinterpret_cast<const double2*>(p + 2);
+  a = q0.x;
+  b = q0.y;
+  c = q1.x;
+  d = q1.y;
+}
+__device__ __forceinline__ void st4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void st4(double* p, double a, double b, double c, double d) {
+  *reinterpret_cast<double2*>(p) = make_double2(a, b);
+  *reinterpret_cast<double2*>(p + 2) = make_double2(c, d);
+}
+
 // the M::kNG gaussians of the convolved model at (row, col, shape, tsz,
 // extra columns xe, flux) with the psf gaussian (pirr, pirc, picc), and
-// their chain terms, into gs [M::kNG * Dims<M>::kGStride]: threads 0 to
-// M::kNG - 1 of the warp compute one gaussian each. Returns, on every
-// thread, whether a gaussian fails gmix_flags' rule (low determinant).
+// their chain terms, into gs [M::kNG * Dims<M>::kGStride] in the
+// record layout of Dims: threads 0 to M::kNG - 1 of the warp compute
+// one gaussian each. Returns, on every thread, whether a gaussian fails
+// gmix_flags' rule (low determinant).
 template <typename M, typename T>
 __device__ __forceinline__ bool model_gaussians(T* gs, int lid, T row, T col,
                                                 const Shape<T>& sh, T tsz,
@@ -362,18 +423,13 @@ __device__ __forceinline__ bool model_gaussians(T* gs, int lid, T row, T col,
     lowdet = det < static_cast<T>(kLowDetval) || tc <= static_cast<T>(kLowDetval);
     const bool valid = det > static_cast<T>(kLowDetval) && tc > T(0);
     T* q = gs + g * kStride;
-    q[1] = row;
-    q[2] = col;
     if (valid) {
       const T idet = T(1) / det;
       const T denom = static_cast<T>(kTwoPi) * dsqrt(det);
       const T N = flux * pv / denom;
       const T Fvv = icc * idet, Fvu = -irc * idet, Fuu = irr * idet;
-      q[0] = N;
-      q[3] = Fvv;
-      q[4] = Fvu;
-      q[5] = Fuu;
-      q[6] = pv / denom;
+      st4(q, row, col, Fvv, Fvu);
+      st4(q + 4, Fuu, N, pv / denom, T(0));
       // d (irr, irc, icc) / d (g1, g2, T, the extra columns)
       T d_rr[NS], d_rc[NS], d_cc[NS];
       d_rr[0] = -h * sh.de1_g1;
@@ -397,19 +453,15 @@ __device__ __forceinline__ bool model_gaussians(T* gs, int lid, T row, T col,
         T dN = T(-0.5) * N * ddet * idet;
         // the extra columns also reach N through p: flux dp / (2 pi sqrt det)
         if (s >= 3) dN = dN + flux * dp_x[s >= 3 ? s - 3 : 0] / denom;
-        q[7 + 4 * s] = dN;
-        q[8 + 4 * s] = (d_cc[s] - Fvv * ddet) * idet;
-        q[9 + 4 * s] = (-d_rc[s] - Fvu * ddet) * idet;
-        q[10 + 4 * s] = (d_rr[s] - Fuu * ddet) * idet;
+        st4(q + 8 + 4 * s, dN, (d_cc[s] - Fvv * ddet) * idet, (-d_rc[s] - Fvu * ddet) * idet,
+            (d_rr[s] - Fuu * ddet) * idet);
       }
     } else {
       // an invalid gaussian adds nothing: N = 0, unit inverse covariance
-      q[0] = T(0);
-      q[3] = T(1);
-      q[4] = T(0);
-      q[5] = T(1);
+      st4(q, row, col, T(1), T(0));
+      st4(q + 4, T(1), T(0), T(0), T(0));
 #pragma unroll
-      for (int i = 6; i < kStride; ++i) q[i] = T(0);
+      for (int s = 0; s < NS; ++s) st4(q + 8 + 4 * s, T(0), T(0), T(0), T(0));
     }
   }
   const bool bad = __any_sync(kFull, lowdet);
@@ -417,90 +469,217 @@ __device__ __forceinline__ bool model_gaussians(T* gs, int lid, T row, T col,
   return bad;
 }
 
-// K1's sums over one stamp's P pixels (planes v, u, ia, ve, in shared
-// or global memory) with the M::kNG gaussians gs: acc = (cost, Jtr
-// [NP], JtJ upper triangle) of the NP = 6 + M::kNX effective parameters
-// (row, col, g1, g2, T, the extra columns, flux), the same bits on every
-// thread
+// the pixel pass of a model: kTile, whether it forms its sums through
+// the warp's tile (below), which holds fewer registers a thread than
+// running sums and pays for itself past 6 gaussians a pixel (dev and
+// the composite models)
+template <typename M> struct Tuning {
+  static constexpr bool kTile = M::kNG > 6;
+  // whether K3-mb copies a lane's planes into shared memory (where they
+  // fit): for a pass of under 6 gaussians a pixel, too little arithmetic
+  // to hide loads from global memory. On an H100 at E P = 1083 the
+  // copy made gauss faster and exp (6 gaussians) 4% slower
+  static constexpr bool kMbSharedPlanes = M::kNG < 6;
+};
+
+// the blocks an SM a kernel of model M is compiled for
+// (__launch_bounds__'s second argument; kMb for K3-mb). float32: 5
+// blocks of 128 threads (96 registers a thread) for K3's running-sum
+// models (exp, gauss), 4 (128 registers) for the tile models and for
+// K3-mb, whose passes need them without spills; measured on an H100,
+// 5 blocks made exp 7% faster and the tile models 5-15% slower or
+// spilling, 6 spilled everywhere. float64 (the host routes at B = 1,
+// the card-against-CPU checks): 2
+template <typename T, typename M, bool kMb>
+struct MinBlocks {
+  static constexpr int k = !kMb && !Tuning<M>::kTile ? 5 : 4;
+};
+template <typename M, bool kMb>
+struct MinBlocks<double, M, kMb> {
+  static constexpr int k = 2;
+};
+
+// one pixel's model value f and d value / d (the NP = 6 + M::kNX
+// effective parameters: row, col, g1, g2, T, the extra columns, flux)
+// into J, from the M::kNG gaussians gs at (vv, uu)
 template <typename M, typename T>
-__device__ __forceinline__ void pixel_pass(const T* gs, int lid, const T* v,
-                                           const T* u, const T* ia, const T* ve,
-                                           int P, T (&acc)[Dims<M>::kNSum]) {
+__device__ __forceinline__ void pixel_row(const T* gs, T vv, T uu, T& f,
+                                          T (&J)[Dims<M>::kNP]) {
   constexpr int NP = Dims<M>::kNP;
   constexpr int NS = Dims<M>::kNS;
-  constexpr int kNSum = Dims<M>::kNSum;
   constexpr int kStride = Dims<M>::kGStride;
+  f = T(0);
 #pragma unroll
-  for (int i = 0; i < kNSum; ++i) acc[i] = T(0);
-  for (int p = lid; p < P; p += 32) {
-    const T vv = v[p];
-    const T uu = u[p];
-    T f = T(0);
-    T J[NP];
-#pragma unroll
-    for (int k = 0; k < NP; ++k) J[k] = T(0);
-#pragma unroll
-    for (int g = 0; g < M::kNG; ++g) {
-      const T* q = gs + g * kStride;
-      const T dv = vv - q[1];
-      const T du = uu - q[2];
-      const T gv = q[3] * dv + q[4] * du;
-      const T gu = q[4] * dv + q[5] * du;
-      const T chi2 = gv * dv + gu * du;
-      // outside [0, 25) the window and its derivative are 0
-      if (!(chi2 >= T(0) && chi2 < static_cast<T>(kMaxChi2))) continue;
-      T win = T(1);
-      T dwin = T(0);
-      if (chi2 > static_cast<T>(kApodChi2)) {
-        const T t = (static_cast<T>(kMaxChi2) - chi2) *
-                    static_cast<T>(kApodIWidth);
-        win = t * t * t * (T(10) + t * (T(-15) + T(6) * t));
-        const T tmt = t * (T(1) - t);
-        dwin = T(-30) * tmt * tmt * static_cast<T>(kApodIWidth);
-      }
-      const T e = dexp(T(-0.5) * chi2);
-      const T mw = e * win;
-      f += q[0] * mw;
-      // d(N e(chi2) w(chi2)) / d chi2, then d value / d q
-      const T c = q[0] * e * (dwin - T(0.5) * win);
-      const T dq1 = T(-2) * c * gv;
-      const T dq2 = T(-2) * c * gu;
-      const T dq3 = c * dv * dv;
-      const T dq4 = T(2) * c * dv * du;
-      const T dq5 = c * du * du;
-      J[0] += dq1;
-      J[1] += dq2;
-#pragma unroll
-      for (int s = 0; s < NS; ++s) {
-        J[2 + s] += mw * q[7 + 4 * s] + dq3 * q[8 + 4 * s] +
-                    dq4 * q[9 + 4 * s] + dq5 * q[10 + 4 * s];
-      }
-      J[NP - 1] += mw * q[6];
+  for (int k = 0; k < NP; ++k) J[k] = T(0);
+  // not unrolled: unrolled 16 times (bdf, bd), the composite solves ran
+  // 1.5x slower on an H100 for the same registers and blocks
+#pragma unroll 1
+  for (int g = 0; g < M::kNG; ++g) {
+    const T* q = gs + g * kStride;
+    T row, col, fvv, fvu, fuu, N, pd, pad;
+    ld4(q, row, col, fvv, fvu);
+    ld4(q + 4, fuu, N, pd, pad);
+    const T dv = vv - row;
+    const T du = uu - col;
+    const T gv = fvv * dv + fvu * du;
+    const T gu = fvu * dv + fuu * du;
+    const T chi2 = gv * dv + gu * du;
+    // outside [0, 25) the window and its derivative are 0
+    if (!(chi2 >= T(0) && chi2 < static_cast<T>(kMaxChi2))) continue;
+    T win = T(1);
+    T dwin = T(0);
+    if (chi2 > static_cast<T>(kApodChi2)) {
+      const T t = (static_cast<T>(kMaxChi2) - chi2) *
+                  static_cast<T>(kApodIWidth);
+      win = t * t * t * (T(10) + t * (T(-15) + T(6) * t));
+      const T tmt = t * (T(1) - t);
+      dwin = T(-30) * tmt * tmt * static_cast<T>(kApodIWidth);
     }
-    const T iap = ia[p];
-    const T fd = f * iap - ve[p];
-    T Jw[NP];
+    const T e = dexp(T(-0.5) * chi2);
+    const T mw = e * win;
+    f += N * mw;
+    // d(N e(chi2) w(chi2)) / d chi2, then d value / d q
+    const T c = N * e * (dwin - T(0.5) * win);
+    const T dq1 = T(-2) * c * gv;
+    const T dq2 = T(-2) * c * gu;
+    const T dq3 = c * dv * dv;
+    const T dq4 = T(2) * c * dv * du;
+    const T dq5 = c * du * du;
+    J[0] += dq1;
+    J[1] += dq2;
 #pragma unroll
-    for (int k = 0; k < NP; ++k) Jw[k] = J[k] * iap;
-    acc[0] += fd * fd;
-#pragma unroll
-    for (int k = 0; k < NP; ++k) acc[1 + k] += Jw[k] * fd;
-#pragma unroll
-    for (int k = 0; k < NP; ++k) {
-#pragma unroll
-      for (int m = k; m < NP; ++m) acc[1 + NP + tri<NP>(k, m)] += Jw[k] * Jw[m];
+    for (int s = 0; s < NS; ++s) {
+      T dN, dfvv, dfvu, dfuu;
+      ld4(q + 8 + 4 * s, dN, dfvv, dfvu, dfuu);
+      J[2 + s] += mw * dN + dq3 * dfvv + dq4 * dfvu + dq5 * dfuu;
     }
+    J[NP - 1] += mw * pd;
   }
-  // fixed-order shuffle tree, then lane 0's totals to every thread
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-    for (int i = 0; i < kNSum; ++i) {
-      acc[i] += __shfl_down_sync(kFull, acc[i], off);
-    }
+}
+
+// a warp's tile of the pixel pass: np + 1 columns (the weighted J of
+// np parameters, the residual) of 32 pixels, each column padded to
+// kTileStride values so that lanes reading different columns as 16-byte
+// vectors hit different banks, then the totals of the pass's sums;
+// none without Tuning<M>::kTile
+constexpr int kTileStride = 36;
+template <typename M>
+__host__ __device__ constexpr int tile_values() {
+  return Tuning<M>::kTile ? (Dims<M>::kNP + 1) * kTileStride + (Dims<M>::kNSum + 3) / 4 * 4
+                          : 0;
+}
+
+// the tile columns (a, b) whose product over the pixels is sum entry e
+__device__ __forceinline__ void entry_cols(int np, int e, int& a, int& b) {
+  if (e == 0) {
+    a = np;
+    b = np;
+  } else if (e <= np) {
+    a = e - 1;
+    b = np;
+  } else {
+    tri_km(np, e - 1 - np, a, b);
   }
+}
+
+// K1's sums over one stamp's P pixels (planes v, u, ia, ve, in shared
+// or global memory) with the M::kNG gaussians gs: entry e of (cost, Jtr
+// [NP], JtJ upper triangle) of the NP = 6 + M::kNX effective parameters
+// goes to put(e, total), called by the thread that holds it. Called by
+// every thread of the warp.
+// - running sums (exp, gauss): each thread's running sums of its
+//   pixels, then a fixed-order shuffle tree; thread 0 puts every entry.
+// - the tile (Tuning<M>::kTile): 32 pixels at a time, one a thread,
+//   each thread's weighted J row and residual go into the warp's tile,
+//   and thread lid forms entries lid and lid + 32 over the tile's
+//   pixels in four interleaved partial sums, added to their totals (in
+//   shared memory, after the tile) in pixel order, which it puts. A
+//   thread holds NP + 1 values of a pixel, not 36-45 running sums.
+template <typename M, typename T, typename Put>
+__device__ __forceinline__ void pixel_pass(const T* gs, T* tile, int lid, const T* v,
+                                           const T* u, const T* ia, const T* ve, int P,
+                                           Put&& put) {
+  constexpr int NP = Dims<M>::kNP;
+  constexpr int kNSum = Dims<M>::kNSum;
+  if constexpr (!Tuning<M>::kTile) {
+    T acc[kNSum];
 #pragma unroll
-  for (int i = 0; i < kNSum; ++i) acc[i] = __shfl_sync(kFull, acc[i], 0);
+    for (int i = 0; i < kNSum; ++i) acc[i] = T(0);
+    for (int p = lid; p < P; p += 32) {
+      T f, J[NP];
+      pixel_row<M>(gs, v[p], u[p], f, J);
+      const T iap = ia[p];
+      const T fd = f * iap - ve[p];
+      T Jw[NP];
+#pragma unroll
+      for (int k = 0; k < NP; ++k) Jw[k] = J[k] * iap;
+      acc[0] += fd * fd;
+#pragma unroll
+      for (int k = 0; k < NP; ++k) acc[1 + k] += Jw[k] * fd;
+#pragma unroll
+      for (int k = 0; k < NP; ++k) {
+#pragma unroll
+        for (int m = k; m < NP; ++m) acc[1 + NP + tri<NP>(k, m)] += Jw[k] * Jw[m];
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+      for (int i = 0; i < kNSum; ++i) acc[i] += __shfl_down_sync(kFull, acc[i], off);
+    }
+    if (lid == 0) {
+#pragma unroll
+      for (int i = 0; i < kNSum; ++i) put(i, acc[i]);
+    }
+  } else {
+    // the entries' totals, after the tile's columns
+    T* tot = tile + (NP + 1) * kTileStride;
+    for (int e = lid; e < kNSum; e += 32) tot[e] = T(0);
+    for (int p0 = 0; p0 < P; p0 += 32) {
+      const int p = p0 + lid;
+      T J[NP];
+      T fd = T(0);
+      if (p < P) {
+        T f;
+        pixel_row<M>(gs, v[p], u[p], f, J);
+        const T iap = ia[p];
+        fd = f * iap - ve[p];
+#pragma unroll
+        for (int k = 0; k < NP; ++k) J[k] = J[k] * iap;
+      } else {
+        // a pixel past P adds 0 to every entry
+#pragma unroll
+        for (int k = 0; k < NP; ++k) J[k] = T(0);
+      }
+#pragma unroll
+      for (int k = 0; k < NP; ++k) tile[k * kTileStride + lid] = J[k];
+      tile[NP * kTileStride + lid] = fd;
+      __syncwarp();
+      for (int e = lid; e < kNSum; e += 32) {
+        int ca, cb;
+        entry_cols(NP, e, ca, cb);
+        const T* a = tile + ca * kTileStride;
+        const T* b = tile + cb * kTileStride;
+        T s0 = T(0), s1 = T(0), s2 = T(0), s3 = T(0);
+        // two vector pairs in flight: unrolled fully, the loads of all
+        // eight took the registers that made K3-mb spill
+#pragma unroll 2
+        for (int i = 0; i < 32; i += 4) {
+          T a0, a1, a2, a3, b0, b1, b2, b3;
+          ld4(a + i, a0, a1, a2, a3);
+          ld4(b + i, b0, b1, b2, b3);
+          s0 += a0 * b0;
+          s1 += a1 * b1;
+          s2 += a2 * b2;
+          s3 += a3 * b3;
+        }
+        tot[e] += (s0 + s1) + (s2 + s3);
+      }
+      // every thread has read the tile before the next pixels go in
+      __syncwarp();
+    }
+    for (int e = lid; e < kNSum; e += 32) put(e, tot[e]);
+  }
 }
 
 // the unit-flux model's sums over one stamp's P pixels with the gaussians
@@ -520,10 +699,13 @@ __device__ __forceinline__ void value_pass(const T* gs, int lid, const T* v, con
 #pragma unroll
     for (int g = 0; g < M::kNG; ++g) {
       const T* q = gs + g * kStride;
-      const T dv = vv - q[1];
-      const T du = uu - q[2];
-      const T gv = q[3] * dv + q[4] * du;
-      const T gu = q[4] * dv + q[5] * du;
+      T row, col, fvv, fvu, fuu, N, pd, pad;
+      ld4(q, row, col, fvv, fvu);
+      ld4(q + 4, fuu, N, pd, pad);
+      const T dv = vv - row;
+      const T du = uu - col;
+      const T gv = fvv * dv + fvu * du;
+      const T gu = fvu * dv + fuu * du;
       const T chi2 = gv * dv + gu * du;
       if (!(chi2 >= T(0) && chi2 < static_cast<T>(kMaxChi2))) continue;
       T win = T(1);
@@ -531,7 +713,7 @@ __device__ __forceinline__ void value_pass(const T* gs, int lid, const T* v, con
         const T t = (static_cast<T>(kMaxChi2) - chi2) * static_cast<T>(kApodIWidth);
         win = t * t * t * (T(10) + t * (T(-15) + T(6) * t));
       }
-      f += q[0] * (dexp(T(-0.5) * chi2) * win);
+      f += N * (dexp(T(-0.5) * chi2) * win);
     }
     const T mh = f * ia[p];
     a += mh * ve[p];
@@ -719,6 +901,56 @@ __device__ __forceinline__ void prior_row(const double* r, const T* yl, int np, 
   q[4] = static_cast<T>(i1);
 }
 
+// ----------------------------------------------------------------------
+// a lane's LM state, in the warp's shared memory
+
+// the sums of an evaluation, (cost, Jtr [np], the JtJ upper triangle),
+// in K1's order: the pixel pass's acc, the prior's pout and what the
+// step reads
+__host__ __device__ constexpr int sums_of(int np) { return 1 + np + np * (np + 1) / 2; }
+
+// the point y, its bounds and the sums at two points, slot cur the
+// current one and cur ^ 1 the trial one (an accepted step flips cur);
+// x and gr are an evaluation's i2e(y) and i2e_grad(y). Written by the
+// lanes that own the entries; read by all after a __syncwarp
+template <typename T, int NP>
+struct LmState {
+  static constexpr int kNT = NP * (NP + 1) / 2;
+  static constexpr int kNSum = sums_of(NP);
+  T lo[NP], hi[NP];
+  T psf[3];  // K3's (irr, irc, icc) of the lane's psf gaussian
+  T y[2][NP];
+  T sum[2][kNSum];
+  T cost_pix[2];
+  T x[NP];
+  T gr[NP];
+  // the loop's values held through an evaluation (solve_lane): the
+  // trial step (dim k's on thread k), the damping, the pins and the
+  // flags of the last step (kStepOk, kPinChanged, kIerStep, kIerCost)
+  T dy[NP];
+  T lam, lam_eff;
+  unsigned pin, pinned;
+  int flags;
+};
+constexpr int kStepOk = 1, kPinChanged = 2, kIerStep = 4, kIerCost = 8;
+
+
+// values a warp's LmState takes, rounded up to 16 bytes of float32
+template <typename T, int NP>
+__host__ __device__ constexpr int state_size() {
+  return ((static_cast<int>(sizeof(LmState<T, NP>) / sizeof(T)) + 3) / 4) * 4;
+}
+
+// the pixel pass's tile of the warp whose LmState is s: right after it
+template <typename T, int NP>
+__device__ __forceinline__ T* tile_of(LmState<T, NP>& s) {
+  return reinterpret_cast<T*>(&s) + state_size<T, NP>();
+}
+
+// the step's scratch in the warp's records (free between evaluations):
+// the rows of the damped matrix's Cholesky factor
+__host__ __device__ constexpr int step_scratch(int np) { return np * (np + 1) / 2; }
+
 // the prior rows' sums of np parameters into the scratch ps, from the
 // table's nrows rows and yl = (y, lo, hi) at ps + 5 kMaxPriorRows:
 // thread i < nrows computes row i and its derivatives, then thread t
@@ -766,71 +998,96 @@ __device__ __forceinline__ void prior_sums(const double* tab, int nrows, int np,
 }
 
 // add the table's nrows prior rows at the external parameters i2e(y)
-// to (cost, Jtr, JtJ) in external coordinates, as fitting/lm.py does:
-// cost += sum rows^2, Jtr += Jp^T rows, JtJ += Jp^T Jp, each sum over
-// the rows first, in the rows' order (prior_sums), then every thread
-// adds them, so all hold the same bits. ps: the warp's scratch of
+// of slot's point to its (cost, Jtr, JtJ) in external coordinates, as
+// fitting/lm.py does: cost += sum rows^2, Jtr += Jp^T rows, JtJ += Jp^T
+// Jp, each sum over the rows first, in the rows' order (prior_sums),
+// then added entry by entry. ps: the warp's scratch of
 // prior_scratch(NP) values, the gaussian records after the pixel pass.
 template <typename T, int NP>
 __device__ __forceinline__ void add_prior(const double* tab, int nrows, T* ps, int lid,
-                                          const T (&y)[NP], const T (&lo)[NP],
-                                          const T (&hi)[NP], T& cost, T (&jtr)[NP],
-                                          T (&jtj)[NP * (NP + 1) / 2]) {
-  constexpr int NT = NP * (NP + 1) / 2;
+                                          LmState<T, NP>& s, int slot) {
   if (nrows == 0) return;
   T* yl = ps + 5 * kMaxPriorRows;
   // every thread is done with the gaussian records this reuses
   __syncwarp();
-  if (lid == 0) {
-#pragma unroll
-    for (int k = 0; k < NP; ++k) {
-      yl[k] = y[k];
-      yl[NP + k] = lo[k];
-      yl[2 * NP + k] = hi[k];
-    }
+  if (lid < NP) {
+    yl[lid] = s.y[slot][lid];
+    yl[NP + lid] = s.lo[lid];
+    yl[2 * NP + lid] = s.hi[lid];
   }
   __syncwarp();
   prior_sums<T>(tab, nrows, NP, ps, lid);
   __syncwarp();
   const T* pout = yl + 3 * NP;
-  cost = cost + pout[0];
-#pragma unroll
-  for (int k = 0; k < NP; ++k) jtr[k] = jtr[k] + pout[1 + k];
-#pragma unroll
-  for (int i = 0; i < NT; ++i) jtj[i] = jtj[i] + pout[1 + NP + i];
+  T* sum = s.sum[slot];
+  for (int e = lid; e < sums_of(NP); e += 32) sum[e] = sum[e] + pout[e];
+  __syncwarp();
 }
 
-// the bounds chain rule J_int = J_ext diag(g), in place
+// the bounds chain rule J_int = J_ext diag(g) on slot's sums, in
+// place, g = i2e_grad(y) into s.gr
 template <typename T, int NP>
-__device__ __forceinline__ void bounds_chain(const T (&y)[NP], const T (&lo)[NP],
-                                             const T (&hi)[NP], T (&jtr)[NP],
-                                             T (&jtj)[NP * (NP + 1) / 2]) {
-  T gr[NP];
-#pragma unroll
-  for (int k = 0; k < NP; ++k) gr[k] = i2e_grad(y[k], lo[k], hi[k]);
-#pragma unroll
-  for (int k = 0; k < NP; ++k) {
-    jtr[k] = jtr[k] * gr[k];
-#pragma unroll
-    for (int m = k; m < NP; ++m) jtj[tri<NP>(k, m)] = jtj[tri<NP>(k, m)] * gr[k] * gr[m];
+__device__ __forceinline__ void bounds_chain(LmState<T, NP>& s, int slot, int lid) {
+  if (lid < NP) s.gr[lid] = i2e_grad(s.y[slot][lid], s.lo[lid], s.hi[lid]);
+  __syncwarp();
+  T* sum = s.sum[slot];
+  for (int e = 1 + lid; e < sums_of(NP); e += 32) {
+    if (e <= NP) {
+      sum[e] = sum[e] * s.gr[e - 1];
+    } else {
+      int k, m;
+      tri_km(NP, e - 1 - NP, k, m);
+      sum[e] = sum[e] * s.gr[k] * s.gr[m];
+    }
+  }
+  __syncwarp();
+}
+
+// i2e of slot's point into s.x, for every thread
+template <typename T, int NP>
+__device__ __forceinline__ void point_x(LmState<T, NP>& s, int slot, int lid) {
+  if (lid < NP) s.x[lid] = i2e(s.y[slot][lid], s.lo[lid], s.hi[lid]);
+  __syncwarp();
+}
+
+// slot's sums at a bad point: cost, Jtr 0 and JtJ the identity (or 0
+// with zero_jtj)
+template <typename T, int NP>
+__device__ __forceinline__ void bad_sums(LmState<T, NP>& s, int slot, int lid, T cost,
+                                         bool zero_jtj) {
+  T* sum = s.sum[slot];
+  for (int e = lid; e < sums_of(NP); e += 32) {
+    T val = T(0);
+    if (e == 0) {
+      val = cost;
+    } else if (e > NP && !zero_jtj) {
+      int k, m;
+      tri_km(NP, e - 1 - NP, k, m);
+      val = k == m ? T(1) : T(0);
+    }
+    sum[e] = val;
   }
 }
 
 // ----------------------------------------------------------------------
 // one lane's solve, in the order of fitting/lm.py _lm_step, over NP
-// parameters: evaluate(y, cost, cost_pix, jtr, jtj) gives (cost, Jtr,
-// JtJ) in internal coordinates at y, JtJ as its upper triangle, and the
-// cost without the prior rows
+// parameters: evaluate(slot) gives (cost, Jtr, JtJ) in internal
+// coordinates at s.y[slot] into s.sum[slot], JtJ as its upper triangle,
+// and the cost without the prior rows into s.cost_pix[slot], and ends
+// with a __syncwarp. The step algebra below is split over the warp's
+// threads, thread k < NP taking dim k; its sums run in shuffles, in a
+// fixed order, so every thread holds the same bits of each decision.
 
 // the pinned dims as a bit mask: dims on a finite bound whose gradient
 // points outward and whose whole remaining improvement is below the ftol
-// resolution (fitting/lm.py _pinned_dims)
+// resolution (fitting/lm.py _pinned_dims). Thread k < NP tests dim k, a
+// ballot gathers the bits; every thread returns the mask
 template <typename T, int NP>
-__device__ __forceinline__ unsigned pin_mask(const T (&y)[NP], const T (&jtr)[NP], T cost,
-                                             T ftol, const T (&lo)[NP], const T (&hi)[NP]) {
-  unsigned pin = 0;
-#pragma unroll
-  for (int k = 0; k < NP; ++k) {
+__device__ __forceinline__ unsigned pin_mask(const T* y, const T* jtr, T cost, T ftol,
+                                             const T* lo, const T* hi, int lid) {
+  bool bit = false;
+  if (lid < NP) {
+    const int k = lid;
     const bool hl = finite(lo[k]), hh = finite(hi[k]);
     const T g = i2e_grad(y[k], lo[k], hi[k]);
     const T xk = i2e(y[k], lo[k], hi[k]);
@@ -841,71 +1098,80 @@ __device__ __forceinline__ unsigned pin_mask(const T (&y)[NP], const T (&jtr)[NP
     const T d_out = to_lo ? xk - lo[k] : (to_hi ? hi[k] - xk : inf_of<T>());
     const T g_safe = clamp_min(dabs(g), tiny_of<T>());
     const T available = T(2) * dabs(jtr[k]) * d_out / g_safe;
-    if (near && (to_lo || to_hi) && available < ftol * cost) pin |= 1u << k;
+    bit = near && (to_lo || to_hi) && available < ftol * cost;
   }
-  return pin;
+  return __ballot_sync(kFull, bit);
 }
 
-// the damped step dy of the masked normal equations (fitting/lm.py
-// _mask_normal and _solve_damped, Marquardt scaling) and free_, 0 on the
-// pinned dims and 1 elsewhere; returns whether every dy is finite
+// index of (i, j), j <= i, in a lower triangle stored row by row
+__device__ __forceinline__ constexpr int low(int i, int j) { return i * (i + 1) / 2 + j; }
+
+// the damped step of the masked normal equations (fitting/lm.py
+// _mask_normal and _solve_damped, Marquardt scaling), split over the
+// warp: thread i < NP holds row i of the damped matrix in registers and
+// factors it into row i of its Cholesky factor column by column
+// (ops/small_linalg.py's order), publishing each finished row to L [NP
+// (NP + 1) / 2] in the warp's scratch for the rows below; the forward
+// substitution passes each z_k by a shuffle, the backward one each dy_k,
+// summing the terms of dy_i from the last row up. Thread i < NP returns
+// dy_i in dy (0 on the other threads); every thread returns whether
+// every dy is finite (nan where the matrix is not positive definite)
 template <typename T, int NP>
-__device__ __forceinline__ bool damped_step(const T (&jtj)[NP * (NP + 1) / 2],
-                                            const T (&jtr)[NP], unsigned pin, T lam_eff,
-                                            T (&free_)[NP], T (&dy)[NP]) {
-  // the masked normal equations, damped, as the lower triangle of A,
-  // and b = -Jtr over the free dims
+__device__ __forceinline__ bool damped_step(const T* jtj, const T* jtr, unsigned pin,
+                                            T lam_eff, T* L, int lid, T& dy) {
+  const int i = lid;
+  const bool mine = i < NP;
+  const bool pin_i = mine && ((pin >> i) & 1u);
+  const T fi = pin_i ? T(0) : T(1);
+  // row i of the masked normal equations, damped (its lower part)
+  T row[NP];
 #pragma unroll
-  for (int k = 0; k < NP; ++k) free_[k] = (pin >> k) & 1u ? T(0) : T(1);
-  T A[NP][NP];
-  T rhs[NP];
-#pragma unroll
-  for (int i = 0; i < NP; ++i) {
-#pragma unroll
-    for (int j = 0; j <= i; ++j) A[i][j] = jtj[tri<NP>(j, i)] * free_[i] * free_[j];
-    if ((pin >> i) & 1u) A[i][i] = A[i][i] + T(1);
-    const T d = A[i][i] > T(0) ? A[i][i] : T(1);
-    A[i][i] = A[i][i] + lam_eff * d;
-    rhs[i] = -(jtr[i] * free_[i]);
+  for (int k = 0; k < NP; ++k) {
+    const T fk = (pin >> k) & 1u ? T(0) : T(1);
+    T a = mine && k <= i ? jtj[tri<NP>(k, i)] * fi * fk : T(0);
+    if (k == i) {
+      if (pin_i) a = a + T(1);
+      const T d = a > T(0) ? a : T(1);
+      a = a + lam_eff * d;
+    }
+    row[k] = a;
   }
-  // unrolled Cholesky (ops/small_linalg.py's order); nan where A is
-  // not positive definite
-  T L[NP][NP];
 #pragma unroll
   for (int j = 0; j < NP; ++j) {
-    T s = A[j][j];
+    if (i == j) {
+      T s = row[j];
 #pragma unroll
-    for (int k = 0; k < j; ++k) s = s - L[j][k] * L[j][k];
-    const T d = dsqrt(s);
-    L[j][j] = d;
-    const T inv_d = T(1) / d;
+      for (int k = 0; k < j; ++k) s = s - row[k] * row[k];
+      row[j] = dsqrt(s);
 #pragma unroll
-    for (int i = j + 1; i < NP; ++i) {
-      T t = A[i][j];
+      for (int k = 0; k <= j; ++k) L[low(j, k)] = row[k];
+    }
+    __syncwarp();
+    if (i > j && mine) {
+      T t = row[j];
 #pragma unroll
-      for (int k = 0; k < j; ++k) t = t - L[i][k] * L[j][k];
-      L[i][j] = t * inv_d;
+      for (int k = 0; k < j; ++k) t = t - row[k] * L[low(j, k)];
+      row[j] = t * (T(1) / L[low(j, j)]);
     }
   }
-  T z[NP];
+  // L z = -Jtr over the free dims
+  T z = mine ? -(jtr[i] * fi) : T(0);
 #pragma unroll
-  for (int i = 0; i < NP; ++i) {
-    T s = rhs[i];
-#pragma unroll
-    for (int k = 0; k < i; ++k) s = s - L[i][k] * z[k];
-    z[i] = s / L[i][i];
+  for (int k = 0; k < NP; ++k) {
+    if (i == k) z = z / row[k];
+    const T zk = __shfl_sync(kFull, z, k);
+    if (i > k && mine) z = z - row[k] * zk;
   }
+  // L^T dy = z
+  T d = T(0);
 #pragma unroll
-  for (int i = NP - 1; i >= 0; --i) {
-    T s = z[i];
-#pragma unroll
-    for (int k = i + 1; k < NP; ++k) s = s - L[k][i] * dy[k];
-    dy[i] = s / L[i][i];
+  for (int k = NP - 1; k >= 0; --k) {
+    if (i == k) d = z / row[k];
+    const T dk = __shfl_sync(kFull, d, k);
+    if (i < k) z = z - L[low(k, i)] * dk;
   }
-  bool step_ok = true;
-#pragma unroll
-  for (int k = 0; k < NP; ++k) step_ok = step_ok && finite(dy[k]);
-  return step_ok;
+  dy = mine ? d : T(0);
+  return __ballot_sync(kFull, mine && !finite(d)) == 0u;
 }
 
 // y + dy with the two-sided dims clipped to the e2i range
@@ -919,128 +1185,155 @@ __device__ __forceinline__ T clip_step(T y, T dy, T lo, T hi) {
   return t;
 }
 
-// lane b's state into the outputs (thread 0 of the warp writes)
+// sum over k < NP of thread k's v, left to right, on every thread
+template <typename T, int NP>
+__device__ __forceinline__ T lane_sum(T v) {
+  T s = __shfl_sync(kFull, v, 0);
+#pragma unroll
+  for (int k = 1; k < NP; ++k) s = s + __shfl_sync(kFull, v, k);
+  return s;
+}
+
+// lane b's state into the outputs: slot's point and sums (every thread
+// its entries) and the loop's scalars
 template <typename T, int NP>
 __device__ __forceinline__ void write_state(const Out<T>& o, size_t b, int lid,
-                                            const T (&y)[NP], T cost, const T (&jtr)[NP],
-                                            const T (&jtj)[NP * (NP + 1) / 2], T lam,
+                                            const LmState<T, NP>& s, int slot, T lam,
                                             int nfev, bool done, bool ier_step,
                                             bool ier_cost, unsigned pinned) {
+  const T* sum = s.sum[slot];
   if (lid == 0) {
-    o.cost[b] = cost;
+    o.cost[b] = sum[0];
+    o.cost_pix[b] = s.cost_pix[slot];
     o.lam[b] = lam;
     o.nfev[b] = nfev;
     o.done[b] = done;
     o.ier_small_step[b] = ier_step;
     o.ier_small_cost[b] = ier_cost;
-#pragma unroll
-    for (int k = 0; k < NP; ++k) {
-      o.y[NP * b + k] = y[k];
-      o.jtr[NP * b + k] = jtr[k];
-      o.pinned[NP * b + k] = (pinned >> k) & 1u;
-#pragma unroll
-      for (int m = 0; m < NP; ++m) {
-        o.jtj[(NP * b + k) * NP + m] = jtj[tri<NP>(k, m)];
-      }
-    }
+  }
+  if (lid < NP) {
+    o.y[NP * b + lid] = s.y[slot][lid];
+    o.jtr[NP * b + lid] = sum[1 + lid];
+    o.pinned[NP * b + lid] = (pinned >> lid) & 1u;
+  }
+  for (int e = lid; e < NP * NP; e += 32) {
+    o.jtj[NP * NP * b + e] = sum[1 + NP + tri<NP>(e / NP, e % NP)];
   }
 }
 
+// the solve; s holds the bounds, scr is the step's scratch
+// (step_scratch(NP) values). Every thread runs the loop and holds the
+// same bits of its decisions; the loop has one call of evaluate, the
+// first point's and then each trial point's, and the values it needs
+// after an evaluation wait in s (thread 0 writes the scalars), not in
+// registers that every thread would hold through the pixel pass.
+// Returns the slot of the final point
 template <typename T, int NP, typename Eval>
-__device__ void solve_lane(const Conf& cf, const T* guess,
-                                           const T (&lo)[NP], const T (&hi)[NP],
-                                           Eval&& evaluate, const Out<T>& o,
-                                           size_t b, int lid) {
-  constexpr int NT = NP * (NP + 1) / 2;
-  const T ftol = static_cast<T>(cf.ftol);
-  const T xtol = static_cast<T>(cf.xtol);
-  const T lambda0 = static_cast<T>(cf.lambda0);
+__device__ int solve_lane(const Conf& cf, const T* guess, LmState<T, NP>& s, T* scr,
+                          Eval&& evaluate, const Out<T>& o, size_t b, int lid) {
+  if (lid < NP) s.y[0][lid] = e2i(guess[lid], s.lo[lid], s.hi[lid]);
+  if (lid == 0) {
+    s.lam = static_cast<T>(cf.lambda0);
+    s.pinned = 0;
+    s.flags = 0;
+  }
+  __syncwarp();
 
-  T y[NP];
-#pragma unroll
-  for (int k = 0; k < NP; ++k) y[k] = e2i(guess[k], lo[k], hi[k]);
-  T cost, cost_pix, jtr[NP], jtj[NT];
-  evaluate(y, cost, cost_pix, jtr, jtj);
-  // cost_pix goes to the output as it is taken, so it is not carried
-  // in a register through the loop
-  if (lid == 0) o.cost_pix[b] = cost_pix;
+  int cur = 0, trial = 0, nfev = 0;
+  bool done = false;
+  for (;;) {
+    evaluate(trial);
+    if (nfev > 0) {
+      const T ftol = static_cast<T>(cf.ftol);
+      const T xtol = static_cast<T>(cf.xtol);
+      const unsigned pin = s.pin;
+      const bool step_ok = s.flags & kStepOk, pin_changed = s.flags & kPinChanged;
+      const T lam_eff = s.lam_eff;
+      const T dy = lid < NP ? s.dy[lid] : T(0);
+      const T yk = lid < NP ? s.y[cur][lid] : T(0);
+      const T* sum = s.sum[cur];
+      const T cost = sum[0];
+      T cost_try = s.sum[trial][0];
+      if (!finite(cost_try)) cost_try = inf_of<T>();
+      const bool accept = step_ok && cost_try < cost;
 
-  T lam = lambda0;
-  int nfev = 1;
-  bool done = false, ier_step = false, ier_cost = false;
-  unsigned pinned = 0;
-  while (!done && nfev < cf.maxfev) {
-    const unsigned pin = pin_mask<T, NP>(y, jtr, cost, ftol, lo, hi);
-    const bool pin_changed = pin != pinned;
-    const T lam_eff = pin_changed ? lambda0 : lam;
-    T free_[NP], dy[NP];
-    const bool step_ok = damped_step<T, NP>(jtj, jtr, pin, lam_eff, free_, dy);
-
-    T y_try[NP];
+      // predicted reduction of the quadratic model, sums left to right:
+      // thread i forms (JtJ dy)_i, then every thread sums the rows
+      T Hdy = T(0);
 #pragma unroll
-    for (int k = 0; k < NP; ++k) {
-      y_try[k] = clip_step(y[k], step_ok ? dy[k] : T(0), lo[k], hi[k]);
-      dy[k] = y_try[k] - y[k];
-    }
-    T cost_try, cost_pix_try, jtr_try[NP], jtj_try[NT];
-    evaluate(y_try, cost_try, cost_pix_try, jtr_try, jtj_try);
-    if (!finite(cost_try)) cost_try = inf_of<T>();
-    const bool accept = step_ok && cost_try < cost;
-
-    // predicted reduction of the quadratic model, sums left to right
-    T pred_g = dy[0] * (T(2) * jtr[0]);
-    T pred_h = T(0);
-#pragma unroll
-    for (int i = 0; i < NP; ++i) {
-      if (i > 0) pred_g = pred_g + dy[i] * (T(2) * jtr[i]);
-      T Hdy = jtj[tri<NP>(i, 0)] * dy[0];
-#pragma unroll
-      for (int j = 1; j < NP; ++j) Hdy = Hdy + jtj[tri<NP>(i, j)] * dy[j];
-      pred_h = i == 0 ? dy[0] * Hdy : pred_h + dy[i] * Hdy;
-    }
-    const T pred = clamp_min(-pred_g - pred_h, static_cast<T>(kPredFloor));
-    const T actual = cost - cost_try;
-    // a trial cost equal to the current one where the model predicts
-    // less than ftol of it ends the descent (fitting/lm.py _lm_step)
-    const bool at_floor = step_ok && actual == T(0) && pred <= ftol * cost;
-    const bool small_cost =
-        at_floor || (accept && actual <= ftol * cost && pred <= ftol * cost);
-    // xtol over the free dims only
-    T ysq = T(0), dsq = T(0);
-#pragma unroll
-    for (int k = 0; k < NP; ++k) {
-      const T yf = y[k] * free_[k];
-      ysq = k == 0 ? yf * yf : ysq + yf * yf;
-      dsq = k == 0 ? dy[k] * dy[k] : dsq + dy[k] * dy[k];
-    }
-    const bool small_step =
-        accept && dsqrt(dsq) <= xtol * (dsqrt(ysq) + xtol);
-    const bool stuck = !accept && lam_eff >= static_cast<T>(cf.lambda_max);
-
-    lam = accept
-              ? clamp_min(lam_eff / static_cast<T>(cf.lambda_down),
-                          static_cast<T>(cf.lambda_min))
-              : clamp_max(lam_eff * static_cast<T>(cf.lambda_up),
-                          static_cast<T>(cf.lambda_max * 10.0));
-    if (accept) {
-      cost = cost_try;
-      if (lid == 0) o.cost_pix[b] = cost_pix_try;
-#pragma unroll
-      for (int k = 0; k < NP; ++k) {
-        y[k] = y_try[k];
-        jtr[k] = jtr_try[k];
+      for (int j = 0; j < NP; ++j) {
+        const T dj = __shfl_sync(kFull, dy, j);
+        const T a = lid < NP ? sum[1 + NP + tri<NP>(lid, j)] : T(0);
+        Hdy = j == 0 ? a * dj : Hdy + a * dj;
       }
-#pragma unroll
-      for (int i = 0; i < NT; ++i) jtj[i] = jtj_try[i];
+      const T jtr_k = lid < NP ? sum[1 + lid] : T(0);
+      const T pred_g = lane_sum<T, NP>(dy * (T(2) * jtr_k));
+      const T pred_h = lane_sum<T, NP>(dy * Hdy);
+      const T pred = clamp_min(-pred_g - pred_h, static_cast<T>(kPredFloor));
+      const T actual = cost - cost_try;
+      // with cf.at_floor (the host fitters' routes), a trial cost equal
+      // to the current one where the model predicts less than ftol of
+      // it ends the descent (fitting/lm.py _lm_step)
+      const bool at_floor = cf.at_floor && step_ok && actual == T(0) && pred <= ftol * cost;
+      const bool small_cost =
+          at_floor || (accept && actual <= ftol * cost && pred <= ftol * cost);
+      // xtol over the free dims only
+      const T yf = yk * ((pin >> lid) & 1u ? T(0) : T(1));
+      const T ysq = lane_sum<T, NP>(yf * yf);
+      const T dsq = lane_sum<T, NP>(dy * dy);
+      const bool small_step = accept && dsqrt(dsq) <= xtol * (dsqrt(ysq) + xtol);
+      const bool stuck = !accept && lam_eff >= static_cast<T>(cf.lambda_max);
+      const T lam = accept
+                        ? clamp_min(lam_eff / static_cast<T>(cf.lambda_down),
+                                    static_cast<T>(cf.lambda_min))
+                        : clamp_max(lam_eff * static_cast<T>(cf.lambda_up),
+                                    static_cast<T>(cf.lambda_max * 10.0));
+      // every thread has read the values thread 0 now replaces
+      __syncwarp();
+      if (lid == 0) {
+        s.lam = lam;
+        s.pinned = pin;
+        s.flags = (small_step ? kIerStep : 0) | (small_cost ? kIerCost : 0);
+      }
+      // an accepted trial point becomes the current one
+      cur = accept ? trial : cur;
+      done = (small_cost || small_step || stuck) && !pin_changed;
     }
     nfev += 1;
-    done = (small_cost || small_step || stuck) && !pin_changed;
-    ier_step = small_step;
-    ier_cost = small_cost;
-    pinned = pin;
+    if (done || nfev >= cf.maxfev) break;
+    // every thread has read the sums the next evaluation overwrites
+    __syncwarp();
+
+    // the next trial point
+    trial = cur ^ 1;
+    const T* y = s.y[cur];
+    const T* sum = s.sum[cur];
+    const unsigned pin =
+        pin_mask<T, NP>(y, sum + 1, sum[0], static_cast<T>(cf.ftol), s.lo, s.hi, lid);
+    const bool pin_changed = pin != s.pinned;
+    const T lam_eff = pin_changed ? static_cast<T>(cf.lambda0) : s.lam;
+    T dy;
+    const bool step_ok = damped_step<T, NP>(sum + 1 + NP, sum + 1, pin, lam_eff, scr, lid, dy);
+    // thread k < NP: dim k of the clipped trial point and of its step
+    if (lid < NP) {
+      const T yk = y[lid];
+      const T yt = clip_step(yk, step_ok ? dy : T(0), s.lo[lid], s.hi[lid]);
+      s.y[trial][lid] = yt;
+      s.dy[lid] = yt - yk;
+    }
+    if (lid == 0) {
+      s.pin = pin;
+      s.lam_eff = lam_eff;
+      s.flags = (s.flags & (kIerStep | kIerCost)) | (step_ok ? kStepOk : 0) |
+                (pin_changed ? kPinChanged : 0);
+    }
+    __syncwarp();
   }
-  write_state<T, NP>(o, b, lid, y, cost, jtr, jtj, lam, nfev, done, ier_step, ier_cost,
-                     pinned);
+  // thread 0's last scalars are visible to every thread
+  __syncwarp();
+  write_state<T, NP>(o, b, lid, s, cur, s.lam, nfev, done, s.flags & kIerStep,
+                     s.flags & kIerCost, s.pinned);
+  return cur;
 }
 
 // one lane's fixed-iteration damped Gauss-Newton refinement
@@ -1048,41 +1341,48 @@ __device__ void solve_lane(const Conf& cf, const T* guess,
 // each at the current point with the LM's pin test and damped step and
 // no trial evaluation (a step that is not finite is dropped), then one
 // evaluation at the final point, whose state goes to the outputs with
-// nfev = niter + 1, done and ier_small_step set
+// nfev = niter + 1, done and ier_small_step set. Works in slot 0, with
+// one call of evaluate
 template <typename T, int NP, typename Eval>
 __device__ void refine_lane(const Conf& cf, int niter, T lam, const T* guess,
-                            const T (&lo)[NP], const T (&hi)[NP], Eval&& evaluate,
-                            const Out<T>& o, size_t b, int lid) {
-  constexpr int NT = NP * (NP + 1) / 2;
+                            LmState<T, NP>& s, T* scr, Eval&& evaluate, const Out<T>& o,
+                            size_t b, int lid) {
   const T ftol = static_cast<T>(cf.ftol);
-  T y[NP];
-#pragma unroll
-  for (int k = 0; k < NP; ++k) y[k] = e2i(guess[k], lo[k], hi[k]);
-  T cost, cost_pix, jtr[NP], jtj[NT];
+  if (lid < NP) s.y[0][lid] = e2i(guess[lid], s.lo[lid], s.hi[lid]);
+  __syncwarp();
   unsigned pin = 0;
-  for (int it = 0; it < niter; ++it) {
-    evaluate(y, cost, cost_pix, jtr, jtj);
-    pin = pin_mask<T, NP>(y, jtr, cost, ftol, lo, hi);
-    T free_[NP], dy[NP];
-    const bool ok = damped_step<T, NP>(jtj, jtr, pin, lam, free_, dy);
-#pragma unroll
-    for (int k = 0; k < NP; ++k) y[k] = clip_step(y[k], ok ? dy[k] : T(0), lo[k], hi[k]);
+  for (int it = 0;; ++it) {
+    evaluate(0);
+    if (it == niter) break;
+    T* y = s.y[0];
+    const T* sum = s.sum[0];
+    pin = pin_mask<T, NP>(y, sum + 1, sum[0], ftol, s.lo, s.hi, lid);
+    T dy;
+    const bool ok = damped_step<T, NP>(sum + 1 + NP, sum + 1, pin, lam, scr, lid, dy);
+    __syncwarp();
+    if (lid < NP) y[lid] = clip_step(y[lid], ok ? dy : T(0), s.lo[lid], s.hi[lid]);
+    __syncwarp();
   }
-  evaluate(y, cost, cost_pix, jtr, jtj);
-  if (lid == 0) o.cost_pix[b] = cost_pix;
-  write_state<T, NP>(o, b, lid, y, cost, jtr, jtj, lam, niter + 1, true, true, false, pin);
+  write_state<T, NP>(o, b, lid, s, 0, lam, niter + 1, true, true, false, pin);
 }
 
 template <int N>
 __device__ __forceinline__ void cp_async(void* dst, const void* src) {
+#ifdef __CUDA_ARCH__
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(src),
                "n"(N)
                : "memory");
+#else
+  // a compiler for the host (a CPU emulation of the kernels) copies
+  for (int i = 0; i < N; ++i) static_cast<char*>(dst)[i] = static_cast<const char*>(src)[i];
+#endif
 }
 
 __device__ __forceinline__ void cp_async_wait_all() {
+#ifdef __CUDA_ARCH__
   asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::: "memory");
+#endif
 }
 
 // the persistent grid of a kernel: blocks of kThreads, as many as are
@@ -1103,6 +1403,38 @@ int grid_size(K kernel, size_t smem, int64_t lanes, unsigned* blocks) {
   const int64_t want = (lanes + kWarps - 1) / kWarps;
   const int64_t resident = static_cast<int64_t>(nsm) * per_sm;
   *blocks = static_cast<unsigned>(want < resident ? want : resident);
+  return 0;
+}
+
+// whether kernel a at smem_a bytes of dynamic shared memory a block
+// (the planes in shared memory) keeps two thirds of the blocks an SM of
+// kernel b at smem_b (the planes in global memory), into *pays; 0 or a
+// CUDA error. On an H100 the shared planes won at 4 and 5 blocks
+// against 5 (K3's simple models), global memory at 4 against 2 (K3-mb
+// at E P = 1083)
+template <typename Ka, typename Kb>
+int smem_pays(Ka a, size_t smem_a, Kb b, size_t smem_b, bool* pays) {
+  // one kernel may be both: each query follows its own attribute. The
+  // planes may not fit a block's shared memory at all (float64 bd at
+  // nband 6 and E P near kMaxP): then they do not pay, and the refused
+  // attribute's error is cleared
+  int na = 0, nb = 0;
+  if (cudaFuncSetAttribute(a, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           static_cast<int>(smem_a)) != cudaSuccess) {
+    cudaGetLastError();
+    *pays = false;
+    return 0;
+  }
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&na, a, kThreads, smem_a);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(b, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_b));
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&nb, b, kThreads, smem_b);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *pays = 3 * na >= 2 * nb;
   return 0;
 }
 

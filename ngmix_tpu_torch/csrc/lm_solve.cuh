@@ -37,16 +37,19 @@
 // What bounds it on an H100: K1's arithmetic (about 80 floating
 // operations and one exponential per pixel and gaussian) times the
 // evaluations each lane needs, against the planes read from device
-// memory once. The design:
+// memory once; in practice the latency of each pair's exponential and
+// shared loads, which only resident warps hide. The design:
 // - one warp per lane, persistent: the grid fills the SMs, and each warp
 //   takes its next lane from the atomic counter, so a slow lane holds one
 //   warp and never the others, and there is no host round trip per
 //   iteration;
 // - the lane's four planes are copied into the warp's shared memory
-//   once (cp.async) when P <= kMaxP; every evaluation reads them there.
-//   A lane with more pixels reads its planes from global memory
-//   (through L1 and L2), and the block's shared memory holds only the
-//   gaussians. Where the planes live is a template argument of the
+//   once (cp.async) when P <= kMaxP and the copy keeps two thirds of
+//   the blocks an SM that the planes in global memory allow
+//   (smem_pays); every evaluation reads them there. Otherwise the lane
+//   reads its planes from global memory (through L1 and L2), and the
+//   block's shared memory holds only each warp's gaussians, LM state
+//   and tile. Where the planes live is a template argument of the
 //   kernel, so each instance's pixel pass knows the address space of
 //   its loads (a runtime choice made them generic loads, and the exp
 //   model's main-path solve ~16% slower on an H100);
@@ -55,12 +58,15 @@
 //   and F through 4 coefficients each, so a (pixel, gaussian) pair costs
 //   15 multiply-adds of chain at NP = 6 (23 at bd's 8), not NP^2.
 //   Lanes 0 to NG - 1 of the warp compute one gaussian each into shared
-//   memory, which the pixel pass reads as broadcasts;
-// - each thread keeps 1 + NP + NP (NP + 1) / 2 running sums of its pixels
-//   (28, 36 or 45); a fixed-order shuffle tree sums them and lane 0's
-//   totals are broadcast, so every thread holds the same bits and takes
-//   the same accept and stop decisions; the NP x NP algebra runs in
-//   registers on all 32 threads;
+//   memory, as 16-byte aligned 4-tuples that the pixel pass reads as
+//   vector broadcasts (2 + NS loads a pair, not 7 + 4 NS);
+// - the LM state lives once a warp in shared memory (lm_common.cuh
+//   LmState), the step algebra is split over the warp's threads, and
+//   the pixel pass keeps 28 running sums a thread (exp, gauss) or forms
+//   its 28-45 sums through a tile (dev, bdf, bd): a float32 instance
+//   needs at most 128 registers a thread, where the state in every
+//   thread's registers took 218-242 (bdf, bd) and allowed 8 warps an
+//   SM; MinBlocks sets the blocks each is compiled for;
 // - nothing depends on which warp runs a lane or on the batch, so a
 //   lane's bits do not depend on either.
 //
@@ -68,8 +74,9 @@
 // GaussModel, DevModel, BdfModel, BdModel): each model and type is its
 // own instance and C function, NGMIX_LM_SOLVE below. The simple models'
 // instances are lm_solve.cu, each composite model's its own translation
-// unit (lm_solve_<model>.cu), which nvcc builds in parallel. The gaussians, the pixel pass and the LM loop are
-// lm_common.cuh's, shared with K3-mb (lm_solve_mb.cuh).
+// unit (lm_solve_<model>.cu), which nvcc builds in parallel. The
+// gaussians, the pixel pass and the LM loop are lm_common.cuh's, shared
+// with K3-mb (lm_solve_mb.cuh).
 // exp is the full-precision libm routine: build without fast-math.
 #pragma once
 
@@ -106,83 +113,86 @@ struct Warp {
   const T* u;
   const T* ia;
   const T* ve;
-  T* gs;        // [M::kNG * Dims<M>::kGStride], shared memory
-  T* ps;        // prior scratch: gs, of prior_scratch(NP) values or more
+  T* gs;        // the records (records<M>() values, shared memory): the
+                // gaussians, then the prior rows' or the step's scratch
   const double* prior;
   int nprior;
   int P;
   int lid;
 };
 
-// (cost, Jtr, JtJ) in internal coordinates at y over the model's NP
-// parameters, with the prior rows, and the pixels' cost alone; every
-// thread of the warp returns the same bits. A bad point gets cost 1e30,
+// (cost, Jtr, JtJ) in internal coordinates at s.y[slot] over the
+// model's NP parameters (convolved with the psf gaussian s.psf), with
+// the prior rows, into s.sum[slot], and the pixels' cost alone into
+// s.cost_pix[slot]. A bad point gets cost 1e30,
 // Jtr 0 and JtJ = I, or with kAdBad the reference's AD convention (every
-// pixel row FDIFF_BAD = 1e10: cost P 1e20, Jtr 0, JtJ 0)
+// pixel row FDIFF_BAD = 1e10: cost P 1e20, Jtr 0, JtJ 0). Called by
+// every thread; ends with a __syncwarp
 template <typename M, bool kAdBad = false, typename T, int NP = Dims<M>::kNP>
-__device__ void evaluate(const Warp<T>& w, const T (&y)[NP], const T (&lo)[NP],
-                         const T (&hi)[NP], T pirr, T pirc, T picc, T& cost, T& cost_pix,
-                         T (&jtr)[NP], T (&jtj)[NP * (NP + 1) / 2]) {
+__device__ __forceinline__ void evaluate(const Warp<T>& w, LmState<T, NP>& s, int slot) {
   constexpr int NX = M::kNX;
-  constexpr int NT = NP * (NP + 1) / 2;
-  T x[NP];
-#pragma unroll
-  for (int k = 0; k < NP; ++k) x[k] = i2e(y[k], lo[k], hi[k]);
-  const Shape<T> sh = fill_shape(x[2], x[3]);
+  point_x(s, slot, w.lid);
+  const Shape<T> sh = fill_shape(s.x[2], s.x[3]);
   Extra<T, NX> xe;
 #pragma unroll
-  for (int j = 0; j < NX; ++j) xe.v[j] = x[5 + j];
-  const bool lowdet = model_gaussians<M>(w.gs, w.lid, x[0], x[1], sh, x[4], xe, x[5 + NX],
-                                         pirr, pirc, picc);
+  for (int j = 0; j < NX; ++j) xe.v[j] = s.x[5 + j];
+  const bool lowdet = model_gaussians<M>(w.gs, w.lid, s.x[0], s.x[1], sh, s.x[4], xe,
+                                         s.x[5 + NX], s.psf[0], s.psf[1], s.psf[2]);
   if (sh.gbad || lowdet) {
-    cost = static_cast<T>(kAdBad ? kFdiffBad2 * static_cast<double>(w.P) : kBadCost);
-#pragma unroll
-    for (int k = 0; k < NP; ++k) jtr[k] = T(0);
-#pragma unroll
-    for (int k = 0; k < NP; ++k) {
-#pragma unroll
-      for (int m = k; m < NP; ++m) jtj[tri<NP>(k, m)] = k == m && !kAdBad ? T(1) : T(0);
-    }
+    bad_sums(s, slot, w.lid,
+             static_cast<T>(kAdBad ? kFdiffBad2 * static_cast<double>(w.P) : kBadCost), kAdBad);
   } else {
-    T acc[Dims<M>::kNSum];
-    pixel_pass<M>(w.gs, w.lid, w.v, w.u, w.ia, w.ve, w.P, acc);
-    cost = acc[0];
-#pragma unroll
-    for (int k = 0; k < NP; ++k) jtr[k] = acc[1 + k];
-#pragma unroll
-    for (int i = 0; i < NT; ++i) jtj[i] = acc[1 + NP + i];
+    T* sum = s.sum[slot];
+    pixel_pass<M>(w.gs, tile_of(s), w.lid, w.v, w.u, w.ia, w.ve, w.P,
+                  [&](int e, T x) { sum[e] = x; });
   }
-  cost_pix = cost;
-  add_prior<T, NP>(w.prior, w.nprior, w.ps, w.lid, y, lo, hi, cost, jtr, jtj);
-  bounds_chain<T, NP>(y, lo, hi, jtr, jtj);
+  __syncwarp();
+  if (w.lid == 0) s.cost_pix[slot] = s.sum[slot][0];
+  add_prior<T, NP>(w.prior, w.nprior, w.gs, w.lid, s, slot);
+  bounds_chain<T, NP>(s, slot, w.lid);
 }
 
 // a warp's records in shared memory: the model's gaussians, whose room
-// the prior rows' scratch takes after the pixel pass
+// the prior rows' scratch takes after the pixel pass and the step's
+// scratch between evaluations; 16 bytes a float32 4-tuple
 template <typename M>
 __host__ __device__ constexpr int records() {
-  return max_of(M::kNG * Dims<M>::kGStride, prior_scratch(Dims<M>::kNP));
+  return (max_of(max_of(M::kNG * Dims<M>::kGStride, prior_scratch(Dims<M>::kNP)),
+                 step_scratch(Dims<M>::kNP)) + 3) / 4 * 4;
+}
+
+// a warp's shared memory in values: its planes (with smem_planes), its
+// records, its LM state, its pixel pass's tile
+template <typename T, typename M>
+__host__ __device__ constexpr size_t warp_values(int64_t P, bool smem_planes) {
+  return (smem_planes ? 4 * static_cast<size_t>(P) : 0) + records<M>() +
+         state_size<T, Dims<M>::kNP>() + tile_values<M>();
+}
+
+// the LM state of the warp whose records start at gs
+template <typename T, typename M>
+__device__ __forceinline__ LmState<T, Dims<M>::kNP>& warp_state(T* gs) {
+  return *reinterpret_cast<LmState<T, Dims<M>::kNP>*>(gs + records<M>());
 }
 
 // kSmemPlanes: the lane's planes are copied into shared memory (P <=
 // kMaxP), or read from global memory
 template <typename T, typename M, bool kSmemPlanes>
-__global__ void __launch_bounds__(kThreads) lm_solve_kernel(Args<T> a) {
+__global__ void __launch_bounds__(kThreads, MinBlocks<T, M, false>::k)
+    lm_solve_kernel(Args<T> a) {
   constexpr int NP = Dims<M>::kNP;
-  constexpr int NT = NP * (NP + 1) / 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int P = a.P;
   const int lid = threadIdx.x & 31;
-  const size_t per_warp = (kSmemPlanes ? 4 * static_cast<size_t>(P) : 0) + records<M>();
-  T* base = reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(threadIdx.x >> 5) * per_warp;
+  T* base = reinterpret_cast<T*>(smem_raw) +
+            static_cast<size_t>(threadIdx.x >> 5) * warp_values<T, M>(P, kSmemPlanes);
   T* gs = kSmemPlanes ? base + 4 * static_cast<size_t>(P) : base;
-  T* ps = gs;
-  T lo[NP], hi[NP];
-#pragma unroll
-  for (int k = 0; k < NP; ++k) {
-    lo[k] = a.lo[k];
-    hi[k] = a.hi[k];
+  LmState<T, NP>& s = warp_state<T, M>(gs);
+  if (lid < NP) {
+    s.lo[lid] = a.lo[lid];
+    s.hi[lid] = a.hi[lid];
   }
+  __syncwarp();
   for (;;) {
     int b = 0;
     if (lid == 0) b = atomicAdd(a.counter, 1);
@@ -202,35 +212,40 @@ __global__ void __launch_bounds__(kThreads) lm_solve_kernel(Args<T> a) {
       __syncwarp();
     }
     const Warp<T> w = kSmemPlanes
-        ? Warp<T>{base, base + P, base + 2 * P, base + 3 * P, gs, ps, a.prior, a.nprior, P,
-                  lid}
-        : Warp<T>{a.v + off, a.u + off, a.ia + off, a.ve + off, gs, ps, a.prior, a.nprior,
-                  P, lid};
+        ? Warp<T>{base, base + P, base + 2 * P, base + 3 * P, gs, a.prior, a.nprior, P, lid}
+        : Warp<T>{a.v + off, a.u + off, a.ia + off, a.ve + off, gs, a.prior, a.nprior, P,
+                  lid};
     const size_t lb = static_cast<size_t>(b);
-    const T pirr = a.psf[3 * lb], pirc = a.psf[3 * lb + 1], picc = a.psf[3 * lb + 2];
-    solve_lane<T, NP>(
-        a.conf, a.guess + NP * lb, lo, hi,
-        [&](const T (&y)[NP], T& cost, T& cost_pix, T (&jtr)[NP], T (&jtj)[NT]) {
-          evaluate<M>(w, y, lo, hi, pirr, pirc, picc, cost, cost_pix, jtr, jtj);
-        },
-        a.out, lb, lid);
+    if (lid < 3) s.psf[lid] = a.psf[3 * lb + lid];
+    solve_lane<T, NP>(a.conf, a.guess + NP * lb, s, gs,
+                      [&](int slot) { evaluate<M>(w, s, slot); }, a.out, lb, lid);
     // every thread is done with the planes before the next copy
     __syncwarp();
   }
 }
 
 // the block's dynamic shared memory: each warp's planes (if P <=
-// kMaxP, where they go into shared memory) and records (gaussians, then
-// the prior rows' scratch)
+// kMaxP, where they go into shared memory), records (gaussians, then
+// the prior rows' or the step's scratch) and LM state
 template <typename T, typename M>
-size_t smem_bytes(int64_t P) {
-  return static_cast<size_t>(kWarps) *
-         ((P <= kMaxP ? 4 * static_cast<size_t>(P) : 0) + records<M>()) * sizeof(T);
+size_t smem_bytes(int64_t P, bool smem_planes) {
+  return static_cast<size_t>(kWarps) * warp_values<T, M>(P, smem_planes) * sizeof(T);
+}
+
+// whether a lane's planes go into shared memory: where they fit (kMaxP)
+// and keep two thirds of the blocks an SM of the instance that reads
+// them from global memory; 0 or a CUDA error
+template <typename T, typename M>
+int planes(int64_t P, bool* smem_planes) {
+  *smem_planes = false;
+  if (P > kMaxP) return 0;
+  return smem_pays(lm_solve_kernel<T, M, true>, smem_bytes<T, M>(P, true),
+                   lm_solve_kernel<T, M, false>, smem_bytes<T, M>(P, false), smem_planes);
 }
 
 template <typename T, typename M, bool kSmemPlanes>
 int launch_kernel(const Args<T>& a, void* stream) {
-  const size_t smem = smem_bytes<T, M>(a.P);
+  const size_t smem = smem_bytes<T, M>(a.P, kSmemPlanes);
   unsigned blocks = 0;
   const int err = grid_size(lm_solve_kernel<T, M, kSmemPlanes>, smem, a.B, &blocks);
   if (err != 0) return err;
@@ -258,17 +273,23 @@ int launch(const void* guess, const void* lo, const void* hi, const void* psf,
                   static_cast<int*>(counter), static_cast<const double*>(prior),
                   static_cast<int>(B), static_cast<int>(P), static_cast<int>(nprior),
                   conf};
-  return P <= kMaxP ? launch_kernel<T, M, true>(a, stream)
-                    : launch_kernel<T, M, false>(a, stream);
+  bool smem_planes = false;
+  const int err = planes<T, M>(P, &smem_planes);
+  if (err != 0) return err;
+  return smem_planes ? launch_kernel<T, M, true>(a, stream)
+                     : launch_kernel<T, M, false>(a, stream);
 }
 
 // kernel_attrs of the kernel at P pixels a lane, as launch() sets it up
 template <typename T, typename M>
 int attrs(int64_t P, int* out) {
   if (P < 1 || P > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = smem_bytes<T, M>(P);
-  return P <= kMaxP ? kernel_attrs(lm_solve_kernel<T, M, true>, smem, out)
-                    : kernel_attrs(lm_solve_kernel<T, M, false>, smem, out);
+  bool smem_planes = false;
+  const int err = planes<T, M>(P, &smem_planes);
+  if (err != 0) return err;
+  const size_t smem = smem_bytes<T, M>(P, smem_planes);
+  return smem_planes ? kernel_attrs(lm_solve_kernel<T, M, true>, smem, out)
+                     : kernel_attrs(lm_solve_kernel<T, M, false>, smem, out);
 }
 
 }  // namespace
@@ -287,9 +308,9 @@ int attrs(int64_t P, int* out) {
       void* counter, const void* prior, int64_t B, int64_t P, int64_t nprior,  \
       int64_t maxfev, double ftol, double xtol, double lambda0,                \
       double lambda_up, double lambda_down, double lambda_min,                 \
-      double lambda_max, void* stream) {                                       \
-    const Conf conf{ftol, xtol, lambda0, lambda_up, lambda_down, lambda_min,   \
-                    lambda_max, 0};                                            \
+      double lambda_max, int64_t at_floor, void* stream) {                     \
+    const Conf conf{ftol,       xtol,       lambda0, lambda_up, lambda_down,   \
+                    lambda_min, lambda_max, 0,       at_floor != 0};           \
     const Out<T> out{static_cast<T*>(y), static_cast<T*>(cost),                \
                      static_cast<T*>(cost_pix), static_cast<T*>(jtr),          \
                      static_cast<T*>(jtj),                                     \

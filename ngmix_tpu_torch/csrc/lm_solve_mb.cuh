@@ -30,18 +30,26 @@
 // ve = val * ierr [B, E, P]. Outputs as K3's with NP parameters.
 //
 // The design is K3's (one warp a lane, persistent over an atomic lane
-// counter, a fixed-order shuffle tree so every thread holds the same
-// bits), with these differences:
-// - the lane's E P pixels are copied into the warp's shared memory when
-//   E P <= kMaxP; a lane with more pixels reads its planes from global
-//   memory (through L1 and L2) with the same code from another base
-//   pointer;
-// - an epoch's sums are reduced over the warp once an epoch and
-//   assembled in registers (the NP (NP + 3) / 2 values of cost, Jtr and
-//   JtJ), in the reference's order: per epoch, then over epochs;
+// counter, the LM state in the warp's shared memory, the step algebra
+// split over the warp, the pixel pass's sums as running sums or through
+// the tile), with these differences:
+// - the lane reads its E P pixels from global memory (through L1 and
+//   L2); the warp's shared memory holds its gaussians, LM state and
+//   tile. At the mb path's E P = 1083 in float32 a copy of the planes
+//   (17 KB a warp) would hold an SM to 2 or 3 blocks of 4 warps, where
+//   the registers allow 4: on an H100 the composite solves were 1.3x
+//   and the exp solve 1.04x slower with it. Only a model of under 6
+//   gaussians (gauss; Tuning::kMbSharedPlanes), whose pass has too
+//   little arithmetic to hide the loads, copies them (cp.async) where
+//   E P <= kMaxP, with the same code from another base pointer;
+// - an epoch's sums are added into the lane's sums in shared memory
+//   (the 1 + NP + NP (NP + 1) / 2 values of cost, Jtr and JtJ, up to
+//   105 at bd's 13 parameters) by the threads that hold them, in the
+//   reference's order: per epoch, then over epochs. With the assembled
+//   system in registers the float32 instances spilled 8-576 bytes a
+//   thread at nband 1-6 (255 registers);
 // - NB is a compile-time parameter, 1 to 6 (ugrizy); an epoch's band
-//   selects its flux column by unrolled comparisons, never a register
-//   index.
+//   selects its flux column by unrolled comparisons.
 // - the model M is a compile-time parameter too (lm_common.cuh), so a
 //   model and type hold 6 instances; each model's float32 and float64
 //   instances are their own translation units (lm_solve_mb_<model>.cu
@@ -86,8 +94,8 @@ struct MbWarp {
   const T* ve;
   const T* psf;  // [E, 3]
   const int32_t* band;  // [E]
-  T* gs;        // [M::kNG * Dims<M>::kGStride], shared memory
-  T* ps;        // prior scratch: gs, of prior_scratch(NP) values or more
+  T* gs;        // the records (records_mb<M, NB>() values, shared memory):
+                // the gaussians, then the prior rows' or the step's scratch
   const double* prior;
   int nprior;
   int E;
@@ -95,108 +103,114 @@ struct MbWarp {
   int lid;
 };
 
-// (cost, Jtr, JtJ) in internal coordinates at y over the NP = NSH + NB
-// parameters (NSH = 5 + M::kNX shape columns, then one flux a band),
-// with the prior rows, and the pixels' cost alone; every thread of the
-// warp returns the same bits
+// the lane's sum entry (of NP parameters) that entry e of an epoch's
+// NE-parameter sums adds to, for an epoch of band be; -1 for none (e
+// past the sums, or a flux entry of a band outside [0, NP - NE + 1))
+template <int NE, int NP>
+__device__ __forceinline__ int mb_entry(int e, int be) {
+  constexpr int NSH = NE - 1;
+  const bool band_ok = be >= 0 && be < NP - NSH;
+  if (e == 0) return 0;
+  if (e <= NE) {
+    const int k = e - 1;
+    return k < NSH ? 1 + k : (band_ok ? 1 + NSH + be : -1);
+  }
+  if (e >= sums_of(NE)) return -1;
+  int k, m;
+  tri_km(NE, e - 1 - NE, k, m);
+  if (m < NSH) return 1 + NP + tri<NP>(k, m);
+  if (!band_ok) return -1;
+  return 1 + NP + (k < NSH ? tri<NP>(k, NSH + be) : tri<NP>(NSH + be, NSH + be));
+}
+
+// (cost, Jtr, JtJ) in internal coordinates at s.y[slot] over the NP =
+// NSH + NB parameters (NSH = 5 + M::kNX shape columns, then one flux a
+// band), with the prior rows, into s.sum[slot], and the pixels' cost
+// alone into s.cost_pix[slot]. Called by every thread; ends with a
+// __syncwarp
 template <typename M, typename T, int NB, int NP = 5 + M::kNX + NB>
-__device__ void evaluate_mb(const MbWarp<T>& w, const T (&y)[NP], const T (&lo)[NP],
-                            const T (&hi)[NP], T& cost, T& cost_pix, T (&jtr)[NP],
-                            T (&jtj)[NP * (NP + 1) / 2]) {
+__device__ __forceinline__ void evaluate_mb(const MbWarp<T>& w, LmState<T, NP>& s, int slot) {
   constexpr int NX = M::kNX;
   constexpr int NSH = 5 + NX;
   // an epoch's parameters: the shape columns and its band's flux
   constexpr int NE = Dims<M>::kNP;
-  constexpr int NT = NP * (NP + 1) / 2;
-  T x[NP];
-#pragma unroll
-  for (int k = 0; k < NP; ++k) x[k] = i2e(y[k], lo[k], hi[k]);
-  const Shape<T> sh = fill_shape(x[2], x[3]);
-  Extra<T, NX> xe;
-#pragma unroll
-  for (int j = 0; j < NX; ++j) xe.v[j] = x[5 + j];
-
-  cost = T(0);
-#pragma unroll
-  for (int k = 0; k < NP; ++k) jtr[k] = T(0);
-#pragma unroll
-  for (int i = 0; i < NT; ++i) jtj[i] = T(0);
-  bool bad = sh.gbad;
+  point_x(s, slot, w.lid);
+  T* sum = s.sum[slot];
+  for (int e = w.lid; e < sums_of(NP); e += 32) sum[e] = T(0);
+  bool bad = fill_shape(s.x[2], s.x[3]).gbad;
   for (int e = 0; e < w.E && !bad; ++e) {
+    // the shape terms again each epoch (the same bits), so that they are
+    // not held through the pixel passes
+    const Shape<T> sh = fill_shape(s.x[2], s.x[3]);
+    Extra<T, NX> xe;
+#pragma unroll
+    for (int j = 0; j < NX; ++j) xe.v[j] = s.x[5 + j];
     const int be = w.band[e];
     T flux = T(0);
 #pragma unroll
     for (int i = 0; i < NB; ++i) {
-      if (i == be) flux = x[NSH + i];
+      if (i == be) flux = s.x[NSH + i];
     }
-    bad = model_gaussians<M>(w.gs, w.lid, x[0], x[1], sh, x[4], xe, flux, w.psf[3 * e],
+    bad = model_gaussians<M>(w.gs, w.lid, s.x[0], s.x[1], sh, s.x[4], xe, flux, w.psf[3 * e],
                              w.psf[3 * e + 1], w.psf[3 * e + 2]);
     if (bad) break;
     const size_t off = static_cast<size_t>(e) * w.P;
-    T acc[Dims<M>::kNSum];
-    pixel_pass<M>(w.gs, w.lid, w.v + off, w.u + off, w.ia + off, w.ve + off, w.P, acc);
-    // acc holds (cost, Jtr [NE], JtJ) over (the shape columns, flux)
-    cost = cost + acc[0];
-#pragma unroll
-    for (int k = 0; k < NSH; ++k) jtr[k] = jtr[k] + acc[1 + k];
-#pragma unroll
-    for (int k = 0; k < NSH; ++k) {
-#pragma unroll
-      for (int m = k; m < NSH; ++m) {
-        jtj[tri<NP>(k, m)] = jtj[tri<NP>(k, m)] + acc[1 + NE + tri<NE>(k, m)];
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < NB; ++i) {
-      if (i != be) continue;
-      jtr[NSH + i] = jtr[NSH + i] + acc[1 + NSH];
-#pragma unroll
-      for (int k = 0; k < NSH; ++k) {
-        jtj[tri<NP>(k, NSH + i)] = jtj[tri<NP>(k, NSH + i)] + acc[1 + NE + tri<NE>(k, NSH)];
-      }
-      jtj[tri<NP>(NSH + i, NSH + i)] =
-          jtj[tri<NP>(NSH + i, NSH + i)] + acc[1 + NE + tri<NE>(NSH, NSH)];
-    }
+    // each entry of the epoch's (cost, Jtr [NE], JtJ) over (the shape
+    // columns, flux) adds into the lane's: the shape block, the
+    // shape-flux column of the epoch's band and that band's diagonal
+    // flux entry; a band outside [0, NB) adds no flux
+    pixel_pass<M>(w.gs, tile_of(s), w.lid, w.v + off, w.u + off, w.ia + off, w.ve + off, w.P,
+                  [&](int i, T x) {
+                    const int g = mb_entry<NE, NP>(i, be);
+                    if (g >= 0) sum[g] = sum[g] + x;
+                  });
   }
+  __syncwarp();
   if (bad) {
-    cost = static_cast<T>(kFdiffBad * kFdiffBad *
-                          (static_cast<double>(w.E) * static_cast<double>(w.P)));
-#pragma unroll
-    for (int k = 0; k < NP; ++k) jtr[k] = T(0);
-#pragma unroll
-    for (int i = 0; i < NT; ++i) jtj[i] = T(0);
+    bad_sums(s, slot, w.lid,
+             static_cast<T>(kFdiffBad * kFdiffBad *
+                            (static_cast<double>(w.E) * static_cast<double>(w.P))),
+             true);
+    __syncwarp();
   }
-  cost_pix = cost;
-  add_prior<T, NP>(w.prior, w.nprior, w.ps, w.lid, y, lo, hi, cost, jtr, jtj);
-  bounds_chain<T, NP>(y, lo, hi, jtr, jtj);
+  if (w.lid == 0) s.cost_pix[slot] = sum[0];
+  add_prior<T, NP>(w.prior, w.nprior, w.gs, w.lid, s, slot);
+  bounds_chain<T, NP>(s, slot, w.lid);
 }
 
 // a warp's records in shared memory: the model's gaussians, whose room
 // the prior rows' scratch of the NP = 5 + NX + NB parameters takes after
-// the pixel passes
+// the pixel passes, and the step's scratch between evaluations
 template <typename M, int NB>
 __host__ __device__ constexpr int records_mb() {
-  return max_of(M::kNG * Dims<M>::kGStride, prior_scratch(5 + M::kNX + NB));
+  return (max_of(max_of(M::kNG * Dims<M>::kGStride, prior_scratch(5 + M::kNX + NB)),
+                 step_scratch(5 + M::kNX + NB)) + 3) / 4 * 4;
+}
+
+// a warp's shared memory in values: its planes (with smem_planes), its
+// records, its LM state, its pixel pass's tile
+template <typename T, typename M, int NB>
+__host__ __device__ constexpr size_t warp_values_mb(int64_t EP, bool smem_planes) {
+  return (smem_planes ? 4 * static_cast<size_t>(EP) : 0) + records_mb<M, NB>() +
+         state_size<T, 5 + M::kNX + NB>() + tile_values<M>();
 }
 
 template <typename T, typename M, int NB>
-__global__ void __launch_bounds__(kThreads) lm_solve_mb_kernel(MbArgs<T> a) {
+__global__ void __launch_bounds__(kThreads, MinBlocks<T, M, true>::k)
+    lm_solve_mb_kernel(MbArgs<T> a) {
   constexpr int NP = 5 + M::kNX + NB;
-  constexpr int NT = NP * (NP + 1) / 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int EP = a.E * a.P;
   const int lid = threadIdx.x & 31;
-  const size_t per_warp = (a.smem_planes ? 4 * static_cast<size_t>(EP) : 0) +
-                          records_mb<M, NB>();
-  T* base = reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(threadIdx.x >> 5) * per_warp;
+  T* base = reinterpret_cast<T*>(smem_raw) +
+            static_cast<size_t>(threadIdx.x >> 5) * warp_values_mb<T, M, NB>(EP, a.smem_planes);
   T* gs = a.smem_planes ? base + 4 * static_cast<size_t>(EP) : base;
-  T* ps = gs;
-  T lo[NP], hi[NP];
-#pragma unroll
-  for (int k = 0; k < NP; ++k) {
-    lo[k] = a.lo[k];
-    hi[k] = a.hi[k];
+  LmState<T, NP>& s = *reinterpret_cast<LmState<T, NP>*>(gs + records_mb<M, NB>());
+  if (lid < NP) {
+    s.lo[lid] = a.lo[lid];
+    s.hi[lid] = a.hi[lid];
   }
+  __syncwarp();
   for (;;) {
     int b = 0;
     if (lid == 0) b = atomicAdd(a.counter, 1);
@@ -205,7 +219,7 @@ __global__ void __launch_bounds__(kThreads) lm_solve_mb_kernel(MbArgs<T> a) {
     const size_t lb = static_cast<size_t>(b);
     const size_t off = lb * EP;
     MbWarp<T> w{a.v + off, a.u + off, a.ia + off, a.ve + off, a.psf + 3 * a.E * lb,
-                a.band + a.E * lb, gs, ps, a.prior, a.nprior, a.E, a.P, lid};
+                a.band + a.E * lb, gs, a.prior, a.nprior, a.E, a.P, lid};
     if (a.smem_planes) {
       // the lane's planes into shared memory, each thread the pixels it
       // reads in the pixel passes
@@ -222,25 +236,22 @@ __global__ void __launch_bounds__(kThreads) lm_solve_mb_kernel(MbArgs<T> a) {
       w.ia = base + 2 * EP;
       w.ve = base + 3 * EP;
     }
-    solve_lane<T, NP>(
-        a.conf, a.guess + NP * lb, lo, hi,
-        [&](const T (&yy)[NP], T& cost, T& cost_pix, T (&jtr)[NP], T (&jtj)[NT]) {
-          evaluate_mb<M, T, NB>(w, yy, lo, hi, cost, cost_pix, jtr, jtj);
-        },
-        a.out, lb, lid);
-    // every thread is done with the planes before the next copy
+    solve_lane<T, NP>(a.conf, a.guess + NP * lb, s, gs,
+                      [&](int slot) { evaluate_mb<M, T, NB>(w, s, slot); }, a.out, lb, lid);
+    // every thread is done with the lane's planes and state before the
+    // next lane's
     __syncwarp();
   }
 }
 
-// whether a lane's E P pixels go into shared memory, and the block's
-// dynamic shared memory: each warp's planes (if they do) and records
-// (gaussians, then the prior rows' scratch)
+// whether a lane's E P pixels go into shared memory
+// (Tuning::kMbSharedPlanes, where they fit), and the block's dynamic
+// shared memory: each warp's planes (if they do), records (gaussians,
+// then the prior rows' or the step's scratch), LM state and tile
 template <typename T, typename M, int NB>
 size_t smem_bytes_mb(int64_t EP, bool* smem_planes) {
-  *smem_planes = EP <= kMaxP;
-  return static_cast<size_t>(kWarps) *
-         ((*smem_planes ? 4 * static_cast<size_t>(EP) : 0) + records_mb<M, NB>()) * sizeof(T);
+  *smem_planes = Tuning<M>::kMbSharedPlanes && EP <= kMaxP;
+  return static_cast<size_t>(kWarps) * warp_values_mb<T, M, NB>(EP, *smem_planes) * sizeof(T);
 }
 
 template <typename T, typename M, int NB>
@@ -322,7 +333,7 @@ static_assert(kMaxBand == 6, "the dispatch covers nband 1 to 6");
       int64_t B, int64_t E, int64_t P, int64_t nband, int64_t nprior,          \
       int64_t maxfev, double ftol, double xtol, double lambda0,                \
       double lambda_up, double lambda_down, double lambda_min,                 \
-      double lambda_max, void* stream) {                                       \
+      double lambda_max, int64_t at_floor, void* stream) {                     \
     MbArgs<T> a{static_cast<const T*>(guess),                                  \
                 static_cast<const T*>(lo),                                     \
                 static_cast<const T*>(hi),                                     \
@@ -348,7 +359,7 @@ static_assert(kMaxBand == 6, "the dispatch covers nband 1 to 6");
                 0,                                                             \
                 false,                                                         \
                 Conf{ftol, xtol, lambda0, lambda_up, lambda_down, lambda_min,  \
-                     lambda_max, 0}};                                          \
+                     lambda_max, 0, at_floor != 0}};                           \
     return launch_nb<T, M>(a, nband, B, E, P, nprior, maxfev, stream);         \
   }                                                                            \
   extern "C" int NAME##_attrs(int64_t nband, int64_t E, int64_t P, int* out) { \

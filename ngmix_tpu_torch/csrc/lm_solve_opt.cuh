@@ -36,10 +36,12 @@
 //   convention goes to the full-width outputs.
 //
 // One instance a model and type, with the planes' placement chosen at
-// run time (shared memory up to kMaxP pixels, else global memory): the
-// modes are off the main path, and this keeps K3's own instances as
-// they were. lm_solve_opt.cu instantiates exp,
-// lm_solve_opt_<model>.cu each other model, one unit a model.
+// run time by K3's rule (shared memory up to kMaxP pixels where the copy
+// keeps two thirds of the blocks an SM, else global memory): the modes
+// are off the main path, and this keeps K3's own instances as they
+// were. lm_solve_opt.cu
+// instantiates exp, lm_solve_opt_<model>.cu each other model, one unit a
+// model.
 #pragma once
 
 #include "lm_solve.cuh"
@@ -66,22 +68,24 @@ struct OptArgs {
   int niter;
   double lam_gn;
   FullOut<T> full;
+  bool smem_planes;  // set by launch_opt
 };
 
-// the unit-flux model's optimal flux at the external shape columns x
-// (the flux slot unused): fills the gaussians at flux 1 and takes the
-// value pass; false where the point is bad (fill flags, gmix_flags, or
-// sum m^2 not above the dtype's tiny), F then 0
+// the unit-flux model's optimal flux at the external shape columns
+// s.x (the flux slot unused): fills the gaussians at flux 1 and takes
+// the value pass; false where the point is bad (fill flags, gmix_flags,
+// or sum m^2 not above the dtype's tiny), F then 0. The same bits on
+// every thread
 template <typename M, typename T, int NP = Dims<M>::kNP>
-__device__ __forceinline__ bool vp_flux(const Warp<T>& w, const T (&x)[NP], T pirr, T pirc,
-                                        T picc, T& F) {
+__device__ __forceinline__ bool vp_flux(const Warp<T>& w, const LmState<T, NP>& s, T& F) {
   constexpr int NX = M::kNX;
-  const Shape<T> sh = fill_shape(x[2], x[3]);
+  const Shape<T> sh = fill_shape(s.x[2], s.x[3]);
   Extra<T, NX> xe;
 #pragma unroll
-  for (int j = 0; j < NX; ++j) xe.v[j] = x[5 + j];
+  for (int j = 0; j < NX; ++j) xe.v[j] = s.x[5 + j];
   const bool lowdet =
-      model_gaussians<M>(w.gs, w.lid, x[0], x[1], sh, x[4], xe, T(1), pirr, pirc, picc);
+      model_gaussians<M>(w.gs, w.lid, s.x[0], s.x[1], sh, s.x[4], xe, T(1), s.psf[0],
+                         s.psf[1], s.psf[2]);
   F = T(0);
   if (sh.gbad || lowdet) return false;
   T smy, smm;
@@ -91,56 +95,62 @@ __device__ __forceinline__ bool vp_flux(const Warp<T>& w, const T (&x)[NP], T pi
   return true;
 }
 
-// the reduced (variable-projection) normal equations at y over the NS =
-// NP - 1 shape dims, laid out NP wide with the flux row and column 0 and
-// its diagonal 1, in internal coordinates; every thread returns the same
-// bits
+// the reduced (variable-projection) normal equations at s.y[slot] over
+// the NS = NP - 1 shape dims, laid out NP wide with the flux row and
+// column 0 and its diagonal 1, in internal coordinates, into
+// s.sum[slot]. Called by every thread; ends with a __syncwarp
 template <typename M, typename T, int NP = Dims<M>::kNP>
-__device__ void vp_evaluate(const Warp<T>& w, const T (&y)[NP], const T (&lo)[NP],
-                            const T (&hi)[NP], T pirr, T pirc, T picc, T& cost, T& cost_pix,
-                            T (&jtr)[NP], T (&jtj)[NP * (NP + 1) / 2]) {
+__device__ __forceinline__ void vp_evaluate(const Warp<T>& w, LmState<T, NP>& s, int slot) {
   constexpr int NX = M::kNX;
   constexpr int NS = NP - 1;
-  constexpr int NT = NP * (NP + 1) / 2;
-  T x[NP];
-#pragma unroll
-  for (int k = 0; k < NS; ++k) x[k] = i2e(y[k], lo[k], hi[k]);
-  x[NS] = T(0);
+  if (w.lid < NS) s.x[w.lid] = i2e(s.y[slot][w.lid], s.lo[w.lid], s.hi[w.lid]);
+  if (w.lid == NS) s.x[NS] = T(0);
+  __syncwarp();
   T F;
-  const bool good = vp_flux<M>(w, x, pirr, pirc, picc, F);
-#pragma unroll
-  for (int i = 0; i < NT; ++i) jtj[i] = T(0);
-#pragma unroll
-  for (int k = 0; k < NP; ++k) jtr[k] = T(0);
-  jtj[tri<NP>(NS, NS)] = T(1);
+  const bool good = vp_flux<M>(w, s, F);
+  T* sum = s.sum[slot];
+  // 0 everywhere but the flux's diagonal, then the reduced system
+  bad_sums(s, slot, w.lid, T(0), true);
+  __syncwarp();
   if (good) {
-    const Shape<T> sh = fill_shape(x[2], x[3]);
+    const Shape<T> sh = fill_shape(s.x[2], s.x[3]);
     Extra<T, NX> xe;
 #pragma unroll
-    for (int j = 0; j < NX; ++j) xe.v[j] = x[5 + j];
-    model_gaussians<M>(w.gs, w.lid, x[0], x[1], sh, x[4], xe, F, pirr, pirc, picc);
-    T acc[Dims<M>::kNSum];
-    pixel_pass<M>(w.gs, w.lid, w.v, w.u, w.ia, w.ve, w.P, acc);
-    const T* sj = acc + 1 + NP;
-    const T D = sj[tri<NP>(NS, NS)];
-    T dF[NS];
+    for (int j = 0; j < NX; ++j) xe.v[j] = s.x[5 + j];
+    model_gaussians<M>(w.gs, w.lid, s.x[0], s.x[1], sh, s.x[4], xe, F, s.psf[0], s.psf[1],
+                       s.psf[2]);
+    pixel_pass<M>(w.gs, tile_of(s), w.lid, w.v, w.u, w.ia, w.ve, w.P,
+                  [&](int e, T x) { sum[e] = x; });
+    __syncwarp();
+    if (w.lid == 0) {
+      // the full pass's sums, folded in place: every entry is read before
+      // it is written, the flux row's last
+      T* jtr = sum + 1;
+      T* jtj = sum + 1 + NP;
+      const T D = jtj[tri<NP>(NS, NS)];
+      T dF[NS];
 #pragma unroll
-    for (int k = 0; k < NS; ++k) dF[k] = -(sj[tri<NP>(k, NS)] + acc[1 + k] / F) / D;
-    cost = acc[0];
+      for (int k = 0; k < NS; ++k) dF[k] = -(jtj[tri<NP>(k, NS)] + jtr[k] / F) / D;
 #pragma unroll
-    for (int k = 0; k < NS; ++k) {
-      jtr[k] = acc[1 + k] + dF[k] * acc[1 + NS];
+      for (int k = 0; k < NS; ++k) {
+        jtr[k] = jtr[k] + dF[k] * jtr[NS];
 #pragma unroll
-      for (int m = k; m < NS; ++m) {
-        jtj[tri<NP>(k, m)] = sj[tri<NP>(k, m)] + dF[k] * sj[tri<NP>(m, NS)] +
-                             sj[tri<NP>(k, NS)] * dF[m] + dF[k] * dF[m] * D;
+        for (int m = k; m < NS; ++m) {
+          jtj[tri<NP>(k, m)] = jtj[tri<NP>(k, m)] + dF[k] * jtj[tri<NP>(m, NS)] +
+                               jtj[tri<NP>(k, NS)] * dF[m] + dF[k] * dF[m] * D;
+        }
       }
+      jtr[NS] = T(0);
+#pragma unroll
+      for (int k = 0; k < NS; ++k) jtj[tri<NP>(k, NS)] = T(0);
     }
-  } else {
-    cost = static_cast<T>(kFdiffBad2 * static_cast<double>(w.P));
+  } else if (w.lid == 0) {
+    sum[0] = static_cast<T>(kFdiffBad2 * static_cast<double>(w.P));
   }
-  cost_pix = cost;
-  bounds_chain<T, NP>(y, lo, hi, jtr, jtj);
+  if (w.lid == 0) sum[1 + NP + tri<NP>(NS, NS)] = T(1);
+  __syncwarp();
+  if (w.lid == 0) s.cost_pix[slot] = sum[0];
+  bounds_chain<T, NP>(s, slot, w.lid);
 }
 
 // one lane's variable-projection solve: the LM over the shape dims with
@@ -148,65 +158,61 @@ __device__ void vp_evaluate(const Warp<T>& w, const T (&y)[NP], const T (&lo)[NP
 // (q*, F(q*)) to o.full
 template <typename M, typename T, int NP = Dims<M>::kNP>
 __device__ void vp_lane(const Args<T>& a, const OptArgs<T>& o, const Warp<T>& w,
-                        const T (&lo)[NP], const T (&hi)[NP], T pirr, T pirc, T picc,
-                        size_t b) {
+                        LmState<T, NP>& s, size_t b) {
   constexpr int NS = NP - 1;
-  constexpr int NT = NP * (NP + 1) / 2;
-  solve_lane<T, NP>(
-      a.conf, a.guess + NP * b, lo, hi,
-      [&](const T (&y)[NP], T& cost, T& cost_pix, T (&jtr)[NP], T (&jtj)[NT]) {
-        vp_evaluate<M>(w, y, lo, hi, pirr, pirc, picc, cost, cost_pix, jtr, jtj);
-      },
-      a.out, b, w.lid);
-  // thread 0's outputs are visible to the warp after the sync
+  const int cur = solve_lane<T, NP>(
+      a.conf, a.guess + NP * b, s, w.gs,
+      [&](int slot) { vp_evaluate<M>(w, s, slot); }, a.out, b, w.lid);
+  // q* = i2e of the solve's point, or the benign round unit-T point
+  // where it or the loop's cost is not finite or |q*| reaches 1e9
+  const int full = cur ^ 1;
+  if (w.lid < NS) s.x[w.lid] = i2e(s.y[cur][w.lid], s.lo[w.lid], s.hi[w.lid]);
   __syncwarp();
-  bool ok = finite(a.out.cost[b]);
-  T x[NP];
+  bool ok = finite(s.sum[cur][0]);
 #pragma unroll
-  for (int k = 0; k < NS; ++k) {
-    x[k] = i2e(a.out.y[NP * b + k], lo[k], hi[k]);
-    ok = ok && finite(x[k]) && dabs(x[k]) < T(1.0e9);
+  for (int k = 0; k < NS; ++k) ok = ok && finite(s.x[k]) && dabs(s.x[k]) < T(1.0e9);
+  __syncwarp();
+  if (!ok && w.lid < NS) s.x[w.lid] = w.lid == 4 ? T(1) : T(0);
+  __syncwarp();
+  T F;
+  vp_flux<M>(w, s, F);
+  if (w.lid < NP) {
+    const T xk = w.lid == NS ? F : s.x[w.lid];
+    s.y[full][w.lid] = e2i(xk, s.lo[w.lid], s.hi[w.lid]);
   }
-  if (!ok) {
-#pragma unroll
-    for (int k = 0; k < NS; ++k) x[k] = k == 4 ? T(1) : T(0);
-  }
-  vp_flux<M>(w, x, pirr, pirc, picc, x[NS]);
-  T y[NP];
-#pragma unroll
-  for (int k = 0; k < NP; ++k) y[k] = e2i(x[k], lo[k], hi[k]);
-  T cost, cost_pix, jtr[NP], jtj[NT];
-  evaluate<M, true>(w, y, lo, hi, pirr, pirc, picc, cost, cost_pix, jtr, jtj);
+  __syncwarp();
+  evaluate<M, true>(w, s, full);
+  const T* sum = s.sum[full];
   if (w.lid == 0) {
-    o.full.cost[b] = cost;
-    o.full.cost_pix[b] = cost_pix;
-#pragma unroll
-    for (int k = 0; k < NP; ++k) {
-      o.full.y[NP * b + k] = y[k];
-      o.full.jtr[NP * b + k] = jtr[k];
-#pragma unroll
-      for (int m = 0; m < NP; ++m) o.full.jtj[(NP * b + k) * NP + m] = jtj[tri<NP>(k, m)];
-    }
+    o.full.cost[b] = sum[0];
+    o.full.cost_pix[b] = s.cost_pix[full];
+  }
+  if (w.lid < NP) {
+    o.full.y[NP * b + w.lid] = s.y[full][w.lid];
+    o.full.jtr[NP * b + w.lid] = sum[1 + w.lid];
+  }
+  for (int e = w.lid; e < NP * NP; e += 32) {
+    o.full.jtj[NP * NP * b + e] = sum[1 + NP + tri<NP>(e / NP, e % NP)];
   }
 }
 
 template <typename T, typename M>
-__global__ void __launch_bounds__(kThreads) lm_solve_opt_kernel(Args<T> a, OptArgs<T> o) {
+__global__ void __launch_bounds__(kThreads, MinBlocks<T, M, false>::k)
+    lm_solve_opt_kernel(Args<T> a, OptArgs<T> o) {
   constexpr int NP = Dims<M>::kNP;
-  constexpr int NT = NP * (NP + 1) / 2;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int P = a.P;
-  const bool smem_planes = P <= kMaxP;
+  const bool smem_planes = o.smem_planes;
   const int lid = threadIdx.x & 31;
-  const size_t per_warp = (smem_planes ? 4 * static_cast<size_t>(P) : 0) + records<M>();
-  T* base = reinterpret_cast<T*>(smem_raw) + static_cast<size_t>(threadIdx.x >> 5) * per_warp;
+  T* base = reinterpret_cast<T*>(smem_raw) +
+            static_cast<size_t>(threadIdx.x >> 5) * warp_values<T, M>(P, smem_planes);
   T* gs = smem_planes ? base + 4 * static_cast<size_t>(P) : base;
-  T lo[NP], hi[NP];
-#pragma unroll
-  for (int k = 0; k < NP; ++k) {
-    lo[k] = a.lo[k];
-    hi[k] = a.hi[k];
+  LmState<T, NP>& s = warp_state<T, M>(gs);
+  if (lid < NP) {
+    s.lo[lid] = a.lo[lid];
+    s.hi[lid] = a.hi[lid];
   }
+  __syncwarp();
   const T lam_gn = static_cast<T>(o.lam_gn);
   for (;;) {
     int b = 0;
@@ -225,32 +231,39 @@ __global__ void __launch_bounds__(kThreads) lm_solve_opt_kernel(Args<T> a, OptAr
       __syncwarp();
     }
     const Warp<T> w = smem_planes
-        ? Warp<T>{base, base + P, base + 2 * P, base + 3 * P, gs, gs, a.prior, a.nprior, P,
-                  lid}
-        : Warp<T>{a.v + off, a.u + off, a.ia + off, a.ve + off, gs, gs, a.prior, a.nprior,
-                  P, lid};
+        ? Warp<T>{base, base + P, base + 2 * P, base + 3 * P, gs, a.prior, a.nprior, P, lid}
+        : Warp<T>{a.v + off, a.u + off, a.ia + off, a.ve + off, gs, a.prior, a.nprior, P,
+                  lid};
     const size_t lb = static_cast<size_t>(b);
-    const T pirr = a.psf[3 * lb], pirc = a.psf[3 * lb + 1], picc = a.psf[3 * lb + 2];
+    if (lid < 3) s.psf[lid] = a.psf[3 * lb + lid];
     if (o.mode == kModeRefine) {
-      refine_lane<T, NP>(
-          a.conf, o.niter, lam_gn, a.guess + NP * lb, lo, hi,
-          [&](const T (&y)[NP], T& cost, T& cost_pix, T (&jtr)[NP], T (&jtj)[NT]) {
-            evaluate<M>(w, y, lo, hi, pirr, pirc, picc, cost, cost_pix, jtr, jtj);
-          },
-          a.out, lb, lid);
+      refine_lane<T, NP>(a.conf, o.niter, lam_gn, a.guess + NP * lb, s, gs,
+                         [&](int slot) { evaluate<M>(w, s, slot); }, a.out, lb, lid);
     } else {
-      vp_lane<M>(a, o, w, lo, hi, pirr, pirc, picc, lb);
+      vp_lane<M>(a, o, w, s, lb);
     }
     // every thread is done with the planes before the next copy
     __syncwarp();
   }
 }
 
+// whether a lane's planes go into shared memory, as K3's planes()
+// decides for the one instance of either placement
 template <typename T, typename M>
-int launch_opt(const Args<T>& a, const OptArgs<T>& o, void* stream) {
-  const size_t smem = smem_bytes<T, M>(a.P);
+int planes_opt(int64_t P, bool* smem_planes) {
+  *smem_planes = false;
+  if (P > kMaxP) return 0;
+  return smem_pays(lm_solve_opt_kernel<T, M>, smem_bytes<T, M>(P, true),
+                   lm_solve_opt_kernel<T, M>, smem_bytes<T, M>(P, false), smem_planes);
+}
+
+template <typename T, typename M>
+int launch_opt(const Args<T>& a, OptArgs<T> o, void* stream) {
+  int err = planes_opt<T, M>(a.P, &o.smem_planes);
+  if (err != 0) return err;
+  const size_t smem = smem_bytes<T, M>(a.P, o.smem_planes);
   unsigned blocks = 0;
-  const int err = grid_size(lm_solve_opt_kernel<T, M>, smem, a.B, &blocks);
+  err = grid_size(lm_solve_opt_kernel<T, M>, smem, a.B, &blocks);
   if (err != 0) return err;
   lm_solve_opt_kernel<T, M>
       <<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(a, o);
@@ -283,7 +296,7 @@ int launch_opt(const Args<T>& a, const OptArgs<T>& o, void* stream) {
       return static_cast<int>(cudaErrorInvalidValue);                                \
     }                                                                                \
     const Conf conf{ftol,       xtol,       lambda0, lambda_up, lambda_down,         \
-                    lambda_min, lambda_max, static_cast<int>(maxfev)};               \
+                    lambda_min, lambda_max, static_cast<int>(maxfev), false};        \
     const Out<T> out{static_cast<T*>(y),       static_cast<T*>(cost),                \
                      static_cast<T*>(cost_pix), static_cast<T*>(jtr),                \
                      static_cast<T*>(jtj),     static_cast<T*>(lam),                 \
@@ -302,10 +315,14 @@ int launch_opt(const Args<T>& a, const OptArgs<T>& o, void* stream) {
     const OptArgs<T> o{static_cast<int>(mode), static_cast<int>(niter), lam_gn,      \
                        FullOut<T>{static_cast<T*>(fy), static_cast<T*>(fcost),       \
                                   static_cast<T*>(fcost_pix), static_cast<T*>(fjtr), \
-                                  static_cast<T*>(fjtj)}};                           \
+                                  static_cast<T*>(fjtj)},                            \
+                       false};                                                       \
     return launch_opt<T, M>(a, o, stream);                                           \
   }                                                                                  \
   extern "C" int NAME##_attrs(int64_t P, int* out) {                                 \
     if (P < 1 || P > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);   \
-    return kernel_attrs(lm_solve_opt_kernel<T, M>, smem_bytes<T, M>(P), out);        \
+    bool smem_planes = false;                                                        \
+    const int err = planes_opt<T, M>(P, &smem_planes);                               \
+    if (err != 0) return err;                                                        \
+    return kernel_attrs(lm_solve_opt_kernel<T, M>, smem_bytes<T, M>(P, smem_planes), out); \
   }

@@ -71,12 +71,16 @@ def _kernel_solve(route, fit_model, guess, lo, hi, conf, prior):
     g = px.val.new_tensor(guess)[None].contiguous()
     lo = px.val.new_tensor(lo)
     hi = px.val.new_tensor(hi)
+    # the kernels stand in for the reference Fitter's run_lm here, which
+    # ends a lane at the cost floor (at_floor); the batched measures
+    # leave it off, as the reference's batched LM has no such stop
     if route == "K3":
-        state = lm_solve.lm_solve(g, lo, hi, psf, *planes, conf, fit_model.model_name, prior)
+        state = lm_solve.lm_solve(g, lo, hi, psf, *planes, conf, fit_model.model_name, prior,
+                                  at_floor=True)
     else:
         state = lm_solve.lm_solve_mb(g, lo, hi, psf[None].contiguous(), data.band,
                                      *(x[None].contiguous() for x in planes), conf,
-                                     fit_model.model_name, prior)
+                                     fit_model.model_name, prior, at_floor=True)
     nres = torch.sum(px.ierr > 0)
     out = _normal_epilogue(state, lo, hi, conf, nres)
     return {k: out[k][0] for k in ("pars", "pars_err", "pars_cov0", "pars_cov", "flags",

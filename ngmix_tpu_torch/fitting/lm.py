@@ -499,9 +499,13 @@ def _count_active(s, conf):
     return int(torch.count_nonzero(_active(s, conf)))
 
 
-def _lm_step(s, data, eval_normal, lo, hi, conf):
+def _lm_step(s, data, eval_normal, lo, hi, conf, at_floor=False):
     """one LM iteration of every lane of a level; inactive lanes keep
-    their state"""
+    their state. at_floor: end a lane whose trial cost equals its cost
+    while the model predicts less than ftol of it (MINPACK lmdif's ftol
+    test), as the reference's residual-form run_lm stops; the host
+    fitters' kernel routes set it. Off (the reference's batched LM), the
+    lane rejects its steps until lambda passes lambda_max"""
     active = _active(s, conf)
     pinned = _pinned_dims(s["y"], s["Jtr"], s["cost"], conf.ftol, lo, hi)
     # a pin transition invalidates the escalated damping and any
@@ -526,14 +530,11 @@ def _lm_step(s, data, eval_normal, lo, hi, conf):
     pred = torch.clamp(pred, min=1.0e-300)
     actual = s["cost"] - cost_try
 
-    # a trial cost equal to the current one to the last bit, where the
-    # model predicts less than ftol of it, is the end of the descent
-    # (MINPACK lmdif's ftol test, taken or not): without it the lane
-    # rejects every later step until lambda passes lambda_max
-    at_floor = step_ok & (actual == 0) & (pred <= conf.ftol * s["cost"])
-    small_cost = at_floor | accept & (
+    small_cost = accept & (
         (actual <= conf.ftol * s["cost"]) & (pred <= conf.ftol * s["cost"])
     )
+    if at_floor:
+        small_cost = small_cost | step_ok & (actual == 0) & (pred <= conf.ftol * s["cost"])
     # xtol over the free dims only
     yf = s["y"] * (~pinned).to(dy.dtype)
     ynorm = torch.sqrt(_lane_sum(yf * yf))
@@ -668,7 +669,7 @@ def _internal_normal_fn(normal_fn, lo, hi, prior_fn=None):
 
 def run_lm_normal_state(normal_fn, data, guess, lo, hi, conf: LMConf,
                         compact_capacity=None, gather_fn=None, prior_fn=None,
-                        graph=False):
+                        graph=False, at_floor=False):
     """the solver loop of run_lm_normal_batched (same arguments but
     nres): the finished per-lane state y, cost (with the prior rows),
     cost_pix (the pixels' alone), Jtr, JtJ (internal coordinates), lam,
@@ -676,7 +677,8 @@ def run_lm_normal_state(normal_fn, data, guess, lo, hi, conf: LMConf,
     _normal_epilogue turns into the result. graph=True (CUDA tensors, a
     normal_fn that launches no kernel of ours and reads nothing to the
     host): the iterations after the last compaction level replay one
-    captured step (_stepper)"""
+    captured step (_stepper). at_floor: _lm_step's stop at the cost
+    floor (off, as the reference's batched LM)"""
     B, npars = guess.shape
     dtype, dev = guess.dtype, guess.device
     lo = torch.as_tensor(lo, dtype=dtype, device=dev)
@@ -707,7 +709,7 @@ def run_lm_normal_state(normal_fn, data, guess, lo, hi, conf: LMConf,
         if n_act == 0:
             break
         while n_act > K:
-            cur_state = _lm_step(cur_state, cur_data, eval_normal, lo, hi, conf)
+            cur_state = _lm_step(cur_state, cur_data, eval_normal, lo, hi, conf, at_floor)
             n_act = _count_active(cur_state, conf)
         # stable partition, active lanes first in their original order;
         # the inactive rows that fill the level are frozen by the
@@ -719,8 +721,9 @@ def run_lm_normal_state(normal_fn, data, guess, lo, hi, conf: LMConf,
         cur_state = _take(cur_state, idx)
 
     if n_act > 0:
-        advance = _stepper(lambda st: _lm_step(st, cur_data, eval_normal, lo, hi, conf),
-                           cur_state, graph)
+        advance = _stepper(
+            lambda st: _lm_step(st, cur_data, eval_normal, lo, hi, conf, at_floor), cur_state,
+            graph)
         while n_act > 0:
             cur_state = advance()
             n_act = _count_active(cur_state, conf)

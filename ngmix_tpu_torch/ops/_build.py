@@ -32,9 +32,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "ngmix_tpu_torch"
-# the slowest sources, the float64 K3-mb units
-# (csrc/lm_solve_mb_<model>_f64.cu, 6 instantiations each), take one to
-# two minutes on an H100 host
+# the slowest sources take under 20 s of nvcc CPU on an H100 host; the
+# limit leaves room for a loaded host
 BUILD_TIMEOUT_S = 300
 
 # the models of K3 and K3-mb (ops/lm_solve.py), each with its own C
@@ -47,18 +46,18 @@ NVCC_FLAGS = (
 )
 
 # each unit's nvcc CPU seconds (user + system) on an H100 host
-# (chip_smoke.py phase 2, 731.1 s in all): the build starts the
+# (scripts/nvcc_stages.py, 254.9 s in all): the build starts the
 # costliest first, one process a core, so that the longest units never
 # wait behind short ones for a core. A unit not listed counts as the
 # costliest.
 UNIT_CPU_SECONDS = {
-    "lm_solve_mb_bd_f64.cu": 85.0, "lm_solve_mb_bdf_f64.cu": 67.3, "lm_solve_opt_bd.cu": 57.7,
-    "lm_solve_mb_dev_f64.cu": 49.3, "lm_solve_opt_bdf.cu": 48.1, "lm_solve_mb_bd.cu": 45.5,
-    "lm_solve_mb_exp_f64.cu": 44.3, "lm_solve.cu": 43.0, "lm_solve_mb_bdf.cu": 40.1,
-    "lm_solve_mb_gauss_f64.cu": 35.1, "lm_solve_bd.cu": 31.4, "lm_solve_opt_dev.cu": 30.9,
-    "lm_solve_mb_dev.cu": 28.5, "lm_solve_opt.cu": 26.0, "lm_solve_mb_exp.cu": 24.9,
-    "lm_solve_bdf.cu": 23.4, "lm_solve_mb_gauss.cu": 21.4, "lm_solve_opt_gauss.cu": 19.2,
-    "gmix_eval.cu": 7.8, "normal_eqs.cu": 2.3,
+    "lm_solve.cu": 17.2, "lm_solve_mb_bd_f64.cu": 16.6, "lm_solve_mb_gauss_f64.cu": 15.6,
+    "lm_solve_opt_bd.cu": 15.3, "lm_solve_mb_bdf_f64.cu": 15.2, "lm_solve_opt.cu": 15.1,
+    "lm_solve_mb_exp_f64.cu": 14.9, "lm_solve_opt_dev.cu": 14.6, "lm_solve_mb_dev_f64.cu": 13.6,
+    "lm_solve_mb_bd.cu": 13.6, "lm_solve_opt_bdf.cu": 12.7, "lm_solve_mb_exp.cu": 12.6,
+    "lm_solve_mb_bdf.cu": 12.4, "lm_solve_mb_gauss.cu": 12.2, "lm_solve_opt_gauss.cu": 11.9,
+    "lm_solve_mb_dev.cu": 11.1, "gmix_eval.cu": 10.0, "lm_solve_bd.cu": 9.0,
+    "lm_solve_bdf.cu": 8.1, "normal_eqs.cu": 3.2,
 }
 # this process's build, where it made one: each unit's nvcc CPU seconds,
 # set as each unit ends
@@ -334,9 +333,9 @@ def _signature(name):
         # psf, band, v, u, ia, ve, y, cost, cost_pix, jtr, jtj, lam,
         # nfev, done, ier_small_step, ier_small_cost, pinned, counter,
         # prior, B, E, P, nband, nprior, maxfev, ftol, xtol, lambda0,
-        # lambda_up, lambda_down, lambda_min, lambda_max, stream
+        # lambda_up, lambda_down, lambda_min, lambda_max, at_floor, stream
         args = ([i64, i64, i64, ip] if name.endswith("_attrs")
-                else [p] * 22 + [i64] * 6 + [dbl] * 7 + [p])
+                else [p] * 22 + [i64] * 6 + [dbl] * 7 + [i64, p])
     elif name.startswith("ngmix_lm_solve_opt_"):
         # attrs: P, out[5]. The solve: K3's arguments through the table
         # pointer, the full-width outputs fy, fcost, fcost_pix, fjtr,
@@ -349,9 +348,10 @@ def _signature(name):
         # The solve: guess, lo, hi, psf, v, u, ia, ve, y, cost, cost_pix,
         # jtr, jtj, lam, nfev, done, ier_small_step, ier_small_cost,
         # pinned, counter, prior, B, P, nprior, maxfev, ftol, xtol,
-        # lambda0, lambda_up, lambda_down, lambda_min, lambda_max, stream
+        # lambda0, lambda_up, lambda_down, lambda_min, lambda_max,
+        # at_floor, stream
         args = ([i64, ip] if name.endswith("_attrs")
-                else [p] * 21 + [i64] * 4 + [dbl] * 7 + [p])
+                else [p] * 21 + [i64] * 4 + [dbl] * 7 + [i64, p])
     else:
         raise AttributeError("no C function %s" % name)
     return args, ctypes.c_int

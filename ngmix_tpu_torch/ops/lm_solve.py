@@ -28,14 +28,21 @@ bound with ctypes; ``lm_solve_plain`` is its plain PyTorch version.
 
 What bounds it on an H100: the arithmetic of K1's pixel pass times the
 evaluations each lane needs (about 5.5 at the main path), against the
-pixel planes read once. The host loop it replaces launched ~770 small
-kernels per LM iteration and left the card idle; K3 is one launch. A
-persistent grid of warps takes lanes from an atomic counter, one warp
-per lane, so a lane that needs 23 evaluations holds one warp and no
-other lane waits for it; each warp copies its lane's planes into
-shared memory once (cp.async) and every evaluation reads them there; a
-lane of more than MAX_P pixels reads them from global memory.
-Sums reduce in a fixed shuffle order, so a lane's result does not
+pixel planes read once; in practice the latency of each pair's
+exponential and shared loads, which only the warps resident on an SM
+hide. The host loop it replaces launched ~770 small kernels per LM
+iteration and left the card idle; K3 is one launch. A persistent grid
+of warps takes lanes from an atomic counter, one warp per lane, so a
+lane that needs 23 evaluations holds one warp and no other lane waits
+for it; each warp copies its lane's planes into shared memory once
+(cp.async) and every evaluation reads them there, unless the copy
+would cost more than a third of the blocks an SM or the lane has more
+than MAX_P pixels: then it reads them from global memory. The lane's LM
+state lives once in the warp's shared memory, the step algebra is
+split over the warp's threads, and the composite models' and dev's
+sums go through a tile in shared memory, so a thread's registers hold
+little more than one pixel's row: an SM holds 16-20 warps where it
+held 8-12. Sums reduce in a fixed order, so a lane's result does not
 depend on its batch or on the warp that ran it.
 
 K3-mb (``lm_solve_mb``, ``csrc/lm_solve_mb.cuh``, two translation
@@ -49,7 +56,8 @@ evaluation each epoch's nshape + 1 effective parameters go through
 K3's fill, chain and pixel pass, and the band one-hot sums assemble the
 global system, as ``batch._mb_exp_normal_fn`` does; a bad point in any
 epoch gives the reference's poisoned lane (cost E P FDIFF_BAD^2, Jtr 0,
-JtJ 0). ``lm_solve_mb_plain`` is its plain version. It replaces the same
+JtJ 0). Its warps read the planes from global memory. ``lm_solve_mb_plain``
+is its plain version. It replaces the same
 TPU kernel and loop, under the multi-band objective
 (``ngmix_tpu/batch.py: _mb_epochwise_normal_fn_f``).
 
@@ -101,9 +109,10 @@ from .. import joint_prior
 from ..fitting import fit_model, lm
 from . import _build
 
-# the largest pixel count whose planes the kernels copy into shared
-# memory (4 warps x 4 planes x P float64 values per block); a lane with
-# more pixels reads its planes from global memory
+# the largest pixel count whose planes K3 copies into shared memory (4
+# warps x 4 planes x P float64 values per block, beside each warp's
+# records, LM state and tile); a lane with more pixels reads its planes
+# from global memory
 MAX_P = 1536
 
 # the models the kernels hold (batch._MODEL_FILLS: 6, 1 and 10
@@ -154,13 +163,15 @@ def _prior_fn(prior):
 
 
 def lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp", prior=None,
-                   refine=0, varpro=False):
+                   refine=0, varpro=False, at_floor=False):
     """plain PyTorch version of K3: the host loop of
     fitting.lm.run_lm_normal_state without compaction, over the model's
     normal equations with K1's plain version and the prior's rows (on
     CUDA tensors its steps replay a captured CUDA graph); with refine,
     fitting.lm.run_gn_refine_state over the same; with varpro,
-    batch.varpro_state. Same arguments and result as lm_solve."""
+    batch.varpro_state, whose LM keeps the reference's rule at the cost
+    floor whatever at_floor says. Same arguments and result as
+    lm_solve."""
     # batch imports this module, so its models are imported here
     from .. import batch
 
@@ -177,6 +188,7 @@ def lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp", prior=No
     return lm.run_lm_normal_state(
         normal_fn, data, guess, lo, hi,
         conf, compact_capacity=None, prior_fn=_prior_fn(prior), graph=guess.is_cuda,
+        at_floor=at_floor,
     )
 
 
@@ -217,6 +229,12 @@ def _empty_state(guess):
 def _conf_args(conf):
     return (conf.maxfev, conf.ftol, conf.xtol, conf.lambda0, conf.lambda_up,
             conf.lambda_down, conf.lambda_min, conf.lambda_max)
+
+
+def _solve_conf_args(conf, at_floor):
+    """K3's and K3-mb's LM arguments: _conf_args, then at_floor as 0 or
+    1"""
+    return _conf_args(conf) + (int(bool(at_floor)),)
 
 
 def _check_prior(prior, npars, nband, model):
@@ -285,7 +303,7 @@ def _check(guess, lo, hi, psf, planes, conf, model, prior=None, refine=0, varpro
 
 
 def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp", prior=None, refine=0,
-             varpro=False):
+             varpro=False, at_floor=False):
     """K3: the LM solve of the model (exp, gauss, dev, bdf or bd) of
     every lane.
 
@@ -309,12 +327,18 @@ def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp", prior=None, re
     the reduced solve over the nshape shape columns and, under "full",
     the full-width evaluation at its optimum. Each is one launch of
     K3's options kernel on CUDA tensors.
+
+    at_floor=True ends a lane whose trial cost equals its cost while the
+    model predicts less than ftol of it (fitting.lm._lm_step), as the
+    reference's residual-form run_lm stops: the host fitters set it,
+    the batched measures leave it off as the reference's batched LM
+    has no such stop. The refine and varpro modes ignore it.
     """
     global launches
     _check(guess, lo, hi, psf, (v, u, ia, ve), conf, model, prior, refine, varpro)
     if guess.device.type == "cpu":
         return lm_solve_plain(guess, lo, hi, psf, v, u, ia, ve, conf, model, prior,
-                              refine=refine, varpro=varpro)
+                              refine=refine, varpro=varpro, at_floor=at_floor)
     if guess.device.type != "cuda":
         raise RuntimeError("K3 runs on CUDA or CPU tensors, not %s" % guess.device)
     if refine or varpro:
@@ -335,7 +359,8 @@ def lm_solve(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp", prior=None, re
             guess.data_ptr(), lo.data_ptr(), hi.data_ptr(), psf.data_ptr(),
             v.data_ptr(), u.data_ptr(), ia.data_ptr(), ve.data_ptr(),
             *(x.data_ptr() for x in out.values()), counter.data_ptr(),
-            None if tab is None else tab.data_ptr(), B, P, nprior, *_conf_args(conf),
+            None if tab is None else tab.data_ptr(), B, P, nprior,
+            *_solve_conf_args(conf, at_floor),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:
@@ -390,7 +415,7 @@ def _lm_solve_opt(guess, lo, hi, psf, planes, conf, model, prior, refine):
 
 
 def lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp",
-                      prior=None):
+                      prior=None, at_floor=False):
     """plain PyTorch version of K3-mb: the host loop of
     fitting.lm.run_lm_normal_state without compaction, over the joint
     multi-band normal equations of the model (batch._mb_exp_normal_fn
@@ -406,7 +431,7 @@ def lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp",
     return lm.run_lm_normal_state(
         functools.partial(batch._mb_exp_normal_fn, plain=True, model=model),
         (planes, psf_gmix, band), guess, lo, hi, conf, compact_capacity=None,
-        prior_fn=_prior_fn(prior), graph=guess.is_cuda,
+        prior_fn=_prior_fn(prior), graph=guess.is_cuda, at_floor=at_floor,
     )
 
 
@@ -447,7 +472,8 @@ def _check_mb(guess, lo, hi, psf, band, planes, conf, model, prior=None):
     _check_common(guess, (guess, lo, hi, psf) + tuple(planes), conf)
 
 
-def lm_solve_mb(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp", prior=None):
+def lm_solve_mb(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp", prior=None,
+                at_floor=False):
     """K3-mb: the joint multi-band LM solve of the model (exp, gauss,
     dev, bdf or bd) of every object.
 
@@ -458,16 +484,16 @@ def lm_solve_mb(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp", prior
     unit-flux psf gaussian; band int32 [E] (shared) or [B, E], the band
     of each epoch (a band outside [0, nband) gives that epoch no flux);
     v, u, ia = ierr * area and ve = val * ierr [B, E, P]; conf an
-    LMConf; prior a joint prior with nband flux slots, or None. Returns
-    the finished solver state, as lm_solve does, with nshape + nband
-    parameters. CPU tensors go to lm_solve_mb_plain; CUDA tensors launch
-    the model's kernel.
+    LMConf; prior a joint prior with nband flux slots, or None;
+    at_floor as lm_solve's. Returns the finished solver state, as
+    lm_solve does, with nshape + nband parameters. CPU tensors go to
+    lm_solve_mb_plain; CUDA tensors launch the model's kernel.
     """
     global launches_mb
     _check_mb(guess, lo, hi, psf, band, (v, u, ia, ve), conf, model, prior)
     if guess.device.type == "cpu":
         return lm_solve_mb_plain(guess, lo, hi, psf, band, v, u, ia, ve, conf, model,
-                                 prior)
+                                 prior, at_floor)
     if guess.device.type != "cuda":
         raise RuntimeError("K3-mb runs on CUDA or CPU tensors, not %s" % guess.device)
 
@@ -483,7 +509,8 @@ def lm_solve_mb(guess, lo, hi, psf, band, v, u, ia, ve, conf, model="exp", prior
             band.data_ptr(), v.data_ptr(), u.data_ptr(), ia.data_ptr(), ve.data_ptr(),
             *(x.data_ptr() for x in out.values()), counter.data_ptr(),
             None if tab is None else tab.data_ptr(), B, E, P,
-            guess.shape[1] - fit_model.shape_count(model), nprior, *_conf_args(conf),
+            guess.shape[1] - fit_model.shape_count(model), nprior,
+            *_solve_conf_args(conf, at_floor),
             torch.cuda.current_stream().cuda_stream,
         )
     if err != 0:

@@ -1,7 +1,7 @@
 """The port's kernel build split by nvcc stage, on a host with nvcc.
 
     python scripts/nvcc_stages.py [--out chiprun_out/nvcc_stages.json]
-        [--variants UNIT] [--extra "FLAGS"]
+        [--variants UNIT] [--extra "FLAGS"] [--ptxas] [--install]
 
 Compiles every ``ngmix_tpu_torch/csrc/*.cu`` as ``ops/_build.py`` does
 (its flags, then ``--extra``'s; its order; one process a core) with
@@ -10,12 +10,20 @@ beside the milliseconds of each stage nvcc reports (the front end
 ``cudafe++``, ``cicc``, ``ptxas``, ``fatbinary`` and the host
 compiler), then the stages summed over the units. With ``--variants``
 it also compiles UNIT under a few extra flag sets, all at once, so
-that their CPU seconds compare. Writes everything as JSON to
+that their CPU seconds compare. With ``--ptxas`` every compile runs
+with ``-Xptxas -v`` (which changes no code), and each kernel instance's
+registers a thread, stack frame and spill bytes are printed and kept.
+With ``--install`` (and no ``--extra``) the objects are linked and put
+where ``_build.load()`` finds them, so a program run after it in the
+same checkout does not build again. Writes everything as JSON to
 ``--out``. Builds into a temporary directory; loads nothing.
 """
 import argparse
 import csv
 import json
+import re
+import shlex
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -52,6 +60,42 @@ def read_times(path):
     return dict(out)
 
 
+def read_ptxas(path):
+    """{kernel: {regs, stack, spill_stores, spill_loads}} from the -Xptxas
+    -v output in path, the kernels' names demangled where c++filt is
+    there"""
+    out, name = {}, None
+    for line in Path(path).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m and name:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["regs"] = int(m.group(1))
+    if out and shutil.which("c++filt"):
+        names = list(out)
+        dem = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                             text=True).stdout.splitlines()
+        if len(dem) == len(names):
+            out = {short(d): out[n] for n, d in zip(names, dem)}
+    return out
+
+
+def short(name):
+    """a demangled kernel instance without its namespaces and argument
+    list: lm_solve_kernel<float, BdModel, true>"""
+    name = re.sub(r"^void ", "", name.replace("(anonymous namespace)::", ""))
+    return re.sub(r"\(.*\)$", "", name).replace("CompositeModel<1>", "BdfModel").replace(
+        "CompositeModel<2>", "BdModel")
+
+
 def compile_all(cmds, slots):
     """runs cmds through the build's own scheduler (``_build._run_all``),
     at most ``slots`` at a time; each one's CPU seconds and wall seconds"""
@@ -68,8 +112,13 @@ def main():
     ap.add_argument("--variants", default=None, help="a csrc/*.cu name to compile alone "
                     "under the VARIANTS flag sets")
     ap.add_argument("--extra", default="", help="flags added to every compile")
+    ap.add_argument("--ptxas", action="store_true", help="each kernel's registers and spills")
+    ap.add_argument("--install", action="store_true", help="link the build where "
+                    "_build.load() finds it")
     a = ap.parse_args()
     extra = a.extra.split()
+    if a.install and extra:
+        raise SystemExit("--install builds the library as _build does: no --extra flags")
     nvcc = _build.find_nvcc()
     version = subprocess.run([nvcc, "--version"], capture_output=True, text=True).stdout
     print(version.strip().splitlines()[-1])
@@ -78,6 +127,11 @@ def main():
     order = sorted(srcs, key=lambda s: -_build.UNIT_CPU_SECONDS.get(s.name, 1e9))
     cmds = [[nvcc, *_build.NVCC_FLAGS, *extra, "--time", str(tmp / (s.stem + ".csv")), "-c", "-o",
              str(tmp / (s.stem + ".o")), str(s)] for s in order]
+    if a.ptxas:
+        # each compile's ptxas report into <unit>.ptxas
+        cmds = [["sh", "-c", "%s 2> %s" % (shlex.join(c[:1] + ["-Xptxas", "-v"] + c[1:]),
+                                             shlex.quote(str(tmp / (s.stem + ".ptxas"))))]
+                for c, s in zip(cmds, order)]
     t0 = time.time()
     res = compile_all(cmds, _build._slots())
     wall = time.time() - t0
@@ -96,6 +150,22 @@ def main():
                 u["stages_ms"].items(), key=lambda x: -x[1]) if v >= 50)))
     print("stages summed (s): " + ", ".join("%s %.1f" % (k, v / 1e3) for k, v in sorted(
         total.items(), key=lambda x: -x[1])))
+    if a.ptxas:
+        for s in order:
+            kernels = read_ptxas(tmp / (s.stem + ".ptxas"))
+            units[s.name]["ptxas"] = kernels
+            for k, v in sorted(kernels.items()):
+                print("  %s: %s regs, %s bytes stack, spill %s/%s bytes" % (
+                    k, v.get("regs"), v.get("stack"), v.get("spill_stores"),
+                    v.get("spill_loads")))
+    if a.install:
+        _, links = _build.nvcc_commands(tmp, nvcc)
+        _build._run_all(links, time.monotonic() + _build.BUILD_TIMEOUT_S, _build._slots())
+        dest = _build.library_path()
+        dest.mkdir(parents=True, exist_ok=True)
+        for s in srcs:
+            shutil.copy2(tmp / (s.stem + ".so"), dest / (s.stem + ".so"))
+        print("installed in %s" % dest)
     out = {"nvcc": version.strip().splitlines()[-1], "extra": extra, "slots": _build._slots(),
            "wall_s": wall,
            "units": units, "stages_ms": dict(total)}

@@ -271,10 +271,12 @@ def _mock_card(monkeypatch):
     def plain_tensor(x):
         return x.as_subclass(torch.Tensor)
 
-    def k3_on_card(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp", prior=None):
-        pending["k3"] = ((guess, lo, hi, psf, v, u, ia, ve, conf), dict(model=model, prior=prior))
+    def k3_on_card(guess, lo, hi, psf, v, u, ia, ve, conf, model="exp", prior=None,
+                   at_floor=False):
+        pending["k3"] = ((guess, lo, hi, psf, v, u, ia, ve, conf),
+                         dict(model=model, prior=prior, at_floor=at_floor))
         out = real_k3(*(_fake_cuda(x) for x in (guess, lo, hi, psf, v, u, ia, ve)), conf,
-                      model=model, prior=prior)
+                      model=model, prior=prior, at_floor=at_floor)
         return {k: plain_tensor(x) for k, x in out.items()}
 
     def k2_on_card(gmix, v, u, area=1.0, fast=True):

@@ -288,7 +288,7 @@ def test_cuda_tensor_launches_kernel_never_plain(monkeypatch):
     assert c[8:19] == tuple(x.data_ptr() for x in out.values())
     # no prior: a null table of 0 rows
     assert c[20:] == (None, 3, 50, 0, 77, 2e-5, conf.xtol, conf.lambda0, conf.lambda_up,
-                      conf.lambda_down, conf.lambda_min, conf.lambda_max, 4321)
+                      conf.lambda_down, conf.lambda_min, conf.lambda_max, 0, 4321)
     assert list(out) == ["y", "cost", "cost_pix", "Jtr", "JtJ", "lam", "nfev", "done",
                          "ier_small_step", "ier_small_cost", "pinned"]
     assert [tuple(x.shape) for x in out.values()] == [

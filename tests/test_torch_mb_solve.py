@@ -224,7 +224,8 @@ def test_cuda_tensor_launches_k3_mb_never_plain(monkeypatch):
     assert c[9:20] == tuple(x.data_ptr() for x in out.values())
     # no prior: a null table of 0 rows
     assert c[21:] == (None, 3, 2, 50, 2, 0, 77, 2e-5, conf.xtol, conf.lambda0,
-                      conf.lambda_up, conf.lambda_down, conf.lambda_min, conf.lambda_max, 4321)
+                      conf.lambda_up, conf.lambda_down, conf.lambda_min, conf.lambda_max, 0,
+                      4321)
     assert [tuple(x.shape) for x in out.values()] == [
         (3, 7), (3,), (3,), (3, 7), (3, 7, 7), (3,), (3,), (3,), (3,), (3,), (3, 7)]
 
